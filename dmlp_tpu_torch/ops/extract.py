@@ -1,0 +1,325 @@
+"""Fused distance + running top-kc extraction (K1/K2): wrapper, plain
+version and tolerance.
+
+Port of ``dmlp_tpu/ops/pallas_extract.py``. ``extract_topk`` has the
+reference signature and outputs minus ``interpret`` (and minus the Pallas
+``ne``/``unroll`` knobs, which have no counterpart): on a CUDA tensor it
+launches the hand-written kernel ``dmlp_tpu_torch/kernels/extract_topk.cu``
+(built at first use; any failure raises), on a CPU tensor it runs
+:func:`extract_topk_plain`. Nothing else picks between them.
+
+Outputs: (dists (Qb, kc) f32 unsorted, ids (Qb, kc) i32 — ``id_base + j``
+for data row j, -1 padding — and iters (ceil(Qb/tile_q), B/tile_n) i32,
+1 where query tile i processed data block j and 0 where the norm gate or
+the block-min prefilter skipped it). The kernel's tiles are its own:
+QUERY_TILE = 32 rows by BLOCK_ROWS = 256 columns, with the (tile_q, kc)
+running lists in shared memory, so kc <= 512 fits the 227 KB a block may
+opt into (:func:`variant_supports` states exactly that budget).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_F32,
+                                            LOWP_COEF)
+from dmlp_tpu_torch.ops.distance import require_ieee_f32
+
+QUERY_TILE = 32     # kernel TQ: query rows per CTA
+BLOCK_ROWS = 256    # kernel TN: data columns per block
+_AK = 32            # kernel AK: attributes staged per step
+KC_MAX = 512
+# Opt-in dynamic shared memory per block on sm_90 (232,448 bytes), less
+# 1 KB of headroom for the kernel's static shared memory.
+SMEM_BUDGET = 232448 - 1024
+
+# Kernel launches by kernel name ("fused_topk" = K1, gate on;
+# "extract_topk" = K2, gate off). Incremented only where a CUDA launch
+# happens — never by the plain version.
+LAUNCHES: Dict[str, int] = {"fused_topk": 0, "extract_topk": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def smem_bytes(kc: int, tile_q: int = QUERY_TILE,
+               tile_n: int = BLOCK_ROWS) -> int:
+    """Dynamic shared memory of one CTA: distance tile, staged q/d
+    attribute chunks (d transposed, padded stride), three per-row
+    vectors, and the (tile_q, kc) distance + id lists."""
+    return 4 * (tile_q * tile_n + _AK * tile_q + _AK * (tile_n + 1)
+                + 3 * tile_q) + 8 * tile_q * kc
+
+
+def resolve_variant(kc: int, b: int, qb: int | None = None,
+                    a: int | None = None, precision: str = "f32") -> dict:
+    """The kernel's tiles. They are compile-time constants of the CUDA
+    source (no tune cache yet), so every shape resolves to the same."""
+    return {"tile_q": QUERY_TILE, "tile_n": BLOCK_ROWS}
+
+
+def variant_supports(qb: int, b: int, a: int, kc: int, v: dict) -> bool:
+    """Whole data blocks (b % tile_n), 1 <= kc <= 512, and the CTA's
+    shared memory within the opt-in budget. Any qb >= 1 and any attribute
+    count tile (ragged query tiles are masked; attributes are staged in
+    chunks, so ``a`` does not enter the budget)."""
+    return (qb >= 1 and a >= 1 and b >= v["tile_n"]
+            and b % v["tile_n"] == 0 and 1 <= kc <= KC_MAX
+            and smem_bytes(kc, v["tile_q"], v["tile_n"]) <= SMEM_BUDGET)
+
+
+def supports(qb: int, b: int, a: int, kc: int) -> bool:
+    return variant_supports(qb, b, a, kc, resolve_variant(kc, b, qb, a))
+
+
+def _gate_coef(na: int, precision: str) -> float:
+    """EPS_CANCEL_COEF * (na + 2) + LOWP_COEF — the magnitude-scale term
+    of the gate's deflation (the reference kernel's constant)."""
+    return EPS_CANCEL_COEF * (na + 2) + LOWP_COEF[precision]
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _tile_any(flags: torch.Tensor, tile_q: int) -> torch.Tensor:
+    """(Qb,) bool -> (ceil(Qb/tile_q),) any-over-the-tile."""
+    nt = -(-flags.shape[0] // tile_q)
+    pad = flags.new_zeros(nt * tile_q)
+    pad[:flags.shape[0]] = flags
+    return pad.view(nt, tile_q).any(1)
+
+
+def extract_topk_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
+                       carry_d: Optional[torch.Tensor] = None,
+                       carry_i: Optional[torch.Tensor] = None, *, n_real,
+                       id_base=0, kc: int,
+                       floor: Optional[torch.Tensor] = None,
+                       precision: str = "f32", mxu_gate: bool = False,
+                       block_skip: bool = True, tile_q: int = QUERY_TILE,
+                       tile_n: int = BLOCK_ROWS):
+    """The plain PyTorch version of the kernel, block by block.
+
+    Per data block of ``tile_n`` columns: the masked distances with
+    ``torch.matmul`` (IEEE f32; bf16 rounds the operands first), merged
+    into the running lists as the exact top-kc by (dist asc, position asc)
+    with the lists' entries winning ties (a stable sort of lists ++
+    block). ``iters`` comes from the same per-tile predicates as the
+    kernel — the norm gate against each row's current k-th best, then the
+    block-min prefilter — and a skipped tile's rows are left untouched,
+    exactly as the kernel leaves them."""
+    qb, na = q_attrs.shape
+    b = d_attrs.shape[0]
+    if b % tile_n:
+        raise ValueError(f"data rows {b} not a multiple of tile_n {tile_n}")
+    dev = q_attrs.device
+    q32, d32 = q_attrs.float(), d_attrs.float()
+    require_ieee_f32(q32)
+    qn = (q32 * q32).sum(-1)
+    dn = (d32 * d32).sum(-1)
+    qx, dx = (_round_bf16(q32), _round_bf16(d32)) if precision == "bf16" \
+        else (q32, d32)
+    if carry_d is None:
+        ld = torch.full((qb, kc), torch.inf, device=dev)
+        li = torch.full((qb, kc), -1, dtype=torch.int32, device=dev)
+    else:
+        ld, li = carry_d.float().clone(), carry_i.to(torch.int32).clone()
+    fl = None if floor is None else floor.float().reshape(qb)
+    ntile, nblk = -(-qb // tile_q), b // tile_n
+    iters = torch.zeros((ntile, nblk), dtype=torch.int32, device=dev)
+    tile_of = torch.arange(qb, device=dev) // tile_q
+    qpos = torch.clamp_min(qn, 0.0)
+    sq = torch.sqrt(qpos)
+    coef = _gate_coef(na, precision)
+    for j in range(nblk):
+        lo, hi = j * tile_n, (j + 1) * tile_n
+        pos = torch.arange(lo, hi, device=dev)
+        real = pos < n_real
+        t = ld.max(1).values
+        go = torch.ones(ntile, dtype=torch.bool, device=dev)
+        if mxu_gate:
+            dnb = dn[lo:hi]
+            sdn = torch.sqrt(torch.clamp_min(dnb, 0.0))
+            mn = torch.where(real, sdn, torch.inf).min()
+            mx = torch.where(real, sdn, -torch.inf).max()
+            dn_hi = torch.where(real, dnb, 0.0).max()
+            gap = torch.clamp_min(torch.maximum(mn - sq, sq - mx), 0.0)
+            lb = gap * gap
+            scale = qpos + dn_hi
+            eps = EPS_REL_F32 * torch.sqrt(lb * scale) + coef * scale
+            lbs = lb - eps
+            go = _tile_any(~torch.isnan(lbs) & (torch.clamp_min(lbs, 0.0)
+                                                < t), tile_q)
+            if not bool(go.any()):
+                continue
+        dist = torch.clamp_min(qn[:, None] + dn[None, lo:hi]
+                               - 2.0 * (qx @ dx[lo:hi].T), 0.0)
+        if fl is not None:
+            dist = torch.where(dist < fl[:, None], torch.inf, dist)
+        dist = torch.where(real[None, :], dist, torch.inf)
+        if block_skip:
+            go = go & _tile_any(dist.min(1).values < t, tile_q)
+        iters[:, j] = go.to(torch.int32)
+        rows = go[tile_of]
+        if not bool(rows.any()):
+            continue
+        alld = torch.cat([ld, dist], 1)
+        alli = torch.cat([li, (id_base + pos).to(torch.int32)
+                          .expand(qb, -1)], 1)
+        order = torch.argsort(alld, dim=1, stable=True)[:, :kc]
+        ld = torch.where(rows[:, None], torch.gather(alld, 1, order), ld)
+        li = torch.where(rows[:, None], torch.gather(alli, 1, order), li)
+    return ld, li, iters
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from dmlp_tpu_torch import kernels
+    lib = kernels.load("extract_topk")
+    if not getattr(lib, "_dmlp_checked", False):
+        lib.dmlp_extract_tile_q.restype = ctypes.c_int
+        lib.dmlp_extract_tile_n.restype = ctypes.c_int
+        lib.dmlp_extract_smem_bytes.restype = ctypes.c_longlong
+        lib.dmlp_extract_smem_bytes.argtypes = [ctypes.c_int]
+        got = (lib.dmlp_extract_tile_q(), lib.dmlp_extract_tile_n(),
+               lib.dmlp_extract_smem_bytes(KC_MAX))
+        want = (QUERY_TILE, BLOCK_ROWS, smem_bytes(KC_MAX))
+        if got != want:
+            raise RuntimeError(f"extract_topk.cu tiles {got} != wrapper's "
+                               f"{want}")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dmlp_extract_topk.restype = i
+        lib.dmlp_extract_topk.argtypes = [p] * 10 + [i] * 9 + [
+            ctypes.c_float, ctypes.c_float, p]
+        lib._dmlp_checked = True
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
+                       id_base, kc, floor, precision, mxu_gate, block_skip):
+    qb, na = q_attrs.shape
+    b = d_attrs.shape[0]
+    if not supports(qb, b, na, kc):
+        raise ValueError(f"untileable (qb={qb}, b={b}, a={na}, kc={kc}): "
+                         f"needs b % {BLOCK_ROWS} == 0 and kc <= {KC_MAX}")
+    dev = q_attrs.device
+    q = q_attrs.float().contiguous()
+    d = d_attrs.float().contiguous()
+    qn = (q * q).sum(-1)
+    dn = (d * d).sum(-1)
+    cd = ci = fl = None
+    if carry_d is not None:
+        if carry_d.shape != (qb, kc) or carry_i.shape != (qb, kc):
+            raise ValueError("carry must be (Qb, kc)")
+        cd = carry_d.float().contiguous()
+        ci = carry_i.to(torch.int32).contiguous()
+    if floor is not None:
+        fl = floor.float().reshape(qb).contiguous()
+    for t in (d, cd, ci, fl):
+        if t is not None and t.device != dev:
+            raise ValueError("all inputs must be on one device")
+    od = torch.empty((qb, kc), dtype=torch.float32, device=dev)
+    oi = torch.empty((qb, kc), dtype=torch.int32, device=dev)
+    iters = torch.empty((-(-qb // QUERY_TILE), b // BLOCK_ROWS),
+                        dtype=torch.int32, device=dev)
+    lib = _kernel_lib()
+    # The launch is asynchronous on the current stream. Temporaries freed
+    # when this function returns (q, d, qn, dn) go back to PyTorch's
+    # caching allocator for that stream, so only work queued after this
+    # kernel can reuse their memory.
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dmlp_extract_topk(
+            _ptr(q), _ptr(d), _ptr(qn), _ptr(dn), _ptr(fl), _ptr(cd),
+            _ptr(ci), _ptr(od), _ptr(oi), _ptr(iters), qb, b, na, kc,
+            int(n_real), int(id_base), int(mxu_gate), int(block_skip),
+            int(precision == "bf16"), EPS_REL_F32,
+            _gate_coef(na, precision), stream)
+    if rc != 0:
+        raise RuntimeError(f"extract_topk kernel launch failed "
+                           f"(cudaError {rc})")
+    LAUNCHES["fused_topk" if mxu_gate else "extract_topk"] += 1
+    return od, oi, iters
+
+
+def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
+                 carry_d: Optional[torch.Tensor] = None,
+                 carry_i: Optional[torch.Tensor] = None, *, n_real,
+                 id_base=0, kc: int, tile_q: int | None = None,
+                 tile_n: int | None = None, block_skip: bool = True,
+                 mxu_gate: bool = False,
+                 floor: Optional[torch.Tensor] = None,
+                 precision: str = "f32"):
+    """(queries (Qb, A), data chunk (B, A)) -> (dists, ids, iters); see the
+    module docstring. Rows >= n_real are sentinels; data row j has global
+    id id_base + j; an optional carry (Qb, kc) is folded in; ``floor``
+    (Qb, 1) masks candidates below it. On CUDA the tiles are the kernel's
+    and ``tile_q``/``tile_n`` may only restate them."""
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"unsupported first-pass precision {precision!r}")
+    if (carry_d is None) != (carry_i is None):
+        raise ValueError("pass both carry_d and carry_i, or neither")
+    kw = dict(n_real=n_real, id_base=id_base, kc=kc, floor=floor,
+              precision=precision, mxu_gate=mxu_gate, block_skip=block_skip)
+    if q_attrs.is_cuda:
+        if (tile_q or QUERY_TILE) != QUERY_TILE \
+                or (tile_n or BLOCK_ROWS) != BLOCK_ROWS:
+            raise ValueError(f"the CUDA kernel's tiles are fixed at "
+                             f"({QUERY_TILE}, {BLOCK_ROWS})")
+        return _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, **kw)
+    if q_attrs.device.type != "cpu":
+        raise ValueError(f"extract_topk runs on cuda or cpu, not "
+                         f"{q_attrs.device}")
+    return extract_topk_plain(q_attrs, d_attrs, carry_d, carry_i,
+                              tile_q=tile_q or QUERY_TILE,
+                              tile_n=tile_n or BLOCK_ROWS, **kw)
+
+
+def list_tolerance(qn: torch.Tensor, dn_max: float, na: int,
+                   precision: str = "f32") -> torch.Tensor:
+    """Per-row distance tolerance between two implementations of the
+    extraction: EPS_CANCEL_COEF * (na + 2) * (qn + dn_max), plus
+    LOWP_COEF * (qn + dn_max) for a bf16 first pass — the f32 cancellation
+    error of the norm-expansion form (engine.finalize.staging_eps term 2)
+    that two summation orders can each commit."""
+    scale = qn.double() + dn_max
+    return (EPS_CANCEL_COEF * (na + 2) + LOWP_COEF[precision]) * scale
+
+
+def compare_lists(od_a, oi_a, od_b, oi_b, tol: torch.Tensor) -> dict:
+    """Hold list pair a against reference b under the stated tolerance:
+    (1) per row, the ascending distance lists agree within ``tol`` (and
+    are infinite in the same places); (2) every id whose distance lies
+    below ``kth - 2*tol`` (kth = b's largest kept distance) on either side
+    is in the other side's list. Returns {"ok", "max_abs_err",
+    "bad_dist_rows", "bad_id_rows"}."""
+    da = torch.sort(od_a.double().cpu(), 1).values
+    db = torch.sort(od_b.double().cpu(), 1).values
+    tol = tol.double().cpu()[:, None]
+    fin = torch.isfinite(da) & torch.isfinite(db)
+    same_inf = torch.isinf(da) == torch.isinf(db)
+    diff = torch.where(fin, (da - db).abs(), torch.zeros_like(da))
+    bad_d = ~(same_inf & (diff <= tol)).all(1)
+    thr = db[:, -1:] - 2 * tol
+    ia, ib = oi_a.long().cpu(), oi_b.long().cpu()
+    sa, sb = torch.sort(ia, 1).values, torch.sort(ib, 1).values
+
+    def missing(ids, dist, other_sorted):
+        idx = torch.searchsorted(other_sorted, ids).clamp_max(
+            other_sorted.shape[1] - 1)
+        found = torch.gather(other_sorted, 1, idx) == ids
+        return ((dist.double().cpu() < thr) & ~found).any(1)
+
+    bad_i = missing(ia, od_a, sb) | missing(ib, od_b, sa)
+    return {"ok": not bool(bad_d.any() or bad_i.any()),
+            "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "bad_dist_rows": int(bad_d.sum()),
+            "bad_id_rows": int(bad_i.sum())}

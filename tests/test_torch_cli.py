@@ -1,0 +1,106 @@
+"""The port's CLI contract: stdout byte-identical to ``python -m dmlp_tpu``
+and to ``--engine golden``, the stderr ``Time taken`` line, no JAX and no
+``dmlp_tpu`` module anywhere in the port, and no silent CPU fallback."""
+
+import ast
+import io
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("jax")
+
+from dmlp_tpu import cli as ref_cli  # noqa: E402
+from dmlp_tpu.io.datagen import generate_input_text  # noqa: E402
+from dmlp_tpu_torch import cli  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "dmlp_tpu")
+
+INPUTS = {   # path -> (datagen args, flags that select it)
+    "sort": ((2500, 30, 6, -10.0, 10.0, 1, 12, 4), []),
+    "topk": ((9000, 24, 6, 0.0, 50.0, 1, 16, 5), []),
+    "extract": ((9000, 24, 6, 0.0, 50.0, 1, 16, 5), ["--pallas"]),
+}
+
+
+def _run(main, argv, text):
+    out, err = io.StringIO(), io.StringIO()
+    assert main(argv, stdin=io.StringIO(text), stdout=out, stderr=err) == 0
+    return out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("mode", [[], ["--fast"], ["--debug"]],
+                         ids=["exact", "fast", "debug"])
+@pytest.mark.parametrize("path", list(INPUTS))
+def test_stdout_matches_reference_and_golden(path, mode):
+    gen, flags = INPUTS[path]
+    text = generate_input_text(*gen, seed=7)
+    got, err = _run(cli.main, ["--device", "cpu", *flags, *mode], text)
+    want, _ = _run(ref_cli.main, [*flags, *mode], text)
+    golden, _ = _run(cli.main, ["--engine", "golden",
+                                *[m for m in mode if m == "--debug"]], text)
+    assert got == want
+    assert got == golden
+    assert re.fullmatch(r"Time taken: \d+ ms\n", err)
+
+
+def test_module_entry_point_imports_no_reference(tmp_path):
+    """``python -m dmlp_tpu_torch`` end to end in a fresh interpreter:
+    golden-identical stdout, the stderr contract line, and afterwards no
+    jax / jaxlib / dmlp_tpu module in sys.modules."""
+    gen, _ = INPUTS["extract"]
+    text = generate_input_text(*gen, seed=3)
+    src = tmp_path / "in.txt"
+    src.write_text(text)
+    probe = (
+        "import runpy, sys\n"
+        "sys.argv = ['dmlp_tpu_torch', '--device', 'cpu', '--pallas',"
+        " '--phase-times']\n"
+        "try:\n"
+        "    runpy.run_module('dmlp_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        f" {FORBIDDEN!r})\n"
+        "sys.stderr.write('FORBIDDEN=%r\\n' % bad)\n")
+    with open(src) as f:
+        p = subprocess.run([sys.executable, "-c", probe], stdin=f,
+                           capture_output=True, text=True, cwd=ROOT,
+                           timeout=300)
+    assert p.returncode == 0, p.stderr
+    golden, _ = _run(cli.main, ["--engine", "golden"], text)
+    assert p.stdout == golden
+    lines = p.stderr.splitlines()
+    assert re.fullmatch(r"Time taken: \d+ ms", lines[0])
+    assert any(ln.startswith("phase engine.") for ln in lines)
+    assert lines[-1] == "FORBIDDEN=[]"
+
+
+def test_no_source_in_the_port_imports_the_reference_or_jax():
+    files = sorted((ROOT / "dmlp_tpu_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, f"{f}: {n}"
+
+
+def test_cuda_without_a_card_raises_and_prints_nothing():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out, err = io.StringIO(), io.StringIO()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        cli.main([], stdin=io.StringIO("1 1 1\n0 1\nQ 1 1\n"), stdout=out,
+                 stderr=err)
+    assert out.getvalue() == "" and err.getvalue() == ""
