@@ -12,28 +12,37 @@ final result line. Standard output:
 1. the card's name and power limit, as ``nvidia-smi --query-gpu=name,
    power.limit --format=csv,noheader`` prints them;
 2. one JSON line per phase —
-   ``build``: every kernel of the path built from the sources in the
-   checkout (one nvcc per source, all started together), with its time;
-   ``kernel_case``: the CUDA kernel held against its plain PyTorch version
-   on the card (lists under ``ops.extract.compare_lists``' tolerance,
-   ``iters`` exactly, gate on against gate off bit for bit), with CUDA-event
-   times (median of several launches after a warm-up) at the shapes the
-   main path gives it;
-   ``main_path``: bench config 4 (200,000 x 10,000 x 64, k in 1..32,
-   10 labels, seed 42) generated by the port's datagen and solved through
-   ``dmlp_tpu_torch.cli.main(["--pallas"])`` twice — with
-   ``DMLP_TPU_FUSED=0`` (the ungated kernel, K2; this run is also the
-   warm-up) and as shipped (the gated kernel, K1) — each with the launch
-   counts set to 0 just before it and read just after; both outputs must
-   hold 10,000 checksum lines, agree, and match the port's float64 oracle
-   (``golden.fast``) on a seeded subset of 1,000 queries byte for byte;
-   ``profile``: the shipped solve's timed region once more under
-   torch.profiler — device time by kernel, device busy time, idle share;
+   ``build``: every kernel library built from the sources in the checkout
+   (one nvcc per source, all started together), with its time and the
+   ptxas register / spill lines;
+   ``kernel_case``: each CUDA kernel held against its plain PyTorch
+   version on the card, with CUDA-event times (median of several launches
+   after a warm-up) at the shapes the main paths give it — K1/K2 (lists
+   under ``ops.extract.compare_lists``' tolerance, ``iters`` exactly, gate
+   on against gate off bit for bit), also with a multi-pass ``floor``; K3
+   (``dist`` and ``segmin`` under ``ops.extract.list_tolerance``, +inf
+   exactly where ids < 0, ``segmin`` bit for bit against the kernel's own
+   tile);
+   ``main_path``: five solves through ``dmlp_tpu_torch.cli.main`` on the
+   card, each with the launch counts set to 0 just before it, read just
+   after and checked against the counts its plan implies, and its peak
+   device memory: bench config 4 (200,000 x 10,000 x 64, k in 1..32) with
+   ``DMLP_TPU_FUSED=0`` (K2; also the warm-up) and as shipped (K1); the
+   wide-k mix (config 4's data, k in 1..1024: the heterogeneous-k router,
+   K1 for the bulk and K3 for the outliers); the wide-k multi-pass
+   (204,800 x 1,024 x 64, k = 4,096: K1 in 9 passes); bench config 2
+   (100,000 x 5,000 x 64, k in 1..32) with ``--select seg`` (K3). Each
+   output holds one checksum line per query and matches the port's
+   float64 oracle (``golden.fast``) on a seeded subset byte for byte;
+   ``profile``: the timed regions of config 4, the wide-k mix, the wide-k
+   multi-pass and config 2's seg solve once more under torch.profiler —
+   device time by kernel, device busy time, idle share, and the host's
+   blocking reads;
 3. one ``{"kernels": [...]}`` line: per kernel its route, source, the TPU
-   kernel it replaces, main-path launches, max error, time, plain time,
-   the bound (bytes over 3.35 TB/s or operations over the peak for their
-   type, whichever is larger) and the library time (none: no single
-   PyTorch call computes this function);
+   kernel it replaces, main-path launches (in all and per path), max
+   error, time, plain time, the bound (bytes over 3.35 TB/s or operations
+   over the peak for their type, whichever is larger) and the library time
+   (none: no single PyTorch call computes these functions);
 4. ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--phases`` and ``--reps`` narrow a run while developing; the default runs
@@ -56,12 +65,51 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 
-CONFIG4 = dict(num_data=200_000, num_queries=10_000, num_attrs=64,
-               attr_min=0.0, attr_max=100.0, min_k=1, max_k=32,
-               num_labels=10, seed=42)
+# Generator arguments of the solved inputs (dmlp_tpu_torch.io.datagen):
+# bench configs 4 and 2 (dmlp_tpu/bench/configs.py), config 4's data with
+# k in 1..1024, and the 204,800 x 1,024 x 64, k = 4,096 multi-pass shape.
+CONFIGS = {
+    "config4": dict(num_data=200_000, num_queries=10_000, num_attrs=64,
+                    attr_min=0.0, attr_max=100.0, min_k=1, max_k=32,
+                    num_labels=10, seed=42),
+    "widek_mix": dict(num_data=200_000, num_queries=10_000, num_attrs=64,
+                      attr_min=0.0, attr_max=100.0, min_k=1, max_k=1024,
+                      num_labels=10, seed=42),
+    "widek_mp": dict(num_data=204_800, num_queries=1_024, num_attrs=64,
+                     attr_min=0.0, attr_max=100.0, min_k=4096, max_k=4096,
+                     num_labels=10, seed=42),
+    "config2": dict(num_data=100_000, num_queries=5_000, num_attrs=64,
+                    attr_min=0.0, attr_max=100.0, min_k=1, max_k=32,
+                    num_labels=10, seed=42),
+}
+CONFIG4 = CONFIGS["config4"]
+KERNELS = ("fused_topk", "extract_topk", "fused_dist_segmin")
 REPLACES = {"fused_topk": "dmlp_tpu/ops/pallas_fused.py:108",
-            "extract_topk": "dmlp_tpu/ops/pallas_extract.py:390"}
-SOURCE = "dmlp_tpu_torch/kernels/extract_topk.cu"
+            "extract_topk": "dmlp_tpu/ops/pallas_extract.py:390",
+            "fused_dist_segmin": "dmlp_tpu/ops/pallas_distance.py:93"}
+SOURCES = {"fused_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
+           "extract_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
+           "fused_dist_segmin": "dmlp_tpu_torch/kernels/dist_segmin.cu"}
+# (run, config, CLI flags, DMLP_TPU_FUSED, launches the plan implies,
+# golden subset size). Config 4: 4 chunks of 50,176 rows. The mix: 4,376
+# bulk queries on K1 and 5,624 outliers through K3, over the same 4
+# chunks. The multi-pass: kcap 4,608 = 9 passes of 512, pass 1 over 4
+# chunks and 8 more over the resident dataset. Config 2 with seg: 2 chunks
+# x 5 query blocks of 1,024.
+MAIN_RUNS = (
+    ("config4_K2_warmup", "config4", ["--pallas"], "0",
+     {"fused_topk": 0, "extract_topk": 4, "fused_dist_segmin": 0}, 0),
+    ("config4_K1", "config4", ["--pallas"], "1",
+     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 0}, 1000),
+    ("widek_mix", "widek_mix", ["--pallas"], "1",
+     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 4}, 1000),
+    ("widek_multipass", "widek_mp", ["--pallas"], "1",
+     {"fused_topk": 12, "extract_topk": 0, "fused_dist_segmin": 0}, 100),
+    ("config2_seg", "config2", ["--select", "seg", "--pallas"], "1",
+     {"fused_topk": 0, "extract_topk": 0, "fused_dist_segmin": 10}, 1000),
+)
+_TEXTS: dict = {}
+_INPUTS: dict = {}
 
 
 def emit(obj) -> None:
@@ -106,8 +154,9 @@ def phase_build():
 
 
 def kernel_cases(reps: int):
-    """Hold K1/K2 against the plain version; returns per-kernel records
-    for the summary line (taken from the main path's carried f32 case)."""
+    """Hold K1/K2 and K3 against their plain versions; returns per-kernel
+    records for the summary line (K1/K2 from config 4's carried f32 case,
+    K3 from the wide-k mix's outlier f32 case)."""
     import torch
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.engine import single
@@ -132,10 +181,10 @@ def kernel_cases(reps: int):
     summary = {}
 
     def run_case(name, q, d, *, n_real, id_base, kc, carry=None,
-                 precision="f32", d_prev=None, main=False):
+                 precision="f32", d_prev=None, floor=None, main=False):
         cd, ci = carry if carry is not None else (None, None)
         kw = dict(n_real=n_real, id_base=id_base, kc=kc,
-                  precision=precision)
+                  precision=precision, floor=floor)
         qn = (q * q).sum(-1)
         dn_all = (d * d).sum(-1) if d_prev is None else \
             torch.cat([(d * d).sum(-1), (d_prev * d_prev).sum(-1)])
@@ -155,13 +204,16 @@ def kernel_cases(reps: int):
             rec = {"phase": "kernel_case", "case": name, "kernel": kname,
                    "shape": [q.shape[0], d.shape[0], q.shape[1], kc],
                    "precision": precision, "carry": carry is not None,
-                   "n_real": n_real, "id_base": id_base, "ms": ms,
+                   "floor": floor is not None, "n_real": n_real,
+                   "id_base": id_base, "ms": ms,
                    "plain_ms": plain_ms, "max_abs_err": cmp["max_abs_err"],
                    "bad_dist_rows": cmp["bad_dist_rows"],
                    "bad_id_rows": cmp["bad_id_rows"],
                    "iters_equal": iters_equal,
                    "tiles_processed": int(it.sum()),
-                   "tiles": it.numel()}
+                   "tiles": it.numel(),
+                   **bound(q, d, kc, it, gate, carry is not None,
+                           precision)}
             emit(rec)
             check(cmp["ok"], f"{name}/{kname}: kernel disagrees with the "
                              f"plain version {cmp}")
@@ -170,9 +222,7 @@ def kernel_cases(reps: int):
             s = summary.setdefault(kname, {"max_abs_err": 0.0})
             s["max_abs_err"] = max(s["max_abs_err"], cmp["max_abs_err"])
             if main:
-                s.update(ms=ms, plain_ms=plain_ms,
-                         bound=bound(q, d, kc, it, gate, carry is not None,
-                                     precision))
+                s.update(ms=ms, plain_ms=plain_ms, bound=rec)
         same = torch.equal(outs[True][0], outs[False][0]) \
             and torch.equal(outs[True][1], outs[False][1])
         emit({"phase": "kernel_gate_identity", "case": name,
@@ -202,8 +252,102 @@ def kernel_cases(reps: int):
     first = ex.extract_topk_plain(qr, dr0, n_real=8192, id_base=0, kc=kc)
     run_case("ragged_id_base", qr, dr1, n_real=5000, id_base=123456,
              kc=kc, carry=first[:2], d_prev=dr0)
+    # A resident pass of the multi-pass driver (204,800 x 1,024 x 64,
+    # kc 512): the floor comes from a first pass through _mp_floor.
+    mp = CONFIGS["widek_mp"]
+    qm = uniform((mp["num_queries"], na), 9)
+    dm = uniform((mp["num_data"], na), 10)
+    od, _, _ = ex.extract_topk(qm, dm, n_real=mp["num_data"], kc=512)
+    floor, _ = single._mp_floor(
+        od, (qm * qm).sum(-1), (dm * dm).sum(-1).max(), staging="float32",
+        na=na)
+    run_case("multipass_floor", qm, dm, n_real=mp["num_data"], id_base=0,
+             kc=512, floor=floor)
+    segmin_cases(summary, uniform, reps)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
     return summary
+
+
+def segmin_cases(summary, uniform, reps):
+    """Hold K3 against its plain version: dist and segmin under
+    ``list_tolerance``, +inf exactly where ids < 0, and segmin bit for bit
+    against the kernel's own dist reshape-min."""
+    import torch
+    from dmlp_tpu_torch.engine import single
+    from dmlp_tpu_torch.ops import dist_segmin as ds
+    from dmlp_tpu_torch.ops import extract as ex
+
+    dev = torch.device("cuda")
+    c4, na = CONFIG4, CONFIG4["num_attrs"]
+    _, nchunks, chunk_rows = single.plan_chunks(c4["num_data"], 256, None)
+    n_out = 5624     # the wide-k mix's outliers (qo_pad)
+    lo = (nchunks - 1) * chunk_rows   # the last chunk: 704 sentinel rows
+    ri = torch.arange(lo, lo + chunk_rows, dtype=torch.int32, device=dev)
+    last_ids = torch.where(ri < c4["num_data"], ri, -1)
+    ragged_ids = torch.arange(1024, dtype=torch.int32, device=dev)
+    ragged_ids[1024 - 300:] = -1      # segments 6..7 hold only sentinels
+
+    def case(name, q, d, ids, precision="f32", main=False):
+        ms, (dist, segmin) = time_ms(
+            lambda: ds.fused_dist_segmin(q, d, ids, precision), reps)
+        plain_ms, (pd, psm) = time_ms(
+            lambda: ds.fused_dist_segmin_plain(q, d, ids, precision),
+            max(1, reps // 2))
+        torch.cuda.synchronize()
+        qb, b = dist.shape
+        tol = ex.list_tolerance((q * q).sum(-1),
+                                float((d * d).sum(-1).max()), q.shape[1],
+                                precision).to(dev)[:, None]
+        inf_ok = bool(torch.equal(torch.isinf(dist),
+                                  (ids[None, :] < 0).expand(qb, b)))
+        fin = torch.isfinite(pd)
+        err = torch.where(fin, (dist.double() - pd.double()).abs(), 0.0)
+        sfin = torch.isfinite(psm)
+        serr = torch.where(sfin, (segmin.double() - psm.double()).abs(), 0.0)
+        own = torch.equal(segmin, dist.view(qb, -1, ds.SEG).min(-1).values)
+        rec = {"phase": "kernel_case", "case": name,
+               "kernel": "fused_dist_segmin", "shape": [qb, b, q.shape[1]],
+               "precision": precision, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": float(err.max()),
+               "segmin_max_abs_err": float(serr.max()),
+               "bad_dist": int((err > tol).sum()),
+               "bad_segmin": int((serr > tol).sum()),
+               "inf_where_sentinel": inf_ok, "segmin_is_own_min": own,
+               "sentinel_segments": int(torch.isinf(segmin[0]).sum()),
+               **segmin_bound(qb, b, q.shape[1], precision)}
+        emit(rec)
+        check(inf_ok and bool(torch.equal(torch.isinf(psm),
+                                          torch.isinf(segmin))),
+              f"{name}: +inf not exactly where ids < 0")
+        check(own, f"{name}: segmin is not the kernel's own tile minimum")
+        check(rec["bad_dist"] == 0 and rec["bad_segmin"] == 0,
+              f"{name}: kernel disagrees with the plain version {rec}")
+        s = summary.setdefault("fused_dist_segmin", {"max_abs_err": 0.0})
+        s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"],
+                               rec["segmin_max_abs_err"])
+        if main:
+            s.update(ms=ms, plain_ms=plain_ms, bound=rec)
+
+    qo = uniform((n_out, na), 11)
+    d_last = uniform((chunk_rows, na), 12)
+    for prec in ("f32", "bf16"):
+        case(f"outlier_{prec}", qo, d_last, last_ids, prec,
+             main=prec == "f32")
+    case("streaming_seg", uniform((1024, na), 13), uniform((50176, na), 14),
+         torch.arange(50176, dtype=torch.int32, device=dev))
+    case("ragged", uniform((13, na), 15), uniform((1024, na), 16),
+         ragged_ids)
+
+
+def segmin_bound(qb, b, a, precision):
+    """Least time for one K3 launch: inputs (q, d, ids) read once and
+    outputs (dist, segmin) written once over HBM bandwidth, against the
+    product's operations over the peak for their type."""
+    nbytes = 4 * (qb * a + b * a + b + qb * b + qb * (b // 128))
+    ops = 2.0 * qb * b * a
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[precision]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def bound(q, d, kc, iters, gate, carried, precision):
@@ -223,30 +367,46 @@ def bound(q, d, kc, iters, gate, carried, precision):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def config_text(name: str) -> str:
+    from dmlp_tpu_torch.io.datagen import generate_input_text
+    if name not in _TEXTS:
+        c = CONFIGS[name]
+        _TEXTS[name] = generate_input_text(
+            c["num_data"], c["num_queries"], c["num_attrs"], c["attr_min"],
+            c["attr_max"], c["min_k"], c["max_k"], c["num_labels"],
+            seed=c["seed"])
+    return _TEXTS[name]
+
+
+def config_input(name: str):
+    from dmlp_tpu_torch.io.grammar import parse_input_text
+    if name not in _INPUTS:
+        _INPUTS[name] = parse_input_text(config_text(name))
+    return _INPUTS[name]
+
+
 def main_path():
-    """Config 4 through the CLI, K2 (warm-up) then K1; returns launches."""
-    import numpy as np
+    """Every MAIN_RUNS solve through the CLI on the card; returns the
+    launches per run."""
     import torch
-    from dmlp_tpu_torch import cli
-    from dmlp_tpu_torch.golden.fast import knn_golden_fast
-    from dmlp_tpu_torch.io.grammar import parse_input_text, subset_queries
-    from dmlp_tpu_torch.io.report import format_results
-    from dmlp_tpu_torch.ops import extract as ex
+    from dmlp_tpu_torch import cli, kernels
 
-    t0 = time.perf_counter()
-    c = CONFIG4
-    text = config4_text()
-    gen_ms = (time.perf_counter() - t0) * 1e3
-
-    runs = {}
-    for label, fused in (("K2_warmup", "0"), ("K1_timed", "1")):
+    outputs, launches = {}, {}
+    for label, name, flags, fused, want, subset in MAIN_RUNS:
+        c = CONFIGS[name]
+        t0 = time.perf_counter()
+        text = config_text(name)
+        gen_ms = (time.perf_counter() - t0) * 1e3
         os.environ["DMLP_TPU_FUSED"] = fused
         out, err = io.StringIO(), io.StringIO()
         torch.cuda.synchronize()
-        ex.reset_launch_counts()
-        rc = cli.main(["--pallas", "--phase-times"], stdin=io.StringIO(text),
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        rc = cli.main([*flags, "--phase-times"], stdin=io.StringIO(text),
                       stdout=out, stderr=err)
-        launches = dict(ex.LAUNCHES)
+        got = dict(kernels.LAUNCHES)
+        os.environ.pop("DMLP_TPU_FUSED")
         check(rc == 0, f"{label}: cli.main returned {rc}")
         lines = err.getvalue().splitlines()
         m = re.fullmatch(r"Time taken: (\d+) ms", lines[0])
@@ -256,99 +416,106 @@ def main_path():
             if ln.startswith("phase ")}
         repairs = [int(ln.split()[1]) for ln in lines
                    if ln.startswith("repairs: ")]
-        runs[label] = (out.getvalue(), launches)
-        emit({"phase": "main_path", "run": label,
+        text_out = out.getvalue()
+        emit({"phase": "main_path", "run": label, "flags": flags,
               "DMLP_TPU_FUSED": fused, "time_taken_ms": int(m.group(1)),
               "phases_ms": phases, "repairs": repairs[0],
-              "launches": launches,
-              "stdout_lines": out.getvalue().count("\n")})
-    os.environ.pop("DMLP_TPU_FUSED")
+              "launches": got, "launches_expected": want,
+              "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
+              "stdout_lines": text_out.count("\n"), "datagen_ms": gen_ms})
+        check(got == want, f"{label}: launches {got} != the plan's {want}")
+        out_lines = text_out.splitlines()
+        check(len(out_lines) == c["num_queries"] and all(
+            re.fullmatch(r"Query \d+ checksum: \d+", ln)
+            for ln in out_lines),
+            f"{label}: stdout is not {c['num_queries']} checksum lines")
+        outputs[label], launches[label] = text_out, got
+        if subset:
+            golden_subset(label, name, out_lines, subset)
+    check(outputs["config4_K1"] == outputs["config4_K2_warmup"],
+          "gated and ungated config-4 solves print different results")
+    return launches
 
-    k2_out, k2_launch = runs["K2_warmup"]
-    k1_out, k1_launch = runs["K1_timed"]
-    check(k1_launch["fused_topk"] > 0 and k1_launch["extract_topk"] == 0,
-          f"the shipped path did not run the gated kernel: {k1_launch}")
-    check(k2_launch["extract_topk"] > 0 and k2_launch["fused_topk"] == 0,
-          f"DMLP_TPU_FUSED=0 did not run the ungated kernel: {k2_launch}")
-    lines = k1_out.splitlines()
-    check(len(lines) == c["num_queries"] and all(
-        re.fullmatch(r"Query \d+ checksum: \d+", ln) for ln in lines),
-        "stdout is not 10,000 checksum lines")
-    check(k1_out == k2_out, "gated and ungated solves print different "
-                            "results")
 
+def golden_subset(label, name, lines, size):
+    """``size`` seeded queries of the run's output against golden.fast,
+    byte for byte."""
+    import numpy as np
+    from dmlp_tpu_torch.golden.fast import knn_golden_fast
+    from dmlp_tpu_torch.io.grammar import subset_queries
+    from dmlp_tpu_torch.io.report import format_results
+
+    c = CONFIGS[name]
     t0 = time.perf_counter()
-    inp = parse_input_text(text)
+    inp = config_input(name)
     idx = np.sort(np.random.default_rng(c["seed"]).choice(
-        c["num_queries"], 1000, replace=False))
+        c["num_queries"], size, replace=False))
     ref = knn_golden_fast(subset_queries(inp, idx))
     for j, r in enumerate(ref):
         r.query_id = int(idx[j])
-    want = format_results(ref)
-    got = "".join(lines[i] + "\n" for i in idx)
-    golden_ok = want == got
-    emit({"phase": "golden_subset", "queries": len(idx), "match": golden_ok,
-          "oracle_ms": (time.perf_counter() - t0) * 1e3,
-          "datagen_ms": gen_ms})
-    check(golden_ok, "the subset differs from the float64 oracle")
-    return {"fused_topk": k1_launch["fused_topk"],
-            "extract_topk": k2_launch["extract_topk"]}
-
-
-def config4_text() -> str:
-    from dmlp_tpu_torch.io.datagen import generate_input_text
-    c = CONFIG4
-    return generate_input_text(c["num_data"], c["num_queries"],
-                               c["num_attrs"], c["attr_min"], c["attr_max"],
-                               c["min_k"], c["max_k"], c["num_labels"],
-                               seed=c["seed"])
+    ok = format_results(ref) == "".join(lines[i] + "\n" for i in idx)
+    emit({"phase": "golden_subset", "run": label, "queries": size,
+          "match": ok, "oracle_ms": (time.perf_counter() - t0) * 1e3})
+    check(ok, f"{label}: the subset differs from the float64 oracle")
 
 
 def profile_main_path():
-    """The shipped config-4 solve's timed region (engine.run + result
-    formatting, parsing excluded) once more, after a warm run, under
+    """The shipped timed region (engine.run + result formatting, parsing
+    excluded) of config 4, the wide-k mix, the wide-k multi-pass and
+    config 2's seg solve once more, each after a warm run, under
     torch.profiler: device time by kernel name, the device's busy time
-    (union of its kernel and copy intervals) and its idle share of the
-    window."""
+    (union of its kernel and copy intervals), its idle share of the
+    window, and the host's blocking scalar reads (the seg step's hazard
+    flag)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.engine.single import SingleChipEngine
-    from dmlp_tpu_torch.io.grammar import parse_input_text
     from dmlp_tpu_torch.io.report import format_results
 
-    inp = parse_input_text(config4_text())
-    engine = SingleChipEngine(EngineConfig(use_pallas=True))
-    format_results(engine.run(inp))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    for label, name, select in (("config4_K1", "config4", "auto"),
+                                ("widek_mix", "widek_mix", "auto"),
+                                ("widek_multipass", "widek_mp", "auto"),
+                                ("config2_seg", "config2", "seg")):
+        inp = config_input(name)
+        engine = SingleChipEngine(EngineConfig(use_pallas=True,
+                                               select=select))
         format_results(engine.run(inp))
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(dev) > 0, "the profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            busy_us += 0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy_us += cur_e - cur_s
-    by_name = {}
-    for e in dev:
-        k = e.name[:60]
-        by_name[k] = by_name.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "wall_ms": wall_ms,
-          "engine_phases_ms": engine.last_phase_ms,
-          "repairs": engine.last_repairs,
-          "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
-          "device_ms_by_name": dict(top)})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            format_results(engine.run(inp))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        dev = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(len(dev) > 0, f"{label}: the profiler recorded no device "
+                            "activity")
+        spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+        busy_us, cur_s, cur_e = 0.0, None, None
+        for a, b in spans:
+            if cur_e is None or a > cur_e:
+                busy_us += 0 if cur_e is None else cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        busy_us += cur_e - cur_s
+        by_name = {}
+        for e in dev:
+            k = e.name[:60]
+            by_name[k] = by_name.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        syncs = [e for e in events if e.name == "aten::_local_scalar_dense"]
+        emit({"phase": "profile", "run": label, "wall_ms": wall_ms,
+              "engine_phases_ms": engine.last_phase_ms,
+              "repairs": engine.last_repairs,
+              "device_busy_ms": busy_us / 1e3,
+              "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+              "host_scalar_reads": len(syncs),
+              "host_scalar_read_ms": sum(
+                  e.time_range.elapsed_us() for e in syncs) / 1e3,
+              "device_ms_by_name": dict(top)})
 
 
 def main(argv=None) -> int:
@@ -383,11 +550,15 @@ def main(argv=None) -> int:
         profile_main_path()
     if summary:
         rows = []
-        for name in ("fused_topk", "extract_topk"):
+        for name in KERNELS:
             s = summary[name]
-            rows.append({"name": name, "route": "cuda", "source": SOURCE,
+            per_path = {run: n[name] for run, n in launches.items()
+                        if n[name]}
+            rows.append({"name": name, "route": "cuda",
+                         "source": SOURCES[name],
                          "replaces": REPLACES[name],
-                         "launches": launches.get(name),
+                         "launches": sum(per_path.values()),
+                         "launches_by_path": per_path,
                          "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                          "plain_ms": s["plain_ms"],
                          "bound_ms": s["bound"]["bound_ms"],

@@ -44,8 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="staging dtype; auto = float32")
     parser.add_argument("--select", default="auto",
                         choices=["auto", "sort", "topk", "seg", "extract"],
-                        help="device k-selection strategy ('seg' is not "
-                             "ported yet)")
+                        help="device k-selection strategy")
     parser.add_argument("--pallas", action="store_true",
                         help="the hand-written kernels (implies extract "
                              "selection on large inputs)")

@@ -31,11 +31,11 @@ class EngineConfig:
       exact: rescore the top-(k + margin) candidates on the host in
         float64 and re-select (checksum parity with the golden model).
       margin: extra candidates (beyond max-k) carried to the rescore.
-      select: "auto" | "sort" | "topk" | "seg" | "extract". "seg" needs the
-        K3 kernel (ROADMAP slice 2) and raises NotImplementedError.
+      select: "auto" | "sort" | "topk" | "seg" | "extract".
       debug: human-readable output instead of checksums.
       use_pallas: run the hand-written kernels (the name is the
-        reference's flag; here it selects the CUDA extraction kernel).
+        reference's flag; here it selects the CUDA kernels: extraction,
+        and the distance/segment-min tile of the "seg" fold).
       precision: first-pass dot precision of the extraction kernel
         ("auto" | "f32" | "bf16"); ``$DMLP_TPU_PRECISION`` overrides.
       device: "cuda" (default) or "cpu" — port only.

@@ -3,23 +3,27 @@
 The same solve as the reference engine on one device: the data is padded
 and staged in chunks, each chunk is folded into running (Q, K) candidate
 lists, and the host rescores the candidates in float64, votes, and repairs
-the queries whose candidate boundary may have truncated a tie group. Three
+the queries whose candidate boundary may have truncated a tie group. The
 device paths, picked by ``EngineConfig.resolve_select``:
 
 - "sort" (<= 8192 padded rows): whole-dataset staging and a strict
   (dist asc, id desc) blockwise merge;
-- "topk": chunked staging from pinned host memory with a running top-k
-  that keeps the lowest position on ties;
+- "topk" / "seg": chunked staging from pinned host memory with a running
+  top-k that keeps the lowest position on ties; "seg" reads the K3 kernel
+  (``ops.dist_segmin``) with the hand-written kernels on;
 - "extract" (``use_pallas``): chunked staging and the hand-written
   extraction kernel (``ops.fused.fused_topk``, or ``ops.extract.
-  extract_topk`` with ``DMLP_TPU_FUSED=0``); on the CPU its plain PyTorch
-  version.
+  extract_topk`` with ``DMLP_TPU_FUSED=0``). Where some queries' candidate
+  width exceeds the kernel's kc <= 512, the heterogeneous-k router keeps
+  the rest on the kernel and folds the wide-k outliers through "seg" on
+  the same staged chunks; where every query's does, the multi-pass driver
+  sweeps the resident dataset in floor-raised passes of kc = 512; where
+  neither applies, the solve streams through "seg".
 
-Not ported yet (ROADMAP.md): the pruned two-stage solve (A6 — the port
-scans every chunk), the degradation ladder (A7; the engine runs at the top
-rung's kernel choice), the tune cache (A8), the heterogeneous-k router and
-the multi-pass wide-k driver (slice 2; a kc above the kernel's 512 raises
-NotImplementedError), ``run_device_full`` and observability.
+On the CPU every kernel runs its plain PyTorch version. Not ported yet
+(ROADMAP.md): the pruned two-stage solve (A6 — the port scans every chunk),
+the degradation ladder (A7; the engine runs at the top rung's kernel
+choice), the tune cache (A8), ``run_device_full`` and observability.
 """
 
 from __future__ import annotations
@@ -31,14 +35,16 @@ import numpy as np
 import torch
 
 from dmlp_tpu_torch.config import EngineConfig
-from dmlp_tpu_torch.engine.finalize import (boundary_hazard, finalize_host,
+from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
+                                            EPS_REL_F32, LOWP_COEF,
+                                            boundary_hazard, finalize_host,
                                             lowp_eps,
                                             repair_boundary_overflow,
                                             staging_eps)
-from dmlp_tpu_torch.io.grammar import KNNInput
+from dmlp_tpu_torch.io.grammar import KNNInput, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
-from dmlp_tpu_torch.ops.topk import (SEG_NOT_PORTED, TopK, init_topk,
-                                     make_block_step, select_topk,
+from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
+                                     select_topk, streaming_fallback,
                                      streaming_topk)
 
 # Per-chunk distance-tile budget of the "topk" driver (bytes): the live
@@ -143,6 +149,88 @@ def pad_dataset(inp: KNNInput, multiple: int, dtype: np.dtype
     return attrs, labels, ids
 
 
+def hetk_split(cfg: EngineConfig, staging: str, ks: np.ndarray,
+               num_data: int, gate_rows: int):
+    """Heterogeneous-k split plan: (bulk_idx, out_idx) or None.
+
+    k is legal up to num_data, but the extraction kernel's lists cap at
+    kc <= 512. The split keeps the queries whose candidate width fits on
+    the kernel ("bulk") and folds only the wide-k outliers through the
+    streaming select; each query is solved once. ``gate_rows`` is the row
+    count the auto-select gate sees."""
+    from dmlp_tpu_torch.ops.extract import KC_MAX
+    if len(ks) == 0 or num_data == 0 or not cfg.use_pallas:
+        return None
+    if cfg.select not in ("auto", "extract"):
+        return None
+    if cfg.resolve_select(gate_rows) != "extract":
+        return None
+    # Largest per-query k whose candidate width still fits the kernel
+    # (the margin is k- and staging-dependent, resolve_kcap).
+    k_fit = next((k for k in range(KC_MAX, 0, -1)
+                  if resolve_kcap(cfg, k, "extract", 1 << 30,
+                                  staging) <= KC_MAX), 0)
+    if k_fit == 0 or int(ks.max()) <= k_fit:
+        return None      # everything fits: no routing needed
+    bulk = np.nonzero(ks <= k_fit)[0]
+    out = np.nonzero(ks > k_fit)[0]
+    if bulk.size == 0:
+        return None      # nothing the kernel could take
+    return bulk, out
+
+
+def _outlier_fold(carry: TopK, q: torch.Tensor, battrs: torch.Tensor,
+                  labels_all: torch.Tensor, lo: int, n_real: int, *,
+                  k: int, select: str, use_pallas: bool) -> TopK:
+    """Fold one already-staged data chunk into the wide-k outlier queries'
+    running top-k. The chunk's labels are a slice of the once-staged
+    padded label vector and its ids come from its row range, masked at
+    ``n_real``: the outliers add no host-to-device attribute traffic."""
+    rows = battrs.shape[0]
+    blabels = labels_all[lo:lo + rows]
+    ri = torch.arange(lo, lo + rows, dtype=torch.int32, device=q.device)
+    bids = torch.where(ri < n_real, ri, -1)
+    step = make_block_step(select, k, use_pallas)
+    return step(carry, q, battrs, blabels, bids)
+
+
+def _mp_floor(od: torch.Tensor, qn: torch.Tensor, dn_max: torch.Tensor, *,
+              staging: str, na: int, precision: str = "f32"):
+    """Next-pass floor of the multi-pass driver, on the device (passes
+    chain with no host readback): floor = max(od) - eps(max(od)), the
+    staging eps of engine.finalize plus the bf16 pass's lowp term, in f32
+    and in the reference's operation order; exhausted rows (max = inf) get
+    +inf. Returns (floor (Q, 1) f32, fd (Q,) f32 for the stall check)."""
+    fd = od.max(1).values
+    rel = EPS_REL_BF16 if staging == "bfloat16" else EPS_REL_F32
+    scale = qn + dn_max
+    eps = (rel * torch.sqrt(torch.clamp_min(fd, 0.0) * scale)
+           + (EPS_CANCEL_COEF * (na + 2) + LOWP_COEF[precision]) * scale)
+    floor = torch.where(torch.isfinite(fd), fd - eps, torch.inf)
+    return floor[:, None].float(), fd
+
+
+def _mp_merge(dists: torch.Tensor, ids: torch.Tensor,
+              glabels: torch.Tensor, *, kcap: int):
+    """Merge the multi-pass slabs: (Q, P*kc) lists -> dedup by id (the
+    eps-overlapped floors re-extract boundary candidates on purpose) ->
+    labels from ids -> the final (Q, kcap) selection order. Also returns
+    each row's count of valid candidates for the shortfall check."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    sid = torch.gather(ids, 1, order)
+    sd = torch.gather(dists, 1, order)
+    dup = torch.cat([torch.zeros_like(sid[:, :1], dtype=torch.bool),
+                     sid[:, 1:] == sid[:, :-1]], 1)
+    invalid = dup | (sid < 0)
+    sd = torch.where(invalid, torch.inf, sd)
+    sid = torch.where(invalid, -1, sid)
+    n = glabels.shape[0]
+    lab = torch.where(sid >= 0,
+                      glabels[torch.clamp(sid.long(), 0, max(n - 1, 0))],
+                      -1).to(torch.int32)
+    return select_topk(sd, lab, sid, kcap), (sid >= 0).sum(1)
+
+
 def boundary_cols(dists: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
     """(kth, last) candidate-distance columns, stacked (2, Q), computed on
     the device so exact mode never fetches the (Q, K) distance matrix."""
@@ -168,6 +256,13 @@ class SingleChipEngine:
     """The one-device engine: on the card by default, on the CPU when the
     configuration asks for it."""
 
+    # Multi-pass resident-dataset budget, pass cap and slots per pass: the
+    # reference's constants, kept so that an input takes the same path in
+    # both packages.
+    _MP_RESIDENT_BUDGET = 2 << 30
+    _MP_MAX_PASSES = 16
+    _MP_KC = 512
+
     def __init__(self, config: EngineConfig = EngineConfig()):
         if config.mode != "single":
             raise NotImplementedError(
@@ -180,10 +275,14 @@ class SingleChipEngine:
         self.last_phase_ms: dict = {}
         self.last_extract_impl = None
         self.last_repairs = 0
+        self.last_hetk = None       # (bulk, outlier) counts when routed
+        self.last_mp_passes = 0     # multi-pass extraction pass count
+        self._mp_hazard = None      # its per-query loss flags (run repairs)
 
-    def _stage_queries(self, inp: KNNInput, qpad: int) -> torch.Tensor:
-        q = np.zeros((qpad, inp.params.num_attrs), np.float32)
-        q[:inp.params.num_queries] = inp.query_attrs
+    def _stage_queries(self, query_attrs: np.ndarray,
+                       qpad: int) -> torch.Tensor:
+        q = np.zeros((qpad, query_attrs.shape[1]), np.float32)
+        q[:len(query_attrs)] = query_attrs
         return stage(host_staging(q, self.device, self._staging),
                      self.device)
 
@@ -195,14 +294,22 @@ class SingleChipEngine:
         a[:n] = inp.data_attrs
         return host_staging(a, self.device, self._staging)
 
+    def _padded_ids_labels(self, inp: KNNInput, rows: int):
+        """(labels, ids) padded to ``rows`` with -1, on the device."""
+        n = inp.params.num_data
+        labels = np.full(rows, -1, np.int32)
+        labels[:n] = inp.labels
+        ids = np.full(rows, -1, np.int32)
+        ids[:n] = np.arange(n, dtype=np.int32)
+        return (torch.from_numpy(labels).to(self.device),
+                torch.from_numpy(ids).to(self.device))
+
     def _solve_scan(self, inp: KNNInput) -> Tuple[TopK, int]:
         """Whole-dataset staging and one blockwise fold ("sort")."""
         cfg = self.config
         n = inp.params.num_data
         nq = inp.params.num_queries
         select = cfg.resolve_streaming_select(round_up(max(n, 1), 8))
-        if select == "seg":
-            raise NotImplementedError(SEG_NOT_PORTED)
         if cfg.data_block is not None:
             data_block = min(cfg.data_block, round_up(max(n, 1), 8))
         else:
@@ -219,30 +326,32 @@ class SingleChipEngine:
         d_ids = torch.from_numpy(ids).to(dev)
         qb = min(cfg.query_block, round_up(max(nq, 1), 8))
         qpad = round_up(max(nq, 1), qb)
-        q_dev = self._stage_queries(inp, qpad)
+        q_dev = self._stage_queries(inp.query_attrs, qpad)
         outs = [streaming_topk(q_dev[i:i + qb], d_attrs, d_labels, d_ids,
-                               k, data_block, select)
+                               k, data_block, select, cfg.use_pallas)
                 for i in range(0, qpad, qb)]
         return TopK(*(torch.cat(parts) for parts in zip(*outs))), qpad
 
-    def _solve_pipelined(self, inp: KNNInput,
-                         select: str | None = None) -> Tuple[TopK, int]:
+    def _solve_pipelined(self, inp: KNNInput) -> Tuple[TopK, int]:
         """Chunked staging from pinned host memory + one fold per chunk
-        ("topk"), under the ChunkThrottle window."""
+        and query block ("topk"/"seg"), under the ChunkThrottle window.
+        Reached when the select is not "extract", or when the extraction
+        kernel cannot take the input: then the streaming select."""
         cfg = self.config
         n = inp.params.num_data
-        na = inp.params.num_attrs
         nq = inp.params.num_queries
-        if select is None:
-            select = cfg.resolve_streaming_select(round_up(max(n, 1), 8))
-        if select == "seg":
-            raise NotImplementedError(SEG_NOT_PORTED)
+        select = cfg.resolve_streaming_select(round_up(max(n, 1), 8))
         self._last_select = select
         granule = cfg.resolve_granule(select)
         t0 = time.perf_counter()
         _, nchunks, chunk_rows = plan_chunks(n, granule, cfg.data_block)
-        qgran = 8
+        # Query padding: whole 1024-row blocks for the K3-fed seg fold on
+        # large query sets (the reference's tiling rule), 8 otherwise.
+        qgran = 1024 if (cfg.use_pallas and select == "seg"
+                         and nq > 1024) else 8
         qpad = round_up(max(nq, 1), qgran)
+        # The live (query rows x chunk rows) f32 tile stays below both the
+        # configured query_block and the tile budget.
         qsb = min(qpad, round_up(cfg.query_block, qgran))
         while qsb > qgran and qsb * chunk_rows * 4 > _TILE_BUDGET:
             qsb -= qgran
@@ -253,15 +362,10 @@ class SingleChipEngine:
                          staging=self._staging)
 
         dev = self.device
-        q_dev = self._stage_queries(inp, qpad)
+        q_dev = self._stage_queries(inp.query_attrs, qpad)
         host = self._pinned_chunks(inp, nchunks * chunk_rows)
-        labels = np.full(nchunks * chunk_rows, -1, np.int32)
-        labels[:n] = inp.labels
-        ids = np.full(nchunks * chunk_rows, -1, np.int32)
-        ids[:n] = np.arange(n, dtype=np.int32)
-        d_labels = torch.from_numpy(labels).to(dev)
-        d_ids = torch.from_numpy(ids).to(dev)
-        step = make_block_step(select, k)
+        d_labels, d_ids = self._padded_ids_labels(inp, nchunks * chunk_rows)
+        step = make_block_step(select, k, cfg.use_pallas)
         carries = [init_topk(qsb, k, dev) for _ in range(nqb)]
         throttle = ChunkThrottle(dev)
         for c in range(nchunks):
@@ -277,9 +381,10 @@ class SingleChipEngine:
     def _solve_extract(self, inp: KNNInput) -> Tuple[TopK, int] | None:
         """Chunked staging + the extraction kernel ("extract"). Chunks
         are contiguous row ranges, so the kernel's ids are affine (id_base
-        = chunk start). None for an empty problem."""
+        = chunk start). None for an empty problem or when the kernel
+        cannot take the shape (the caller then streams)."""
         from dmlp_tpu_torch.ops import fused
-        from dmlp_tpu_torch.ops.extract import KC_MAX, QUERY_TILE
+        from dmlp_tpu_torch.ops.extract import QUERY_TILE
 
         cfg = self.config
         n = inp.params.num_data
@@ -296,16 +401,13 @@ class SingleChipEngine:
                          staging=self._staging)
         kern, impl = fused.resolve_topk_kernel(qpad, chunk_rows, na, k)
         if kern is None:
-            raise NotImplementedError(
-                f"candidate width kc={k} exceeds the extraction kernel's "
-                f"{KC_MAX}: the heterogeneous-k router and the multi-pass "
-                "driver are ROADMAP.md slice 2 — not ported yet")
+            return None
         prec = cfg.resolve_precision()
         self._last_select = "extract"
         self.last_extract_impl = impl
 
         dev = self.device
-        q_dev = self._stage_queries(inp, qpad)
+        q_dev = self._stage_queries(inp.query_attrs, qpad)
         host = self._pinned_chunks(inp, nchunks * chunk_rows)
         od = oi = None
         throttle = ChunkThrottle(dev)
@@ -322,6 +424,130 @@ class SingleChipEngine:
         glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
         return extract_finalize(od, oi, glabels, k), qpad
 
+    def _solve_extract_multipass(self, inp: KNNInput):
+        """All-wide-k solve on the extraction kernel in P floor-raised
+        passes of kc = 512.
+
+        When every query's candidate width overflows the kernel, the
+        chunks are staged once (pass 1 overlaps the staging) and the
+        resident dataset is swept P = ceil(kcap / 512) times more or less:
+        pass p+1 masks candidates below that row's previous maximum minus
+        the staging eps (the kernel's ``floor``), so each pass extracts
+        the next slab of the top-k; the eps overlap re-extracts boundary
+        candidates rather than lose a tie, and _mp_merge dedups by id.
+        The two loss modes flag for exact repair in run(): STALL (a tie
+        plateau wider than 512 pins the floor, so fd stops rising) and
+        SHORTFALL (fewer than min(k, n) distinct candidates in a row).
+
+        Returns a run()-compatible segment list, or None when the plan does
+        not apply (k fits one pass, the kernel cannot tile, the dataset
+        exceeds the resident budget, or P would exceed _MP_MAX_PASSES)."""
+        from dmlp_tpu_torch.ops import fused
+        from dmlp_tpu_torch.ops.extract import QUERY_TILE
+
+        cfg = self.config
+        n = inp.params.num_data
+        na = inp.params.num_attrs
+        nq = inp.params.num_queries
+        if n == 0 or nq == 0 or not cfg.use_pallas:
+            return None
+        if cfg.select not in ("auto", "extract"):
+            return None
+        if cfg.resolve_select(round_up(max(n, 1), 8)) != "extract":
+            return None
+        kc = self._MP_KC
+        kmax = int(inp.ks.max())
+        if resolve_kcap(cfg, kmax, "extract", 1 << 30, self._staging) <= kc:
+            return None  # one pass (or the router) owns this k
+        granule = cfg.resolve_granule("extract")
+        npad, nchunks, chunk_rows = plan_chunks(n, granule, cfg.data_block)
+        kcap = resolve_kcap(cfg, kmax, "extract", npad,
+                            staging=self._staging)
+        npasses = -(-kcap // kc)
+        if npasses > self._MP_MAX_PASSES:
+            return None
+        itemsize = 2 if self._staging == "bfloat16" else 4
+        if npad * na * itemsize > self._MP_RESIDENT_BUDGET:
+            return None
+        qpad = round_up(nq, QUERY_TILE)
+        kern, impl = fused.resolve_topk_kernel(qpad, chunk_rows, na, kc)
+        if kern is None:
+            return None
+        # Passes 2..P launch over the whole resident array; nothing
+        # guarantees a shape the kernel tiles per chunk tiles there too,
+        # so say so loudly instead of mis-tiling every later pass.
+        n_staged = min(nchunks, -(-n // chunk_rows))
+        full_rows = n_staged * chunk_rows
+        kern_full, _ = fused.resolve_topk_kernel(qpad, full_rows, na, kc)
+        if kern_full is None:
+            raise AssertionError(
+                f"multi-pass extract: full-array sweep shape (qb={qpad}, "
+                f"rows={full_rows}, a={na}, kc={kc}) is untileable even "
+                f"though the per-chunk shape (rows={chunk_rows}) tiles")
+        prec = cfg.resolve_precision()
+        self._last_select = "extract"
+        self.last_extract_impl = impl
+
+        t0 = time.perf_counter()
+        dev = self.device
+        q_dev = self._stage_queries(inp.query_attrs, qpad)
+        host = self._pinned_chunks(inp, nchunks * chunk_rows)
+        chunks: List[torch.Tensor] = []
+        od = oi = None
+        throttle = ChunkThrottle(dev)
+        for c in range(n_staged):
+            lo = c * chunk_rows
+            hi = min(lo + chunk_rows, n)
+            chunks.append(stage(host[lo:lo + chunk_rows], dev))
+            od, oi, _iters = kern(q_dev, chunks[-1], od, oi, n_real=hi - lo,
+                                  id_base=lo, kc=kc, precision=prec)
+            throttle.tick()
+        ods, ois = [od], [oi]
+
+        qn_host = np.zeros(qpad, np.float64)
+        qn_host[:nq] = np.einsum("qa,qa->q", inp.query_attrs,
+                                 inp.query_attrs)
+        dn_max = float(np.einsum("na,na->n", inp.data_attrs,
+                                 inp.data_attrs).max())
+        qn_dev = torch.from_numpy(qn_host.astype(np.float32)).to(dev)
+        dn_dev = torch.tensor(np.float32(dn_max), device=dev)
+        # One launch per later pass over the resident dataset; the chunk
+        # list goes once the concatenation is queued, so the dataset is
+        # not resident twice for the sweep.
+        d_full = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        del chunks
+        fds = []
+        for _ in range(1, npasses):
+            floor, fd = _mp_floor(ods[-1], qn_dev, dn_dev,
+                                  staging=self._staging, na=na,
+                                  precision=prec)
+            fds.append(fd)
+            od, oi, _iters = kern_full(q_dev, d_full, n_real=n, id_base=0,
+                                       kc=kc, floor=floor, precision=prec)
+            throttle.tick()
+            ods.append(od)
+            ois.append(oi)
+        # The last pass's fd too: a plateau pinning the last boundary
+        # flags as well.
+        fds.append(_mp_floor(ods[-1], qn_dev, dn_dev, staging=self._staging,
+                             na=na, precision=prec)[1])
+        self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
+        self.last_mp_passes = len(ods)
+
+        glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
+        top, valid = _mp_merge(torch.cat(ods, 1), torch.cat(ois, 1),
+                               glabels, kcap=kcap)
+        # One readback for both checks: the fd sequence (stall) and the
+        # valid counts (shortfall).
+        fd_h = torch.stack(fds).cpu().numpy()
+        valid_h = valid.cpu().numpy()
+        stalled = np.zeros(qpad, bool)
+        for prev, cur in zip(fd_h, fd_h[1:]):
+            stalled |= np.isfinite(cur) & (cur <= prev)
+        needed = np.minimum(inp.ks.astype(np.int64), n)
+        self._mp_hazard = stalled[:nq] | (valid_h[:nq] < needed)
+        return [(top, qpad, None, "extract")]
+
     def _solve(self, inp: KNNInput) -> Tuple[TopK, int]:
         self.last_phase_ms = {}
         self.last_extract_impl = None
@@ -329,16 +555,94 @@ class SingleChipEngine:
             round_up(max(inp.params.num_data, 1), 8))
         if select == "sort":
             return self._solve_scan(inp)
-        if select == "seg":
-            raise NotImplementedError(SEG_NOT_PORTED)
         if select == "extract":
             out = self._solve_extract(inp)
             if out is not None:
                 return out
-            # Empty problem (no data or no queries): nothing to extract;
-            # the plain chunk fold gives the padded (-1) result.
-            return self._solve_pipelined(inp, select="topk")
+            # Empty problem, or a shape the extraction kernel cannot take:
+            # the chunk fold on the streaming select.
         return self._solve_pipelined(inp)
+
+    def _solve_extract_routed(self, inp: KNNInput, plan):
+        """Split solve: the extraction kernel for the bulk queries and the
+        streaming fold for the wide-k outliers, sharing one staging pass.
+        Each chunk is staged once; the bulk's kernel launch and the
+        outliers' fold run on the same device tensor. Returns a segment
+        list for run(), or None when the bulk shape cannot tile."""
+        from dmlp_tpu_torch.ops import fused
+        from dmlp_tpu_torch.ops.extract import QUERY_TILE
+
+        bulk, outl = plan
+        cfg = self.config
+        n = inp.params.num_data
+        na = inp.params.num_attrs
+        granule = cfg.resolve_granule("extract")
+        t0 = time.perf_counter()
+        _, nchunks, chunk_rows = plan_chunks(n, granule, cfg.data_block)
+        qpad_b = round_up(len(bulk), QUERY_TILE)
+        kb = resolve_kcap(cfg, int(inp.ks[bulk].max()), "extract",
+                          nchunks * chunk_rows, staging=self._staging)
+        kern, impl = fused.resolve_topk_kernel(qpad_b, chunk_rows, na, kb)
+        if kern is None:
+            return None
+        select_out = streaming_fallback(cfg.use_pallas)
+        ko = resolve_kcap(cfg, int(inp.ks[outl].max()), select_out,
+                          nchunks * chunk_rows, staging=self._staging)
+        prec = cfg.resolve_precision()
+        self._last_select = "extract"
+        self.last_extract_impl = impl
+        self.last_hetk = (int(bulk.size), int(outl.size))
+
+        dev = self.device
+        qb_dev = self._stage_queries(inp.query_attrs[bulk], qpad_b)
+        qo_pad = round_up(len(outl), 8)
+        qo_dev = self._stage_queries(inp.query_attrs[outl], qo_pad)
+        labels_dev, _ = self._padded_ids_labels(inp, nchunks * chunk_rows)
+        host = self._pinned_chunks(inp, nchunks * chunk_rows)
+        carry_o = init_topk(qo_pad, ko, dev)
+        od = oi = None
+        throttle = ChunkThrottle(dev)
+        for c in range(nchunks):
+            lo = c * chunk_rows
+            if lo >= n:
+                break
+            hi = min(lo + chunk_rows, n)
+            da = stage(host[lo:lo + chunk_rows], dev)
+            od, oi, _iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
+                                  id_base=lo, kc=kb, precision=prec)
+            carry_o = _outlier_fold(carry_o, qo_dev, da, labels_dev, lo, n,
+                                    k=ko, select=select_out,
+                                    use_pallas=cfg.use_pallas)
+            throttle.tick()
+        self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
+        glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
+        top_b = extract_finalize(od, oi, glabels, kb)
+        return [(top_b, qpad_b, bulk, "extract"),
+                (carry_o, qo_pad, outl, select_out)]
+
+    def _solve_segments(self, inp: KNNInput):
+        """Solve as a list of (TopK, qpad, query_idx | None, select)
+        segments: one for homogeneous k, two when the router splits the
+        wide-k outliers off the extraction kernel's bulk. run() merges
+        them by original query index."""
+        self.last_hetk = None
+        self._mp_hazard = None
+        self.last_mp_passes = 0
+        self.last_extract_impl = None
+        plan = hetk_split(self.config, self._staging, inp.ks,
+                          inp.params.num_data,
+                          round_up(max(inp.params.num_data, 1), 8))
+        if plan is not None:
+            self.last_phase_ms = {}
+            segs = self._solve_extract_routed(inp, plan)
+            if segs is not None:
+                return segs
+        self.last_phase_ms = {}
+        segs = self._solve_extract_multipass(inp)
+        if segs is not None:
+            return segs
+        top, qpad = self._solve(inp)
+        return [(top, qpad, None, self._last_select)]
 
     def candidates(self, inp: KNNInput
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -349,7 +653,8 @@ class SingleChipEngine:
         return dists, out.labels.cpu().numpy()[:nq], out.ids.cpu().numpy()[:nq]
 
     def run(self, inp: KNNInput) -> List[QueryResult]:
-        """Device candidates + host float64 finalize + boundary repair.
+        """Device candidates + host float64 finalize + boundary repair,
+        segment by segment, merged by original query index.
 
         In exact mode only the candidate ids and the two boundary columns
         are fetched (labels come from the ids on the host, distances are
@@ -357,45 +662,65 @@ class SingleChipEngine:
         which are then the result. The fetch is the solve's fence."""
         cfg = self.config
         n = inp.params.num_data
-        nq = inp.params.num_queries
-        top, qpad = self._solve(inp)
-        select = self._last_select
-        kcap = top.dists.shape[1]
+        segments = self._solve_segments(inp)
+        prec = cfg.resolve_precision()
         self.last_repairs = 0
+        merged: List[QueryResult] = [None] * inp.params.num_queries
+        dn_max = None
+        fetch_ms = final_ms = 0.0
+        for top, qpad, idx, select in segments:
+            sub = inp if idx is None else subset_queries(inp, idx)
+            nq = sub.params.num_queries
+            kcap = top.dists.shape[1]
 
-        t0 = time.perf_counter()
-        cols_dev = None
-        if kcap < n:   # else every real row is a candidate: no hazard
-            ks_pad = np.ones(qpad, np.int32)
-            ks_pad[:nq] = inp.ks
-            cols_dev = boundary_cols(
-                top.dists, torch.from_numpy(ks_pad).to(self.device))
-        dists = None if cfg.exact \
-            else top.dists.cpu().numpy().astype(np.float64)[:nq]
-        ids = top.ids.cpu().numpy()[:nq]
-        flags = None
-        if cols_dev is not None:
-            kth, last = cols_dev.cpu().numpy().astype(np.float64)[:, :nq]
-            dn_max = float(np.einsum("na,na->n", inp.data_attrs,
-                                     inp.data_attrs).max()) if n else 0.0
-            qn = np.einsum("qa,qa->q", inp.query_attrs, inp.query_attrs)
-            eps = staging_eps(last, qn, dn_max, self._staging,
-                              inp.params.num_attrs)
-            if cfg.resolve_precision() == "bf16" and select == "extract":
-                eps = eps + lowp_eps("bf16", qn, dn_max)
-            flags = boundary_hazard(kth, last, eps)
-        labels = np.where(ids >= 0,
-                          inp.labels[np.clip(ids, 0, max(n - 1, 0))], -1) \
-            if n else np.full_like(ids, -1)
-        self.last_phase_ms["fetch"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            cols_dev = None
+            if kcap < n:   # else every real row is a candidate: no hazard
+                ks_pad = np.ones(qpad, np.int32)
+                ks_pad[:nq] = sub.ks
+                cols_dev = boundary_cols(
+                    top.dists, torch.from_numpy(ks_pad).to(self.device))
+            dists = None if cfg.exact \
+                else top.dists.cpu().numpy().astype(np.float64)[:nq]
+            ids = top.ids.cpu().numpy()[:nq]
+            flags = None
+            if cols_dev is not None:
+                kth, last = cols_dev.cpu().numpy().astype(np.float64)[:, :nq]
+                if dn_max is None:
+                    dn_max = float(np.einsum("na,na->n", inp.data_attrs,
+                                             inp.data_attrs).max())
+                qn = np.einsum("qa,qa->q", sub.query_attrs, sub.query_attrs)
+                eps = staging_eps(last, qn, dn_max, self._staging,
+                                  inp.params.num_attrs)
+                if prec == "bf16" and select == "extract":
+                    # The bf16 first pass perturbs the kernel's distances on
+                    # top of the staging rounding; the seg fold never casts.
+                    eps = eps + lowp_eps("bf16", qn, dn_max)
+                flags = boundary_hazard(kth, last, eps)
+            # The multi-pass driver's own loss flags join the test.
+            if self._mp_hazard is not None and idx is None:
+                flags = self._mp_hazard if flags is None \
+                    else flags | self._mp_hazard
+            labels = np.where(ids >= 0,
+                              inp.labels[np.clip(ids, 0, max(n - 1, 0))],
+                              -1) if n else np.full_like(ids, -1)
+            fetch_ms += (time.perf_counter() - t0) * 1e3
 
-        t0 = time.perf_counter()
-        results = finalize_host(dists, labels, ids, inp.ks, inp.query_attrs,
-                                inp.data_attrs, exact=cfg.exact)
-        if flags is not None:
-            suspects = np.nonzero(flags)[0]
-            if suspects.size:
-                repair_boundary_overflow(results, suspects, inp)
-                self.last_repairs = int(suspects.size)
-        self.last_phase_ms["finalize"] = (time.perf_counter() - t0) * 1e3
-        return results
+            t0 = time.perf_counter()
+            results = finalize_host(dists, labels, ids, sub.ks,
+                                    sub.query_attrs, sub.data_attrs,
+                                    exact=cfg.exact, query_ids=idx)
+            if flags is not None:
+                suspects = np.nonzero(flags)[0]
+                if suspects.size:
+                    repair_boundary_overflow(results, suspects, sub)
+                    self.last_repairs += int(suspects.size)
+            if idx is None:
+                merged = results
+            else:
+                for local_i, orig in enumerate(idx):
+                    merged[int(orig)] = results[local_i]
+            final_ms += (time.perf_counter() - t0) * 1e3
+        self.last_phase_ms["fetch"] = fetch_ms
+        self.last_phase_ms["finalize"] = final_ms
+        return merged

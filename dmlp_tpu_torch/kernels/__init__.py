@@ -24,12 +24,24 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parent / "_build"
 NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("extract_topk",)
+SOURCES = ("extract_topk", "dist_segmin")
 # The CUDA toolkit's standard install location, tried last.
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
+# Kernel launches by kernel name ("fused_topk" = K1, gate on;
+# "extract_topk" = K2, gate off; "fused_dist_segmin" = K3). A wrapper adds
+# one where it launches its CUDA kernel, and nowhere else: never for the
+# plain version.
+LAUNCHES: Dict[str, int] = {"fused_topk": 0, "extract_topk": 0,
+                            "fused_dist_segmin": 0}
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 class KernelBuildError(RuntimeError):

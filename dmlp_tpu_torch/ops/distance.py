@@ -25,20 +25,26 @@ def require_ieee_f32(t: torch.Tensor) -> None:
             "float32 products")
 
 
-def pairwise_sq_l2(queries: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """(Q, A) x (N, A) -> (Q, N) float32 squared distances, clamped at 0."""
+def pairwise_sq_l2(queries: torch.Tensor, data: torch.Tensor,
+                   precision: str = "f32") -> torch.Tensor:
+    """(Q, A) x (N, A) -> (Q, N) float32 squared distances, clamped at 0.
+    ``precision="bf16"`` rounds the product's operands to bfloat16; the
+    norms stay those of the float32 rows."""
     q = queries.float()
     d = data.float()
     require_ieee_f32(q)
     qn = (q * q).sum(-1)
     dn = (d * d).sum(-1)
+    if precision == "bf16":
+        q, d = q.to(torch.bfloat16).float(), d.to(torch.bfloat16).float()
     cross = q @ d.T
     return torch.clamp_min(qn[:, None] + dn[None, :] - 2.0 * cross, 0.0)
 
 
 def masked_pairwise_sq_l2(queries: torch.Tensor, data: torch.Tensor,
-                          data_ids: torch.Tensor) -> torch.Tensor:
+                          data_ids: torch.Tensor,
+                          precision: str = "f32") -> torch.Tensor:
     """Like :func:`pairwise_sq_l2`, with +inf where ``data_ids < 0`` (the
     id = -1 sentinel rows that pad the dataset to whole blocks)."""
-    dist = pairwise_sq_l2(queries, data)
+    dist = pairwise_sq_l2(queries, data, precision)
     return torch.where(data_ids[None, :] < 0, torch.inf, dist)

@@ -20,12 +20,13 @@ opt into (:func:`variant_supports` states exactly that budget).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_F32,
                                             LOWP_COEF)
+from dmlp_tpu_torch.kernels import LAUNCHES
 from dmlp_tpu_torch.ops.distance import require_ieee_f32
 
 QUERY_TILE = 32     # kernel TQ: query rows per CTA
@@ -35,16 +36,6 @@ KC_MAX = 512
 # Opt-in dynamic shared memory per block on sm_90 (232,448 bytes), less
 # 1 KB of headroom for the kernel's static shared memory.
 SMEM_BUDGET = 232448 - 1024
-
-# Kernel launches by kernel name ("fused_topk" = K1, gate on;
-# "extract_topk" = K2, gate off). Incremented only where a CUDA launch
-# happens — never by the plain version.
-LAUNCHES: Dict[str, int] = {"fused_topk": 0, "extract_topk": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def smem_bytes(kc: int, tile_q: int = QUERY_TILE,

@@ -6,11 +6,12 @@ top-k of a union equals top-k of the concatenated per-block top-k's. The
 reference expresses it as a two-key ``lax.sort``; here it is two composed
 stable sorts, least-significant key first.
 
-The "topk" step keeps the reference ``lax.top_k`` tie rule: on equal
-distances the LOWEST POSITION wins (carry slots before block columns).
-``torch.topk`` promises no tie order, so the step uses a stable ascending
-sort instead. The "seg" step needs the K3 kernel (``fused_dist_segmin``),
-which is ROADMAP slice 2.
+The "topk" and "seg" steps keep the reference ``lax.top_k`` tie rule: on
+equal distances the LOWEST POSITION wins (carry slots before block
+columns, and lower segment indices first when picking segments).
+``torch.topk`` promises no tie order, so they use stable ascending sorts
+instead. The "seg" step reads the K3 kernel (``ops.dist_segmin``) with the
+hand-written kernels on.
 """
 
 from __future__ import annotations
@@ -20,10 +21,6 @@ from typing import NamedTuple
 import torch
 
 from dmlp_tpu_torch.ops.distance import masked_pairwise_sq_l2
-
-SEG_NOT_PORTED = ("select='seg' needs the K3 kernel (fused_dist_segmin) "
-                  "and the seg fold, ROADMAP.md queue B / slice 2 — not "
-                  "ported yet")
 
 
 def streaming_fallback(use_pallas: bool) -> str:
@@ -76,7 +73,7 @@ def init_topk(qb: int, k: int, device) -> TopK:
                 torch.full((qb, k), -1, dtype=torch.int32, device=device))
 
 
-def make_block_step(select: str, k: int):
+def make_block_step(select: str, k: int, use_pallas: bool = False):
     """One running-top-k fold step: (carry, queries, block attrs, block
     labels, block ids) -> carry."""
 
@@ -85,39 +82,85 @@ def make_block_step(select: str, k: int):
         return merge_topk(carry, TopK(tile, blabels.expand_as(tile),
                                       bids.expand_as(tile)), k)
 
-    def step_topk(carry: TopK, q, battrs, blabels, bids) -> TopK:
-        tile = masked_pairwise_sq_l2(q, battrs, bids)
-        alld = torch.cat([carry.dists, tile], -1)
-        # Stable ascending sort == lax.top_k(-d): ties keep the lowest
-        # position, so carry slots win over block columns.
+    def merge_cand(carry: TopK, cand_d, cand_l, cand_i) -> TopK:
+        """The k smallest of carry ++ candidate columns. A stable ascending
+        sort == lax.top_k(-d): ties keep the lowest position, so carry
+        slots win over candidates."""
+        alld = torch.cat([carry.dists, cand_d], -1)
         idx = torch.argsort(alld, dim=-1, stable=True)[:, :k]
         from_carry = idx < k
         cidx = torch.clamp_max(idx, k - 1)
         bidx = torch.clamp_min(idx - k, 0)
         labels = torch.where(from_carry,
                              torch.gather(carry.labels, -1, cidx),
-                             blabels[bidx])
+                             torch.gather(cand_l, -1, bidx))
         ids = torch.where(from_carry, torch.gather(carry.ids, -1, cidx),
-                          bids[bidx])
+                          torch.gather(cand_i, -1, bidx))
         return TopK(torch.gather(alld, -1, idx), labels, ids)
 
-    if select == "seg":
-        raise NotImplementedError(SEG_NOT_PORTED)
-    if select not in ("sort", "topk"):
+    def step_full(carry: TopK, tile, blabels, bids) -> TopK:
+        return merge_cand(carry, tile, blabels.expand_as(tile),
+                          bids.expand_as(tile))
+
+    def step_topk(carry: TopK, q, battrs, blabels, bids) -> TopK:
+        return step_full(carry, masked_pairwise_sq_l2(q, battrs, bids),
+                         blabels, bids)
+
+    def step_seg(carry: TopK, q, battrs, blabels, bids) -> TopK:
+        """Segment-min threshold selection: the exact tile top-k from the
+        S = min(nseg, k + 16) segments with the smallest minima (every
+        tile-top-k point lies in a segment whose min is <= the k-th
+        smallest segment min T). When the S-th picked min still ties T
+        (more eligible segments may lie beyond S) the step takes the full
+        tile instead — decided on the host, one flag read per step."""
+        from dmlp_tpu_torch.ops.dist_segmin import SEG, fused_dist_segmin
+        if use_pallas:
+            tile, segmin = fused_dist_segmin(q, battrs, bids)
+        else:
+            tile = masked_pairwise_sq_l2(q, battrs, bids)
+            segmin = tile.view(tile.shape[0], -1, SEG).min(-1).values
+        qb, bcols = tile.shape
+        nseg = bcols // SEG
+        s = min(nseg, k + 16)
+        if s == nseg:
+            return step_full(carry, tile, blabels, bids)
+        seg_idx = torch.argsort(segmin, dim=-1, stable=True)[:, :s]
+        sel_min = torch.gather(segmin, -1, seg_idx)
+        t = sel_min[:, min(k, s) - 1]
+        last = sel_min[:, -1]
+        if bool((torch.isfinite(last) & (last <= t)).any()):
+            return step_full(carry, tile, blabels, bids)
+        # Whole SEG-column segments, gathered in pick order.
+        cand_d = torch.gather(tile.view(qb, nseg, SEG), 1,
+                              seg_idx[:, :, None].expand(qb, s, SEG))
+        cand_l = blabels.view(nseg, SEG)[seg_idx]
+        cand_i = bids.view(nseg, SEG)[seg_idx]
+        return merge_cand(carry, cand_d.reshape(qb, s * SEG),
+                          cand_l.reshape(qb, s * SEG),
+                          cand_i.reshape(qb, s * SEG))
+
+    if select not in ("sort", "topk", "seg"):
         raise ValueError(f"unknown select {select!r}")
-    return {"sort": step_sort, "topk": step_topk}[select]
+    return {"sort": step_sort, "topk": step_topk, "seg": step_seg}[select]
 
 
 def streaming_topk(query_attrs: torch.Tensor, data_attrs: torch.Tensor,
                    data_labels: torch.Tensor, data_ids: torch.Tensor, k: int,
-                   data_block: int, select: str = "sort") -> TopK:
+                   data_block: int, select: str = "sort",
+                   use_pallas: bool = False) -> TopK:
     """Top-k per query, folding data blocks of ``data_block`` rows into a
     running carry (``data_attrs`` is padded to whole blocks with id = -1
-    sentinel rows)."""
+    sentinel rows). "extract" takes the array-ids fallback (its kernel
+    needs affine ids); "seg" on blocks that are not whole 128-column
+    segments of at least two takes "topk", as the reference does."""
     n = data_attrs.shape[0]
     if n % data_block:
         raise ValueError("pad data to a multiple of data_block first")
-    step = make_block_step(select, k)
+    if select == "extract":
+        select = streaming_fallback(use_pallas)
+    if select == "seg" and (data_block % 128 != 0 or data_block < 256):
+        select = "topk"
+    step = make_block_step(select, k, use_pallas)
     carry = init_topk(query_attrs.shape[0], k, query_attrs.device)
     for lo in range(0, n, data_block):
         hi = lo + data_block

@@ -8,9 +8,18 @@ import pytest
 import torch
 
 from dmlp_tpu_torch import kernels
+from dmlp_tpu_torch.ops import dist_segmin as ds
 from dmlp_tpu_torch.ops import extract as ex
 
 PKG = Path(kernels.__file__).resolve().parents[1]
+
+
+def test_every_kernel_source_is_built():
+    """K1/K2 and K3, one source each; build_all starts one nvcc per
+    source."""
+    assert kernels.SOURCES == ("extract_topk", "dist_segmin")
+    assert set(kernels.LAUNCHES) == {"fused_topk", "extract_topk",
+                                     "fused_dist_segmin"}
 
 
 @pytest.mark.parametrize("name", kernels.SOURCES)
@@ -57,18 +66,24 @@ def test_missing_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
     assert after == existing
 
 
-def test_kernel_source_is_hand_written_cuda():
+# source: the tile constants its wrapper sizes outputs by
+TILES = {"extract_topk": (f"TQ = {ex.QUERY_TILE};", f"TN = {ex.BLOCK_ROWS};"),
+         "dist_segmin": (f"SEG = {ds.SEG};", f"TQ = {ds.QUERY_TILE};")}
+
+
+@pytest.mark.parametrize("name", kernels.SOURCES)
+def test_kernel_source_is_hand_written_cuda(name):
     """No library kernel for the product: only the CUDA runtime and math
     headers, no cuBLAS / cuDNN, no tensor-core instruction (so no TF32);
     the tiles match the wrapper's."""
-    src = (PKG / "kernels" / "extract_topk.cu").read_text()
+    src = (PKG / "kernels" / f"{name}.cu").read_text()
     includes = [ln.split()[1] for ln in src.splitlines()
                 if ln.startswith("#include")]
     assert includes == ["<cuda_runtime.h>", "<cuda_bf16.h>", "<math.h>",
                         "<stdint.h>"]
     for banned in ("cublas", "cudnn", "wmma", "mma_sync", "mma.sync"):
         assert banned not in src.lower(), banned
-    assert f"TQ = {ex.QUERY_TILE};" in src and f"TN = {ex.BLOCK_ROWS};" in src
+    assert all(t in src for t in TILES[name])
     assert 'extern "C"' in src and "cudaGetLastError" in src
 
 
@@ -77,6 +92,9 @@ def test_cpu_tensors_take_the_plain_version_only(monkeypatch, tmp_path):
     decides by probing."""
     _hide_nvcc(monkeypatch, tmp_path)
     q, d = torch.rand(16, 4), torch.rand(256, 4)
+    before = dict(kernels.LAUNCHES)
     od, oi, it = ex.extract_topk(q, d, n_real=256, kc=8)
     assert od.shape == (16, 8) and it.shape == (1, 1)
-    assert kernels._loaded == {}
+    dist, segmin = ds.fused_dist_segmin(q, d, torch.arange(256))
+    assert dist.shape == (16, 256) and segmin.shape == (16, 2)
+    assert kernels._loaded == {} and kernels.LAUNCHES == before

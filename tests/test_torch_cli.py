@@ -24,6 +24,12 @@ INPUTS = {   # path -> (datagen args, flags that select it)
     "sort": ((2500, 30, 6, -10.0, 10.0, 1, 12, 4), []),
     "topk": ((9000, 24, 6, 0.0, 50.0, 1, 16, 5), []),
     "extract": ((9000, 24, 6, 0.0, 50.0, 1, 16, 5), ["--pallas"]),
+    # The router: k past the kernel's width for some queries.
+    "mixed_k": ((9000, 24, 6, 0.0, 50.0, 1, 900, 5), ["--pallas"]),
+    # The multi-pass driver: k past the kernel's width for every query.
+    "wide_k": ((9000, 8, 4, 0.0, 50.0, 600, 700, 5), ["--pallas"]),
+    "seg": ((9000, 24, 6, 0.0, 50.0, 1, 16, 5), ["--select", "seg",
+                                                 "--pallas"]),
 }
 
 
@@ -33,9 +39,18 @@ def _run(main, argv, text):
     return out.getvalue(), err.getvalue()
 
 
-@pytest.mark.parametrize("mode", [[], ["--fast"], ["--debug"]],
-                         ids=["exact", "fast", "debug"])
-@pytest.mark.parametrize("path", list(INPUTS))
+MODES = {"exact": [], "fast": ["--fast"], "debug": ["--debug"]}
+# Fast mode prints the f32 device ordering. At k in the hundreds on
+# continuous data, f32 near-ties fall differently in any two frameworks'
+# sums (and from the float64 oracle in both), so the wide-k inputs are
+# held in exact and debug mode here; test_torch_engine holds the router's
+# fast mode on an integer grid, where f32 is exact.
+WIDE_K = ("mixed_k", "wide_k")
+
+
+@pytest.mark.parametrize("path,mode", [
+    pytest.param(p, MODES[m], id=f"{p}-{m}") for p in INPUTS for m in MODES
+    if not (m == "fast" and p in WIDE_K)])
 def test_stdout_matches_reference_and_golden(path, mode):
     gen, flags = INPUTS[path]
     text = generate_input_text(*gen, seed=7)

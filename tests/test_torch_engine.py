@@ -3,10 +3,12 @@
 Both engines solve the identical instance (io.convert carries it across)
 under the identical configuration; QueryResults and the stdout bytes
 (format_results, checksums and the --debug listing) must match exactly, on
-the "sort", "topk" and "extract" paths, in exact and fast mode. On the CPU
-the reference's extraction kernel runs in Pallas interpret mode (through
-its own native_pallas_backend probe) and the port's runs its plain
-PyTorch version.
+the "sort", "topk", "seg" and "extract" paths, through the
+heterogeneous-k router and the multi-pass wide-k driver, in exact and fast
+mode; the path bookkeeping (``_last_select``, ``last_hetk``,
+``last_mp_passes``) must match too. On the CPU the reference's kernels run
+in Pallas interpret mode (through its own native_pallas_backend probe) and
+the port's run their plain PyTorch versions.
 """
 
 import numpy as np
@@ -19,6 +21,8 @@ from dmlp_tpu.config import EngineConfig as RefConfig  # noqa: E402
 from dmlp_tpu.engine.single import SingleChipEngine as RefEngine  # noqa: E402
 from dmlp_tpu.golden.reference import knn_golden  # noqa: E402
 from dmlp_tpu.io.datagen import generate_input_text  # noqa: E402
+from dmlp_tpu.io.grammar import KNNInput as RefInput  # noqa: E402
+from dmlp_tpu.io.grammar import Params as RefParams  # noqa: E402
 from dmlp_tpu.io.grammar import parse_input_text  # noqa: E402
 from dmlp_tpu.io.report import format_results  # noqa: E402
 from dmlp_tpu_torch.config import EngineConfig  # noqa: E402
@@ -122,13 +126,111 @@ def test_duplicate_ties_repaired_on_every_path():
         assert eng.last_repairs > 0
 
 
+def _against_reference(inp, exact=True, **kw):
+    """Solve ``inp`` (a reference KNNInput) with both engines under one
+    configuration; results, stdout bytes and path bookkeeping must be
+    equal. Returns the port's engine."""
+    cfg = RefConfig(exact=exact, **kw)
+    ref = RefEngine(cfg)
+    want = ref.run(inp)
+    port = SingleChipEngine(config_from_reference(cfg, device="cpu"))
+    got = port.run(from_reference(inp))
+    _assert_same(got, want)
+    assert port_format(got) == format_results(want)
+    assert port_format(got) == format_results(knn_golden(inp))
+    assert (port._last_select, port.last_hetk, port.last_mp_passes) == \
+        (ref._last_select, ref.last_hetk, ref.last_mp_passes)
+    return port
+
+
+def _uniform(seed, n, nq, na, lo, hi, ks, integer=False):
+    rng = np.random.default_rng(seed)
+    if integer:
+        data = rng.integers(lo, hi, (n, na)).astype(np.float64)
+        queries = rng.integers(lo, hi, (nq, na)).astype(np.float64)
+    else:
+        data = rng.uniform(lo, hi, (n, na))
+        queries = rng.uniform(lo, hi, (nq, na))
+    labels = rng.integers(0, 5, n).astype(np.int32)
+    return RefInput(RefParams(n, nq, na), labels, data,
+                    np.asarray(ks, np.int32), queries)
+
+
+def test_router_splits_wide_k_outliers():
+    inp = _uniform(77, 2000, 6, 4, -30, 30, [700, 1, 640, 2000, 513, 512])
+    port = _against_reference(inp, select="extract", use_pallas=True)
+    assert port.last_hetk == (1, 5)
+
+
+@pytest.mark.parametrize("seed", [201, 202, 203])
+def test_router_random_mixed_k(seed):
+    """The reference's mixed-k fuzz inputs: most queries small-k, a few
+    wide, duplicate-heavy about half the time."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(600, 2200))
+    nq = int(rng.integers(3, 30))
+    na = int(rng.integers(1, 7))
+    if rng.random() < 0.5:
+        data = rng.integers(0, 3, (n, na)).astype(np.float64)
+        queries = rng.integers(0, 3, (nq, na)).astype(np.float64)
+    else:
+        data = rng.uniform(-20, 20, (n, na))
+        queries = rng.uniform(-20, 20, (nq, na))
+    labels = rng.integers(0, 5, n).astype(np.int32)
+    ks = rng.integers(1, 40, nq).astype(np.int32)
+    n_out = int(rng.integers(1, max(2, nq // 3)))
+    out_rows = rng.choice(nq, n_out, replace=False)
+    ks[out_rows] = rng.integers(520, n + 1, n_out)
+    inp = RefInput(RefParams(n, nq, na), labels, data, ks, queries)
+    port = _against_reference(inp, select="extract", use_pallas=True)
+    assert port.last_hetk == (nq - n_out, n_out)
+
+
+def test_router_fast_mode():
+    """Fast mode prints the device's f32 ordering; integer attributes make
+    it exact, so distances match too."""
+    ks = np.random.default_rng(88).integers(1, 30, 10)
+    ks[2], ks[7] = 900, 1500
+    inp = _uniform(88, 1500, 10, 4, -7, 8, ks, integer=True)
+    port = _against_reference(inp, exact=False, select="extract",
+                              use_pallas=True)
+    assert port.last_hetk == (8, 2)
+
+
+def test_multipass_all_wide_k():
+    inp = _uniform(80, 1200, 4, 3, -10, 10, [600, 700, 1200, 997])
+    port = _against_reference(inp, select="extract", use_pallas=True)
+    assert port.last_hetk is None and port.last_mp_passes >= 2
+
+
+def test_streaming_seg_driver():
+    """--select seg --pallas: K3 feeds the fold; nseg = 40 > S = 32, so
+    the segment gather runs."""
+    inp = parse_input_text(generate_input_text(9000, 40, 6, -5, 5, 1, 4, 4,
+                                               seed=51))
+    port = _against_reference(inp, use_pallas=True, select="seg",
+                              data_block=8192, query_block=16, margin=0)
+    assert port._last_select == "seg"
+
+
+def test_multipass_declines_and_streams():
+    """Every k near 8,000 at n = 9,000 needs more than 16 passes: no
+    router bulk, no multi-pass, and the extraction kernel cannot take the
+    width, so the solve streams through "seg"."""
+    inp = parse_input_text(generate_input_text(9000, 4, 4, 0, 100, 7900,
+                                               8100, 5, seed=4))
+    port = _against_reference(inp, use_pallas=True)
+    assert port._last_select == "seg" and port.last_mp_passes == 0
+
+
 def test_not_ported_paths_raise():
-    inp = from_reference(parse_input_text(generate_input_text(
-        9000, 4, 4, 0, 10, 600, 600, 3, seed=2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SingleChipEngine(EngineConfig(use_pallas=True, device="cpu")).run(inp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SingleChipEngine(EngineConfig(select="seg", device="cpu")).run(inp)
+    """What the port once refused here (a kc above 512 with --pallas, and
+    select="seg") now equals the reference. The mesh engines still
+    raise."""
+    inp = parse_input_text(generate_input_text(9000, 4, 4, 0, 10, 600, 600,
+                                               3, seed=2))
+    assert _against_reference(inp, use_pallas=True).last_mp_passes == 2
+    assert _against_reference(inp, select="seg")._last_select == "seg"
     with pytest.raises(NotImplementedError, match="A9"):
         SingleChipEngine(EngineConfig(mode="sharded", device="cpu"))
 

@@ -96,9 +96,62 @@ def test_streaming_topk_matches_reference():
     _assert_same(got, want)
 
 
-def test_seg_step_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttopk.make_block_step("seg", 8)
+def _seg_hazard(qa, da, ids, k):
+    """Whether the reference's seg step takes its full branch on this
+    block: S < nseg and some row's S-th smallest segment min ties T."""
+    d = np.asarray(jax_dist(jnp.asarray(qa), jnp.asarray(da),
+                            jnp.asarray(ids)))
+    segmin = np.sort(d.reshape(d.shape[0], -1, 128).min(-1), 1)
+    s = min(segmin.shape[1], k + 16)
+    last, t = segmin[:, s - 1], segmin[:, min(k, s) - 1]
+    tie = np.isfinite(last) & (last <= t)
+    return s < segmin.shape[1] and bool(tie.any())
+
+
+# name: (attribute range, segments per block, k)
+SEG_CASES = {"seg": (60, 40, 8),        # nseg > k + 16, no tie at T
+             "hazard": (3, 40, 8),      # duplicate grid: ties at T -> full
+             "s_eq_nseg": (60, 16, 40)}  # S == nseg -> full, no decision
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_step_matches_reference(case, use_pallas):
+    """Two folds of the seg step from an empty carry (the second carries
+    in), against the reference step (its K3 in interpret mode): ids,
+    labels and distances exactly, on integer grids."""
+    hi, nseg, k = SEG_CASES[case]
+    assert (nseg <= k + 16) == (case == "s_eq_nseg")
+    qa, da, labels, ids = _tie_grid(6, q=24, n=2 * 128 * nseg, a=4, hi=hi)
+    b = 128 * nseg
+    tstep = ttopk.make_block_step("seg", k, use_pallas)
+    jstep = jtopk.make_block_step("seg", k, use_pallas)
+    tc = ttopk.init_topk(qa.shape[0], k, torch.device("cpu"))
+    jc = jtopk.init_topk(qa.shape[0], k)
+    for lo in (0, b):
+        blk = (da[lo:lo + b], labels[lo:lo + b], ids[lo:lo + b])
+        assert _seg_hazard(qa, blk[0], blk[2], k) == (case == "hazard")
+        tc = tstep(tc, torch.from_numpy(qa),
+                   *(torch.from_numpy(np.ascontiguousarray(x)) for x in blk))
+        jc = jstep(jc, jnp.asarray(qa), *(jnp.asarray(x) for x in blk))
+    _assert_same(tc, jc)
+
+
+@pytest.mark.parametrize("select,data_block", [("extract", 256),
+                                               ("seg", 128)])
+def test_streaming_topk_remaps_like_reference(select, data_block):
+    """"extract" takes the array-ids fallback ("seg" with the hand
+    kernels); "seg" on blocks of fewer than two whole segments takes
+    "topk" — both as the reference does."""
+    qa, da, labels, ids = _tie_grid(7, n=1024, hi=8)
+    got = ttopk.streaming_topk(torch.from_numpy(qa), torch.from_numpy(da),
+                               torch.from_numpy(labels),
+                               torch.from_numpy(ids), 24, data_block,
+                               select, use_pallas=True)
+    want = jtopk.streaming_topk(jnp.asarray(qa), jnp.asarray(da),
+                                jnp.asarray(labels), jnp.asarray(ids), 24,
+                                data_block, select=select, use_pallas=True)
+    _assert_same(got, want)
     assert ttopk.streaming_fallback(True) == jtopk.streaming_fallback(True)
     assert ttopk.streaming_fallback(False) == jtopk.streaming_fallback(False)
 
