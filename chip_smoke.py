@@ -17,15 +17,22 @@ final result line. Standard output:
    ptxas register / spill lines;
    ``kernel_case``: each CUDA kernel held against its plain PyTorch
    version on the card, with CUDA-event times (median of several launches
-   after a warm-up) at the shapes the main paths give it — K1/K2 (lists
-   under ``ops.extract.compare_lists``' tolerance, ``iters`` exactly, gate
-   on against gate off bit for bit), also with a multi-pass ``floor``; K3
-   (``dist`` and ``segmin`` under ``ops.extract.list_tolerance``, +inf
-   exactly where ids < 0, ``segmin`` bit for bit against the kernel's own
-   tile);
+   after a warm-up) at the shapes the main paths give it — K1/K2 at the
+   data-axis split ``choose_splits`` picks for the card and at S = 1 in
+   the same run (lists under ``ops.extract.compare_lists``' tolerance
+   against the plain version at the same S, ``iters`` exactly, the two
+   splits' sorted lists bit for bit, gate on against gate off bit for
+   bit), also with a multi-pass ``floor``, at the wide-k bulk and at the
+   multi-pass first pass; the merge of the split lists (bit for bit
+   against its plain version); K3 (``dist`` and ``segmin`` under
+   ``ops.extract.list_tolerance``, +inf exactly where ids < 0, ``segmin``
+   bit for bit against the kernel's own tile);
+   ``split_sweep``: K1 at the four main-path extraction shapes for
+   S = 1..15, each sorted list bit for bit against S = 1's;
    ``main_path``: five solves through ``dmlp_tpu_torch.cli.main`` on the
    card, each with the launch counts set to 0 just before it, read just
-   after and checked against the counts its plan implies, and its peak
+   after and checked against the counts its plan implies (a merge for
+   every K1/K2 launch whose shape splits), and its peak
    device memory: bench config 4 (200,000 x 10,000 x 64, k in 1..32) with
    ``DMLP_TPU_FUSED=0`` (K2; also the warm-up) and as shipped (K1); the
    wide-k mix (config 4's data, k in 1..1024: the heterogeneous-k router,
@@ -36,13 +43,15 @@ final result line. Standard output:
    float64 oracle (``golden.fast``) on a seeded subset byte for byte;
    ``profile``: the timed regions of config 4, the wide-k mix, the wide-k
    multi-pass and config 2's seg solve once more under torch.profiler —
-   device time by kernel, device busy time, idle share, and the host's
-   blocking reads;
+   device time by kernel (the split kernel, the merge and K3 by name),
+   device busy time, idle share, and the host's blocking reads;
 3. one ``{"kernels": [...]}`` line: per kernel its route, source, the TPU
    kernel it replaces, main-path launches (in all and per path), max
-   error, time, plain time, the bound (bytes over 3.35 TB/s or operations
-   over the peak for their type, whichever is larger) and the library time
-   (none: no single PyTorch call computes these functions);
+   error, time and the shape it is from, plain time, the bound (bytes
+   over 3.35 TB/s or operations over the peak for their type, whichever
+   is larger) and the library time (none: no single PyTorch call computes
+   these functions); K1's row also has its time at S = 1 and at the
+   chosen S at each main-path shape;
 4. ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--phases`` and ``--reps`` narrow a run while developing; the default runs
@@ -83,31 +92,51 @@ CONFIGS = {
                     num_labels=10, seed=42),
 }
 CONFIG4 = CONFIGS["config4"]
-KERNELS = ("fused_topk", "extract_topk", "fused_dist_segmin")
+KERNELS = ("fused_topk", "extract_topk", "extract_merge",
+           "fused_dist_segmin")
+# The merge stands in for the sequential grid axis of the Pallas kernel,
+# along which its (tq, kc) lists are carried from block to block.
 REPLACES = {"fused_topk": "dmlp_tpu/ops/pallas_fused.py:108",
             "extract_topk": "dmlp_tpu/ops/pallas_extract.py:390",
+            "extract_merge": "dmlp_tpu/ops/pallas_extract.py:499",
             "fused_dist_segmin": "dmlp_tpu/ops/pallas_distance.py:93"}
 SOURCES = {"fused_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
            "extract_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
+           "extract_merge": "dmlp_tpu_torch/kernels/extract_topk.cu",
            "fused_dist_segmin": "dmlp_tpu_torch/kernels/dist_segmin.cu"}
 # (run, config, CLI flags, DMLP_TPU_FUSED, launches the plan implies,
-# golden subset size). Config 4: 4 chunks of 50,176 rows. The mix: 4,376
-# bulk queries on K1 and 5,624 outliers through K3, over the same 4
-# chunks. The multi-pass: kcap 4,608 = 9 passes of 512, pass 1 over 4
-# chunks and 8 more over the resident dataset. Config 2 with seg: 2 chunks
-# x 5 query blocks of 1,024.
+# K1/K2 launches as (count, qb, b, kc), golden subset size). Config 4: 4
+# chunks of 50,176 rows. The mix: 4,376 bulk queries (qpad 4,384) on K1
+# and 5,624 outliers through K3, over the same 4 chunks. The multi-pass:
+# kcap 4,608 = 9 passes of 512, pass 1 over 4 chunks of 51,200 rows and 8
+# more over the resident 204,800. Config 2 with seg: 2 chunks x 5 query
+# blocks of 1,024. Each K1/K2 launch whose shape splits adds one merge.
 MAIN_RUNS = (
     ("config4_K2_warmup", "config4", ["--pallas"], "0",
-     {"fused_topk": 0, "extract_topk": 4, "fused_dist_segmin": 0}, 0),
+     {"fused_topk": 0, "extract_topk": 4, "fused_dist_segmin": 0},
+     [(4, 10016, 50176, 48)], 0),
     ("config4_K1", "config4", ["--pallas"], "1",
-     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 0}, 1000),
+     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 0},
+     [(4, 10016, 50176, 48)], 1000),
     ("widek_mix", "widek_mix", ["--pallas"], "1",
-     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 4}, 1000),
+     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 4},
+     [(4, 4384, 50176, 512)], 1000),
     ("widek_multipass", "widek_mp", ["--pallas"], "1",
-     {"fused_topk": 12, "extract_topk": 0, "fused_dist_segmin": 0}, 100),
+     {"fused_topk": 12, "extract_topk": 0, "fused_dist_segmin": 0},
+     [(4, 1024, 51200, 512), (8, 1024, 204800, 512)], 100),
     ("config2_seg", "config2", ["--select", "seg", "--pallas"], "1",
-     {"fused_topk": 0, "extract_topk": 0, "fused_dist_segmin": 10}, 1000),
+     {"fused_topk": 0, "extract_topk": 0, "fused_dist_segmin": 10}, [],
+     1000),
 )
+# K1's main-path shapes: kernel case -> the label of its row in PERF.md.
+MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
+               "multipass_first": "multi-pass first pass, fresh",
+               "multipass_first_carried": "multi-pass first pass, carried",
+               "widek_bulk_fresh": "wide-k bulk, fresh",
+               "widek_bulk_carried": "wide-k bulk, carried",
+               "config4_fresh_f32": "config-4 chunk, fresh",
+               "config4_carried_f32": "config-4 chunk, carried"}
+SWEEP_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 15)
 _TEXTS: dict = {}
 _INPUTS: dict = {}
 
@@ -153,16 +182,28 @@ def phase_build():
     emit({"phase": "build", "ms": ms, "libraries": libs})
 
 
+def lexsorted(od, oi):
+    """Lists sorted by (distance, id), for comparing two splits as sets."""
+    import torch
+    order = torch.argsort(oi, dim=1, stable=True)
+    order = torch.gather(order, 1, torch.argsort(
+        torch.gather(od, 1, order), dim=1, stable=True))
+    return torch.gather(od, 1, order), torch.gather(oi, 1, order)
+
+
 def kernel_cases(reps: int):
-    """Hold K1/K2 and K3 against their plain versions; returns per-kernel
-    records for the summary line (K1/K2 from config 4's carried f32 case,
-    K3 from the wide-k mix's outlier f32 case)."""
+    """Hold K1/K2, their merge and K3 against their plain versions;
+    returns per-kernel records for the summary line (K1/K2 from config 4's
+    carried f32 case, the merge from the multi-pass resident pass, K3 from
+    the wide-k mix's outlier f32 case) and K1's times at the main-path
+    shapes."""
     import torch
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.engine import single
     from dmlp_tpu_torch.ops import extract as ex
 
     dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     cfg = EngineConfig(use_pallas=True)
     na = CONFIG4["num_attrs"]
     _, _, chunk_rows = single.plan_chunks(
@@ -178,7 +219,7 @@ def kernel_cases(reps: int):
                                  device=dev).float()
         return torch.rand(shape, generator=gen, device=dev) * hi
 
-    summary = {}
+    summary, by_shape, sweep_inputs = {}, {}, {}
 
     def run_case(name, q, d, *, n_real, id_base, kc, carry=None,
                  precision="f32", d_prev=None, floor=None, main=False):
@@ -190,43 +231,79 @@ def kernel_cases(reps: int):
             torch.cat([(d * d).sum(-1), (d_prev * d_prev).sum(-1)])
         tol = ex.list_tolerance(qn, float(dn_all.max()), q.shape[1],
                                 precision)
+        chosen = ex.choose_splits(q.shape[0], d.shape[0], kc, sm_count)
+        if name in MAIN_SHAPES:
+            sweep_inputs[name] = (q, d, cd, ci, kw)
+
+        def plain(gate, splits):
+            pd, pi, it = ex.split_partials_plain(q, d, cd, ci, mxu_gate=gate,
+                                                 splits=splits, **kw)
+            if splits == 1:
+                return pd[0], pi[0], it, None
+            return (*ex.merge_partials_plain(cd, ci, pd, pi), it, (pd, pi))
+
         outs = {}
         for gate in (True, False):
             kname = "fused_topk" if gate else "extract_topk"
-            ms, (od, oi, it) = time_ms(lambda: ex.extract_topk(
-                q, d, cd, ci, mxu_gate=gate, **kw), reps)
-            plain_ms, (pd, pi, pit) = time_ms(lambda: ex.extract_topk_plain(
-                q, d, cd, ci, mxu_gate=gate, **kw), max(1, reps // 2))
-            torch.cuda.synchronize()
-            cmp = ex.compare_lists(od, oi, pd, pi, tol)
-            iters_equal = bool(torch.equal(it, pit))
+            res = {}
+            for splits in dict.fromkeys((chosen, 1)):
+                ms, out = time_ms(lambda: ex.extract_topk(
+                    q, d, cd, ci, mxu_gate=gate, splits=splits, **kw), reps)
+                plain_ms, (pd, pi, pit, parts) = time_ms(
+                    lambda: plain(gate, splits), max(1, reps // 2))
+                torch.cuda.synchronize()
+                cmp = ex.compare_lists(out[0], out[1], pd, pi, tol)
+                cmp["iters_equal"] = bool(torch.equal(out[2], pit))
+                res[splits] = (ms, plain_ms, out, cmp)
+                if gate and parts is not None:
+                    merge_case(summary, name, cd, ci, *parts, reps,
+                               main=name == "multipass_floor")
+            ms, plain_ms, (od, oi, it), cmp = res[chosen]
+            ms1, plain_ms1, (od1, oi1, it1), cmp1 = res[1]
+            same = all(torch.equal(a, b) for a, b in zip(
+                lexsorted(od, oi), lexsorted(od1, oi1)))
             outs[gate] = (od, oi, it)
             rec = {"phase": "kernel_case", "case": name, "kernel": kname,
                    "shape": [q.shape[0], d.shape[0], q.shape[1], kc],
                    "precision": precision, "carry": carry is not None,
                    "floor": floor is not None, "n_real": n_real,
-                   "id_base": id_base, "ms": ms,
-                   "plain_ms": plain_ms, "max_abs_err": cmp["max_abs_err"],
-                   "bad_dist_rows": cmp["bad_dist_rows"],
-                   "bad_id_rows": cmp["bad_id_rows"],
-                   "iters_equal": iters_equal,
+                   "id_base": id_base, "splits": chosen, "ms": ms,
+                   "ms_s1": ms1, "plain_ms": plain_ms,
+                   "plain_ms_s1": plain_ms1,
+                   "max_abs_err": max(cmp["max_abs_err"],
+                                      cmp1["max_abs_err"]),
+                   "bad_dist_rows": cmp["bad_dist_rows"]
+                   + cmp1["bad_dist_rows"],
+                   "bad_id_rows": cmp["bad_id_rows"] + cmp1["bad_id_rows"],
+                   "iters_equal": cmp["iters_equal"]
+                   and cmp1["iters_equal"], "splits_identical": same,
                    "tiles_processed": int(it.sum()),
+                   "tiles_processed_s1": int(it1.sum()),
                    "tiles": it.numel(),
-                   **bound(q, d, kc, it, gate, carry is not None,
+                   **bound(q, d, kc, it1, gate, carry is not None,
                            precision)}
             emit(rec)
-            check(cmp["ok"], f"{name}/{kname}: kernel disagrees with the "
-                             f"plain version {cmp}")
-            check(iters_equal, f"{name}/{kname}: iters differ from the "
-                               "plain version's")
+            for splits, (_, _, _, c) in res.items():
+                check(c["ok"], f"{name}/{kname}/S={splits}: kernel "
+                               f"disagrees with the plain version {c}")
+                check(c["iters_equal"], f"{name}/{kname}/S={splits}: iters "
+                                        "differ from the plain version's")
+            check(same, f"{name}/{kname}: S={chosen} and S=1 sorted lists "
+                        "differ")
             s = summary.setdefault(kname, {"max_abs_err": 0.0})
-            s["max_abs_err"] = max(s["max_abs_err"], cmp["max_abs_err"])
+            s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
             if main:
-                s.update(ms=ms, plain_ms=plain_ms, bound=rec)
+                s.update(ms=ms, plain_ms=plain_ms, bound=rec,
+                         shape=f"{name} {rec['shape']} S={chosen}")
+            if gate and name in MAIN_SHAPES:
+                by_shape[MAIN_SHAPES[name]] = {
+                    "shape": rec["shape"], "splits": chosen,
+                    "ctas": it.shape[0] * chosen, "ms": ms, "ms_s1": ms1,
+                    "bound_ms": rec["bound_ms"]}
         same = torch.equal(outs[True][0], outs[False][0]) \
             and torch.equal(outs[True][1], outs[False][1])
         emit({"phase": "kernel_gate_identity", "case": name,
-              "identical": bool(same)})
+              "splits": chosen, "identical": bool(same)})
         check(same, f"{name}: gate on and gate off lists differ")
         return outs[True]
 
@@ -240,6 +317,14 @@ def kernel_cases(reps: int):
         run_case(f"config4_carried_{prec}", q, d1, n_real=chunk_rows,
                  id_base=chunk_rows, kc=kc, carry=first[:2],
                  precision=prec, d_prev=d0, main=prec == "f32")
+    # The wide-k mix's bulk: 4,376 queries (qpad 4,384) at kb 512 over a
+    # config-4 chunk, carried.
+    qw = q[:4384].clone()
+    qw[4376:] = 0.0
+    first = run_case("widek_bulk_fresh", qw, d0, n_real=chunk_rows,
+                     id_base=0, kc=512)
+    run_case("widek_bulk_carried", qw, d1, n_real=chunk_rows,
+             id_base=chunk_rows, kc=512, carry=first[:2], d_prev=d0)
     # The widest list the kernel takes.
     run_case("kc512", q[:2048].contiguous(), d0, n_real=chunk_rows,
              id_base=0, kc=512)
@@ -252,20 +337,90 @@ def kernel_cases(reps: int):
     first = ex.extract_topk_plain(qr, dr0, n_real=8192, id_base=0, kc=kc)
     run_case("ragged_id_base", qr, dr1, n_real=5000, id_base=123456,
              kc=kc, carry=first[:2], d_prev=dr0)
-    # A resident pass of the multi-pass driver (204,800 x 1,024 x 64,
-    # kc 512): the floor comes from a first pass through _mp_floor.
+    # The multi-pass driver (204,800 x 1,024 x 64, kc 512): the first pass
+    # over a 51,200-row chunk, then a resident pass whose floor comes from
+    # a first pass through _mp_floor.
     mp = CONFIGS["widek_mp"]
     qm = uniform((mp["num_queries"], na), 9)
     dm = uniform((mp["num_data"], na), 10)
+    rows = mp["num_data"] // 4
+    first = run_case("multipass_first", qm, dm[:rows].contiguous(),
+                     n_real=rows, id_base=0, kc=512)
+    run_case("multipass_first_carried", qm, dm[rows:2 * rows].contiguous(),
+             n_real=rows, id_base=rows, kc=512, carry=first[:2],
+             d_prev=dm[:rows])
     od, _, _ = ex.extract_topk(qm, dm, n_real=mp["num_data"], kc=512)
     floor, _ = single._mp_floor(
         od, (qm * qm).sum(-1), (dm * dm).sum(-1).max(), staging="float32",
         na=na)
     run_case("multipass_floor", qm, dm, n_real=mp["num_data"], id_base=0,
              kc=512, floor=floor)
+    split_sweep(sweep_inputs, sm_count)
     segmin_cases(summary, uniform, reps)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
+    for label, r in by_shape.items():
+        check(r["splits"] == 1 or r["ms"] <= r["ms_s1"],
+              f"{label}: S={r['splits']} measured slower than S=1 {r}")
+    for label in ("multi-pass resident pass", "multi-pass first pass, fresh",
+                  "multi-pass first pass, carried"):
+        r = by_shape[label]
+        check(r["splits"] > 1 and r["ms"] < r["ms_s1"],
+              f"{label}: the split does not pay {r}")
+    summary["fused_topk"]["ms_by_shape"] = by_shape
     return summary
+
+
+def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
+    """Hold the merge kernel against its plain version on the plain
+    version's partial lists: both are exact, so bit for bit."""
+    import torch
+    from dmlp_tpu_torch.ops import extract as ex
+    ms, (od, oi) = time_ms(lambda: ex.merge_partials(cd, ci, part_d, part_i),
+                           reps)
+    plain_ms, (pd, pi) = time_ms(
+        lambda: ex.merge_partials_plain(cd, ci, part_d, part_i), reps)
+    torch.cuda.synchronize()
+    same = torch.equal(od, pd) and torch.equal(oi, pi)
+    nsplit, qb, kc = part_d.shape
+    nbytes = 8 * qb * kc * (nsplit + (cd is not None) + 1)
+    rec = {"phase": "kernel_case", "case": name, "kernel": "extract_merge",
+           "shape": [qb, nsplit, kc], "carry": cd is not None, "ms": ms,
+           "plain_ms": plain_ms, "identical": bool(same),
+           "max_abs_err": float((od.double() - pd.double()).abs().nan_to_num(
+               0.0).max()),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit(rec)
+    check(same, f"{name}: the merge kernel differs from its plain version")
+    s = summary.setdefault("extract_merge", {"max_abs_err": 0.0})
+    s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
+    if main or "ms" not in s:
+        s.update(ms=ms, plain_ms=plain_ms, bound=rec,
+                 shape=f"{name} {rec['shape']}")
+
+
+def split_sweep(inputs, sm_count):
+    """K1 at each main-path shape for every S the launch takes in
+    SWEEP_SPLITS: CUDA-event medians, each sorted list bit for bit against
+    S = 1's. The data behind choose_splits."""
+    import torch
+    from dmlp_tpu_torch.ops import extract as ex
+    for name, (q, d, cd, ci, kw) in inputs.items():
+        limit = ex.max_splits(d.shape[0], kw["kc"])
+        times, ref = {}, None
+        for splits in (n for n in SWEEP_SPLITS if n <= limit):
+            ms, (od, oi, _) = time_ms(lambda: ex.extract_topk(
+                q, d, cd, ci, mxu_gate=True, splits=splits, **kw), 3)
+            got = lexsorted(od, oi)
+            if ref is None:
+                ref = got
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"{name}: S={splits} sorted lists differ from S=1's")
+            times[splits] = ms
+        emit({"phase": "split_sweep", "case": name,
+              "shape": [q.shape[0], d.shape[0], q.shape[1], kw["kc"]],
+              "chosen": ex.choose_splits(q.shape[0], d.shape[0], kw["kc"],
+                                         sm_count),
+              "ms_by_splits": times})
 
 
 def segmin_cases(summary, uniform, reps):
@@ -326,7 +481,8 @@ def segmin_cases(summary, uniform, reps):
         s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"],
                                rec["segmin_max_abs_err"])
         if main:
-            s.update(ms=ms, plain_ms=plain_ms, bound=rec)
+            s.update(ms=ms, plain_ms=plain_ms, bound=rec,
+                     shape=f"{name} {rec['shape']}")
 
     qo = uniform((n_out, na), 11)
     d_last = uniform((chunk_rows, na), 12)
@@ -390,10 +546,15 @@ def main_path():
     launches per run."""
     import torch
     from dmlp_tpu_torch import cli, kernels
+    from dmlp_tpu_torch.ops.extract import choose_splits
 
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     outputs, launches = {}, {}
-    for label, name, flags, fused, want, subset in MAIN_RUNS:
+    for label, name, flags, fused, want, shapes, subset in MAIN_RUNS:
         c = CONFIGS[name]
+        want = {**want, "extract_merge": sum(
+            n for n, qb, b, kc in shapes
+            if choose_splits(qb, b, kc, sm_count) > 1)}
         t0 = time.perf_counter()
         text = config_text(name)
         gen_ms = (time.perf_counter() - t0) * 1e3
@@ -503,9 +664,13 @@ def profile_main_path():
         busy_us += cur_e - cur_s
         by_name = {}
         for e in dev:
-            k = e.name[:60]
-            by_name[k] = by_name.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+        top = sorted(((k[:60], v) for k, v in by_name.items()),
+                     key=lambda kv: -kv[1])[:8]
+        kernel_ms = {k: sum(v for n, v in by_name.items() if k in n)
+                     for k in ("extract_topk_kernel", "extract_merge_kernel",
+                               "dist_segmin_kernel")}
         syncs = [e for e in events if e.name == "aten::_local_scalar_dense"]
         emit({"phase": "profile", "run": label, "wall_ms": wall_ms,
               "engine_phases_ms": engine.last_phase_ms,
@@ -515,6 +680,7 @@ def profile_main_path():
               "host_scalar_reads": len(syncs),
               "host_scalar_read_ms": sum(
                   e.time_range.elapsed_us() for e in syncs) / 1e3,
+              "kernel_device_ms": kernel_ms,
               "device_ms_by_name": dict(top)})
 
 
@@ -560,10 +726,13 @@ def main(argv=None) -> int:
                          "launches": sum(per_path.values()),
                          "launches_by_path": per_path,
                          "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                         "ms_shape": s["shape"],
                          "plain_ms": s["plain_ms"],
                          "bound_ms": s["bound"]["bound_ms"],
                          "bound_by": s["bound"]["bound_by"],
-                         "library_ms": None})
+                         "library_ms": None,
+                         **({"ms_by_shape": s["ms_by_shape"]}
+                            if "ms_by_shape" in s else {})})
         print(json.dumps({"kernels": rows}), flush=True)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     check(phases >= {"build", "kernels", "main", "profile"},

@@ -29,11 +29,12 @@ SOURCES = ("extract_topk", "dist_segmin")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 # Kernel launches by kernel name ("fused_topk" = K1, gate on;
-# "extract_topk" = K2, gate off; "fused_dist_segmin" = K3). A wrapper adds
-# one where it launches its CUDA kernel, and nowhere else: never for the
-# plain version.
+# "extract_topk" = K2, gate off; "extract_merge" = the merge of K1/K2's
+# split partial lists, one per launch at S > 1; "fused_dist_segmin" = K3).
+# A wrapper adds one where it launches its CUDA kernel, and nowhere else:
+# never for the plain version.
 LAUNCHES: Dict[str, int] = {"fused_topk": 0, "extract_topk": 0,
-                            "fused_dist_segmin": 0}
+                            "extract_merge": 0, "fused_dist_segmin": 0}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

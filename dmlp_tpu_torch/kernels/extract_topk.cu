@@ -13,12 +13,22 @@
 //   carry U block (a multiset), unsorted, with ids id_base + j (-1 padding).
 //   Insertion is strict (m < T); on equal distances the lowest position is
 //   extracted first, and the slot evicted is the one holding T with the
-//   largest id, so carry entries and earlier positions win ties.
+//   largest id, so carry entries and earlier positions win ties. At S > 1
+//   the merge keeps the same rule: (distance asc, carry first, id asc).
 //   iters[i, j] = 1 when query tile i processed data block j, 0 when the
 //   norm gate or the block-min prefilter skipped it.
 //
-// Design. One CTA of 256 threads owns TQ = 32 query rows and sweeps the
-// chunk's data in blocks of TN = 256 columns:
+// Design. The grid is (ceil(Qb/TQ), S). CTA (i, s) owns TQ = 32 query rows
+// and sweeps the data blocks [s*nblk/S, (s+1)*nblk/S) of TN = 256 columns.
+// At S = 1 the lists are seeded from the carry and written to the output.
+// At S > 1 every CTA seeds its lists with kc copies of (the carry's row
+// maximum, id -1), +inf without a carry, and writes its partial lists to
+// an (S, Qb, kc) scratch; extract_merge_kernel then takes the exact top-kc
+// of carry ++ partials. A split's k-th best is then min(the k-th best of
+// what it swept, the carry's row maximum), which is the threshold of its
+// gate, prefilter and insertion: entries the carry already beats are never
+// inserted, and a seed entry never survives the merge, since the carry's
+// kc entries all sort before it. Per block:
 //   1. (MXU_GATE) one block-wide reduction of the block's real |d| range
 //      gives every row a lower bound (|q| - |d|)^2 deflated by the f32
 //      error bound of engine/finalize.py; when no row's bound beats its
@@ -41,8 +51,15 @@
 // FP32 pipes (no tensor cores), against ~Qb*B*A*4/TQ bytes of data re-read
 // per query tile from L2. The chunk's bytes are tiny next to that work, so
 // the kernel is bound by operations; its FMA loop issues one shared load
-// per 4 FMAs. wgmma (3xTF32 or bf16 splits), TMA staging and a split of the
-// data axis to fill all 132 SMs are later work.
+// per 4 FMAs. With few query tiles (1,024 queries make 32 CTAs) the split
+// of the data axis is what fills the 132 SMs. wgmma with a split-precision
+// product and asynchronous (cp.async / TMA) staging are later work.
+//
+// The merge (extract_merge_kernel): one CTA per row packs carry ++ partials
+// into 64-bit keys (distance bits, then a carry/block flag, then id + 1),
+// bitonic-sorts them in shared memory and writes the first kc, sorted.
+// Non-negative floats and +inf order as unsigned integers; -0.0 is folded
+// to +0.0 first. It moves (1+S)*Qb*kc*8 bytes and is bound by them.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,6 +75,8 @@ constexpr int NW = NT / 32;     // warps per CTA
 constexpr int AK = 32;          // attributes staged per step
 constexpr int DS = TN + 1;      // padded row stride of the transposed data chunk
 constexpr int VPL = TN / 32;    // tile columns each lane holds during extraction
+constexpr int MT = 256;         // threads per merge CTA
+constexpr int MERGE_MAX = 8192; // entries one merge row may hold ((1+S)*kc)
 
 __device__ __forceinline__ float to_bf16_rne(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -80,6 +99,13 @@ __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
@@ -168,14 +194,32 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
   const int row0 = blockIdx.x * TQ;
   const int nrows = min(TQ, qb - row0);
   const int nblk = b / TN;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int j0 = (int)((long long)split * nblk / splits);
+  const int j1 = (int)((long long)(split + 1) * nblk / splits);
+  const bool seed = splits == 1 && cd != nullptr;
+  od += (size_t)split * qb * kc;
+  oi += (size_t)split * qb * kc;
 
+  // S > 1: the carry's row maxima, the value the split lists start from.
+  for (int r = warp; r < TQ; r += NW) {
+    float cmax = INFINITY;
+    if (!seed && cd != nullptr && r < nrows) {
+      float m = -INFINITY;
+      for (int c = lane; c < kc; c += 32)
+        m = fmaxf(m, cd[(size_t)(row0 + r) * kc + c]);
+      cmax = warp_max(m);
+    }
+    if (lane == 0) tcur[r] = cmax;
+  }
+  __syncthreads();
   for (int idx = tid; idx < TQ * kc; idx += NT) {
     const int r = idx / kc;
     float v = INFINITY;
     int id = -1;
-    if (r < nrows && cd != nullptr) {
-      v = cd[(size_t)row0 * kc + idx];
-      id = ci[(size_t)row0 * kc + idx];
+    if (r < nrows) {
+      v = seed ? cd[(size_t)row0 * kc + idx] : tcur[r];
+      id = seed ? ci[(size_t)row0 * kc + idx] : -1;
     }
     ld[idx] = v;
     li[idx] = id;
@@ -193,7 +237,7 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
   }
   __syncthreads();
 
-  for (int j = 0; j < nblk; ++j) {
+  for (int j = j0; j < j1; ++j) {
     const int c0 = j * TN;
     const int pos = c0 + tid;            // this thread's column
     const bool real = pos < n_real;
@@ -327,6 +371,62 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
   }
 }
 
+// One CTA per row: the exact top-kc of carry ++ partial_0 ++ ... ++
+// partial_{S-1} by (distance asc, carry before block, id asc), sorted.
+// npad is the entry count rounded up to a power of two; the padding keys
+// are all ones and sort last.
+__global__ void __launch_bounds__(MT)
+extract_merge_kernel(const float* __restrict__ cd, const int* __restrict__ ci,
+                     const float* __restrict__ pd, const int* __restrict__ pi,
+                     float* __restrict__ od, int* __restrict__ oi, int qb,
+                     int kc, int splits, int npad) {
+  extern __shared__ unsigned long long keys[];
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int nc = cd != nullptr ? kc : 0;
+  const int n = nc + splits * kc;
+  for (int e = tid; e < npad; e += MT) {
+    unsigned long long key = ~0ull;
+    if (e < n) {
+      float v;
+      int id;
+      unsigned long long flag;
+      if (e < nc) {
+        v = cd[(size_t)row * kc + e];
+        id = ci[(size_t)row * kc + e];
+        flag = 0;
+      } else {
+        const int p = e - nc, s = p / kc, c = p - s * kc;
+        const size_t at = ((size_t)s * qb + row) * kc + c;
+        v = pd[at];
+        id = pi[at];
+        flag = 1;
+      }
+      key = ((unsigned long long)__float_as_uint(v + 0.0f) << 32) |
+            (flag << 31) | (unsigned long long)(unsigned)(id + 1);
+    }
+    keys[e] = key;
+  }
+  __syncthreads();
+  for (int size = 2; size <= npad; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < npad / 2; t += MT) {
+        const int lo = 2 * t - (t & (stride - 1)), hi = lo + stride;
+        const unsigned long long a = keys[lo], c = keys[hi];
+        if ((a > c) == ((lo & size) == 0)) {
+          keys[lo] = c;
+          keys[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int c = tid; c < kc; c += MT) {
+    const unsigned long long key = keys[c];
+    od[(size_t)row * kc + c] = __uint_as_float((unsigned)(key >> 32));
+    oi[(size_t)row * kc + c] = (int)(key & 0x7fffffffull) - 1;
+  }
+}
+
 size_t smem_bytes(int kc) {
   return sizeof(float) * ((size_t)TQ * TN + (size_t)AK * TQ + (size_t)AK * DS +
                           3 * (size_t)TQ) +
@@ -337,13 +437,13 @@ template <bool G, bool S, bool H>
 int launch(const float* q, const float* d, const float* qn, const float* dn,
            const float* fl, const float* cd, const int* ci, float* od, int* oi,
            int* iters, int qb, int b, int na, int kc, int n_real, int id_base,
-           float eps_rel, float eps_coef, cudaStream_t stream) {
+           int splits, float eps_rel, float eps_coef, cudaStream_t stream) {
   const size_t smem = smem_bytes(kc);
   cudaError_t e = cudaFuncSetAttribute(
       extract_topk_kernel<G, S, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((qb + TQ - 1) / TQ);
+  const dim3 grid((qb + TQ - 1) / TQ, splits);
   extract_topk_kernel<G, S, H><<<grid, NT, smem, stream>>>(
       q, d, qn, dn, fl, cd, ci, od, oi, iters, qb, b, na, kc, n_real, id_base,
       eps_rel, eps_coef);
@@ -358,22 +458,26 @@ extern "C" {
 // budgets shared memory for the kernel it loaded.
 int dmlp_extract_tile_q() { return TQ; }
 int dmlp_extract_tile_n() { return TN; }
+int dmlp_extract_merge_max() { return MERGE_MAX; }
 long long dmlp_extract_smem_bytes(int kc) { return (long long)smem_bytes(kc); }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// floor_, cd and ci may be null (no floor / fresh lists). b % TN == 0.
+// floor_, cd and ci may be null (no floor / no carry). b % TN == 0 and
+// 1 <= splits <= b / TN. At splits > 1, od and oi are the (splits, qb, kc)
+// partial-list scratch that dmlp_extract_merge reads.
 int dmlp_extract_topk(const float* q, const float* d, const float* qn,
                       const float* dn, const float* floor_, const float* cd,
                       const int* ci, float* od, int* oi, int* iters, int qb,
                       int b, int na, int kc, int n_real, int id_base,
-                      int mxu_gate, int block_skip, int bf16, float eps_rel,
-                      float eps_coef, void* stream) {
-  if (qb <= 0 || b <= 0 || b % TN != 0 || na <= 0 || kc <= 0)
+                      int splits, int mxu_gate, int block_skip, int bf16,
+                      float eps_rel, float eps_coef, void* stream) {
+  if (qb <= 0 || b <= 0 || b % TN != 0 || na <= 0 || kc <= 0 ||
+      splits < 1 || splits > b / TN || splits > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DMLP_LAUNCH(G, S, H)                                                   \
   return launch<G, S, H>(q, d, qn, dn, floor_, cd, ci, od, oi, iters, qb, b,  \
-                         na, kc, n_real, id_base, eps_rel, eps_coef, s)
+                         na, kc, n_real, id_base, splits, eps_rel, eps_coef, s)
   const int key = (mxu_gate ? 4 : 0) | (block_skip ? 2 : 0) | (bf16 ? 1 : 0);
   switch (key) {
     case 0: DMLP_LAUNCH(false, false, false);
@@ -386,6 +490,27 @@ int dmlp_extract_topk(const float* q, const float* d, const float* qn,
     default: DMLP_LAUNCH(true, true, true);
   }
 #undef DMLP_LAUNCH
+}
+
+// Merge the (splits, qb, kc) partial lists pd/pi with the optional carry
+// cd/ci into the sorted (qb, kc) lists od/oi, on `stream`; returns the
+// cudaError_t of the launch. (1 + splits) * kc <= MERGE_MAX.
+int dmlp_extract_merge(const float* cd, const int* ci, const float* pd,
+                       const int* pi, float* od, int* oi, int qb, int kc,
+                       int splits, void* stream) {
+  if (qb <= 0 || kc <= 0 || splits < 1 || (1 + splits) * kc > MERGE_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int n = (cd != nullptr ? kc : 0) + splits * kc;
+  int npad = 2;
+  while (npad < n) npad <<= 1;
+  const size_t smem = sizeof(unsigned long long) * (size_t)npad;
+  cudaError_t e = cudaFuncSetAttribute(
+      extract_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(unsigned long long) * MERGE_MAX));
+  if (e != cudaSuccess) return (int)e;
+  extract_merge_kernel<<<qb, MT, smem, static_cast<cudaStream_t>(stream)>>>(
+      cd, ci, pd, pi, od, oi, qb, kc, splits, npad);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

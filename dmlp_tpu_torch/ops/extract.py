@@ -15,6 +15,20 @@ the block-min prefilter skipped it). The kernel's tiles are its own:
 QUERY_TILE = 32 rows by BLOCK_ROWS = 256 columns, with the (tile_q, kc)
 running lists in shared memory, so kc <= 512 fits the 227 KB a block may
 opt into (:func:`variant_supports` states exactly that budget).
+
+The data axis splits S ways (``splits``; :func:`choose_splits` picks S
+for the card when the caller does not). At S = 1 one CTA per query tile
+sweeps every block from the carry. At S > 1 CTA (i, s) sweeps blocks
+[s*nblk/S, (s+1)*nblk/S) from lists seeded with kc copies of (the
+carry's row maximum, -1) — (+inf, -1) without a carry — so its gate,
+prefilter and insertion compare against min(the k-th best of what it
+swept, the carry's row maximum); a merge kernel then takes the exact
+top-kc of carry ++ partials by (distance asc, carry first, id asc), and
+the lists come out sorted. A seed entry never survives the merge: the
+carry's kc entries sort before it. Each block belongs to one split, so
+``iters`` keeps its layout and meaning. The lists equal S = 1's as sets
+whenever the carry's ids lie below the chunk's, as they do in every
+engine launch.
 """
 
 from __future__ import annotations
@@ -33,9 +47,20 @@ QUERY_TILE = 32     # kernel TQ: query rows per CTA
 BLOCK_ROWS = 256    # kernel TN: data columns per block
 _AK = 32            # kernel AK: attributes staged per step
 KC_MAX = 512
+MERGE_MAX = 8192    # kernel MERGE_MAX: entries one merge row holds, (1+S)*kc
 # Opt-in dynamic shared memory per block on sm_90 (232,448 bytes), less
 # 1 KB of headroom for the kernel's static shared memory.
 SMEM_BUDGET = 232448 - 1024
+# Shared memory of one sm_90 SM (228 KB) and the 1 KB the runtime reserves
+# for each resident CTA: how many CTAs of a given kc share an SM.
+SM_SMEM = 233472
+CTA_SMEM_RESERVED = 1024
+# choose_splits' cost model: a CTA that starts from empty lists spends
+# about SPLIT_FILL data blocks' time per list slot filling them (fitted to
+# H100 sweeps of chip_smoke.py's split_sweep phase), and S is the smallest
+# whose modelled time is within SPLIT_TOL of the least.
+SPLIT_FILL = 0.5
+SPLIT_TOL = 0.05
 
 
 def smem_bytes(kc: int, tile_q: int = QUERY_TILE,
@@ -45,6 +70,37 @@ def smem_bytes(kc: int, tile_q: int = QUERY_TILE,
     vectors, and the (tile_q, kc) distance + id lists."""
     return 4 * (tile_q * tile_n + _AK * tile_q + _AK * (tile_n + 1)
                 + 3 * tile_q) + 8 * tile_q * kc
+
+
+def ctas_per_sm(kc: int) -> int:
+    """Resident CTAs per SM as shared memory allows (2 at kc 48, 1 at
+    kc 512)."""
+    return max(1, SM_SMEM // (smem_bytes(kc) + CTA_SMEM_RESERVED))
+
+
+def max_splits(b: int, kc: int, tile_n: int = BLOCK_ROWS) -> int:
+    """The largest S a launch takes: at least one block per split and
+    (1+S)*kc entries per merge row."""
+    return max(1, min(b // tile_n, MERGE_MAX // kc - 1))
+
+
+def choose_splits(qb: int, b: int, kc: int, sm_count: int) -> int:
+    """S for one launch on a card with ``sm_count`` SMs; a pure function.
+
+    CTAs = ceil(qb/32) * S run in waves of sm_count * ctas_per_sm(kc)
+    slots. Each sweeps nblk/S blocks, after filling its lists from empty
+    (SPLIT_FILL * kc blocks' time: every split of a fresh launch pays it,
+    a carried launch's splits mostly do not), so cost(S) = waves(S) *
+    (SPLIT_FILL * kc + nblk / S). Returns the smallest S whose cost is
+    within SPLIT_TOL of the least: 1 where the split does not pay."""
+    tiles = -(-qb // QUERY_TILE)
+    slots = sm_count * ctas_per_sm(kc)
+    nblk = b // BLOCK_ROWS
+    costs = [-(-tiles * n // slots) * (SPLIT_FILL * kc + nblk / n)
+             for n in range(1, max_splits(b, kc) + 1)]
+    least = min(costs)
+    return next(n for n, c in enumerate(costs, 1)
+                if c <= (1 + SPLIT_TOL) * least)
 
 
 def resolve_variant(kc: int, b: int, qb: int | None = None,
@@ -86,28 +142,46 @@ def _tile_any(flags: torch.Tensor, tile_q: int) -> torch.Tensor:
     return pad.view(nt, tile_q).any(1)
 
 
-def extract_topk_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
-                       carry_d: Optional[torch.Tensor] = None,
-                       carry_i: Optional[torch.Tensor] = None, *, n_real,
-                       id_base=0, kc: int,
-                       floor: Optional[torch.Tensor] = None,
-                       precision: str = "f32", mxu_gate: bool = False,
-                       block_skip: bool = True, tile_q: int = QUERY_TILE,
-                       tile_n: int = BLOCK_ROWS):
-    """The plain PyTorch version of the kernel, block by block.
+def check_splits(splits: int, b: int, kc: int,
+                 tile_n: int = BLOCK_ROWS) -> int:
+    """``splits`` as an int, or ValueError where a launch cannot take it."""
+    splits = int(splits)
+    if not 1 <= splits <= b // tile_n:
+        raise ValueError(f"splits={splits} needs 1 <= S <= {b // tile_n} "
+                         f"data blocks")
+    if splits > 1 and (1 + splits) * kc > MERGE_MAX:
+        raise ValueError(f"splits={splits}: (1+S)*kc = {(1 + splits) * kc} "
+                         f"exceeds the merge's {MERGE_MAX} entries")
+    return splits
+
+
+def split_partials_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
+                         carry_d: Optional[torch.Tensor] = None,
+                         carry_i: Optional[torch.Tensor] = None, *, n_real,
+                         id_base=0, kc: int,
+                         floor: Optional[torch.Tensor] = None,
+                         precision: str = "f32", mxu_gate: bool = False,
+                         block_skip: bool = True, tile_q: int = QUERY_TILE,
+                         tile_n: int = BLOCK_ROWS, splits: int = 1):
+    """The split kernel's plain PyTorch version, block by block: returns
+    the (S, Qb, kc) lists of the S splits and ``iters``.
 
     Per data block of ``tile_n`` columns: the masked distances with
     ``torch.matmul`` (IEEE f32; bf16 rounds the operands first), merged
     into the running lists as the exact top-kc by (dist asc, position asc)
     with the lists' entries winning ties (a stable sort of lists ++
     block). ``iters`` comes from the same per-tile predicates as the
-    kernel — the norm gate against each row's current k-th best, then the
+    kernel — the norm gate against each row's threshold, then the
     block-min prefilter — and a skipped tile's rows are left untouched,
-    exactly as the kernel leaves them."""
+    exactly as the kernel leaves them. At S = 1 the one sweep starts from
+    the carry; at S > 1 split s sweeps blocks [s*nblk/S, (s+1)*nblk/S)
+    from lists seeded with (the carry's row maximum, -1). The threshold is
+    the row's k-th best."""
     qb, na = q_attrs.shape
     b = d_attrs.shape[0]
     if b % tile_n:
         raise ValueError(f"data rows {b} not a multiple of tile_n {tile_n}")
+    splits = check_splits(splits, b, kc, tile_n)
     dev = q_attrs.device
     q32, d32 = q_attrs.float(), d_attrs.float()
     require_ieee_f32(q32)
@@ -115,11 +189,9 @@ def extract_topk_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
     dn = (d32 * d32).sum(-1)
     qx, dx = (_round_bf16(q32), _round_bf16(d32)) if precision == "bf16" \
         else (q32, d32)
-    if carry_d is None:
-        ld = torch.full((qb, kc), torch.inf, device=dev)
-        li = torch.full((qb, kc), -1, dtype=torch.int32, device=dev)
-    else:
-        ld, li = carry_d.float().clone(), carry_i.to(torch.int32).clone()
+    seed_d = torch.full((qb, 1), torch.inf, device=dev)
+    if carry_d is not None:
+        seed_d = carry_d.float().max(1, keepdim=True).values
     fl = None if floor is None else floor.float().reshape(qb)
     ntile, nblk = -(-qb // tile_q), b // tile_n
     iters = torch.zeros((ntile, nblk), dtype=torch.int32, device=dev)
@@ -127,65 +199,124 @@ def extract_topk_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
     qpos = torch.clamp_min(qn, 0.0)
     sq = torch.sqrt(qpos)
     coef = _gate_coef(na, precision)
-    for j in range(nblk):
-        lo, hi = j * tile_n, (j + 1) * tile_n
-        pos = torch.arange(lo, hi, device=dev)
-        real = pos < n_real
-        t = ld.max(1).values
-        go = torch.ones(ntile, dtype=torch.bool, device=dev)
-        if mxu_gate:
-            dnb = dn[lo:hi]
-            sdn = torch.sqrt(torch.clamp_min(dnb, 0.0))
-            mn = torch.where(real, sdn, torch.inf).min()
-            mx = torch.where(real, sdn, -torch.inf).max()
-            dn_hi = torch.where(real, dnb, 0.0).max()
-            gap = torch.clamp_min(torch.maximum(mn - sq, sq - mx), 0.0)
-            lb = gap * gap
-            scale = qpos + dn_hi
-            eps = EPS_REL_F32 * torch.sqrt(lb * scale) + coef * scale
-            lbs = lb - eps
-            go = _tile_any(~torch.isnan(lbs) & (torch.clamp_min(lbs, 0.0)
-                                                < t), tile_q)
-            if not bool(go.any()):
+    parts_d, parts_i = [], []
+    for sp in range(splits):
+        if carry_d is None or splits > 1:
+            ld = seed_d.expand(qb, kc).clone()
+            li = torch.full((qb, kc), -1, dtype=torch.int32, device=dev)
+        else:
+            ld, li = carry_d.float().clone(), carry_i.to(torch.int32).clone()
+        for j in range(sp * nblk // splits, (sp + 1) * nblk // splits):
+            lo, hi = j * tile_n, (j + 1) * tile_n
+            pos = torch.arange(lo, hi, device=dev)
+            real = pos < n_real
+            t = ld.max(1).values
+            go = torch.ones(ntile, dtype=torch.bool, device=dev)
+            if mxu_gate:
+                dnb = dn[lo:hi]
+                sdn = torch.sqrt(torch.clamp_min(dnb, 0.0))
+                mn = torch.where(real, sdn, torch.inf).min()
+                mx = torch.where(real, sdn, -torch.inf).max()
+                dn_hi = torch.where(real, dnb, 0.0).max()
+                gap = torch.clamp_min(torch.maximum(mn - sq, sq - mx), 0.0)
+                lb = gap * gap
+                scale = qpos + dn_hi
+                eps = EPS_REL_F32 * torch.sqrt(lb * scale) + coef * scale
+                lbs = lb - eps
+                go = _tile_any(~torch.isnan(lbs) & (torch.clamp_min(lbs, 0.0)
+                                                    < t), tile_q)
+                if not bool(go.any()):
+                    continue
+            dist = torch.clamp_min(qn[:, None] + dn[None, lo:hi]
+                                   - 2.0 * (qx @ dx[lo:hi].T), 0.0)
+            if fl is not None:
+                dist = torch.where(dist < fl[:, None], torch.inf, dist)
+            dist = torch.where(real[None, :], dist, torch.inf)
+            if block_skip:
+                go = go & _tile_any(dist.min(1).values < t, tile_q)
+            iters[:, j] = go.to(torch.int32)
+            rows = go[tile_of]
+            if not bool(rows.any()):
                 continue
-        dist = torch.clamp_min(qn[:, None] + dn[None, lo:hi]
-                               - 2.0 * (qx @ dx[lo:hi].T), 0.0)
-        if fl is not None:
-            dist = torch.where(dist < fl[:, None], torch.inf, dist)
-        dist = torch.where(real[None, :], dist, torch.inf)
-        if block_skip:
-            go = go & _tile_any(dist.min(1).values < t, tile_q)
-        iters[:, j] = go.to(torch.int32)
-        rows = go[tile_of]
-        if not bool(rows.any()):
-            continue
-        alld = torch.cat([ld, dist], 1)
-        alli = torch.cat([li, (id_base + pos).to(torch.int32)
-                          .expand(qb, -1)], 1)
-        order = torch.argsort(alld, dim=1, stable=True)[:, :kc]
-        ld = torch.where(rows[:, None], torch.gather(alld, 1, order), ld)
-        li = torch.where(rows[:, None], torch.gather(alli, 1, order), li)
-    return ld, li, iters
+            alld = torch.cat([ld, dist], 1)
+            alli = torch.cat([li, (id_base + pos).to(torch.int32)
+                              .expand(qb, -1)], 1)
+            order = torch.argsort(alld, dim=1, stable=True)[:, :kc]
+            ld = torch.where(rows[:, None], torch.gather(alld, 1, order), ld)
+            li = torch.where(rows[:, None], torch.gather(alli, 1, order), li)
+        parts_d.append(ld)
+        parts_i.append(li)
+    return torch.stack(parts_d), torch.stack(parts_i), iters
+
+
+def merge_partials_plain(carry_d: Optional[torch.Tensor],
+                         carry_i: Optional[torch.Tensor],
+                         part_d: torch.Tensor, part_i: torch.Tensor):
+    """The merge kernel's plain version: per row, the exact top-kc of
+    carry ++ part_0 ++ ... ++ part_{S-1} by (distance asc, carry before
+    block, id asc), sorted, as successive stable sorts (id, then flag,
+    then distance). -0.0 is folded to +0.0 as the kernel's keys fold it."""
+    nsplit, qb, kc = part_d.shape
+    ds_, is_ = list(part_d.float().unbind(0)), list(part_i.int().unbind(0))
+    flag = torch.ones((qb, nsplit * kc), dtype=torch.int32,
+                      device=part_d.device)
+    if carry_d is not None:
+        ds_.insert(0, carry_d.float())
+        is_.insert(0, carry_i.to(torch.int32))
+        flag = torch.cat([torch.zeros_like(flag[:, :kc]), flag], 1)
+    alld = torch.cat(ds_, 1) + 0.0
+    alli = torch.cat(is_, 1)
+    order = torch.argsort(alli, dim=1, stable=True)
+    for key in (flag, alld):
+        order = torch.gather(order, 1, torch.argsort(
+            torch.gather(key, 1, order), dim=1, stable=True))
+    order = order[:, :kc]
+    return torch.gather(alld, 1, order), torch.gather(alli, 1, order)
+
+
+def extract_topk_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
+                       carry_d: Optional[torch.Tensor] = None,
+                       carry_i: Optional[torch.Tensor] = None, *, n_real,
+                       id_base=0, kc: int,
+                       floor: Optional[torch.Tensor] = None,
+                       precision: str = "f32", mxu_gate: bool = False,
+                       block_skip: bool = True, tile_q: int = QUERY_TILE,
+                       tile_n: int = BLOCK_ROWS, splits: int = 1):
+    """The plain PyTorch version of the kernel: the S sweeps of
+    :func:`split_partials_plain`, then at S > 1 the merge of
+    :func:`merge_partials_plain`."""
+    part_d, part_i, iters = split_partials_plain(
+        q_attrs, d_attrs, carry_d, carry_i, n_real=n_real, id_base=id_base,
+        kc=kc, floor=floor, precision=precision, mxu_gate=mxu_gate,
+        block_skip=block_skip, tile_q=tile_q, tile_n=tile_n, splits=splits)
+    if part_d.shape[0] == 1:
+        return part_d[0], part_i[0], iters
+    od, oi = merge_partials_plain(carry_d, carry_i, part_d, part_i)
+    return od, oi, iters
 
 
 def _kernel_lib() -> ctypes.CDLL:
     from dmlp_tpu_torch import kernels
     lib = kernels.load("extract_topk")
     if not getattr(lib, "_dmlp_checked", False):
-        lib.dmlp_extract_tile_q.restype = ctypes.c_int
-        lib.dmlp_extract_tile_n.restype = ctypes.c_int
+        for fn in ("dmlp_extract_tile_q", "dmlp_extract_tile_n",
+                   "dmlp_extract_merge_max"):
+            getattr(lib, fn).restype = ctypes.c_int
         lib.dmlp_extract_smem_bytes.restype = ctypes.c_longlong
         lib.dmlp_extract_smem_bytes.argtypes = [ctypes.c_int]
         got = (lib.dmlp_extract_tile_q(), lib.dmlp_extract_tile_n(),
+               lib.dmlp_extract_merge_max(),
                lib.dmlp_extract_smem_bytes(KC_MAX))
-        want = (QUERY_TILE, BLOCK_ROWS, smem_bytes(KC_MAX))
+        want = (QUERY_TILE, BLOCK_ROWS, MERGE_MAX, smem_bytes(KC_MAX))
         if got != want:
             raise RuntimeError(f"extract_topk.cu tiles {got} != wrapper's "
                                f"{want}")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dmlp_extract_topk.restype = i
-        lib.dmlp_extract_topk.argtypes = [p] * 10 + [i] * 9 + [
+        lib.dmlp_extract_topk.argtypes = [p] * 10 + [i] * 10 + [
             ctypes.c_float, ctypes.c_float, p]
+        lib.dmlp_extract_merge.restype = i
+        lib.dmlp_extract_merge.argtypes = [p] * 6 + [i] * 3 + [p]
         lib._dmlp_checked = True
     return lib
 
@@ -194,51 +325,100 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _carry_on(carry_d, carry_i, qb: int, kc: int):
+    if carry_d is None:
+        return None, None
+    if carry_d.shape != (qb, kc) or carry_i.shape != (qb, kc):
+        raise ValueError("carry must be (Qb, kc)")
+    return carry_d.float().contiguous(), carry_i.to(torch.int32).contiguous()
+
+
+def _merge_cuda(lib, cd, ci, part_d, part_i):
+    """Launch the merge kernel on the current stream; returns (od, oi)."""
+    nsplit, qb, kc = part_d.shape
+    od = torch.empty((qb, kc), dtype=torch.float32, device=part_d.device)
+    oi = torch.empty((qb, kc), dtype=torch.int32, device=part_d.device)
+    with torch.cuda.device(part_d.device):
+        rc = lib.dmlp_extract_merge(
+            _ptr(cd), _ptr(ci), _ptr(part_d), _ptr(part_i), _ptr(od),
+            _ptr(oi), qb, kc, nsplit, _stream(part_d.device))
+    if rc != 0:
+        raise RuntimeError(f"extract_merge kernel launch failed "
+                           f"(cudaError {rc})")
+    LAUNCHES["extract_merge"] += 1
+    return od, oi
+
+
+def merge_partials(carry_d: Optional[torch.Tensor],
+                   carry_i: Optional[torch.Tensor], part_d: torch.Tensor,
+                   part_i: torch.Tensor):
+    """The merge of (S, Qb, kc) partial lists with an optional (Qb, kc)
+    carry into sorted (Qb, kc) lists: the merge kernel on CUDA tensors,
+    :func:`merge_partials_plain` on CPU tensors."""
+    nsplit, qb, kc = part_d.shape
+    if part_i.shape != part_d.shape:
+        raise ValueError("part_d and part_i must have one shape")
+    if (1 + nsplit) * kc > MERGE_MAX:
+        raise ValueError(f"(1+S)*kc = {(1 + nsplit) * kc} exceeds the "
+                         f"merge's {MERGE_MAX} entries")
+    if not part_d.is_cuda:
+        return merge_partials_plain(carry_d, carry_i, part_d, part_i)
+    cd, ci = _carry_on(carry_d, carry_i, qb, kc)
+    return _merge_cuda(_kernel_lib(), cd, ci, part_d.float().contiguous(),
+                       part_i.to(torch.int32).contiguous())
+
+
 def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
-                       id_base, kc, floor, precision, mxu_gate, block_skip):
+                       id_base, kc, floor, precision, mxu_gate, block_skip,
+                       splits):
     qb, na = q_attrs.shape
     b = d_attrs.shape[0]
     if not supports(qb, b, na, kc):
         raise ValueError(f"untileable (qb={qb}, b={b}, a={na}, kc={kc}): "
                          f"needs b % {BLOCK_ROWS} == 0 and kc <= {KC_MAX}")
     dev = q_attrs.device
+    if splits is None:
+        splits = choose_splits(qb, b, kc, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    splits = check_splits(splits, b, kc)
     q = q_attrs.float().contiguous()
     d = d_attrs.float().contiguous()
     qn = (q * q).sum(-1)
     dn = (d * d).sum(-1)
-    cd = ci = fl = None
-    if carry_d is not None:
-        if carry_d.shape != (qb, kc) or carry_i.shape != (qb, kc):
-            raise ValueError("carry must be (Qb, kc)")
-        cd = carry_d.float().contiguous()
-        ci = carry_i.to(torch.int32).contiguous()
-    if floor is not None:
-        fl = floor.float().reshape(qb).contiguous()
+    cd, ci = _carry_on(carry_d, carry_i, qb, kc)
+    fl = None if floor is None else floor.float().reshape(qb).contiguous()
     for t in (d, cd, ci, fl):
         if t is not None and t.device != dev:
             raise ValueError("all inputs must be on one device")
-    od = torch.empty((qb, kc), dtype=torch.float32, device=dev)
-    oi = torch.empty((qb, kc), dtype=torch.int32, device=dev)
+    # At S > 1 the kernel writes (S, Qb, kc) partial lists, and the merge
+    # writes the outputs.
+    od = torch.empty((splits, qb, kc), dtype=torch.float32, device=dev)
+    oi = torch.empty((splits, qb, kc), dtype=torch.int32, device=dev)
     iters = torch.empty((-(-qb // QUERY_TILE), b // BLOCK_ROWS),
                         dtype=torch.int32, device=dev)
     lib = _kernel_lib()
-    # The launch is asynchronous on the current stream. Temporaries freed
-    # when this function returns (q, d, qn, dn) go back to PyTorch's
-    # caching allocator for that stream, so only work queued after this
-    # kernel can reuse their memory.
+    # The launches are asynchronous on the current stream. Temporaries
+    # freed when this function returns (q, d, qn, dn, the partial lists)
+    # go back to PyTorch's caching allocator for that stream, so only work
+    # queued after these kernels can reuse their memory.
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dmlp_extract_topk(
             _ptr(q), _ptr(d), _ptr(qn), _ptr(dn), _ptr(fl), _ptr(cd),
             _ptr(ci), _ptr(od), _ptr(oi), _ptr(iters), qb, b, na, kc,
-            int(n_real), int(id_base), int(mxu_gate), int(block_skip),
-            int(precision == "bf16"), EPS_REL_F32,
-            _gate_coef(na, precision), stream)
+            int(n_real), int(id_base), splits, int(mxu_gate),
+            int(block_skip), int(precision == "bf16"), EPS_REL_F32,
+            _gate_coef(na, precision), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"extract_topk kernel launch failed "
                            f"(cudaError {rc})")
     LAUNCHES["fused_topk" if mxu_gate else "extract_topk"] += 1
-    return od, oi, iters
+    if splits == 1:
+        return od[0], oi[0], iters
+    return (*_merge_cuda(lib, cd, ci, od, oi), iters)
 
 
 def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
@@ -248,12 +428,14 @@ def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                  tile_n: int | None = None, block_skip: bool = True,
                  mxu_gate: bool = False,
                  floor: Optional[torch.Tensor] = None,
-                 precision: str = "f32"):
+                 precision: str = "f32", splits: int | None = None):
     """(queries (Qb, A), data chunk (B, A)) -> (dists, ids, iters); see the
     module docstring. Rows >= n_real are sentinels; data row j has global
     id id_base + j; an optional carry (Qb, kc) is folded in; ``floor``
     (Qb, 1) masks candidates below it. On CUDA the tiles are the kernel's
-    and ``tile_q``/``tile_n`` may only restate them."""
+    and ``tile_q``/``tile_n`` may only restate them. ``splits`` is S;
+    None means :func:`choose_splits` for the card on CUDA and 1 on the
+    CPU."""
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unsupported first-pass precision {precision!r}")
     if (carry_d is None) != (carry_i is None):
@@ -265,13 +447,15 @@ def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                 or (tile_n or BLOCK_ROWS) != BLOCK_ROWS:
             raise ValueError(f"the CUDA kernel's tiles are fixed at "
                              f"({QUERY_TILE}, {BLOCK_ROWS})")
-        return _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, **kw)
+        return _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i,
+                                  splits=splits, **kw)
     if q_attrs.device.type != "cpu":
         raise ValueError(f"extract_topk runs on cuda or cpu, not "
                          f"{q_attrs.device}")
     return extract_topk_plain(q_attrs, d_attrs, carry_d, carry_i,
                               tile_q=tile_q or QUERY_TILE,
-                              tile_n=tile_n or BLOCK_ROWS, **kw)
+                              tile_n=tile_n or BLOCK_ROWS,
+                              splits=1 if splits is None else splits, **kw)
 
 
 def list_tolerance(qn: torch.Tensor, dn_max: float, na: int,

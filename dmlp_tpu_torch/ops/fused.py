@@ -32,13 +32,14 @@ def variant_for(impl: str, kc: int, b: int, qb: int | None = None,
 
 def fused_topk(q_attrs, d_attrs, carry_d=None, carry_i=None, *, n_real,
                id_base=0, kc: int, block_skip: bool = True, floor=None,
-               precision: str = "f32"):
+               precision: str = "f32", splits: int | None = None):
     """extract_topk with the norm gate on; same outputs, identical lists.
     ``iters`` reports 0 for blocks either the gate or the prefilter
-    skipped."""
+    skipped. ``splits`` as for extract_topk."""
     return extract_topk(q_attrs, d_attrs, carry_d, carry_i, n_real=n_real,
                         id_base=id_base, kc=kc, block_skip=block_skip,
-                        mxu_gate=True, floor=floor, precision=precision)
+                        mxu_gate=True, floor=floor, precision=precision,
+                        splits=splits)
 
 
 def resolve_topk_kernel(qb: int, b: int, a: int, kc: int):

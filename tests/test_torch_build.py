@@ -15,11 +15,12 @@ PKG = Path(kernels.__file__).resolve().parents[1]
 
 
 def test_every_kernel_source_is_built():
-    """K1/K2 and K3, one source each; build_all starts one nvcc per
-    source."""
+    """K1/K2 (with the merge of their split lists) and K3, one source
+    each; build_all starts one nvcc per source. The merge has a launch
+    count of its own."""
     assert kernels.SOURCES == ("extract_topk", "dist_segmin")
     assert set(kernels.LAUNCHES) == {"fused_topk", "extract_topk",
-                                     "fused_dist_segmin"}
+                                     "extract_merge", "fused_dist_segmin"}
 
 
 @pytest.mark.parametrize("name", kernels.SOURCES)
@@ -91,10 +92,15 @@ def test_cpu_tensors_take_the_plain_version_only(monkeypatch, tmp_path):
     """On the CPU the wrapper never touches the kernel library; nothing
     decides by probing."""
     _hide_nvcc(monkeypatch, tmp_path)
-    q, d = torch.rand(16, 4), torch.rand(256, 4)
+    q, d = torch.rand(16, 4), torch.rand(512, 4)
     before = dict(kernels.LAUNCHES)
-    od, oi, it = ex.extract_topk(q, d, n_real=256, kc=8)
+    od, oi, it = ex.extract_topk(q, d[:256], n_real=256, kc=8)
     assert od.shape == (16, 8) and it.shape == (1, 1)
+    od, oi, it = ex.extract_topk(q, d, od, oi, n_real=512, kc=8, splits=2)
+    assert od.shape == (16, 8) and it.shape == (1, 2)
+    pd, pi = od.expand(2, -1, -1), oi.expand(2, -1, -1)
+    assert ex.merge_partials(None, None, pd, pi)[0].shape == (16, 8)
+    d = d[:256]
     dist, segmin = ds.fused_dist_segmin(q, d, torch.arange(256))
     assert dist.shape == (16, 256) and segmin.shape == (16, 2)
     assert kernels._loaded == {} and kernels.LAUNCHES == before

@@ -8,6 +8,7 @@ sorted distances within EPS_CANCEL_COEF*(na+2)*(qn+dn_max) (+ LOWP_COEF
 for bf16), and every id below kth - 2*tol present on both sides.
 """
 
+import functools
 import zlib
 
 import numpy as np
@@ -118,46 +119,58 @@ def test_gate_on_off_identical(case):
     assert np.array_equal(on[0], off[0]) and np.array_equal(on[1], off[1])
 
 
-def _expected_iters(q, d, n_real, kc, tile_q, tile_n, gate, skip):
+def _expected_iters(q, d, n_real, kc, tile_q, tile_n, gate, skip, splits=1,
+                    carry=None):
     """The kernel's iters from its two predicates, recomputed in float64
     on integer data (exact distances): per (query tile, block), the norm
-    gate against each row's current k-th best, then the block-min
-    prefilter; the running lists are the exact top-kc so far."""
+    gate against each row's threshold, then the block-min prefilter; the
+    running lists are the exact top-kc so far. At S = 1 the lists start
+    from the carry distances and the threshold is their k-th best; at
+    S > 1 split s sweeps blocks [s*nblk/S, (s+1)*nblk/S) from empty lists
+    with the threshold min(its k-th best, the carry's row maximum)."""
     qd, dd = q.astype(np.float64), d.astype(np.float64)
     qn, dn = (qd ** 2).sum(1), (dd ** 2).sum(1)
     full = ((qd[:, None, :] - dd[None]) ** 2).sum(-1)
     full[:, n_real:] = np.inf
     qb, b = full.shape
-    nt = -(-qb // tile_q)
-    seen = np.full((qb, kc), np.inf)
-    iters = np.zeros((nt, b // tile_n), np.int32)
+    nt, nblk = -(-qb // tile_q), b // tile_n
+    iters = np.zeros((nt, nblk), np.int32)
     coef = EPS_CANCEL_COEF * (q.shape[1] + 2) + LOWP_COEF["f32"]
-    for j in range(b // tile_n):
-        cols = slice(j * tile_n, (j + 1) * tile_n)
-        t = seen.max(1)
-        real = np.arange(j * tile_n, (j + 1) * tile_n) < n_real
-        ok_gate = np.ones(qb, bool)
-        if gate:
-            sdn = np.sqrt(dn[cols])
-            mn = sdn[real].min() if real.any() else np.inf
-            mx = sdn[real].max() if real.any() else -np.inf
-            hi = dn[cols][real].max() if real.any() else 0.0
-            sq = np.sqrt(qn)
-            with np.errstate(invalid="ignore"):
-                gap = np.maximum(np.maximum(mn - sq, sq - mx), 0.0)
-                lb = gap * gap
-                scale = qn + hi
-                lbs = lb - (EPS_REL_F32 * np.sqrt(lb * scale) + coef * scale)
-                ok_gate = ~np.isnan(lbs) & (np.maximum(lbs, 0) < t)
-        ok_skip = full[:, cols].min(1) < t if skip else np.ones(qb, bool)
-        pad = nt * tile_q - qb
-        g = np.pad(ok_gate, (0, pad)).reshape(nt, tile_q).any(1)
-        s = np.pad(ok_skip, (0, pad)).reshape(nt, tile_q).any(1)
-        go = g & s
-        iters[:, j] = go
-        rows = np.repeat(go, tile_q)[:qb]
-        merged = np.sort(np.concatenate([seen, full[:, cols]], 1), 1)[:, :kc]
-        seen[rows] = merged[rows]
+    cmax = np.full(qb, np.inf)
+    if carry is not None and splits > 1:
+        cmax = carry.max(1)
+    sq = np.sqrt(qn)
+    for sp in range(splits):
+        seen = np.full((qb, kc), np.inf)
+        if carry is not None and splits == 1:
+            seen = carry.astype(np.float64)
+        for j in range(sp * nblk // splits, (sp + 1) * nblk // splits):
+            cols = slice(j * tile_n, (j + 1) * tile_n)
+            t = np.minimum(seen.max(1), cmax)
+            real = np.arange(j * tile_n, (j + 1) * tile_n) < n_real
+            ok_gate = np.ones(qb, bool)
+            if gate:
+                sdn = np.sqrt(dn[cols])
+                mn = sdn[real].min() if real.any() else np.inf
+                mx = sdn[real].max() if real.any() else -np.inf
+                hi = dn[cols][real].max() if real.any() else 0.0
+                with np.errstate(invalid="ignore"):
+                    gap = np.maximum(np.maximum(mn - sq, sq - mx), 0.0)
+                    lb = gap * gap
+                    scale = qn + hi
+                    lbs = lb - (EPS_REL_F32 * np.sqrt(lb * scale)
+                                + coef * scale)
+                    ok_gate = ~np.isnan(lbs) & (np.maximum(lbs, 0) < t)
+            ok_skip = full[:, cols].min(1) < t if skip else np.ones(qb, bool)
+            pad = nt * tile_q - qb
+            g = np.pad(ok_gate, (0, pad)).reshape(nt, tile_q).any(1)
+            s = np.pad(ok_skip, (0, pad)).reshape(nt, tile_q).any(1)
+            go = g & s
+            iters[:, j] = go
+            rows = np.repeat(go, tile_q)[:qb]
+            merged = np.sort(np.concatenate([seen, full[:, cols]], 1),
+                             1)[:, :kc]
+            seen[rows] = merged[rows]
     return iters
 
 
@@ -210,3 +223,179 @@ def test_supports_and_wrapper_guards():
     before = dict(ex.LAUNCHES)
     ex.extract_topk(q, d, n_real=256, kc=8)
     assert ex.LAUNCHES == before
+
+
+# The data-axis split. The CASES' chunks hold 2-4 blocks of the kernel's
+# 256 columns, so the split tests run the plain version at tile_n = 64
+# (8-16 blocks a chunk) to reach S = 5.
+SPLITS = [2, 3, 5]
+SPLIT_TILE_N = 64
+
+
+def _split_fn(gate, splits):
+    return functools.partial(ex.extract_topk, mxu_gate=gate, splits=splits,
+                             tile_n=SPLIT_TILE_N)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_ref(name, gate):
+    case = next(c for c in CASES if c[0] == name)
+    q, chunks, n_reals, base, kc, floor, prec = _case_inputs(case)
+    return _ref(jax_fused if gate else jax_extract, q, chunks, n_reals, base,
+                kc, floor, prec)
+
+
+def _lexsorted(od, oi):
+    """Lists sorted by (distance, id), for comparing as sets."""
+    od, oi = torch.as_tensor(od), torch.as_tensor(oi)
+    order = torch.argsort(oi, dim=1, stable=True)
+    order = torch.gather(order, 1, torch.argsort(
+        torch.gather(od, 1, order), dim=1, stable=True))
+    return torch.gather(od, 1, order), torch.gather(oi, 1, order)
+
+
+@pytest.mark.parametrize("gate", [False, True], ids=["extract", "fused"])
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_split_plain_matches_reference_kernel(case, splits, gate):
+    """Carry chains at S > 1 (the carry folded by the merge, ragged
+    n_real, non-zero id_base, floor, ties with a carry, bf16) against the
+    Pallas kernel in interpret mode."""
+    q, chunks, n_reals, base, kc, floor, prec = _case_inputs(case)
+    got = _port(_split_fn(gate, splits), q, chunks, n_reals, base, kc, floor,
+                prec)
+    want = _cached_ref(case[0], gate)
+    cmp = ex.compare_lists(torch.from_numpy(got[0]), torch.from_numpy(got[1]),
+                           torch.from_numpy(want[0]),
+                           torch.from_numpy(want[1]),
+                           _tolerance(q, chunks, n_reals, prec))
+    assert cmp["ok"], cmp
+    assert np.array_equal(got[1] >= 0, np.isfinite(got[0]))
+    assert np.all(got[0][:, 1:] >= got[0][:, :-1])  # the merge sorts
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_split_lists_identical_to_one_split(case, splits):
+    """S > 1 gives S = 1's lists bit for bit once both are sorted by
+    (distance, id), and gate on and gate off stay identical at S > 1."""
+    q, chunks, n_reals, base, kc, floor, prec = _case_inputs(case)
+    args = (q, chunks, n_reals, base, kc, floor, prec)
+    one = _port(_split_fn(False, 1), *args)
+    off = _port(_split_fn(False, splits), *args)
+    on = _port(_split_fn(True, splits), *args)
+    for a, b in zip(_lexsorted(*one), _lexsorted(*off)):
+        assert torch.equal(a, b)
+    assert np.array_equal(on[0], off[0]) and np.array_equal(on[1], off[1])
+
+
+def test_merge_plain_tie_rule_and_padding():
+    """(distance asc, carry first, id asc), sorted; -0.0 folds to +0.0;
+    (+inf, -1) padding stays -1 exactly on +inf."""
+    inf = float("inf")
+    cd = torch.tensor([[2.0, 1.0, inf]])
+    ci = torch.tensor([[9, 8, -1]], dtype=torch.int32)
+    pd = torch.tensor([[[1.0, -0.0, inf]], [[1.0, 2.0, inf]]])
+    pi = torch.tensor([[[3, 12, -1]], [[1, 5, -1]]], dtype=torch.int32)
+    od, oi = ex.merge_partials(cd, ci, pd, pi)
+    assert od.tolist() == [[0.0, 1.0, 1.0]]
+    assert not torch.signbit(od[0, 0])
+    assert oi.tolist() == [[12, 8, 1]]
+    od, oi = ex.merge_partials(None, None, pd[:, :, 2:], pi[:, :, 2:])
+    assert od.tolist() == [[inf]] and oi.tolist() == [[-1]]
+    with pytest.raises(ValueError):
+        ex.merge_partials(None, None, torch.zeros(16, 1, 512),
+                          torch.zeros(16, 1, 512, dtype=torch.int32))
+
+
+def _banded(rng):
+    """A norm-banded corpus of 16 blocks of 128 rows, block j at radius
+    ~20*(j % 4), so that inside every split both predicates skip some
+    tiles and process others."""
+    q = rng.integers(0, 6, (40, 8)).astype(np.float32)
+    d = rng.integers(0, 6, (2048, 8)).astype(np.float32)
+    d += 20 * ((np.arange(2048) // 128) % 4)[:, None] * np.array(
+        [1, -1, 0, 0, 1, 0, 0, 0], np.float32)[None]
+    d[300:310] = q[:10] + 1   # near rows in a far block
+    return q, d
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carry"])
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("gate,skip", [(True, True), (True, False),
+                                       (False, True)])
+def test_split_iters_match_predicates(gate, skip, splits, carried):
+    """iters at S > 1 from the split predicates recomputed in float64:
+    fresh lists per split, thresholds min(split's k-th best, carry's row
+    maximum). The carry is a plain fold of a nearer chunk."""
+    rng = np.random.default_rng(12)
+    tq, tn, kc, n_real = 8, 128, 8, 2000
+    q, d = _banded(rng)
+    carry = None
+    if carried:
+        near = rng.integers(0, 6, (256, 8)).astype(np.float32) + 2
+        cd, ci, _ = ex.extract_topk(torch.from_numpy(q),
+                                    torch.from_numpy(near), n_real=256,
+                                    kc=kc, tile_q=tq)
+        carry = (cd, ci)
+    _, _, it = ex.extract_topk(torch.from_numpy(q), torch.from_numpy(d),
+                               *(carry or ()), n_real=n_real, kc=kc,
+                               id_base=256, tile_q=tq, tile_n=tn,
+                               mxu_gate=gate, block_skip=skip, splits=splits)
+    want = _expected_iters(q, d, n_real, kc, tq, tn, gate, skip, splits,
+                           None if carry is None else carry[0].numpy())
+    assert np.array_equal(it.numpy(), want)
+    assert 0 < want.sum() < want.size     # both predicates had work to do
+
+
+def test_choose_splits_is_pure_and_within_limits(monkeypatch):
+    def no_device(*a, **k):
+        raise AssertionError("choose_splits asked the device")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    for qb in (1, 31, 32, 1000, 1024, 4384, 10016, 100000):
+        for b in (256, 512, 50176, 204800):
+            for kc in (1, 8, 48, 100, 512):
+                for sm in (1, 8, 132):
+                    got = ex.choose_splits(qb, b, kc, sm)
+                    assert got == ex.choose_splits(qb, b, kc, sm)
+                    assert 1 <= got <= b // ex.BLOCK_ROWS
+                    assert got == 1 or (1 + got) * kc <= ex.MERGE_MAX
+                    assert ex.check_splits(got, b, kc) == got
+
+
+def test_choose_splits_splits_the_multipass_shapes():
+    """32 query tiles of kc 512 (one CTA per SM) leave 100 of 132 SMs
+    idle at S = 1: the multi-pass resident pass and first pass (204,800
+    rows in 4 chunks of 51,200)."""
+    assert ex.ctas_per_sm(512) == 1 and ex.ctas_per_sm(48) == 2
+    for b in (204800, 51200):
+        assert ex.choose_splits(1024, b, 512, 132) > 1
+    assert ex.choose_splits(1024, 204800, 512, 32) == 1   # already full
+
+
+def test_fused_topk_passes_splits_through():
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.uniform(0, 1, (16, 4)).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(0, 1, (1024, 4)).astype(np.float32))
+    got = fused_topk(q, d, n_real=1000, kc=8, splits=3)
+    want = ex.extract_topk(q, d, n_real=1000, kc=8, mxu_gate=True, splits=3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):       # 4 blocks cannot split 5 ways
+        fused_topk(q, d, n_real=1000, kc=8, splits=5)
+
+
+def test_cpu_default_is_one_split(monkeypatch):
+    def no_choice(*a, **k):
+        raise AssertionError("the CPU path chose S")
+
+    monkeypatch.setattr(ex, "choose_splits", no_choice)
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.uniform(0, 1, (16, 4)).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(0, 1, (1024, 4)).astype(np.float32))
+    got = ex.extract_topk(q, d, n_real=1000, kc=8)
+    want = ex.extract_topk(q, d, n_real=1000, kc=8, splits=1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for bad in (0, 5):                    # 4 blocks: 1 <= S <= 4
+        with pytest.raises(ValueError):
+            ex.extract_topk(q, d, n_real=1000, kc=8, splits=bad)
