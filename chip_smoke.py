@@ -14,7 +14,8 @@ final result line. Standard output:
 2. one JSON line per phase —
    ``build``: every kernel library built from the sources in the checkout
    (one nvcc per source, all started together), with its time and the
-   ptxas register / spill lines;
+   ptxas register / spill lines (K3 must not spill), and K3's resident
+   CTAs per SM as the card reports them;
    ``kernel_case``: each CUDA kernel held against its plain PyTorch
    version on the card, with CUDA-event times (median of several launches
    after a warm-up) at the shapes the main paths give it — K1/K2 at the
@@ -24,11 +25,24 @@ final result line. Standard output:
    splits' sorted lists bit for bit, gate on against gate off bit for
    bit), also with a multi-pass ``floor``, at the wide-k bulk and at the
    multi-pass first pass; the merge of the split lists (bit for bit
-   against its plain version); K3 (``dist`` and ``segmin`` under
-   ``ops.extract.list_tolerance``, +inf exactly where ids < 0, ``segmin``
-   bit for bit against the kernel's own tile);
+   against its plain version);
+   ``kernel_case`` of the ``segmin`` phase: K3 (``dist`` and ``segmin``
+   under ``ops.extract.list_tolerance``, +inf exactly where ids < 0,
+   ``segmin`` bit for bit against the kernel's own tile) at its two
+   main-path shapes (the wide-k mix's outliers in f32 and bf16, config
+   2's seg step) and at edge shapes (13 rows with all-sentinel segments;
+   5 attributes; 100 attributes with a ragged row tile and a segment
+   count that G does not divide), every G a case names bit for bit equal,
+   and at each main-path shape ``kernel_ms`` (the kernel alone: operands
+   prepared once, launches back to back), ``bound_share`` (bound over
+   ``ms``, and over ``kernel_ms``) and ``sgemm_ms`` (``torch.mm`` of the
+   same operands in IEEE f32: the same FMAs and output bytes without the
+   epilogue, a yardstick the port never calls);
    ``split_sweep``: K1 at the four main-path extraction shapes for
    S = 1..15, each sorted list bit for bit against S = 1's;
+   ``g_sweep``: K3 alone at its two main-path shapes for a range of G
+   (the segments one CTA walks), each output bit for bit against the
+   chosen G's: the data behind ``ops.dist_segmin.choose_group``;
    ``main_path``: five solves through ``dmlp_tpu_torch.cli.main`` on the
    card, each with the launch counts set to 0 just before it, read just
    after and checked against the counts its plan implies (a merge for
@@ -51,11 +65,12 @@ final result line. Standard output:
    over 3.35 TB/s or operations over the peak for their type, whichever
    is larger) and the library time (none: no single PyTorch call computes
    these functions); K1's row also has its time at S = 1 and at the
-   chosen S at each main-path shape;
+   chosen S at each main-path shape, K3's its times, bound shares and
+   ``sgemm_ms`` at each main-path shape;
 4. ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``--phases`` and ``--reps`` narrow a run while developing; the default runs
-everything.
+``--phases`` and ``--reps`` narrow a run while developing (``--phases
+build,segmin`` holds and times K3 alone); the default runs everything.
 """
 
 from __future__ import annotations
@@ -137,6 +152,8 @@ MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
                "config4_fresh_f32": "config-4 chunk, fresh",
                "config4_carried_f32": "config-4 chunk, carried"}
 SWEEP_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 15)
+SWEEP_GROUPS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 33, 49, 66, 98, 131, 196)
+PHASES = ("build", "kernels", "segmin", "main", "profile")
 _TEXTS: dict = {}
 _INPUTS: dict = {}
 
@@ -168,8 +185,29 @@ def time_ms(fn, reps: int):
     return times[len(times) // 2], out
 
 
+def back_to_back_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """Median CUDA-event time per call over ``reps`` runs of ``n`` calls
+    of ``fn()`` back to back, after one warm-up: the device's time when
+    the host enqueues ahead of it."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def phase_build():
     from dmlp_tpu_torch import kernels
+    from dmlp_tpu_torch.ops import dist_segmin as ds
     t0 = time.perf_counter()
     info = kernels.build_all()
     ms = (time.perf_counter() - t0) * 1e3
@@ -179,7 +217,16 @@ def phase_build():
                  if "Used" in ln or "spill" in ln]
         libs[name] = {"built": rec["built"], "ptxas": ptxas[:16]}
         kernels.load(name)
-    emit({"phase": "build", "ms": ms, "libraries": libs})
+        if name == "dist_segmin" and rec["built"]:
+            check(bool(ptxas) and all(
+                "0 bytes spill stores, 0 bytes spill loads" in ln
+                for ln in ptxas if "spill" in ln),
+                f"dist_segmin.cu spills registers: {ptxas}")
+    occupancy = ds._kernel_lib().dmlp_segmin_occupancy()
+    emit({"phase": "build", "ms": ms, "libraries": libs,
+          "segmin_ctas_per_sm": occupancy})
+    check(occupancy == ds.CTAS_PER_SM,
+          f"K3 runs {occupancy} CTAs per SM, not {ds.CTAS_PER_SM}")
 
 
 def lexsorted(od, oi):
@@ -191,12 +238,26 @@ def lexsorted(od, oi):
     return torch.gather(od, 1, order), torch.gather(oi, 1, order)
 
 
+def seeded_uniform(dev):
+    """uniform(shape, seed, hi=100, integer=False): values in [0, hi)
+    from a torch.Generator on ``dev`` seeded with ``seed``."""
+    import torch
+    gen = torch.Generator(device=dev)
+
+    def uniform(shape, seed, hi=100.0, integer=False):
+        gen.manual_seed(seed)
+        if integer:
+            return torch.randint(0, int(hi), shape, generator=gen,
+                                 device=dev).float()
+        return torch.rand(shape, generator=gen, device=dev) * hi
+    return uniform
+
+
 def kernel_cases(reps: int):
-    """Hold K1/K2, their merge and K3 against their plain versions;
-    returns per-kernel records for the summary line (K1/K2 from config 4's
-    carried f32 case, the merge from the multi-pass resident pass, K3 from
-    the wide-k mix's outlier f32 case) and K1's times at the main-path
-    shapes."""
+    """Hold K1/K2 and their merge against their plain versions; returns
+    per-kernel records for the summary line (K1/K2 from config 4's
+    carried f32 case, the merge from the multi-pass resident pass) and
+    K1's times at the main-path shapes."""
     import torch
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.engine import single
@@ -210,15 +271,7 @@ def kernel_cases(reps: int):
         CONFIG4["num_data"], cfg.resolve_granule("extract"), None)
     qb = single.round_up(CONFIG4["num_queries"], ex.QUERY_TILE)
     kc = single.resolve_kcap(cfg, CONFIG4["max_k"], "extract", 1 << 30)
-    gen = torch.Generator(device=dev)
-
-    def uniform(shape, seed, hi=100.0, integer=False):
-        gen.manual_seed(seed)
-        if integer:
-            return torch.randint(0, int(hi), shape, generator=gen,
-                                 device=dev).float()
-        return torch.rand(shape, generator=gen, device=dev) * hi
-
+    uniform = seeded_uniform(dev)
     summary, by_shape, sweep_inputs = {}, {}, {}
 
     def run_case(name, q, d, *, n_real, id_base, kc, carry=None,
@@ -356,7 +409,6 @@ def kernel_cases(reps: int):
     run_case("multipass_floor", qm, dm, n_real=mp["num_data"], id_base=0,
              kc=512, floor=floor)
     split_sweep(sweep_inputs, sm_count)
-    segmin_cases(summary, uniform, reps)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
     for label, r in by_shape.items():
         check(r["splits"] == 1 or r["ms"] <= r["ms_s1"],
@@ -423,16 +475,20 @@ def split_sweep(inputs, sm_count):
               "ms_by_splits": times})
 
 
-def segmin_cases(summary, uniform, reps):
+def segmin_cases(summary, reps):
     """Hold K3 against its plain version: dist and segmin under
     ``list_tolerance``, +inf exactly where ids < 0, and segmin bit for bit
-    against the kernel's own dist reshape-min."""
+    against the kernel's own dist reshape-min; every G a case names gives
+    the same output bit for bit. The two main-path shapes also get their
+    bound share, the ``torch.mm`` yardstick and a ``g_sweep`` line."""
     import torch
     from dmlp_tpu_torch.engine import single
     from dmlp_tpu_torch.ops import dist_segmin as ds
     from dmlp_tpu_torch.ops import extract as ex
 
     dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    uniform = seeded_uniform(dev)
     c4, na = CONFIG4, CONFIG4["num_attrs"]
     _, nchunks, chunk_rows = single.plan_chunks(c4["num_data"], 256, None)
     n_out = 5624     # the wide-k mix's outliers (qo_pad)
@@ -441,15 +497,17 @@ def segmin_cases(summary, uniform, reps):
     last_ids = torch.where(ri < c4["num_data"], ri, -1)
     ragged_ids = torch.arange(1024, dtype=torch.int32, device=dev)
     ragged_ids[1024 - 300:] = -1      # segments 6..7 hold only sentinels
+    by_shape = {}
 
-    def case(name, q, d, ids, precision="f32", main=False):
+    def case(name, q, d, ids, precision="f32", groups=(), main=None):
+        qb, b = q.shape[0], d.shape[0]
+        chosen = ds.choose_group(qb, b, sm_count)
         ms, (dist, segmin) = time_ms(
             lambda: ds.fused_dist_segmin(q, d, ids, precision), reps)
         plain_ms, (pd, psm) = time_ms(
             lambda: ds.fused_dist_segmin_plain(q, d, ids, precision),
             max(1, reps // 2))
         torch.cuda.synchronize()
-        qb, b = dist.shape
         tol = ex.list_tolerance((q * q).sum(-1),
                                 float((d * d).sum(-1).max()), q.shape[1],
                                 precision).to(dev)[:, None]
@@ -460,39 +518,95 @@ def segmin_cases(summary, uniform, reps):
         sfin = torch.isfinite(psm)
         serr = torch.where(sfin, (segmin.double() - psm.double()).abs(), 0.0)
         own = torch.equal(segmin, dist.view(qb, -1, ds.SEG).min(-1).values)
+        inf_same = bool(torch.equal(torch.isinf(psm), torch.isinf(segmin)))
+        del pd, psm, fin, sfin
+        ops = (*ds.prepare_operands(q, d, precision),
+               ids.to(torch.int32).contiguous())
+        gd, gs = torch.empty_like(dist), torch.empty_like(segmin)
+        same_g = {}
+        for g in groups:
+            ds._launch(*ops, gd, gs, g)
+            same_g[g] = bool(torch.equal(gd, dist) and torch.equal(gs, segmin))
+        del gd, gs
         rec = {"phase": "kernel_case", "case": name,
                "kernel": "fused_dist_segmin", "shape": [qb, b, q.shape[1]],
-               "precision": precision, "ms": ms, "plain_ms": plain_ms,
+               "precision": precision, "group": chosen,
+               "ctas": -(-qb // ds.QUERY_TILE) * len(
+                   ds.segment_groups(b // ds.SEG, chosen)),
+               "ms": ms, "plain_ms": plain_ms,
                "max_abs_err": float(err.max()),
                "segmin_max_abs_err": float(serr.max()),
                "bad_dist": int((err > tol).sum()),
                "bad_segmin": int((serr > tol).sum()),
                "inf_where_sentinel": inf_ok, "segmin_is_own_min": own,
                "sentinel_segments": int(torch.isinf(segmin[0]).sum()),
+               "same_at_group": same_g,
                **segmin_bound(qb, b, q.shape[1], precision)}
+        del err, serr
+        rec["bound_share"] = rec["bound_ms"] / ms
+        if main:
+            rec["sgemm_ms"], _ = time_ms(lambda: torch.mm(q, d.T), reps)
+            rec["kernel_ms"] = back_to_back_ms(lambda: ds._launch(
+                *ops, dist, segmin, chosen))
+            rec["kernel_bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+        del ops
         emit(rec)
-        check(inf_ok and bool(torch.equal(torch.isinf(psm),
-                                          torch.isinf(segmin))),
-              f"{name}: +inf not exactly where ids < 0")
+        check(inf_ok and inf_same, f"{name}: +inf not exactly where ids < 0")
         check(own, f"{name}: segmin is not the kernel's own tile minimum")
         check(rec["bad_dist"] == 0 and rec["bad_segmin"] == 0,
               f"{name}: kernel disagrees with the plain version {rec}")
+        check(all(same_g.values()), f"{name}: the output depends on G "
+                                    f"{same_g}")
         s = summary.setdefault("fused_dist_segmin", {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"],
                                rec["segmin_max_abs_err"])
         if main:
-            s.update(ms=ms, plain_ms=plain_ms, bound=rec,
-                     shape=f"{name} {rec['shape']}")
+            by_shape[main] = {k: rec[k] for k in (
+                "shape", "group", "ctas", "ms", "kernel_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_share", "kernel_bound_share",
+                "sgemm_ms")}
+            if "ms" not in s:
+                s.update(ms=ms, plain_ms=plain_ms, bound=rec,
+                         shape=f"{name} {rec['shape']}")
+            g_sweep(name, q, d, ids, dist, segmin, chosen)
+
+    def g_sweep(name, q, d, ids, dist, segmin, chosen):
+        """The kernel alone (operands prepared once, launches back to
+        back) at every G of SWEEP_GROUPS that the shape takes."""
+        nseg = d.shape[0] // ds.SEG
+        ops = (*ds.prepare_operands(q, d), ids.to(torch.int32).contiguous())
+        gd, gs = torch.empty_like(dist), torch.empty_like(segmin)
+        times = {}
+        for g in sorted({*SWEEP_GROUPS, chosen}):
+            if g > nseg:
+                continue
+            times[g] = back_to_back_ms(lambda: ds._launch(*ops, gd, gs, g))
+            check(torch.equal(gd, dist) and torch.equal(gs, segmin),
+                  f"{name}: G={g} output differs from G={chosen}'s")
+        emit({"phase": "g_sweep", "case": name,
+              "shape": [q.shape[0], d.shape[0], q.shape[1]],
+              "chosen": chosen, "kernel_ms_by_group": times})
+        del ops, gd, gs
 
     qo = uniform((n_out, na), 11)
     d_last = uniform((chunk_rows, na), 12)
-    for prec in ("f32", "bf16"):
-        case(f"outlier_{prec}", qo, d_last, last_ids, prec,
-             main=prec == "f32")
+    case("outlier_f32", qo, d_last, last_ids, main="outliers")
+    case("outlier_bf16", qo, d_last, last_ids, "bf16")
     case("streaming_seg", uniform((1024, na), 13), uniform((50176, na), 14),
-         torch.arange(50176, dtype=torch.int32, device=dev))
+         torch.arange(50176, dtype=torch.int32, device=dev),
+         main="config 2 seg step")
     case("ragged", uniform((13, na), 15), uniform((1024, na), 16),
-         ragged_ids)
+         ragged_ids, groups=(1, 3, 8))
+    case("na5", uniform((256, 5), 17), uniform((4096, 5), 18),
+         torch.arange(4096, dtype=torch.int32, device=dev), groups=(1, 32))
+    # 1,000 rows (a ragged row tile), 100 attributes (not whole chunks), 37
+    # segments (no G > 1 of these divides them).
+    ids37 = torch.arange(37 * 128, dtype=torch.int32, device=dev)
+    ids37[-200:] = -1
+    case("na100_ragged", uniform((1000, 100), 19),
+         uniform((37 * 128, 100), 20), ids37, groups=(1, 5, 36))
+    summary["fused_dist_segmin"]["ms_by_shape"] = by_shape
+    emit({"phase": "segmin", "kernels_held": ["fused_dist_segmin"]})
 
 
 def segmin_bound(qb, b, a, precision):
@@ -686,7 +800,7 @@ def profile_main_path():
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="build,kernels,main,profile",
+    parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of the default")
     parser.add_argument("--reps", type=int, default=5,
                         help="timed launches per kernel case")
@@ -711,12 +825,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     summary = kernel_cases(args.reps) if "kernels" in phases else {}
+    if "segmin" in phases:
+        segmin_cases(summary, args.reps)
     launches = main_path() if "main" in phases else {}
     if "profile" in phases:
         profile_main_path()
     if summary:
         rows = []
-        for name in KERNELS:
+        for name in (n for n in KERNELS if n in summary):
             s = summary[name]
             per_path = {run: n[name] for run, n in launches.items()
                         if n[name]}
@@ -735,7 +851,7 @@ def main(argv=None) -> int:
                             if "ms_by_shape" in s else {})})
         print(json.dumps({"kernels": rows}), flush=True)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
-    check(phases >= {"build", "kernels", "main", "profile"},
+    check(phases >= set(PHASES),
           "a partial run (--phases) prints no result line")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,28 +11,83 @@ tensor it launches the hand-written kernel
 raises), on a CPU tensor it runs :func:`fused_dist_segmin_plain`. Nothing
 else picks between them. The reference emits segmin transposed for Mosaic's
 tiling; here it is (Qb, B/SEG).
+
+The kernel tiles the output in QUERY_TILE x SEG tiles, and each CTA walks
+``group`` consecutive segments of one row tile (:func:`choose_group`). It
+reads its operands attribute-major, as :func:`prepare_operands` makes them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from dmlp_tpu_torch.kernels import LAUNCHES
 from dmlp_tpu_torch.ops.distance import masked_pairwise_sq_l2
 
-SEG = 128       # candidate-segment width: sets the seg select's gather order
-QUERY_TILE = 64  # kernel TQ: query rows per CTA (ragged tiles are masked)
+SEG = 128         # candidate-segment width: sets the seg select's gather order
+QUERY_TILE = 128  # kernel TQ: query rows per tile (ragged tiles are masked)
+CTAS_PER_SM = 2   # kernel CTAS_PER_SM: resident CTAs per SM (launch bounds)
+# choose_group's cost model: a CTA pays about GROUP_OVERHEAD tiles' time
+# before its first tile (the ring's first chunks in flight, nothing to
+# overlap them with); fitted to chip_smoke.py's g_sweep on an H100 80GB
+# HBM3 (700 W): at 5,624 x 50,176 x 64, G = 1 (66 waves) ran 2.5% slower
+# than one wave of G = 66.
+GROUP_OVERHEAD = 0.025
 
 
 def supports(qb: int, b: int, a: int) -> bool:
     """Shapes the kernel takes: any qb >= 1 (a ragged last query tile is
     masked), whole SEG-column segments, any attribute count (attributes
-    are staged through shared memory in chunks, so ``a`` sets no budget).
-    One CTA per (64-row tile, segment), so the grid must fit 2^31 - 1."""
+    are staged in chunks, so ``a`` sets no budget). At most one CTA per
+    (QUERY_TILE-row tile, segment), so that grid must fit 2^31 - 1."""
     return (qb >= 1 and a >= 1 and b >= SEG and b % SEG == 0
             and (b // SEG) * -(-qb // QUERY_TILE) < 2 ** 31)
+
+
+def segment_groups(nseg: int, group: int) -> list:
+    """The segments each CTA of one row tile walks, as the kernel assigns
+    them: CTA g takes [g * group, min((g + 1) * group, nseg))."""
+    return [range(s, min(s + group, nseg)) for s in range(0, nseg, group)]
+
+
+@functools.lru_cache(maxsize=256)
+def choose_group(qb: int, b: int, sm_count: int) -> int:
+    """G, the segments one CTA walks, on a card with ``sm_count`` SMs; a
+    pure function.
+
+    CTAs = ceil(qb / QUERY_TILE) * ceil(nseg / G) run in waves of
+    sm_count * CTAS_PER_SM; each takes G tiles after about GROUP_OVERHEAD
+    tiles of start-up, so cost(G) = waves(G) * (G + GROUP_OVERHEAD).
+    Returns the smallest G of the least cost."""
+    tiles, nseg = -(-qb // QUERY_TILE), b // SEG
+    slots = sm_count * CTAS_PER_SM
+    costs = [-(-tiles * -(-nseg // g) // slots) * (g + GROUP_OVERHEAD)
+             for g in range(1, nseg + 1)]
+    return costs.index(min(costs)) + 1
+
+
+def prepare_operands(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
+                     precision: str = "f32"):
+    """The kernel's operands: (qT (A, ldq), dT (A, B), qn (Qb,), dn (B,)).
+
+    qT and dT are the rows transposed to attribute-major, so each chunk of
+    attributes is contiguous per side; qT's columns are padded with zeros
+    to ldq, a multiple of QUERY_TILE. For bf16 both are rounded to
+    bfloat16 here, once (round to nearest even). qn and dn are the f32
+    squared norms of the unrounded rows."""
+    q, d = q_attrs.float(), d_attrs.float()
+    qn, dn = (q * q).sum(-1), (d * d).sum(-1)
+    if precision == "bf16":
+        q, d = q.to(torch.bfloat16).float(), d.to(torch.bfloat16).float()
+    qb, na = q.shape
+    qT = q.new_empty((na, -(-qb // QUERY_TILE) * QUERY_TILE))
+    qT[:, :qb] = q.t()
+    if qT.shape[1] > qb:
+        qT[:, qb:] = 0.0
+    return qT, d.t().contiguous(), qn, dn
 
 
 def fused_dist_segmin_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
@@ -49,15 +104,17 @@ def _kernel_lib() -> ctypes.CDLL:
     from dmlp_tpu_torch import kernels
     lib = kernels.load("dist_segmin")
     if not getattr(lib, "_dmlp_checked", False):
-        lib.dmlp_segmin_seg.restype = ctypes.c_int
-        lib.dmlp_segmin_tile_q.restype = ctypes.c_int
-        got = (lib.dmlp_segmin_seg(), lib.dmlp_segmin_tile_q())
-        if got != (SEG, QUERY_TILE):
+        for f in ("dmlp_segmin_seg", "dmlp_segmin_tile_q",
+                  "dmlp_segmin_ctas_per_sm", "dmlp_segmin_occupancy"):
+            getattr(lib, f).restype = ctypes.c_int
+        got = (lib.dmlp_segmin_seg(), lib.dmlp_segmin_tile_q(),
+               lib.dmlp_segmin_ctas_per_sm())
+        if got != (SEG, QUERY_TILE, CTAS_PER_SM):
             raise RuntimeError(f"dist_segmin.cu tiles {got} != wrapper's "
-                               f"{(SEG, QUERY_TILE)}")
+                               f"{(SEG, QUERY_TILE, CTAS_PER_SM)}")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dmlp_dist_segmin.restype = i
-        lib.dmlp_dist_segmin.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.dmlp_dist_segmin.argtypes = [p] * 7 + [i] * 5 + [p]
         lib._dmlp_checked = True
     return lib
 
@@ -66,31 +123,42 @@ def _fused_dist_segmin_cuda(q_attrs, d_attrs, data_ids, precision):
     qb, na = q_attrs.shape
     b = d_attrs.shape[0]
     dev = q_attrs.device
-    q = q_attrs.float().contiguous()
-    d = d_attrs.float().contiguous()
-    ids = data_ids.to(torch.int32).contiguous()
-    if d.device != dev or ids.device != dev:
+    if d_attrs.device != dev or data_ids.device != dev:
         raise ValueError("all inputs must be on one device")
-    if ids.shape != (b,):
-        raise ValueError(f"ids must be ({b},), got {tuple(ids.shape)}")
-    qn = (q * q).sum(-1)
-    dn = (d * d).sum(-1)
+    if data_ids.shape != (b,):
+        raise ValueError(f"ids must be ({b},), got {tuple(data_ids.shape)}")
+    group = choose_group(qb, b, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    qT, dT, qn, dn = prepare_operands(q_attrs, d_attrs, precision)
+    ids = data_ids.to(torch.int32).contiguous()
+    if ids.data_ptr() % 16:           # the kernel reads ids as int4s
+        ids = ids.clone()
     dist = torch.empty((qb, b), dtype=torch.float32, device=dev)
     segmin = torch.empty((qb, b // SEG), dtype=torch.float32, device=dev)
+    _launch(qT, dT, qn, dn, ids, dist, segmin, group)
+    return dist, segmin
+
+
+def _launch(qT, dT, qn, dn, ids, dist, segmin, group: int) -> None:
+    """One kernel launch on operands as :func:`prepare_operands` makes
+    them (ids int32, 16-byte aligned) into preallocated outputs, with
+    each CTA walking ``group`` segments (1 <= group <= B/SEG); raises when
+    the launch fails, counts it when it succeeds."""
     lib = _kernel_lib()
+    dev = dist.device
     # Asynchronous on the current stream; the temporaries freed on return
     # go back to the caching allocator for that stream (see ops.extract).
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dmlp_dist_segmin(
-            q.data_ptr(), d.data_ptr(), qn.data_ptr(), dn.data_ptr(),
-            ids.data_ptr(), dist.data_ptr(), segmin.data_ptr(), qb, b, na,
-            int(precision == "bf16"), stream)
+            qT.data_ptr(), dT.data_ptr(), qn.data_ptr(), dn.data_ptr(),
+            ids.data_ptr(), dist.data_ptr(), segmin.data_ptr(),
+            dist.shape[0], qT.shape[1], dist.shape[1], qT.shape[0], group,
+            stream)
     if rc != 0:
         raise RuntimeError(f"dist_segmin kernel launch failed "
                            f"(cudaError {rc})")
     LAUNCHES["fused_dist_segmin"] += 1
-    return dist, segmin
 
 
 def fused_dist_segmin(q_attrs: torch.Tensor, d_attrs: torch.Tensor,

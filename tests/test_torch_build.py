@@ -69,7 +69,9 @@ def test_missing_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
 
 # source: the tile constants its wrapper sizes outputs by
 TILES = {"extract_topk": (f"TQ = {ex.QUERY_TILE};", f"TN = {ex.BLOCK_ROWS};"),
-         "dist_segmin": (f"SEG = {ds.SEG};", f"TQ = {ds.QUERY_TILE};")}
+         "dist_segmin": (f"SEG = {ds.SEG};", f"TQ = {ds.QUERY_TILE};",
+                         f"CTAS_PER_SM = {ds.CTAS_PER_SM};",
+                         "__launch_bounds__(NT, CTAS_PER_SM)")}
 
 
 @pytest.mark.parametrize("name", kernels.SOURCES)
@@ -80,8 +82,8 @@ def test_kernel_source_is_hand_written_cuda(name):
     src = (PKG / "kernels" / f"{name}.cu").read_text()
     includes = [ln.split()[1] for ln in src.splitlines()
                 if ln.startswith("#include")]
-    assert includes == ["<cuda_runtime.h>", "<cuda_bf16.h>", "<math.h>",
-                        "<stdint.h>"]
+    assert includes[0] == "<cuda_runtime.h>" and set(includes) <= {
+        "<cuda_runtime.h>", "<cuda_bf16.h>", "<math.h>", "<stdint.h>"}
     for banned in ("cublas", "cudnn", "wmma", "mma_sync", "mma.sync"):
         assert banned not in src.lower(), banned
     assert all(t in src for t in TILES[name])
@@ -104,3 +106,13 @@ def test_cpu_tensors_take_the_plain_version_only(monkeypatch, tmp_path):
     dist, segmin = ds.fused_dist_segmin(q, d, torch.arange(256))
     assert dist.shape == (16, 256) and segmin.shape == (16, 2)
     assert kernels._loaded == {} and kernels.LAUNCHES == before
+
+
+def test_segmin_kernel_runs_on_the_cuda_cores_only():
+    """K3's product stays IEEE f32 FMAs on the CUDA cores: no tensor-core
+    instruction in any form, no TF32, and one body for both precisions
+    (the bf16 operands are rounded by the wrapper)."""
+    src = (PKG / "kernels" / "dist_segmin.cu").read_text()
+    for banned in ("mma", "tf32", "bfloat16"):
+        assert banned not in src.lower(), banned
+    assert "fmaf(" in src and "cp.async" in src and "__stcs(" in src
