@@ -43,18 +43,35 @@ final result line. Standard output:
    ``g_sweep``: K3 alone at its two main-path shapes for a range of G
    (the segments one CTA walks), each output bit for bit against the
    chosen G's: the data behind ``ops.dist_segmin.choose_group``;
-   ``main_path``: five solves through ``dmlp_tpu_torch.cli.main`` on the
+   ``main_path``: ten solves through ``dmlp_tpu_torch.cli.main`` on the
    card, each with the launch counts set to 0 just before it, read just
    after and checked against the counts its plan implies (a merge for
-   every K1/K2 launch whose shape splits), and its peak
-   device memory: bench config 4 (200,000 x 10,000 x 64, k in 1..32) with
+   every K1/K2 launch whose shape splits), with its degradation rung, its
+   degradations, its scan accounting (``last_prune``: chunks pruned of
+   the total), its ``engine.prune`` scoring time and its peak device
+   memory: bench config 4 (200,000 x 10,000 x 64, k in 1..32) with
    ``DMLP_TPU_FUSED=0`` (K2; also the warm-up) and as shipped (K1); the
    wide-k mix (config 4's data, k in 1..1024: the heterogeneous-k router,
    K1 for the bulk and K3 for the outliers); the wide-k multi-pass
    (204,800 x 1,024 x 64, k = 4,096: K1 in 9 passes); bench config 2
-   (100,000 x 5,000 x 64, k in 1..32) with ``--select seg`` (K3). Each
-   output holds one checksum line per query and matches the port's
-   float64 oracle (``golden.fast``) on a seeded subset byte for byte;
+   (100,000 x 5,000 x 64, k in 1..32) with ``--select seg`` (K3); config
+   4's sizes on a banded corpus (attribute 0 moved by 1,000 a chunk,
+   queries in the third chunk's band), which prunes 3 chunks of 4 (K1
+   once, on chunk 2) and prints what the same input prints with
+   ``DMLP_TPU_PRUNE=0`` (K1 4 times); config 2's sizes banded the same
+   way with ``--select seg`` (queries in chunk 1's band; 1 chunk of 2
+   pruned: K3 5 times); and
+   config 4 under ``--faults`` with ``oom`` x 3 (the ``tuned`` rung: K2)
+   and x 5 (the ``streaming`` rung: the seg fold, K3 40 times) at
+   ``single.extract_solve``, each printing config 4's fault-free bytes.
+   Every fault-free solve ends on the ``lowp`` rung with no degradation,
+   and the uniform ones prune nothing. No run sends more than 1% of its
+   queries to the host's boundary repair. Each output holds one checksum
+   line per query and matches the port's float64 oracle (``golden.fast``)
+   on a seeded subset byte for byte;
+   ``real_oom``: an allocation of four times the card's memory, outside
+   the engine, raises an error that ``resilience.retry.classify`` calls
+   "oom";
    ``profile``: the timed regions of config 4, the wide-k mix, the wide-k
    multi-pass and config 2's seg solve once more under torch.profiler —
    device time by kernel (the split kernel, the merge and K3 by name),
@@ -105,6 +122,20 @@ CONFIGS = {
     "config2": dict(num_data=100_000, num_queries=5_000, num_attrs=64,
                     attr_min=0.0, attr_max=100.0, min_k=1, max_k=32,
                     num_labels=10, seed=42),
+    # Config 4's and config 2's sizes on a banded corpus: uniform
+    # [0, 100) plus 1,000 x (row // chunk_rows - qband) on attribute 0,
+    # with chunk_rows from plan_chunks at the select's granule, so that
+    # each band is one chunk; uniform [0, 100) queries, in band qband.
+    # The survivor is a chunk past the first (its ids start past 0), and
+    # only one attribute moves, so the largest row norm, and with it the
+    # boundary test's eps (engine.finalize.staging_eps), stays small
+    # beside the gaps between neighbours: the device's lists decide.
+    "banded_config4": dict(num_data=200_000, num_queries=10_000,
+                           num_attrs=64, min_k=1, max_k=32, num_labels=10,
+                           seed=42, banded="extract", qband=2),
+    "banded_config2": dict(num_data=100_000, num_queries=5_000,
+                           num_attrs=64, min_k=1, max_k=32, num_labels=10,
+                           seed=42, banded="seg", qband=1),
 }
 CONFIG4 = CONFIGS["config4"]
 KERNELS = ("fused_topk", "extract_topk", "extract_merge",
@@ -120,12 +151,18 @@ SOURCES = {"fused_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
            "extract_merge": "dmlp_tpu_torch/kernels/extract_topk.cu",
            "fused_dist_segmin": "dmlp_tpu_torch/kernels/dist_segmin.cu"}
 # (run, config, CLI flags, DMLP_TPU_FUSED, launches the plan implies,
-# K1/K2 launches as (count, qb, b, kc), golden subset size). Config 4: 4
-# chunks of 50,176 rows. The mix: 4,376 bulk queries (qpad 4,384) on K1
-# and 5,624 outliers through K3, over the same 4 chunks. The multi-pass:
-# kcap 4,608 = 9 passes of 512, pass 1 over 4 chunks of 51,200 rows and 8
-# more over the resident 204,800. Config 2 with seg: 2 chunks x 5 query
-# blocks of 1,024. Each K1/K2 launch whose shape splits adds one merge.
+# K1/K2 launches as (count, qb, b, kc), golden subset size, and what else
+# the run must show: "env" (more environment), "faults" (a --faults
+# schedule), "rung" (default "lowp"), "pruned" (chunks pruned, default 0),
+# "same_as" (a run whose stdout it must equal)). Config 4: 4 chunks of
+# 50,176 rows. The mix: 4,376 bulk queries (qpad 4,384) on K1 and 5,624
+# outliers through K3, over the same 4 chunks. The multi-pass: kcap 4,608
+# = 9 passes of 512, pass 1 over 4 chunks of 51,200 rows and 8 more over
+# the resident 204,800. Config 2 with seg: 2 chunks x 5 query blocks of
+# 1,024. The banded runs stage only the surviving chunk(s). The
+# streaming rung folds config 4's 4 chunks (granule 1,024: 50,176 rows)
+# into 10 query blocks of 1,024 through K3. Each K1/K2 launch whose shape
+# splits adds one merge.
 MAIN_RUNS = (
     ("config4_K2_warmup", "config4", ["--pallas"], "0",
      {"fused_topk": 0, "extract_topk": 4, "fused_dist_segmin": 0},
@@ -142,6 +179,26 @@ MAIN_RUNS = (
     ("config2_seg", "config2", ["--select", "seg", "--pallas"], "1",
      {"fused_topk": 0, "extract_topk": 0, "fused_dist_segmin": 10}, [],
      1000),
+    ("banded_config4", "banded_config4", ["--pallas"], "1",
+     {"fused_topk": 1, "extract_topk": 0, "fused_dist_segmin": 0},
+     [(1, 10016, 50176, 48)], 1000, {"pruned": 3}),
+    ("banded_config4_dense", "banded_config4", ["--pallas"], "1",
+     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 0},
+     [(4, 10016, 50176, 48)], 0,
+     {"env": {"DMLP_TPU_PRUNE": "0"}, "same_as": "banded_config4"}),
+    ("banded_config2_seg", "banded_config2", ["--select", "seg", "--pallas"],
+     "1", {"fused_topk": 0, "extract_topk": 0, "fused_dist_segmin": 5}, [],
+     1000, {"pruned": 1}),
+    ("ladder_tuned", "config4", ["--pallas"], "1",
+     {"fused_topk": 0, "extract_topk": 4, "fused_dist_segmin": 0},
+     [(4, 10016, 50176, 48)], 1000,
+     {"faults": [{"site": "single.extract_solve", "kind": "oom",
+                  "times": 3}], "rung": "tuned", "same_as": "config4_K1"}),
+    ("ladder_streaming", "config4", ["--pallas"], "1",
+     {"fused_topk": 0, "extract_topk": 0, "fused_dist_segmin": 40}, [],
+     1000, {"faults": [{"site": "single.extract_solve", "kind": "oom",
+                        "times": 5}], "rung": "streaming",
+            "same_as": "config4_K1"}),
 )
 # K1's main-path shapes: kernel case -> the label of its row in PERF.md.
 MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
@@ -153,9 +210,13 @@ MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
                "config4_carried_f32": "config-4 chunk, carried"}
 SWEEP_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 15)
 SWEEP_GROUPS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 33, 49, 66, 98, 131, 196)
-PHASES = ("build", "kernels", "segmin", "main", "profile")
+# At most this share of a run's queries may go to the float64 host oracle
+# (the boundary repair): the rest must come from the device's lists.
+MAX_REPAIR_SHARE = 0.01
+PHASES = ("build", "kernels", "segmin", "main", "real_oom", "profile")
 _TEXTS: dict = {}
 _INPUTS: dict = {}
+_ORACLE: dict = {}
 
 
 def emit(obj) -> None:
@@ -641,11 +702,32 @@ def config_text(name: str) -> str:
     from dmlp_tpu_torch.io.datagen import generate_input_text
     if name not in _TEXTS:
         c = CONFIGS[name]
-        _TEXTS[name] = generate_input_text(
-            c["num_data"], c["num_queries"], c["num_attrs"], c["attr_min"],
-            c["attr_max"], c["min_k"], c["max_k"], c["num_labels"],
-            seed=c["seed"])
+        _TEXTS[name] = banded_text(c) if "banded" in c else \
+            generate_input_text(
+                c["num_data"], c["num_queries"], c["num_attrs"],
+                c["attr_min"], c["attr_max"], c["min_k"], c["max_k"],
+                c["num_labels"], seed=c["seed"])
     return _TEXTS[name]
+
+
+def banded_text(c) -> str:
+    """The norm-banded corpus of ``c`` (see CONFIGS), from numpy seeded
+    with ``c["seed"]``, in the input grammar."""
+    import numpy as np
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.single import plan_chunks
+    from dmlp_tpu_torch.io.grammar import KNNInput, Params, format_input
+    n, nq, na = c["num_data"], c["num_queries"], c["num_attrs"]
+    granule = EngineConfig(use_pallas=True).resolve_granule(c["banded"])
+    _, _, chunk_rows = plan_chunks(n, granule, None)
+    rng = np.random.default_rng(c["seed"])
+    data = rng.uniform(0.0, 100.0, (n, na))
+    data[:, 0] += 1000.0 * (np.arange(n) // chunk_rows - c["qband"])
+    labels = rng.integers(0, c["num_labels"], n).astype(np.int32)
+    ks = rng.integers(c["min_k"], c["max_k"] + 1, nq).astype(np.int32)
+    queries = rng.uniform(0.0, 100.0, (nq, na))
+    return format_input(KNNInput(Params(n, nq, na), labels, data, ks,
+                                 queries))
 
 
 def config_input(name: str):
@@ -658,30 +740,45 @@ def config_input(name: str):
 def main_path():
     """Every MAIN_RUNS solve through the CLI on the card; returns the
     launches per run."""
+    import tempfile
+
     import torch
     from dmlp_tpu_torch import cli, kernels
     from dmlp_tpu_torch.ops.extract import choose_splits
+    from dmlp_tpu_torch.resilience import degrade, stats
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     outputs, launches = {}, {}
-    for label, name, flags, fused, want, shapes, subset in MAIN_RUNS:
+    tmp = tempfile.TemporaryDirectory()
+    for label, name, flags, fused, want, shapes, subset, *more in MAIN_RUNS:
+        extra = more[0] if more else {}
         c = CONFIGS[name]
         want = {**want, "extract_merge": sum(
             n for n, qb, b, kc in shapes
             if choose_splits(qb, b, kc, sm_count) > 1)}
+        rung = extra.get("rung", "lowp")
         t0 = time.perf_counter()
         text = config_text(name)
         gen_ms = (time.perf_counter() - t0) * 1e3
-        os.environ["DMLP_TPU_FUSED"] = fused
+        argv = [*flags, "--phase-times"]
+        if "faults" in extra:
+            path = os.path.join(tmp.name, f"{label}.json")
+            with open(path, "w") as f:
+                json.dump({"schema": 1, "seed": 0,
+                           "faults": extra["faults"]}, f)
+            argv += ["--faults", path]
+        env = {"DMLP_TPU_FUSED": fused, **extra.get("env", {})}
+        os.environ.update(env)
         out, err = io.StringIO(), io.StringIO()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        rc = cli.main([*flags, "--phase-times"], stdin=io.StringIO(text),
-                      stdout=out, stderr=err)
+        rc = cli.main(argv, stdin=io.StringIO(text), stdout=out, stderr=err)
         got = dict(kernels.LAUNCHES)
-        os.environ.pop("DMLP_TPU_FUSED")
+        degradations = stats.snapshot()["degradations"]
+        for k in env:
+            os.environ.pop(k)
         check(rc == 0, f"{label}: cli.main returned {rc}")
         lines = err.getvalue().splitlines()
         m = re.fullmatch(r"Time taken: (\d+) ms", lines[0])
@@ -691,30 +788,75 @@ def main_path():
             if ln.startswith("phase ")}
         repairs = [int(ln.split()[1]) for ln in lines
                    if ln.startswith("repairs: ")]
+        got_rung = [ln.split()[1] for ln in lines if ln.startswith("rung: ")]
+        prune = [json.loads(ln[len("prune: "):]) for ln in lines
+                 if ln.startswith("prune: ")]
         text_out = out.getvalue()
         emit({"phase": "main_path", "run": label, "flags": flags,
-              "DMLP_TPU_FUSED": fused, "time_taken_ms": int(m.group(1)),
-              "phases_ms": phases, "repairs": repairs[0],
+              "env": env, "faults": extra.get("faults"),
+              "time_taken_ms": int(m.group(1)), "phases_ms": phases,
+              "repairs": repairs[0], "rung": got_rung[0],
+              "degradations": degradations, "last_prune": prune[0],
               "launches": got, "launches_expected": want,
               "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
               "stdout_lines": text_out.count("\n"), "datagen_ms": gen_ms})
         check(got == want, f"{label}: launches {got} != the plan's {want}")
+        steps = degrade.RUNGS[:degrade.RUNGS.index(rung) + 1]
+        check(got_rung == [rung] and degradations == [
+            f"{a}->{b}" for a, b in zip(steps, steps[1:])],
+            f"{label}: rung {got_rung}, degradations {degradations}; "
+            f"want {rung}")
+        check(repairs[0] <= MAX_REPAIR_SHARE * c["num_queries"],
+              f"{label}: {repairs[0]} of {c['num_queries']} queries "
+              "repaired on the host")
+        check("engine.prune" in phases,
+              f"{label}: no engine.prune phase in {phases}")
+        check(prune[0] is not None and prune[0]["blocks_pruned"]
+              == extra.get("pruned", 0),
+              f"{label}: last_prune {prune[0]}, want "
+              f"{extra.get('pruned', 0)} chunks pruned")
         out_lines = text_out.splitlines()
         check(len(out_lines) == c["num_queries"] and all(
             re.fullmatch(r"Query \d+ checksum: \d+", ln)
             for ln in out_lines),
             f"{label}: stdout is not {c['num_queries']} checksum lines")
+        if "same_as" in extra:
+            check(text_out == outputs[extra["same_as"]],
+                  f"{label}: stdout differs from {extra['same_as']}'s")
         outputs[label], launches[label] = text_out, got
         if subset:
             golden_subset(label, name, out_lines, subset)
+    tmp.cleanup()
     check(outputs["config4_K1"] == outputs["config4_K2_warmup"],
           "gated and ungated config-4 solves print different results")
     return launches
 
 
+def real_oom():
+    """An allocation of four times the card's memory, outside the engine:
+    what it raises must classify as "oom", the class on which the
+    degradation ladder steps down."""
+    import torch
+    from dmlp_tpu_torch.resilience.retry import classify
+    total = torch.cuda.get_device_properties(0).total_memory
+    err = None
+    try:
+        torch.empty(4 * total, dtype=torch.uint8, device="cuda")
+    except Exception as e:   # the error under test, classified below
+        err = (type(e).__name__, str(e)[:200], classify(e))
+    torch.cuda.empty_cache()
+    emit({"phase": "real_oom", "bytes": 4 * total,
+          "error": None if err is None else err[0],
+          "message": None if err is None else err[1],
+          "classified": None if err is None else err[2]})
+    check(err is not None and err[2] == "oom",
+          f"an allocation of {4 * total} bytes gave {err}, not an oom")
+
+
 def golden_subset(label, name, lines, size):
     """``size`` seeded queries of the run's output against golden.fast,
-    byte for byte."""
+    byte for byte (the oracle's text is computed once per configuration
+    and size)."""
     import numpy as np
     from dmlp_tpu_torch.golden.fast import knn_golden_fast
     from dmlp_tpu_torch.io.grammar import subset_queries
@@ -722,13 +864,14 @@ def golden_subset(label, name, lines, size):
 
     c = CONFIGS[name]
     t0 = time.perf_counter()
-    inp = config_input(name)
     idx = np.sort(np.random.default_rng(c["seed"]).choice(
         c["num_queries"], size, replace=False))
-    ref = knn_golden_fast(subset_queries(inp, idx))
-    for j, r in enumerate(ref):
-        r.query_id = int(idx[j])
-    ok = format_results(ref) == "".join(lines[i] + "\n" for i in idx)
+    if (name, size) not in _ORACLE:
+        ref = knn_golden_fast(subset_queries(config_input(name), idx))
+        for j, r in enumerate(ref):
+            r.query_id = int(idx[j])
+        _ORACLE[name, size] = format_results(ref)
+    ok = _ORACLE[name, size] == "".join(lines[i] + "\n" for i in idx)
     emit({"phase": "golden_subset", "run": label, "queries": size,
           "match": ok, "oracle_ms": (time.perf_counter() - t0) * 1e3})
     check(ok, f"{label}: the subset differs from the float64 oracle")
@@ -828,6 +971,8 @@ def main(argv=None) -> int:
     if "segmin" in phases:
         segmin_cases(summary, args.reps)
     launches = main_path() if "main" in phases else {}
+    if "real_oom" in phases:
+        real_oom()
     if "profile" in phases:
         profile_main_path()
     if summary:

@@ -9,12 +9,14 @@ excluded), ended by the fetch of the results from the device.
 Usage::
 
     python -m dmlp_tpu_torch [--device cuda|cpu] [--engine torch|golden]
-                             [--pallas] [--debug] [--fast] < input.in
+                             [--pallas] [--debug] [--fast]
+                             [--faults FILE] < input.in
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import IO, Optional, Sequence
 
@@ -52,7 +54,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="run the solve once untimed first (kernel "
                              "build and first-launch costs)")
     parser.add_argument("--phase-times", action="store_true",
-                        help="per-phase ms breakdown on stderr")
+                        help="per-phase ms breakdown on stderr, then the "
+                             "repairs, the degradation rung and the scan "
+                             "accounting of the solve")
+    parser.add_argument("--faults", metavar="FILE", default=None,
+                        help="deterministic fault-injection schedule (JSON; "
+                             "dmlp_tpu_torch.resilience.inject); "
+                             "$DMLP_TPU_FAULTS sets it too. Recovery keeps "
+                             "stdout byte-identical")
     return parser
 
 
@@ -66,6 +75,19 @@ def main(argv: Optional[Sequence[str]] = None,
     stdout = stdout or sys.stdout
     stderr = stderr or sys.stderr
 
+    from dmlp_tpu_torch.resilience import inject as rs_inject
+    from dmlp_tpu_torch.resilience import stats as rs_stats
+    rs_stats.reset()
+    schedule = rs_inject.install_from_env(args.faults)
+    try:
+        return _run_cli(args, stdin, stdout, stderr)
+    finally:
+        if schedule is not None:
+            rs_inject.write_log_if_requested()
+            rs_inject.uninstall()
+
+
+def _run_cli(args, stdin, stdout, stderr) -> int:
     config = EngineConfig(debug=args.debug, exact=not args.fast,
                           data_block=args.data_block,
                           query_block=args.query_block, dtype=args.dtype,
@@ -108,6 +130,8 @@ def main(argv: Optional[Sequence[str]] = None,
             stderr.write(f"phase {name}: {ms:.1f} ms\n")
         if engine is not None:
             stderr.write(f"repairs: {engine.last_repairs}\n")
+            stderr.write(f"rung: {engine.last_degrade_rung}\n")
+            stderr.write(f"prune: {json.dumps(engine.last_prune)}\n")
     return 0
 
 

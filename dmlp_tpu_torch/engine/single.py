@@ -20,14 +20,21 @@ device paths, picked by ``EngineConfig.resolve_select``:
   sweeps the resident dataset in floor-raised passes of kc = 512; where
   neither applies, the solve streams through "seg".
 
+``run()`` goes through the degradation ladder (``resilience.degrade``): it
+enters on the top rung, ``lowp``, where the chunked paths stage only the
+chunks that some query's top-k could need (``_plan_prune``, the pruned
+two-stage solve of ``ops.summaries``), and on an OOM it steps down a rung.
+Staging and readback go through the injection sites and the transient
+retry of ``resilience``. ``candidates()`` stays dense.
+
 On the CPU every kernel runs its plain PyTorch version. Not ported yet
-(ROADMAP.md): the pruned two-stage solve (A6 — the port scans every chunk),
-the degradation ladder (A7; the engine runs at the top rung's kernel
-choice), the tune cache (A8), ``run_device_full`` and observability.
+(ROADMAP.md): the tune cache (A8), ``run_device_full`` (A1) and
+observability (A13).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Tuple
 
@@ -43,9 +50,14 @@ from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
                                             staging_eps)
 from dmlp_tpu_torch.io.grammar import KNNInput, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
+from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
+                                          prune_enabled, prune_mask)
 from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
                                      select_topk, streaming_fallback,
                                      streaming_topk)
+from dmlp_tpu_torch.resilience import degrade as rs_degrade
+from dmlp_tpu_torch.resilience import inject as rs_inject
+from dmlp_tpu_torch.resilience import retry as rs_retry
 
 # Per-chunk distance-tile budget of the "topk" driver (bytes): the live
 # (query rows x chunk rows) f32 tile stays below it.
@@ -91,8 +103,37 @@ def host_staging(arr: np.ndarray, device: torch.device,
 
 
 def stage(host: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Host-to-device copy, asynchronous from pinned memory."""
-    return host.to(device, non_blocking=True)
+    """Host-to-device copy, asynchronous from pinned memory: the staging
+    chokepoint of every solve path, so it is the ``single.stage_put``
+    injection site, and a transient failure retries the copy (copying the
+    same host tensor again is idempotent)."""
+    def _op():
+        rs_inject.fire("single.stage_put")
+        return host.to(device, non_blocking=True)
+
+    return rs_retry.call_with_retry(_op, "single.stage_put")
+
+
+def resilient_get(values: List[torch.Tensor], site: str = "single.fetch"
+                  ) -> List[np.ndarray]:
+    """Readback of device tensors to numpy (the fetch is the solve's
+    fence), at the ``single.fetch`` injection site with the transient
+    retry: reading values already computed again is idempotent.
+    ``$DMLP_TPU_OP_TIMEOUT_S`` (off by default) bounds each attempt with a
+    worker-thread deadline whose ``OperationTimeout`` retries; with
+    ``DMLP_TPU_RESILIENCE=0`` the read is a direct call."""
+    deadline = float(os.environ.get("DMLP_TPU_OP_TIMEOUT_S", "0") or 0)
+
+    def _get():
+        rs_inject.fire(site)
+        return [v.cpu().numpy() for v in values]
+
+    def _op():
+        if deadline > 0 and rs_retry.resilience_enabled():
+            return rs_retry.call_with_timeout(_get, deadline, site=site)
+        return _get()
+
+    return rs_retry.call_with_retry(_op, site)
 
 
 def plan_chunks(n: int, granule: int, target: int | None) -> Tuple[int, int, int]:
@@ -177,6 +218,21 @@ def hetk_split(cfg: EngineConfig, staging: str, ks: np.ndarray,
     if bulk.size == 0:
         return None      # nothing the kernel could take
     return bulk, out
+
+
+def active_precision(engine) -> str:
+    """The first-pass dot precision this launch runs at: "bf16" only when
+    the configuration resolves to it (``$DMLP_TPU_PRECISION`` included),
+    the solve is exact (the f64 rescore and the boundary repair make a
+    lossy first pass sound), and the degradation ladder still sits on its
+    top "lowp" rung: the first OOM step gives the low-precision pass back.
+    Candidate windows do not consult this; resolve_kcap plans from the
+    configured precision, so a window stays the same across rungs."""
+    if engine._degrade_rung != "lowp":
+        return "f32"
+    if not engine.config.exact:
+        return "f32"
+    return engine.config.resolve_precision()
 
 
 def _outlier_fold(carry: TopK, q: torch.Tensor, battrs: torch.Tensor,
@@ -278,13 +334,56 @@ class SingleChipEngine:
         self.last_hetk = None       # (bulk, outlier) counts when routed
         self.last_mp_passes = 0     # multi-pass extraction pass count
         self._mp_hazard = None      # its per-query loss flags (run repairs)
+        # Degradation-ladder rung (resilience.degrade): "fused" outside
+        # run(), so candidates() stays dense; run() enters at "lowp".
+        # last_degrade_rung is the rung the last run() settled on.
+        self._degrade_rung = "fused"
+        self.last_degrade_rung = "fused"
+        # Scan accounting of the last chunked solve (ops.summaries.
+        # note_scan): blocks_total/blocks_pruned/scanned_bytes/dense_bytes.
+        self.last_prune = None
+
+    def _staging_itemsize(self) -> int:
+        return 2 if self._staging == "bfloat16" else 4
+
+    def _plan_prune(self, inp: KNNInput, nchunks: int, chunk_rows: int):
+        """Stages 0 and 1 of the pruned two-stage solve for a chunked
+        solve path: (survivor chunk schedule, chunks pruned). Active only
+        on the ladder's top ``lowp``/``prune`` rungs, in exact mode, with
+        the ``DMLP_TPU_PRUNE`` kill switch on and more than one chunk to
+        choose between; under a bf16 first pass the thresholds widen by
+        ``lowp_eps``. The schedule keeps the chunks' order (affine ids,
+        throttle); a pruned chunk is never staged. The scoring is timed
+        as ``last_phase_ms["prune"]``, inside the enqueue window."""
+        t0 = time.perf_counter()
+        n = inp.params.num_data
+        schedule, pruned = list(range(nchunks)), 0
+        if (nchunks > 1 and n > 0 and inp.params.num_queries > 0
+                and self._degrade_rung in ("lowp", "prune")
+                and self.config.exact and prune_enabled()):
+            ranges = [(c * chunk_rows, min((c + 1) * chunk_rows, n))
+                      for c in range(nchunks)]
+            summ = build_summaries(inp.data_attrs, ranges)
+            keep, stats = prune_mask(inp.query_attrs, inp.ks, summ,
+                                     staging=self._staging,
+                                     precision=active_precision(self))
+            # An empty chunk never survives and counts as no prune.
+            schedule = [c for c in schedule if keep[c]]
+            pruned = stats["blocks_pruned"]
+        self.last_phase_ms["prune"] = (time.perf_counter() - t0) * 1e3
+        return schedule, pruned
+
+    def _host_queries(self, query_attrs: np.ndarray,
+                      qpad: int) -> torch.Tensor:
+        """The queries padded with zero rows to ``qpad``, as one host
+        tensor in the staging dtype."""
+        q = np.zeros((qpad, query_attrs.shape[1]), np.float32)
+        q[:len(query_attrs)] = query_attrs
+        return host_staging(q, self.device, self._staging)
 
     def _stage_queries(self, query_attrs: np.ndarray,
                        qpad: int) -> torch.Tensor:
-        q = np.zeros((qpad, query_attrs.shape[1]), np.float32)
-        q[:len(query_attrs)] = query_attrs
-        return stage(host_staging(q, self.device, self._staging),
-                     self.device)
+        return stage(self._host_queries(query_attrs, qpad), self.device)
 
     def _pinned_chunks(self, inp: KNNInput, rows: int) -> torch.Tensor:
         """The dataset padded with zero rows to ``rows``, as one (pinned,
@@ -330,6 +429,9 @@ class SingleChipEngine:
         outs = [streaming_topk(q_dev[i:i + qb], d_attrs, d_labels, d_ids,
                                k, data_block, select, cfg.use_pallas)
                 for i in range(0, qpad, qb)]
+        dense = n * inp.params.num_attrs * self._staging_itemsize()
+        note_scan(self, scanned_bytes=dense, dense_bytes=dense,
+                  blocks_total=1, blocks_pruned=0)
         return TopK(*(torch.cat(parts) for parts in zip(*outs))), qpad
 
     def _solve_pipelined(self, inp: KNNInput) -> Tuple[TopK, int]:
@@ -339,6 +441,7 @@ class SingleChipEngine:
         kernel cannot take the input: then the streaming select."""
         cfg = self.config
         n = inp.params.num_data
+        na = inp.params.num_attrs
         nq = inp.params.num_queries
         select = cfg.resolve_streaming_select(round_up(max(n, 1), 8))
         self._last_select = select
@@ -362,19 +465,30 @@ class SingleChipEngine:
                          staging=self._staging)
 
         dev = self.device
-        q_dev = self._stage_queries(inp.query_attrs, qpad)
+        # One staged tensor per query block, as the reference stages them.
+        q_host = self._host_queries(inp.query_attrs, qpad)
+        q_dev = [stage(q_host[b * qsb:(b + 1) * qsb], dev)
+                 for b in range(nqb)]
+        schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
         host = self._pinned_chunks(inp, nchunks * chunk_rows)
         d_labels, d_ids = self._padded_ids_labels(inp, nchunks * chunk_rows)
         step = make_block_step(select, k, cfg.use_pallas)
         carries = [init_topk(qsb, k, dev) for _ in range(nqb)]
         throttle = ChunkThrottle(dev)
-        for c in range(nchunks):
+        scanned = 0
+        for c in schedule:
             lo, hi = c * chunk_rows, (c + 1) * chunk_rows
             da = stage(host[lo:hi], dev)
+            scanned += max(min(hi, n) - lo, 0) * na \
+                * self._staging_itemsize()
             for b in range(nqb):
-                carries[b] = step(carries[b], q_dev[b * qsb:(b + 1) * qsb],
-                                  da, d_labels[lo:hi], d_ids[lo:hi])
+                carries[b] = step(carries[b], q_dev[b], da,
+                                  d_labels[lo:hi], d_ids[lo:hi])
             throttle.tick()
+        note_scan(self, scanned_bytes=scanned,
+                  dense_bytes=n * na * self._staging_itemsize(),
+                  blocks_total=nchunks,
+                  blocks_pruned=pruned)
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
         return TopK(*(torch.cat(parts) for parts in zip(*carries))), qpad
 
@@ -392,6 +506,8 @@ class SingleChipEngine:
         nq = inp.params.num_queries
         if n == 0 or nq == 0:
             return None
+        rs_inject.fire("single.extract_solve", rung=self._degrade_rung,
+                       path="single")
         granule = cfg.resolve_granule("extract")
         t0 = time.perf_counter()
         _, nchunks, chunk_rows = plan_chunks(n, granule, cfg.data_block)
@@ -399,27 +515,35 @@ class SingleChipEngine:
         kmax = int(inp.ks.max())
         k = resolve_kcap(cfg, kmax, "extract", nchunks * chunk_rows,
                          staging=self._staging)
-        kern, impl = fused.resolve_topk_kernel(qpad, chunk_rows, na, k)
+        kern, impl = fused.resolve_topk_kernel(qpad, chunk_rows, na, k,
+                                               rung=self._degrade_rung)
         if kern is None:
             return None
-        prec = cfg.resolve_precision()
+        prec = active_precision(self)
         self._last_select = "extract"
         self.last_extract_impl = impl
 
+        schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
+        # An all-padding final chunk is never staged.
+        live = [c for c in schedule if c * chunk_rows < n]
         dev = self.device
         q_dev = self._stage_queries(inp.query_attrs, qpad)
         host = self._pinned_chunks(inp, nchunks * chunk_rows)
-        od = oi = None
+        od = oi = None   # the first survivor starts the lists fresh
+        scanned = 0
         throttle = ChunkThrottle(dev)
-        for c in range(nchunks):
+        for c in live:
             lo = c * chunk_rows
-            if lo >= n:
-                break   # an all-padding final chunk is never staged
             hi = min(lo + chunk_rows, n)
             da = stage(host[lo:lo + chunk_rows], dev)
+            scanned += (hi - lo) * na * self._staging_itemsize()
             od, oi, _iters = kern(q_dev, da, od, oi, n_real=hi - lo,
                                   id_base=lo, kc=k, precision=prec)
             throttle.tick()
+        note_scan(self, scanned_bytes=scanned,
+                  dense_bytes=n * na * self._staging_itemsize(),
+                  blocks_total=min(nchunks, -(-n // chunk_rows)),
+                  blocks_pruned=pruned)
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
         glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
         return extract_finalize(od, oi, glabels, k), qpad
@@ -470,7 +594,8 @@ class SingleChipEngine:
         if npad * na * itemsize > self._MP_RESIDENT_BUDGET:
             return None
         qpad = round_up(nq, QUERY_TILE)
-        kern, impl = fused.resolve_topk_kernel(qpad, chunk_rows, na, kc)
+        kern, impl = fused.resolve_topk_kernel(qpad, chunk_rows, na, kc,
+                                               rung=self._degrade_rung)
         if kern is None:
             return None
         # Passes 2..P launch over the whole resident array; nothing
@@ -478,17 +603,23 @@ class SingleChipEngine:
         # so say so loudly instead of mis-tiling every later pass.
         n_staged = min(nchunks, -(-n // chunk_rows))
         full_rows = n_staged * chunk_rows
-        kern_full, _ = fused.resolve_topk_kernel(qpad, full_rows, na, kc)
+        kern_full, _ = fused.resolve_topk_kernel(qpad, full_rows, na, kc,
+                                                 rung=self._degrade_rung)
         if kern_full is None:
             raise AssertionError(
                 f"multi-pass extract: full-array sweep shape (qb={qpad}, "
                 f"rows={full_rows}, a={na}, kc={kc}) is untileable even "
                 f"though the per-chunk shape (rows={chunk_rows}) tiles")
-        prec = cfg.resolve_precision()
+        prec = active_precision(self)
         self._last_select = "extract"
         self.last_extract_impl = impl
+        rs_inject.fire("single.extract_solve", rung=self._degrade_rung,
+                       path="multipass")
 
         t0 = time.perf_counter()
+        # The multi-pass plan never prunes: every block stays competitive
+        # against the floor-raised passes (the reference's rule).
+        self.last_phase_ms["prune"] = 0.0
         dev = self.device
         q_dev = self._stage_queries(inp.query_attrs, qpad)
         host = self._pinned_chunks(inp, nchunks * chunk_rows)
@@ -533,14 +664,16 @@ class SingleChipEngine:
                              na=na, precision=prec)[1])
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
         self.last_mp_passes = len(ods)
+        dense = n * na * self._staging_itemsize()
+        note_scan(self, scanned_bytes=dense, dense_bytes=dense,
+                  blocks_total=n_staged, blocks_pruned=0)
 
         glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
         top, valid = _mp_merge(torch.cat(ods, 1), torch.cat(ois, 1),
                                glabels, kcap=kcap)
         # One readback for both checks: the fd sequence (stall) and the
         # valid counts (shortfall).
-        fd_h = torch.stack(fds).cpu().numpy()
-        valid_h = valid.cpu().numpy()
+        valid_h, fd_h = resilient_get([valid, torch.stack(fds)])
         stalled = np.zeros(qpad, bool)
         for prev, cur in zip(fd_h, fd_h[1:]):
             stalled |= np.isfinite(cur) & (cur <= prev)
@@ -551,11 +684,14 @@ class SingleChipEngine:
     def _solve(self, inp: KNNInput) -> Tuple[TopK, int]:
         self.last_phase_ms = {}
         self.last_extract_impl = None
+        self.last_prune = None
         select = self.config.resolve_select(
             round_up(max(inp.params.num_data, 1), 8))
         if select == "sort":
             return self._solve_scan(inp)
-        if select == "extract":
+        # The "streaming" rung launches no extraction kernel: the
+        # chunk fold below keeps no running-list kernel state.
+        if select == "extract" and self._degrade_rung != "streaming":
             out = self._solve_extract(inp)
             if out is not None:
                 return out
@@ -582,38 +718,50 @@ class SingleChipEngine:
         qpad_b = round_up(len(bulk), QUERY_TILE)
         kb = resolve_kcap(cfg, int(inp.ks[bulk].max()), "extract",
                           nchunks * chunk_rows, staging=self._staging)
-        kern, impl = fused.resolve_topk_kernel(qpad_b, chunk_rows, na, kb)
+        kern, impl = fused.resolve_topk_kernel(qpad_b, chunk_rows, na, kb,
+                                               rung=self._degrade_rung)
         if kern is None:
             return None
         select_out = streaming_fallback(cfg.use_pallas)
         ko = resolve_kcap(cfg, int(inp.ks[outl].max()), select_out,
                           nchunks * chunk_rows, staging=self._staging)
-        prec = cfg.resolve_precision()
+        prec = active_precision(self)
         self._last_select = "extract"
         self.last_extract_impl = impl
         self.last_hetk = (int(bulk.size), int(outl.size))
+        rs_inject.fire("single.extract_solve", rung=self._degrade_rung,
+                       path="routed")
 
         dev = self.device
         qb_dev = self._stage_queries(inp.query_attrs[bulk], qpad_b)
         qo_pad = round_up(len(outl), 8)
         qo_dev = self._stage_queries(inp.query_attrs[outl], qo_pad)
         labels_dev, _ = self._padded_ids_labels(inp, nchunks * chunk_rows)
+        # One schedule for both query sets (they ride the same per-query
+        # ks): the shared sweep skips only a chunk no query of either
+        # segment can need.
+        schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
+        live = [c for c in schedule if c * chunk_rows < n]
         host = self._pinned_chunks(inp, nchunks * chunk_rows)
         carry_o = init_topk(qo_pad, ko, dev)
         od = oi = None
+        scanned = 0
         throttle = ChunkThrottle(dev)
-        for c in range(nchunks):
+        for c in live:
             lo = c * chunk_rows
-            if lo >= n:
-                break
             hi = min(lo + chunk_rows, n)
             da = stage(host[lo:lo + chunk_rows], dev)
+            scanned += (hi - lo) * na * self._staging_itemsize()
             od, oi, _iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
                                   id_base=lo, kc=kb, precision=prec)
             carry_o = _outlier_fold(carry_o, qo_dev, da, labels_dev, lo, n,
                                     k=ko, select=select_out,
                                     use_pallas=cfg.use_pallas)
             throttle.tick()
+        note_scan(self, scanned_bytes=scanned,
+                  dense_bytes=n * na * self._staging_itemsize(),
+                  blocks_total=min(nchunks, -(-n // chunk_rows)),
+                  blocks_pruned=pruned)
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
         glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
         top_b = extract_finalize(od, oi, glabels, kb)
@@ -629,18 +777,24 @@ class SingleChipEngine:
         self._mp_hazard = None
         self.last_mp_passes = 0
         self.last_extract_impl = None
-        plan = hetk_split(self.config, self._staging, inp.ks,
-                          inp.params.num_data,
-                          round_up(max(inp.params.num_data, 1), 8))
+        self.last_prune = None
+        # The routed and multi-pass paths launch the extraction kernel;
+        # the "streaming" rung goes straight to _solve, whose own gate
+        # lands on the chunk fold.
+        streaming = self._degrade_rung == "streaming"
+        plan = None if streaming else hetk_split(
+            self.config, self._staging, inp.ks, inp.params.num_data,
+            round_up(max(inp.params.num_data, 1), 8))
         if plan is not None:
             self.last_phase_ms = {}
             segs = self._solve_extract_routed(inp, plan)
             if segs is not None:
                 return segs
-        self.last_phase_ms = {}
-        segs = self._solve_extract_multipass(inp)
-        if segs is not None:
-            return segs
+        if not streaming:
+            self.last_phase_ms = {}
+            segs = self._solve_extract_multipass(inp)
+            if segs is not None:
+                return segs
         top, qpad = self._solve(inp)
         return [(top, qpad, None, self._last_select)]
 
@@ -649,12 +803,20 @@ class SingleChipEngine:
         """Device pass: (Q, K) selection-ordered candidate lists."""
         out, _ = self._solve(inp)
         nq = inp.params.num_queries
-        dists = out.dists.cpu().numpy().astype(np.float64)[:nq]
-        return dists, out.labels.cpu().numpy()[:nq], out.ids.cpu().numpy()[:nq]
+        od, ol, oi = resilient_get([out.dists, out.labels, out.ids])
+        return od.astype(np.float64)[:nq], ol[:nq], oi[:nq]
 
     def run(self, inp: KNNInput) -> List[QueryResult]:
         """Device candidates + host float64 finalize + boundary repair,
-        segment by segment, merged by original query index.
+        through the degradation ladder: on an OOM, injected or real, the
+        solve steps down a rung (``resilience.degrade``), every rung
+        printing the same bytes."""
+        return rs_degrade.run_ladder(self, inp, self._run)
+
+    def _run(self, inp: KNNInput) -> List[QueryResult]:
+        """One attempt at the current rung: the segments' candidates, then
+        the host finalize, segment by segment, merged by original query
+        index.
 
         In exact mode only the candidate ids and the two boundary columns
         are fetched (labels come from the ids on the host, distances are
@@ -663,7 +825,7 @@ class SingleChipEngine:
         cfg = self.config
         n = inp.params.num_data
         segments = self._solve_segments(inp)
-        prec = cfg.resolve_precision()
+        prec = active_precision(self)
         self.last_repairs = 0
         merged: List[QueryResult] = [None] * inp.params.num_queries
         dn_max = None
@@ -680,12 +842,15 @@ class SingleChipEngine:
                 ks_pad[:nq] = sub.ks
                 cols_dev = boundary_cols(
                     top.dists, torch.from_numpy(ks_pad).to(self.device))
+            fetched = resilient_get(
+                ([] if cfg.exact else [top.dists]) + [top.ids]
+                + ([cols_dev] if cols_dev is not None else []))
             dists = None if cfg.exact \
-                else top.dists.cpu().numpy().astype(np.float64)[:nq]
-            ids = top.ids.cpu().numpy()[:nq]
+                else fetched.pop(0).astype(np.float64)[:nq]
+            ids = fetched.pop(0)[:nq]
             flags = None
             if cols_dev is not None:
-                kth, last = cols_dev.cpu().numpy().astype(np.float64)[:, :nq]
+                kth, last = fetched.pop(0).astype(np.float64)[:, :nq]
                 if dn_max is None:
                     dn_max = float(np.einsum("na,na->n", inp.data_attrs,
                                              inp.data_attrs).max())

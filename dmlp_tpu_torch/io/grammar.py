@@ -138,10 +138,25 @@ def parse_update(line: str) -> Update:
 def parse_input(stream: Union[IO[str], IO[bytes]]) -> KNNInput:
     """Parse a full problem instance from a text or binary stream with the
     pure-Python parser below (the native C++ tokenizer of the reference
-    package is not ported yet)."""
+    package is not ported yet).
+
+    Injection site ``io.parse`` (resilience.inject): a ``corrupt`` fault
+    truncates the payload, the grammar raises :class:`ParseError`, and the
+    pristine payload still in memory is parsed, so the results are the
+    same bytes."""
     data = stream.read()
     if isinstance(data, bytes):
         data = data.decode("ascii")
+    from dmlp_tpu_torch.resilience import inject as rs_inject
+    actions = rs_inject.fire("io.parse") or ()
+    if "corrupt" in actions:
+        try:
+            parse_input_text(rs_inject.corrupt_bytes(data))
+        except ParseError:
+            from dmlp_tpu_torch.resilience import stats as rs_stats
+            rs_stats.record_retry("io.parse")
+        # The pristine payload is authoritative either way: a corrupted
+        # payload's parse result is never returned.
     return parse_input_text(data)
 
 

@@ -49,6 +49,10 @@ class KernelBuildError(RuntimeError):
     """nvcc is missing, the build failed, or the library did not load."""
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's launcher returned a CUDA error."""
+
+
 def find_nvcc() -> str:
     """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
     standard install location; raises when none exists."""

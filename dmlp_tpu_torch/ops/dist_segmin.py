@@ -24,7 +24,8 @@ import functools
 
 import torch
 
-from dmlp_tpu_torch.kernels import LAUNCHES
+from dmlp_tpu_torch.kernels import (LAUNCHES, KernelBuildError,
+                                    KernelLaunchError)
 from dmlp_tpu_torch.ops.distance import masked_pairwise_sq_l2
 
 SEG = 128         # candidate-segment width: sets the seg select's gather order
@@ -110,8 +111,9 @@ def _kernel_lib() -> ctypes.CDLL:
         got = (lib.dmlp_segmin_seg(), lib.dmlp_segmin_tile_q(),
                lib.dmlp_segmin_ctas_per_sm())
         if got != (SEG, QUERY_TILE, CTAS_PER_SM):
-            raise RuntimeError(f"dist_segmin.cu tiles {got} != wrapper's "
-                               f"{(SEG, QUERY_TILE, CTAS_PER_SM)}")
+            raise KernelBuildError(
+                f"dist_segmin.cu tiles {got} != wrapper's "
+                f"{(SEG, QUERY_TILE, CTAS_PER_SM)}")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dmlp_dist_segmin.restype = i
         lib.dmlp_dist_segmin.argtypes = [p] * 7 + [i] * 5 + [p]
@@ -156,8 +158,8 @@ def _launch(qT, dT, qn, dn, ids, dist, segmin, group: int) -> None:
             dist.shape[0], qT.shape[1], dist.shape[1], qT.shape[0], group,
             stream)
     if rc != 0:
-        raise RuntimeError(f"dist_segmin kernel launch failed "
-                           f"(cudaError {rc})")
+        raise KernelLaunchError(f"dist_segmin kernel launch failed "
+                                f"(cudaError {rc})")
     LAUNCHES["fused_dist_segmin"] += 1
 
 

@@ -40,7 +40,8 @@ import torch
 
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_F32,
                                             LOWP_COEF)
-from dmlp_tpu_torch.kernels import LAUNCHES
+from dmlp_tpu_torch.kernels import (LAUNCHES, KernelBuildError,
+                                    KernelLaunchError)
 from dmlp_tpu_torch.ops.distance import require_ieee_f32
 
 QUERY_TILE = 32     # kernel TQ: query rows per CTA
@@ -309,8 +310,8 @@ def _kernel_lib() -> ctypes.CDLL:
                lib.dmlp_extract_smem_bytes(KC_MAX))
         want = (QUERY_TILE, BLOCK_ROWS, MERGE_MAX, smem_bytes(KC_MAX))
         if got != want:
-            raise RuntimeError(f"extract_topk.cu tiles {got} != wrapper's "
-                               f"{want}")
+            raise KernelBuildError(
+                f"extract_topk.cu tiles {got} != wrapper's {want}")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dmlp_extract_topk.restype = i
         lib.dmlp_extract_topk.argtypes = [p] * 10 + [i] * 10 + [
@@ -347,8 +348,8 @@ def _merge_cuda(lib, cd, ci, part_d, part_i):
             _ptr(cd), _ptr(ci), _ptr(part_d), _ptr(part_i), _ptr(od),
             _ptr(oi), qb, kc, nsplit, _stream(part_d.device))
     if rc != 0:
-        raise RuntimeError(f"extract_merge kernel launch failed "
-                           f"(cudaError {rc})")
+        raise KernelLaunchError(f"extract_merge kernel launch failed "
+                                f"(cudaError {rc})")
     LAUNCHES["extract_merge"] += 1
     return od, oi
 
@@ -413,8 +414,8 @@ def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
             int(block_skip), int(precision == "bf16"), EPS_REL_F32,
             _gate_coef(na, precision), _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"extract_topk kernel launch failed "
-                           f"(cudaError {rc})")
+        raise KernelLaunchError(f"extract_topk kernel launch failed "
+                                f"(cudaError {rc})")
     LAUNCHES["fused_topk" if mxu_gate else "extract_topk"] += 1
     if splits == 1:
         return od[0], oi[0], iters

@@ -5,7 +5,8 @@ Port of ``dmlp_tpu/ops/pallas_fused.py``. ``fused_topk`` is
 per-row lower bound from the streamed norms ((|q| - |d|)^2 over the block's
 real |d| range, deflated by the f32 error bound of engine.finalize) skips
 the product and the extraction when no row can improve. Gate on and gate off
-give identical lists. ``DMLP_TPU_FUSED=0`` turns the gate off everywhere.
+give identical lists. ``DMLP_TPU_FUSED=0`` turns the gate off everywhere,
+and so do the degradation ladder's rungs below "fused".
 There is no tune cache yet (ROADMAP A8): every shape resolves to the
 kernel's fixed tiles.
 """
@@ -42,13 +43,14 @@ def fused_topk(q_attrs, d_attrs, carry_d=None, carry_i=None, *, n_real,
                         splits=splits)
 
 
-def resolve_topk_kernel(qb: int, b: int, a: int, kc: int):
+def resolve_topk_kernel(qb: int, b: int, a: int, kc: int,
+                        rung: str = "fused"):
     """(kernel callable, impl label) for one extract dispatch shape, or
-    (None, None) when the kernel cannot tile it: the gated kernel unless
-    the kill switch says otherwise. (The reference also steps down by the
-    degradation ladder's rung; the ladder is ROADMAP A7.)"""
+    (None, None) when the kernel cannot tile it: the gated kernel while
+    the kill switch allows it and the degradation rung is at or above
+    "fused" (resilience.degrade), else the ungated one."""
     if not supports(qb, b, a, kc):   # the gate adds only per-block scalars
         return None, None
-    if fused_enabled():
+    if rung in ("lowp", "prune", "fused") and fused_enabled():
         return fused_topk, "fused"
     return extract_topk, "extract"
