@@ -15,7 +15,8 @@ final result line. Standard output:
    ``build``: every kernel library built from the sources in the checkout
    (one nvcc per source, all started together), with its time and the
    ptxas register / spill lines (K3 must not spill), and K3's resident
-   CTAs per SM as the card reports them;
+   CTAs per SM as the card reports them; beside them the native parser
+   (``io/fastparse.cpp``, g++) built with its time;
    ``kernel_case``: each CUDA kernel held against its plain PyTorch
    version on the card, with CUDA-event times (median of several launches
    after a warm-up) at the shapes the main paths give it — K1/K2 at the
@@ -38,17 +39,27 @@ final result line. Standard output:
    ``ms``, and over ``kernel_ms``) and ``sgemm_ms`` (``torch.mm`` of the
    same operands in IEEE f32: the same FMAs and output bytes without the
    epilogue, a yardstick the port never calls);
-   ``split_sweep``: K1 at the four main-path extraction shapes for
-   S = 1..15, each sorted list bit for bit against S = 1's;
-   ``g_sweep``: K3 alone at its two main-path shapes for a range of G
-   (the segments one CTA walks), each output bit for bit against the
-   chosen G's: the data behind ``ops.dist_segmin.choose_group``;
-   ``main_path``: ten solves through ``dmlp_tpu_torch.cli.main`` on the
-   card, each with the launch counts set to 0 just before it, read just
-   after and checked against the counts its plan implies (a merge for
-   every K1/K2 launch whose shape splits), with its degradation rung, its
-   degradations, its scan accounting (``last_prune``: chunks pruned of
-   the total), its ``engine.prune`` scoring time and its peak device
+   the ``tune`` phase (``dmlp_tpu_torch.tune.sweep``), on the kernels
+   and segmin phases' inputs — ``split_sweep``: K1 at its seven main-path
+   cases (four launch keys: the config-4 chunk, the wide-k bulk, the
+   multi-pass first pass, each fresh and carried, and the multi-pass
+   resident pass) and K2 at the config-4 chunk, for S = 1..15, each
+   sorted list bit for bit against the heuristic S's; ``g_sweep``: K3
+   alone at its two main-path shapes for a range of G, each output bit for
+   bit against the heuristic G's; ``prune_score_sweep``: the host prune
+   scoring at config 4 over block chunks, each survivor mask bit for bit
+   against the default's; then one ``tune`` line with every winner, its
+   time beside the heuristic's, written to a cache file in a temporary
+   directory;
+   ``parse``: config 4's payload through the Python parser and the
+   native one, with their times, the arrays bit for bit equal;
+   ``main_path``: fourteen solves through ``dmlp_tpu_torch.cli.main`` on
+   the card, each with the launch counts set to 0 just before it, read
+   just after and checked against the counts its plan implies (a merge
+   for every K1/K2 launch whose shape splits), with its parse time and
+   parser (the native one must serve every solve), its degradation rung,
+   its degradations, its scan accounting (``last_prune``: chunks pruned
+   of the total), its ``engine.prune`` scoring time and its peak device
    memory: bench config 4 (200,000 x 10,000 x 64, k in 1..32) with
    ``DMLP_TPU_FUSED=0`` (K2; also the warm-up) and as shipped (K1); the
    wide-k mix (config 4's data, k in 1..1024: the heterogeneous-k router,
@@ -63,12 +74,24 @@ final result line. Standard output:
    pruned: K3 5 times); and
    config 4 under ``--faults`` with ``oom`` x 3 (the ``tuned`` rung: K2)
    and x 5 (the ``streaming`` rung: the seg fold, K3 40 times) at
-   ``single.extract_solve``, each printing config 4's fault-free bytes.
-   Every fault-free solve ends on the ``lowp`` rung with no degradation,
-   and the uniform ones prune nothing. No run sends more than 1% of its
-   queries to the host's boundary repair. Each output holds one checksum
-   line per query and matches the port's float64 oracle (``golden.fast``)
-   on a seeded subset byte for byte;
+   ``single.extract_solve``, each printing config 4's fault-free bytes;
+   config 4 with the tune phase's cache (``tuned_config4``: config 4's
+   bytes, K1 launched 4 times at the cache's S), and under ``oom`` x 4
+   with that cache present (``ladder_heuristic``: the ``heuristic`` rung,
+   K2 4 times, no cache lookup, config 4's bytes); config 4 and the wide-k
+   mix with ``--device-full`` (the vote and the report order on the card,
+   f32, dense: K1 4 times, and K3 4 times for the mix's outliers), each
+   held per query against the exact ``run()`` of the same input through
+   the engine API — equal ids and label, or every position where the two
+   reports differ holding ids whose float64 distances lie within twice
+   ``ops.extract.list_tolerance`` of each other (near ties of the f32
+   ordering, counted) — and printed beside the exact solve's ``Time
+   taken`` and phases. Every other fault-free solve ends on the ``lowp``
+   rung with no degradation, and the uniform ones prune nothing. No run
+   sends more than 1% of its queries to the host's boundary repair. Each
+   output holds one checksum line per query and the exact ones match the
+   port's float64 oracle (``golden.fast``) on a seeded subset byte for
+   byte;
    ``real_oom``: an allocation of four times the card's memory, outside
    the engine, raises an error that ``resilience.retry.classify`` calls
    "oom";
@@ -87,7 +110,8 @@ final result line. Standard output:
 4. ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
-build,segmin`` holds and times K3 alone); the default runs everything.
+build,segmin`` holds and times K3 alone; ``tune`` needs ``kernels`` and
+``segmin``); the default runs everything.
 """
 
 from __future__ import annotations
@@ -162,7 +186,10 @@ SOURCES = {"fused_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
 # 1,024. The banded runs stage only the surviving chunk(s). The
 # streaming rung folds config 4's 4 chunks (granule 1,024: 50,176 rows)
 # into 10 query blocks of 1,024 through K3. Each K1/K2 launch whose shape
-# splits adds one merge.
+# splits adds one merge. More in the last field: "tuned" (the tune phase's
+# cache file is present), "exact" (a --device-full run: the exact run it
+# is held against); a --device-full run stays on the engine's own "fused"
+# rung, with no degradation and no prune plan.
 MAIN_RUNS = (
     ("config4_K2_warmup", "config4", ["--pallas"], "0",
      {"fused_topk": 0, "extract_topk": 4, "fused_dist_segmin": 0},
@@ -199,7 +226,31 @@ MAIN_RUNS = (
      1000, {"faults": [{"site": "single.extract_solve", "kind": "oom",
                         "times": 5}], "rung": "streaming",
             "same_as": "config4_K1"}),
+    ("tuned_config4", "config4", ["--pallas"], "1",
+     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 0},
+     [(4, 10016, 50176, 48)], 0, {"tuned": True, "same_as": "config4_K1"}),
+    ("ladder_heuristic", "config4", ["--pallas"], "1",
+     {"fused_topk": 0, "extract_topk": 4, "fused_dist_segmin": 0},
+     [(4, 10016, 50176, 48)], 0,
+     {"tuned": True, "faults": [{"site": "single.extract_solve",
+                                 "kind": "oom", "times": 4}],
+      "rung": "heuristic", "same_as": "config4_K1"}),
+    ("device_full_config4", "config4", ["--pallas", "--device-full"], "1",
+     {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 0},
+     [(4, 10016, 50176, 48)], 0, {"exact": "config4_K1"}),
+    ("device_full_widek_mix", "widek_mix", ["--pallas", "--device-full"],
+     "1", {"fused_topk": 4, "extract_topk": 0, "fused_dist_segmin": 4},
+     [(4, 4384, 50176, 512)], 0, {"exact": "widek_mix"}),
 )
+# The tune phase's launch keys: per kernel, lists of (kernel case, how
+# many times a solve launches it) sharing (qb, b, a, kc).
+TUNE_SPLIT_KEYS = {
+    True: ([("config4_fresh_f32", 1), ("config4_carried_f32", 3)],
+           [("widek_bulk_fresh", 1), ("widek_bulk_carried", 3)],
+           [("multipass_first", 1), ("multipass_first_carried", 3)],
+           [("multipass_floor", 8)]),
+    False: ([("config4_fresh_f32", 1), ("config4_carried_f32", 3)],)}
+TUNE_GROUP_CASES = ("outlier_f32", "streaming_seg")
 # K1's main-path shapes: kernel case -> the label of its row in PERF.md.
 MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
                "multipass_first": "multi-pass first pass, fresh",
@@ -208,12 +259,11 @@ MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
                "widek_bulk_carried": "wide-k bulk, carried",
                "config4_fresh_f32": "config-4 chunk, fresh",
                "config4_carried_f32": "config-4 chunk, carried"}
-SWEEP_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 15)
-SWEEP_GROUPS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 33, 49, 66, 98, 131, 196)
 # At most this share of a run's queries may go to the float64 host oracle
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
-PHASES = ("build", "kernels", "segmin", "main", "real_oom", "profile")
+PHASES = ("build", "kernels", "segmin", "tune", "main", "real_oom",
+          "profile")
 _TEXTS: dict = {}
 _INPUTS: dict = {}
 _ORACLE: dict = {}
@@ -231,47 +281,28 @@ def check(cond: bool, what: str) -> None:
 def time_ms(fn, reps: int):
     """Median CUDA-event time of ``fn()`` over ``reps`` launches after one
     warm-up; returns (ms, last result)."""
-    import torch
-    out = fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2], out
+    from dmlp_tpu_torch.tune.sweep import time_ms as timed
+    return timed(fn, reps, "cuda")
 
 
-def back_to_back_ms(fn, n: int = 10, reps: int = 5) -> float:
-    """Median CUDA-event time per call over ``reps`` runs of ``n`` calls
-    of ``fn()`` back to back, after one warm-up: the device's time when
-    the host enqueues ahead of it."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
-    times.sort()
-    return times[len(times) // 2]
+def back_to_back_ms(fn) -> float:
+    """Median CUDA-event time per call of ``fn()`` called back to back:
+    the device's time when the host enqueues ahead of it."""
+    from dmlp_tpu_torch.tune.sweep import back_to_back_ms as timed
+    return timed(fn, "cuda")
 
 
 def phase_build():
     from dmlp_tpu_torch import kernels
+    from dmlp_tpu_torch.io import native
     from dmlp_tpu_torch.ops import dist_segmin as ds
     t0 = time.perf_counter()
     info = kernels.build_all()
     ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    parser = native.build()
+    parser["ms"] = (time.perf_counter() - t0) * 1e3
+    check(parser["ok"], f"the native parser did not build: {parser}")
     libs = {}
     for name, rec in info.items():
         ptxas = [ln.strip() for ln in rec["log"].splitlines()
@@ -285,18 +316,9 @@ def phase_build():
                 f"dist_segmin.cu spills registers: {ptxas}")
     occupancy = ds._kernel_lib().dmlp_segmin_occupancy()
     emit({"phase": "build", "ms": ms, "libraries": libs,
-          "segmin_ctas_per_sm": occupancy})
+          "segmin_ctas_per_sm": occupancy, "native_parser": parser})
     check(occupancy == ds.CTAS_PER_SM,
           f"K3 runs {occupancy} CTAs per SM, not {ds.CTAS_PER_SM}")
-
-
-def lexsorted(od, oi):
-    """Lists sorted by (distance, id), for comparing two splits as sets."""
-    import torch
-    order = torch.argsort(oi, dim=1, stable=True)
-    order = torch.gather(order, 1, torch.argsort(
-        torch.gather(od, 1, order), dim=1, stable=True))
-    return torch.gather(od, 1, order), torch.gather(oi, 1, order)
 
 
 def seeded_uniform(dev):
@@ -317,12 +339,14 @@ def seeded_uniform(dev):
 def kernel_cases(reps: int):
     """Hold K1/K2 and their merge against their plain versions; returns
     per-kernel records for the summary line (K1/K2 from config 4's
-    carried f32 case, the merge from the multi-pass resident pass) and
-    K1's times at the main-path shapes."""
+    carried f32 case, the merge from the multi-pass resident pass) with
+    K1's times at the main-path shapes, and the main-path cases' inputs
+    for the tune phase."""
     import torch
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.engine import single
     from dmlp_tpu_torch.ops import extract as ex
+    from dmlp_tpu_torch.tune.sweep import sorted_lists
 
     dev = torch.device("cuda")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -375,7 +399,7 @@ def kernel_cases(reps: int):
             ms, plain_ms, (od, oi, it), cmp = res[chosen]
             ms1, plain_ms1, (od1, oi1, it1), cmp1 = res[1]
             same = all(torch.equal(a, b) for a, b in zip(
-                lexsorted(od, oi), lexsorted(od1, oi1)))
+                sorted_lists(od, oi), sorted_lists(od1, oi1)))
             outs[gate] = (od, oi, it)
             rec = {"phase": "kernel_case", "case": name, "kernel": kname,
                    "shape": [q.shape[0], d.shape[0], q.shape[1], kc],
@@ -469,7 +493,6 @@ def kernel_cases(reps: int):
         na=na)
     run_case("multipass_floor", qm, dm, n_real=mp["num_data"], id_base=0,
              kc=512, floor=floor)
-    split_sweep(sweep_inputs, sm_count)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
     for label, r in by_shape.items():
         check(r["splits"] == 1 or r["ms"] <= r["ms_s1"],
@@ -480,7 +503,7 @@ def kernel_cases(reps: int):
         check(r["splits"] > 1 and r["ms"] < r["ms_s1"],
               f"{label}: the split does not pay {r}")
     summary["fused_topk"]["ms_by_shape"] = by_shape
-    return summary
+    return summary, sweep_inputs
 
 
 def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
@@ -511,37 +534,13 @@ def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
                  shape=f"{name} {rec['shape']}")
 
 
-def split_sweep(inputs, sm_count):
-    """K1 at each main-path shape for every S the launch takes in
-    SWEEP_SPLITS: CUDA-event medians, each sorted list bit for bit against
-    S = 1's. The data behind choose_splits."""
-    import torch
-    from dmlp_tpu_torch.ops import extract as ex
-    for name, (q, d, cd, ci, kw) in inputs.items():
-        limit = ex.max_splits(d.shape[0], kw["kc"])
-        times, ref = {}, None
-        for splits in (n for n in SWEEP_SPLITS if n <= limit):
-            ms, (od, oi, _) = time_ms(lambda: ex.extract_topk(
-                q, d, cd, ci, mxu_gate=True, splits=splits, **kw), 3)
-            got = lexsorted(od, oi)
-            if ref is None:
-                ref = got
-            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
-                  f"{name}: S={splits} sorted lists differ from S=1's")
-            times[splits] = ms
-        emit({"phase": "split_sweep", "case": name,
-              "shape": [q.shape[0], d.shape[0], q.shape[1], kw["kc"]],
-              "chosen": ex.choose_splits(q.shape[0], d.shape[0], kw["kc"],
-                                         sm_count),
-              "ms_by_splits": times})
-
-
 def segmin_cases(summary, reps):
     """Hold K3 against its plain version: dist and segmin under
     ``list_tolerance``, +inf exactly where ids < 0, and segmin bit for bit
     against the kernel's own dist reshape-min; every G a case names gives
     the same output bit for bit. The two main-path shapes also get their
-    bound share, the ``torch.mm`` yardstick and a ``g_sweep`` line."""
+    bound share and the ``torch.mm`` yardstick; returns their inputs for
+    the tune phase's ``g_sweep``."""
     import torch
     from dmlp_tpu_torch.engine import single
     from dmlp_tpu_torch.ops import dist_segmin as ds
@@ -558,7 +557,7 @@ def segmin_cases(summary, reps):
     last_ids = torch.where(ri < c4["num_data"], ri, -1)
     ragged_ids = torch.arange(1024, dtype=torch.int32, device=dev)
     ragged_ids[1024 - 300:] = -1      # segments 6..7 hold only sentinels
-    by_shape = {}
+    by_shape, g_inputs = {}, {}
 
     def case(name, q, d, ids, precision="f32", groups=(), main=None):
         qb, b = q.shape[0], d.shape[0]
@@ -581,8 +580,7 @@ def segmin_cases(summary, reps):
         own = torch.equal(segmin, dist.view(qb, -1, ds.SEG).min(-1).values)
         inf_same = bool(torch.equal(torch.isinf(psm), torch.isinf(segmin)))
         del pd, psm, fin, sfin
-        ops = (*ds.prepare_operands(q, d, precision),
-               ids.to(torch.int32).contiguous())
+        ops = ds.launch_operands(q, d, ids, precision)
         gd, gs = torch.empty_like(dist), torch.empty_like(segmin)
         same_g = {}
         for g in groups:
@@ -629,25 +627,7 @@ def segmin_cases(summary, reps):
             if "ms" not in s:
                 s.update(ms=ms, plain_ms=plain_ms, bound=rec,
                          shape=f"{name} {rec['shape']}")
-            g_sweep(name, q, d, ids, dist, segmin, chosen)
-
-    def g_sweep(name, q, d, ids, dist, segmin, chosen):
-        """The kernel alone (operands prepared once, launches back to
-        back) at every G of SWEEP_GROUPS that the shape takes."""
-        nseg = d.shape[0] // ds.SEG
-        ops = (*ds.prepare_operands(q, d), ids.to(torch.int32).contiguous())
-        gd, gs = torch.empty_like(dist), torch.empty_like(segmin)
-        times = {}
-        for g in sorted({*SWEEP_GROUPS, chosen}):
-            if g > nseg:
-                continue
-            times[g] = back_to_back_ms(lambda: ds._launch(*ops, gd, gs, g))
-            check(torch.equal(gd, dist) and torch.equal(gs, segmin),
-                  f"{name}: G={g} output differs from G={chosen}'s")
-        emit({"phase": "g_sweep", "case": name,
-              "shape": [q.shape[0], d.shape[0], q.shape[1]],
-              "chosen": chosen, "kernel_ms_by_group": times})
-        del ops, gd, gs
+            g_inputs[name] = (q, d, ids)
 
     qo = uniform((n_out, na), 11)
     d_last = uniform((chunk_rows, na), 12)
@@ -668,6 +648,7 @@ def segmin_cases(summary, reps):
          uniform((37 * 128, 100), 20), ids37, groups=(1, 5, 36))
     summary["fused_dist_segmin"]["ms_by_shape"] = by_shape
     emit({"phase": "segmin", "kernels_held": ["fused_dist_segmin"]})
+    return g_inputs
 
 
 def segmin_bound(qb, b, a, precision):
@@ -731,32 +712,184 @@ def banded_text(c) -> str:
 
 
 def config_input(name: str):
-    from dmlp_tpu_torch.io.grammar import parse_input_text
+    """The parsed input of ``name`` (the native parser)."""
+    from dmlp_tpu_torch.io.grammar import parse_input
     if name not in _INPUTS:
-        _INPUTS[name] = parse_input_text(config_text(name))
+        _INPUTS[name] = parse_input(io.StringIO(config_text(name)))
     return _INPUTS[name]
 
 
-def main_path():
-    """Every MAIN_RUNS solve through the CLI on the card; returns the
-    launches per run."""
+def phase_tune(sweep_inputs, g_inputs, tmp_dir):
+    """The measured sweeps of ``dmlp_tpu_torch.tune.sweep`` on the kernels
+    and segmin phases' main-path inputs — S of K1 at its four launch keys
+    and of K2 at config 4's, G of K3 at its two shapes, every output bit
+    for bit against the heuristic's — and the prune scoring's chunk at
+    config 4; the winners go to a cache file in ``tmp_dir``, whose path is
+    returned."""
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.single import plan_chunks
+    from dmlp_tpu_torch.ops.summaries import build_summaries
+    from dmlp_tpu_torch.tune import sweep
+    from dmlp_tpu_torch.tune.cache import device_kind
+
+    t0 = time.perf_counter()
+    winners = []
+    for gate, keys in TUNE_SPLIT_KEYS.items():
+        for key in keys:
+            winners.append(sweep.sweep_splits(
+                [sweep.SplitCase(name, *sweep_inputs[name], weight)
+                 for name, weight in key], gate=gate, reps=3, emit=emit))
+    for name in TUNE_GROUP_CASES:
+        winners.append(sweep.sweep_groups(name, *g_inputs[name], emit=emit))
+    for w in winners:
+        check(not w["changed"], f"{w['kernel']} {w['cases']}: the "
+                                f"variants {w['changed']} change a result")
+    c4 = CONFIGS["config4"]
+    inp = config_input("config4")
+    _, nchunks, chunk_rows = plan_chunks(
+        c4["num_data"], EngineConfig(use_pallas=True).resolve_granule(
+            "extract"), None)
+    summ = build_summaries(inp.data_attrs, [
+        (i * chunk_rows, min((i + 1) * chunk_rows, c4["num_data"]))
+        for i in range(nchunks)])
+    winners.append(sweep.sweep_prune_score(inp.query_attrs, inp.ks, summ,
+                                           emit=emit))
+    path = sweep.save_winners(winners, os.path.join(tmp_dir,
+                                                    "variants.json"),
+                              device_kind("cuda"))
+    emit({"phase": "tune", "cache": path,
+          "ms": (time.perf_counter() - t0) * 1e3,
+          "winners": [{k: w[k] for k in (
+              "kernel", "cases", "qb", "b", "a", "kc", "variant",
+              "measured_ms", "heuristic", "heuristic_ms", "swept",
+              "changed")} for w in winners]})
+    return path
+
+
+def compare_device_full(label, name, exact_record):
+    """The device-full solve of ``name`` against the exact run() of the
+    same input, both through the engine API: per query equal ids and
+    label, or a near tie — every position where the reports differ holds
+    ids whose float64 distances lie within twice ``list_tolerance`` of each
+    other (the f32 ordering's error bound). Emits the count of near ties
+    beside the exact CLI run's ``Time taken`` and phases."""
+    import numpy as np
+    import torch
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.single import SingleChipEngine
+    from dmlp_tpu_torch.ops.extract import list_tolerance
+
+    inp = config_input(name)
+    eng = SingleChipEngine(EngineConfig(use_pallas=True))
+    t0 = time.perf_counter()
+    full = eng.run_device_full(inp)
+    full_ms = (time.perf_counter() - t0) * 1e3
+    full_path = (eng._last_select, eng.last_hetk, eng.last_mp_passes)
+    t0 = time.perf_counter()
+    exact = SingleChipEngine(EngineConfig(use_pallas=True)).run(inp)
+    exact_ms = (time.perf_counter() - t0) * 1e3
+    qn = np.einsum("qa,qa->q", inp.query_attrs, inp.query_attrs)
+    dn_max = float(np.einsum("na,na->n", inp.data_attrs,
+                             inp.data_attrs).max())
+    tol = 2 * list_tolerance(torch.from_numpy(qn), dn_max,
+                             inp.params.num_attrs).numpy()
+    near, bad, labels_differ = 0, [], 0
+    for q, (f, e) in enumerate(zip(full, exact)):
+        same_ids = np.array_equal(f.neighbor_ids, e.neighbor_ids)
+        if same_ids and f.predicted_label == e.predicted_label:
+            continue
+        pos = np.nonzero(f.neighbor_ids != e.neighbor_ids)[0]
+        a, b = f.neighbor_ids[pos], e.neighbor_ids[pos]
+        x = inp.query_attrs[q]
+
+        def d64(ids):
+            diff = inp.data_attrs[np.clip(ids, 0, None)] - x
+            return np.where(ids >= 0, np.einsum("ia,ia->i", diff, diff),
+                            np.inf)
+        ok = not same_ids and bool(np.all(np.abs(d64(a) - d64(b))
+                                          <= tol[q]))
+        labels_differ += f.predicted_label != e.predicted_label
+        if ok:
+            near += 1
+        else:
+            bad.append(q)
+    emit({"phase": "device_full_vs_exact", "run": label,
+          "queries": len(full), "near_tie_queries": near,
+          "label_differs": int(labels_differ), "failed_queries": bad[:20],
+          "path": full_path, "device_full_api_ms": full_ms,
+          "exact_api_ms": exact_ms,
+          "exact_run": exact_record["run"],
+          "exact_time_taken_ms": exact_record["time_taken_ms"],
+          "exact_phases_ms": exact_record["phases_ms"]})
+    check(not bad, f"{label}: {len(bad)} queries differ from the exact "
+                   f"run beyond the f32 tolerance, first {bad[:5]}")
+    return full_path
+
+
+def main_path(tune_path):
+    """Every MAIN_RUNS solve through the CLI on the card (the runs with
+    the tune cache only when the tune phase ran); returns the launches per
+    run."""
     import tempfile
 
+    import numpy as np
     import torch
     from dmlp_tpu_torch import cli, kernels
-    from dmlp_tpu_torch.ops.extract import choose_splits
+    from dmlp_tpu_torch.io import grammar
+    from dmlp_tpu_torch.ops.extract import check_splits, heuristic_splits
     from dmlp_tpu_torch.resilience import degrade, stats
+    from dmlp_tpu_torch.tune import cache as tune_cache
 
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    outputs, launches = {}, {}
+    # Config 4's payload through both parsers on this host: the same
+    # arrays, bit for bit.
+    text = config_text("config4")
+    t0 = time.perf_counter()
+    py = grammar.parse_input_text(text)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    nat = grammar.parse_input(io.StringIO(text))
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    same = all(np.array_equal(getattr(py, f), getattr(nat, f)) for f in (
+        "labels", "data_attrs", "ks", "query_attrs"))
+    emit({"phase": "parse", "config": "config4", "bytes": len(text),
+          "python_ms": py_ms, "native_ms": nat_ms,
+          "parser": grammar.last_parser, "identical": same})
+    check(same and grammar.last_parser == "native",
+          f"config 4: the native parse ({grammar.last_parser}) differs "
+          "from the Python parser's")
+    del py, nat
+
+    outputs, launches, records = {}, {}, {}
     tmp = tempfile.TemporaryDirectory()
+    # Every run but the tuned ones sees no cache file.
+    absent = os.path.join(tmp.name, "absent.json")
+
+    def planned_splits(qb, b, kc, gate, cached):
+        """S of a K1/K2 launch: the cache's, else the heuristic."""
+        v = cached and tune_cache.lookup_variant(
+            "fused_topk" if gate else "extract_topk", qb=qb, b=b, a=64,
+            kc=kc, device="cuda", path=tune_path)
+        return check_splits(v["splits"], b, kc) if v else \
+            heuristic_splits(qb, b, kc, "cuda")
+
     for label, name, flags, fused, want, shapes, subset, *more in MAIN_RUNS:
         extra = more[0] if more else {}
+        if extra.get("tuned") and tune_path is None:
+            continue
         c = CONFIGS[name]
-        want = {**want, "extract_merge": sum(
-            n for n, qb, b, kc in shapes
-            if choose_splits(qb, b, kc, sm_count) > 1)}
         rung = extra.get("rung", "lowp")
+        device_full = "--device-full" in flags
+        gate = bool(want["fused_topk"])
+        variants = {}
+        for n, qb, b, kc in shapes:
+            s = planned_splits(qb, b, kc, gate, extra.get("tuned") and
+                               rung != "heuristic")
+            per = variants.setdefault(
+                "fused_topk" if gate else "extract_topk", {})
+            per[s] = per.get(s, 0) + n
+        want = {**want, "extract_merge": sum(
+            n for per in variants.values() for s, n in per.items()
+            if s > 1)}
         t0 = time.perf_counter()
         text = config_text(name)
         gen_ms = (time.perf_counter() - t0) * 1e3
@@ -767,15 +900,22 @@ def main_path():
                 json.dump({"schema": 1, "seed": 0,
                            "faults": extra["faults"]}, f)
             argv += ["--faults", path]
-        env = {"DMLP_TPU_FUSED": fused, **extra.get("env", {})}
+        env = {"DMLP_TPU_FUSED": fused, "DMLP_TPU_TUNE_CACHE":
+               tune_path if extra.get("tuned") else absent,
+               **extra.get("env", {})}
         os.environ.update(env)
         out, err = io.StringIO(), io.StringIO()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
+        tune_cache.reset_stats()
+        grammar.last_parser = None
         rc = cli.main(argv, stdin=io.StringIO(text), stdout=out, stderr=err)
         got = dict(kernels.LAUNCHES)
+        got_variants = {k: dict(v) for k, v in
+                        kernels.LAUNCH_VARIANTS.items() if k in variants}
+        lookups = dict(tune_cache.STATS)
         degradations = stats.snapshot()["degradations"]
         for k in env:
             os.environ.pop(k)
@@ -792,16 +932,28 @@ def main_path():
         prune = [json.loads(ln[len("prune: "):]) for ln in lines
                  if ln.startswith("prune: ")]
         text_out = out.getvalue()
-        emit({"phase": "main_path", "run": label, "flags": flags,
-              "env": env, "faults": extra.get("faults"),
-              "time_taken_ms": int(m.group(1)), "phases_ms": phases,
-              "repairs": repairs[0], "rung": got_rung[0],
-              "degradations": degradations, "last_prune": prune[0],
-              "launches": got, "launches_expected": want,
-              "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
-              "stdout_lines": text_out.count("\n"), "datagen_ms": gen_ms})
+        records[label] = {
+            "phase": "main_path", "run": label, "flags": flags,
+            "env": env, "faults": extra.get("faults"),
+            "time_taken_ms": int(m.group(1)), "phases_ms": phases,
+            "parse_ms": phases.get("parse"), "parser": grammar.last_parser,
+            "repairs": repairs[0], "rung": got_rung[0],
+            "degradations": degradations, "last_prune": prune[0],
+            "launches": got, "launches_expected": want,
+            "launch_variants": got_variants,
+            "launch_variants_expected": variants, "tune_cache": lookups,
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "stdout_lines": text_out.count("\n"), "datagen_ms": gen_ms}
+        emit(records[label])
         check(got == want, f"{label}: launches {got} != the plan's {want}")
-        steps = degrade.RUNGS[:degrade.RUNGS.index(rung) + 1]
+        check(got_variants == variants, f"{label}: launches by S "
+                                        f"{got_variants} != {variants}")
+        check(grammar.last_parser == "native",
+              f"{label}: parsed by the {grammar.last_parser} parser")
+        if device_full:     # the engine's own rung, not the ladder's
+            rung, steps = "fused", ()
+        else:
+            steps = degrade.RUNGS[:degrade.RUNGS.index(rung) + 1]
         check(got_rung == [rung] and degradations == [
             f"{a}->{b}" for a, b in zip(steps, steps[1:])],
             f"{label}: rung {got_rung}, degradations {degradations}; "
@@ -811,10 +963,20 @@ def main_path():
               "repaired on the host")
         check("engine.prune" in phases,
               f"{label}: no engine.prune phase in {phases}")
-        check(prune[0] is not None and prune[0]["blocks_pruned"]
-              == extra.get("pruned", 0),
-              f"{label}: last_prune {prune[0]}, want "
-              f"{extra.get('pruned', 0)} chunks pruned")
+        if device_full:
+            check(prune[0] is None and repairs[0] == 0,
+                  f"{label}: prune {prune[0]}, repairs {repairs[0]}; a "
+                  "device-full solve has neither")
+        else:
+            check(prune[0] is not None and prune[0]["blocks_pruned"]
+                  == extra.get("pruned", 0),
+                  f"{label}: last_prune {prune[0]}, want "
+                  f"{extra.get('pruned', 0)} chunks pruned")
+        if extra.get("tuned"):
+            want_hits = 0 if rung == "heuristic" else 5   # K1 x 4, scoring
+            check(lookups == {"lookups": want_hits, "hits": want_hits},
+                  f"{label}: tune cache lookups {lookups}, want "
+                  f"{want_hits} lookups, all hits")
         out_lines = text_out.splitlines()
         check(len(out_lines) == c["num_queries"] and all(
             re.fullmatch(r"Query \d+ checksum: \d+", ln)
@@ -826,6 +988,9 @@ def main_path():
         outputs[label], launches[label] = text_out, got
         if subset:
             golden_subset(label, name, out_lines, subset)
+        if "exact" in extra:
+            path = compare_device_full(label, name, records[extra["exact"]])
+            check(path[0] == "extract", f"{label}: solved on {path}")
     tmp.cleanup()
     check(outputs["config4_K1"] == outputs["config4_K2_warmup"],
           "gated and ungated config-4 solves print different results")
@@ -956,6 +1121,8 @@ def main(argv=None) -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import tempfile
+
     import dmlp_tpu_torch  # noqa: F401  (fails outside the repository)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on; the plain versions need IEEE float32")
@@ -967,10 +1134,19 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     t_start = time.perf_counter()
     phase_build()
-    summary = kernel_cases(args.reps) if "kernels" in phases else {}
+    summary, sweep_inputs, g_inputs = {}, None, None
+    if "kernels" in phases:
+        summary, sweep_inputs = kernel_cases(args.reps)
     if "segmin" in phases:
-        segmin_cases(summary, args.reps)
-    launches = main_path() if "main" in phases else {}
+        g_inputs = segmin_cases(summary, args.reps)
+    tmp = tempfile.TemporaryDirectory()
+    tune_path = None
+    if "tune" in phases:
+        check(sweep_inputs is not None and g_inputs is not None,
+              "the tune phase needs the kernels and segmin phases")
+        tune_path = phase_tune(sweep_inputs, g_inputs, tmp.name)
+        del sweep_inputs, g_inputs
+    launches = main_path(tune_path) if "main" in phases else {}
     if "real_oom" in phases:
         real_oom()
     if "profile" in phases:
@@ -995,6 +1171,7 @@ def main(argv=None) -> int:
                          **({"ms_by_shape": s["ms_by_shape"]}
                             if "ms_by_shape" in s else {})})
         print(json.dumps({"kernels": rows}), flush=True)
+    tmp.cleanup()
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     check(phases >= set(PHASES),
           "a partial run (--phases) prints no result line")

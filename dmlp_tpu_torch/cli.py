@@ -9,8 +9,11 @@ excluded), ended by the fetch of the results from the device.
 Usage::
 
     python -m dmlp_tpu_torch [--device cuda|cpu] [--engine torch|golden]
-                             [--pallas] [--debug] [--fast]
+                             [--pallas] [--debug] [--fast] [--device-full]
                              [--faults FILE] < input.in
+
+``--device-full`` solves with ``engine.run_device_full`` (warm-up
+included): the vote and the report order on the device, in f32.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="human-readable output (the -DDEBUG build)")
     parser.add_argument("--fast", action="store_true",
                         help="skip the float64 host rescore (f32 ordering)")
+    parser.add_argument("--device-full", action="store_true",
+                        help="vote + report ordering on the device too "
+                             "(f32 ordering, dense, no repair)")
     parser.add_argument("--data-block", type=int, default=None,
                         help="data rows per chunk (default: per select)")
     parser.add_argument("--query-block", type=int, default=1024)
@@ -110,11 +116,12 @@ def _run_cli(args, stdin, stdout, stderr) -> int:
         from dmlp_tpu_torch.golden.reference import knn_golden
         results = knn_golden(inp)
     else:
+        solve = engine.run_device_full if args.device_full else engine.run
         if args.warmup:
             with timer.phase("warmup"):
-                engine.run(inp)
+                solve(inp)
         timer.start()
-        results = engine.run(inp)
+        results = solve(inp)
     with timer.phase("format"):
         text = format_results(results, debug=config.debug)
     timer.stop()

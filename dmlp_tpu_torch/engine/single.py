@@ -27,9 +27,15 @@ two-stage solve of ``ops.summaries``), and on an OOM it steps down a rung.
 Staging and readback go through the injection sites and the transient
 retry of ``resilience``. ``candidates()`` stays dense.
 
-On the CPU every kernel runs its plain PyTorch version. Not ported yet
-(ROADMAP.md): the tune cache (A8), ``run_device_full`` (A1) and
-observability (A13).
+``run_device_full()`` is the reference's benchmark mode: the same
+segments, then the vote and the report order on the device in f32
+(``ops.vote``), with no float64 finalize and no repair.
+
+The kernels' launch knobs (S of K1/K2, G of K3) and the prune scoring's
+block chunk resolve through the tune cache (``tune.cache``) where it
+holds a measured winner, else through their heuristics. On the CPU every
+kernel runs its plain PyTorch version. Not ported yet (ROADMAP.md):
+the mesh engines (A9) and observability (A13).
 """
 
 from __future__ import annotations
@@ -51,10 +57,12 @@ from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
 from dmlp_tpu_torch.io.grammar import KNNInput, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
 from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
-                                          prune_enabled, prune_mask)
+                                          prune_enabled, prune_mask,
+                                          resolve_score_variant)
 from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
                                      select_topk, streaming_fallback,
                                      streaming_topk)
+from dmlp_tpu_torch.ops.vote import majority_vote, report_order
 from dmlp_tpu_torch.resilience import degrade as rs_degrade
 from dmlp_tpu_torch.resilience import inject as rs_inject
 from dmlp_tpu_torch.resilience import retry as rs_retry
@@ -144,6 +152,25 @@ def plan_chunks(n: int, granule: int, target: int | None) -> Tuple[int, int, int
     nchunks = max(1, -(-npad // t))
     chunk_rows = round_up(-(-npad // nchunks), granule)
     return npad, nchunks, chunk_rows
+
+
+def fold_plan(cfg: EngineConfig, n: int, nq: int, select: str
+              ) -> Tuple[int, int, int, int]:
+    """(query rows per block, query blocks, chunks, chunk rows) of the
+    pipelined chunk fold on ``select``."""
+    _, nchunks, chunk_rows = plan_chunks(n, cfg.resolve_granule(select),
+                                         cfg.data_block)
+    # Query padding: whole 1024-row blocks for the K3-fed seg fold on
+    # large query sets (the reference's tiling rule), 8 otherwise.
+    qgran = 1024 if (cfg.use_pallas and select == "seg"
+                     and nq > 1024) else 8
+    qpad = round_up(max(nq, 1), qgran)
+    # The live (query rows x chunk rows) f32 tile stays below both the
+    # configured query_block and the tile budget.
+    qsb = min(qpad, round_up(cfg.query_block, qgran))
+    while qsb > qgran and qsb * chunk_rows * 4 > _TILE_BUDGET:
+        qsb -= qgran
+    return qsb, -(-qpad // qsb), nchunks, chunk_rows
 
 
 def fit_blocks(n: int, target_block: int, granule: int = 8) -> int:
@@ -308,6 +335,15 @@ def extract_finalize(od: torch.Tensor, oi: torch.Tensor,
     return select_topk(od, labels, oi, k)
 
 
+def _device_epilogue(top: TopK, ks: torch.Tensor, *, num_labels: int):
+    """Vote and report order on the device over (Q, K) selection-ordered
+    lists, the reference's result post-processing (engine.cpp:314-347):
+    (predicted (Q,), report ids (Q, K), report f32 distances (Q, K))."""
+    rd, rids, in_k = report_order(top, ks)
+    valid = in_k & (top.ids >= 0)
+    return majority_vote(top.labels, valid, num_labels), rids, rd
+
+
 class SingleChipEngine:
     """The one-device engine: on the card by default, on the CPU when the
     configuration asks for it."""
@@ -364,9 +400,13 @@ class SingleChipEngine:
             ranges = [(c * chunk_rows, min((c + 1) * chunk_rows, n))
                       for c in range(nchunks)]
             summ = build_summaries(inp.data_attrs, ranges)
+            chunk = resolve_score_variant(
+                nchunks, inp.params.num_attrs, inp.params.num_queries,
+                self.device)["tile_q"]
             keep, stats = prune_mask(inp.query_attrs, inp.ks, summ,
                                      staging=self._staging,
-                                     precision=active_precision(self))
+                                     precision=active_precision(self),
+                                     block_chunk=chunk)
             # An empty chunk never survives and counts as no prune.
             schedule = [c for c in schedule if keep[c]]
             pruned = stats["blocks_pruned"]
@@ -445,20 +485,8 @@ class SingleChipEngine:
         nq = inp.params.num_queries
         select = cfg.resolve_streaming_select(round_up(max(n, 1), 8))
         self._last_select = select
-        granule = cfg.resolve_granule(select)
         t0 = time.perf_counter()
-        _, nchunks, chunk_rows = plan_chunks(n, granule, cfg.data_block)
-        # Query padding: whole 1024-row blocks for the K3-fed seg fold on
-        # large query sets (the reference's tiling rule), 8 otherwise.
-        qgran = 1024 if (cfg.use_pallas and select == "seg"
-                         and nq > 1024) else 8
-        qpad = round_up(max(nq, 1), qgran)
-        # The live (query rows x chunk rows) f32 tile stays below both the
-        # configured query_block and the tile budget.
-        qsb = min(qpad, round_up(cfg.query_block, qgran))
-        while qsb > qgran and qsb * chunk_rows * 4 > _TILE_BUDGET:
-            qsb -= qgran
-        nqb = -(-qpad // qsb)
+        qsb, nqb, nchunks, chunk_rows = fold_plan(cfg, n, nq, select)
         qpad = nqb * qsb
         kmax = int(inp.ks.max()) if nq else 1
         k = resolve_kcap(cfg, kmax, select, nchunks * chunk_rows,
@@ -768,11 +796,16 @@ class SingleChipEngine:
         return [(top_b, qpad_b, bulk, "extract"),
                 (carry_o, qo_pad, outl, select_out)]
 
-    def _solve_segments(self, inp: KNNInput):
+    def _solve_segments(self, inp: KNNInput, allow_multipass: bool = True):
         """Solve as a list of (TopK, qpad, query_idx | None, select)
         segments: one for homogeneous k, two when the router splits the
-        wide-k outliers off the extraction kernel's bulk. run() merges
-        them by original query index."""
+        wide-k outliers off the extraction kernel's bulk. run() and
+        run_device_full merge them by original query index.
+
+        ``allow_multipass`` gates the all-wide-k multi-pass driver: only
+        run()'s host repair makes its loss modes (a tie plateau, an
+        eps-window shortfall) exact, so run_device_full, which has no
+        repair, streams instead."""
         self.last_hetk = None
         self._mp_hazard = None
         self.last_mp_passes = 0
@@ -790,7 +823,7 @@ class SingleChipEngine:
             segs = self._solve_extract_routed(inp, plan)
             if segs is not None:
                 return segs
-        if not streaming:
+        if allow_multipass and not streaming:
             self.last_phase_ms = {}
             segs = self._solve_extract_multipass(inp)
             if segs is not None:
@@ -888,4 +921,48 @@ class SingleChipEngine:
             final_ms += (time.perf_counter() - t0) * 1e3
         self.last_phase_ms["fetch"] = fetch_ms
         self.last_phase_ms["finalize"] = final_ms
+        return merged
+
+    def run_device_full(self, inp: KNNInput) -> List[QueryResult]:
+        """The all-device pipeline (the reference's benchmark mode): the
+        same segments as run(), then the vote and the report order on the
+        device in f32 (``_device_epilogue``); only the (Q, K) predictions,
+        report ids and f32 distances are fetched, and they are the result.
+
+        As in the reference it runs at the engine's own rung ("fused":
+        dense, no prune plan), not through the ladder, and without the
+        multi-pass driver (only run()'s repair makes that exact). Nothing
+        is repaired, so ``last_repairs`` is 0, and ``last_prune`` is None:
+        no prune plan ran. An explicit bfloat16 staging is honoured; "auto"
+        stages float32 in the port, so the reference's no_auto_coarsen has
+        nothing to do here."""
+        n = inp.params.num_data
+        num_labels = int(inp.labels.max()) + 1 if n else 1
+        merged: List[QueryResult] = [None] * inp.params.num_queries
+        segments = self._solve_segments(inp, allow_multipass=False)
+        fetch_ms = final_ms = 0.0
+        for top, qpad, idx, _select in segments:
+            sub = inp if idx is None else subset_queries(inp, idx)
+            nq = sub.params.num_queries
+            t0 = time.perf_counter()
+            ks_pad = np.zeros(qpad, np.int32)
+            ks_pad[:nq] = sub.ks
+            pred, rids, rd = resilient_get(list(_device_epilogue(
+                top, torch.from_numpy(ks_pad).to(self.device),
+                num_labels=num_labels)))
+            fetch_ms += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            rd = rd.astype(np.float64)
+            gids = np.arange(nq) if idx is None else idx
+            for qi in range(nq):
+                k = int(sub.ks[qi])
+                merged[int(gids[qi])] = QueryResult(
+                    int(gids[qi]), k, int(pred[qi]),
+                    rids[qi, :k].astype(np.int64), rd[qi, :k])
+            final_ms += (time.perf_counter() - t0) * 1e3
+        self.last_phase_ms["fetch"] = fetch_ms
+        self.last_phase_ms["finalize"] = final_ms
+        self.last_repairs = 0
+        self.last_prune = None
+        self.last_degrade_rung = self._degrade_rung
         return merged

@@ -135,28 +135,52 @@ def parse_update(line: str) -> Update:
     return Update(int(toks[0]), np.array([float(t) for t in toks[1:]], dtype=np.float64))
 
 
+_NATIVE_THRESHOLD_BYTES = 1 << 20  # the native parser pays off past ~1 MB
+
+#: which parser served the last parse_input: "native" or "python"
+last_parser = None
+
+
 def parse_input(stream: Union[IO[str], IO[bytes]]) -> KNNInput:
-    """Parse a full problem instance from a text or binary stream with the
-    pure-Python parser below (the native C++ tokenizer of the reference
-    package is not ported yet).
+    """Parse a full problem instance from a text or binary stream.
+
+    Payloads of ``_NATIVE_THRESHOLD_BYTES`` or more go to the native C++
+    parser (:mod:`dmlp_tpu_torch.io.native`, the same arrays bit for bit)
+    where it is built and ``$DMLP_TPU_NO_NATIVE`` is unset; the rest, and
+    whatever the native parser rejects, to the pure-Python parser below,
+    which raises the located :class:`ParseError`. ``last_parser`` says
+    which one served.
 
     Injection site ``io.parse`` (resilience.inject): a ``corrupt`` fault
     truncates the payload, the grammar raises :class:`ParseError`, and the
     pristine payload still in memory is parsed, so the results are the
     same bytes."""
     data = stream.read()
-    if isinstance(data, bytes):
-        data = data.decode("ascii")
     from dmlp_tpu_torch.resilience import inject as rs_inject
     actions = rs_inject.fire("io.parse") or ()
     if "corrupt" in actions:
         try:
-            parse_input_text(rs_inject.corrupt_bytes(data))
+            _parse_payload(rs_inject.corrupt_bytes(data))
         except ParseError:
             from dmlp_tpu_torch.resilience import stats as rs_stats
             rs_stats.record_retry("io.parse")
         # The pristine payload is authoritative either way: a corrupted
         # payload's parse result is never returned.
+    return _parse_payload(data)
+
+
+def _parse_payload(data: Union[str, bytes]) -> KNNInput:
+    global last_parser
+    if len(data) >= _NATIVE_THRESHOLD_BYTES:
+        from dmlp_tpu_torch.io import native
+        if native.native_available():
+            inp = native.parse_native(data)
+            if inp is not None:
+                last_parser = "native"
+                return inp
+    last_parser = "python"
+    if isinstance(data, bytes):
+        data = data.decode("ascii")
     return parse_input_text(data)
 
 

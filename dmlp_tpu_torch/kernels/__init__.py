@@ -35,6 +35,9 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 # never for the plain version.
 LAUNCHES: Dict[str, int] = {"fused_topk": 0, "extract_topk": 0,
                             "extract_merge": 0, "fused_dist_segmin": 0}
+# The same launches by the value of their knob: {kernel: {S or G: launches}}
+# (S for K1/K2, G for K3).
+LAUNCH_VARIANTS: Dict[str, Dict[int, int]] = {}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -43,6 +46,16 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_VARIANTS.clear()
+
+
+def note_launch(name: str, knob: int) -> None:
+    """Count one launch of kernel ``name`` at knob value ``knob``; a
+    wrapper calls it where it launches its CUDA kernel, and nowhere
+    else."""
+    LAUNCHES[name] += 1
+    per = LAUNCH_VARIANTS.setdefault(name, {})
+    per[int(knob)] = per.get(int(knob), 0) + 1
 
 
 class KernelBuildError(RuntimeError):

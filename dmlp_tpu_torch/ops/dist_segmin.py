@@ -13,8 +13,12 @@ else picks between them. The reference emits segmin transposed for Mosaic's
 tiling; here it is (Qb, B/SEG).
 
 The kernel tiles the output in QUERY_TILE x SEG tiles, and each CTA walks
-``group`` consecutive segments of one row tile (:func:`choose_group`). It
-reads its operands attribute-major, as :func:`prepare_operands` makes them.
+``group`` consecutive segments of one row tile: G from the tune cache's
+``fused_dist_segmin`` namespace where it holds a winner for the launch,
+else :func:`choose_group` (:func:`resolve_group`). The plain version takes
+the same G and computes the tile one group of segments at a time. The
+kernel reads its operands attribute-major, as :func:`prepare_operands`
+makes them.
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ import functools
 
 import torch
 
-from dmlp_tpu_torch.kernels import (LAUNCHES, KernelBuildError,
-                                    KernelLaunchError)
+from dmlp_tpu_torch.kernels import (KernelBuildError, KernelLaunchError,
+                                    note_launch)
 from dmlp_tpu_torch.ops.distance import masked_pairwise_sq_l2
+from dmlp_tpu_torch.tune.cache import dtype_key, lookup_variant
 
 SEG = 128         # candidate-segment width: sets the seg select's gather order
 QUERY_TILE = 128  # kernel TQ: query rows per tile (ragged tiles are masked)
@@ -70,6 +75,32 @@ def choose_group(qb: int, b: int, sm_count: int) -> int:
     return costs.index(min(costs)) + 1
 
 
+def resolve_group(qb: int, b: int, a: int, *, device,
+                  precision: str = "f32", dtype: str = "float32") -> int:
+    """G for one launch: the tune cache's measured winner where one exists
+    and lies within 1..nseg, else the heuristic — :func:`choose_group` for
+    the card's SM count on a CUDA device, nseg (one group: the whole tile)
+    on the CPU (:func:`heuristic_group`). A misfit never disables the
+    kernel."""
+    nseg = b // SEG
+    v = lookup_variant("fused_dist_segmin", qb=qb, b=b, a=a, kc=0,
+                                  device=device, dtype=dtype,
+                                  precision=precision)
+    if v is not None and v["group"] <= nseg:
+        return v["group"]
+    return heuristic_group(qb, b, device)
+
+
+def heuristic_group(qb: int, b: int, device) -> int:
+    """G without the tune cache: :func:`choose_group` for the card's SM
+    count on a CUDA device, nseg (the whole tile) on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return b // SEG
+    return choose_group(qb, b, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
 def prepare_operands(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                      precision: str = "f32"):
     """The kernel's operands: (qT (A, ldq), dT (A, B), qn (Qb,), dn (B,)).
@@ -92,13 +123,24 @@ def prepare_operands(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
 
 
 def fused_dist_segmin_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
-                            data_ids: torch.Tensor, precision: str = "f32"):
+                            data_ids: torch.Tensor, precision: str = "f32",
+                            group: int | None = None):
     """The plain PyTorch version: ``masked_pairwise_sq_l2`` (IEEE f32;
     "bf16" rounds the product's operands, the norms stay f32), then the
-    min of every SEG-column segment of that tile."""
-    dist = masked_pairwise_sq_l2(q_attrs, d_attrs, data_ids, precision)
-    qb, b = dist.shape
-    return dist, dist.view(qb, b // SEG, SEG).min(-1).values
+    min of every SEG-column segment of that tile. With ``group`` the tile
+    is computed ``group`` segments at a time, the columns a kernel CTA
+    walks (:func:`segment_groups`); None is one group."""
+    b = d_attrs.shape[0]
+    nseg = b // SEG
+    if group is None or group >= nseg:
+        dist = masked_pairwise_sq_l2(q_attrs, d_attrs, data_ids, precision)
+    else:
+        dist = torch.cat([masked_pairwise_sq_l2(
+            q_attrs, d_attrs[g.start * SEG:g.stop * SEG],
+            data_ids[g.start * SEG:g.stop * SEG], precision)
+            for g in segment_groups(nseg, group)], 1)
+    qb = dist.shape[0]
+    return dist, dist.view(qb, nseg, SEG).min(-1).values
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -129,16 +171,23 @@ def _fused_dist_segmin_cuda(q_attrs, d_attrs, data_ids, precision):
         raise ValueError("all inputs must be on one device")
     if data_ids.shape != (b,):
         raise ValueError(f"ids must be ({b},), got {tuple(data_ids.shape)}")
-    group = choose_group(qb, b, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    qT, dT, qn, dn = prepare_operands(q_attrs, d_attrs, precision)
-    ids = data_ids.to(torch.int32).contiguous()
-    if ids.data_ptr() % 16:           # the kernel reads ids as int4s
-        ids = ids.clone()
+    group = resolve_group(qb, b, q_attrs.shape[1], device=dev,
+                          precision=precision, dtype=dtype_key(d_attrs))
     dist = torch.empty((qb, b), dtype=torch.float32, device=dev)
     segmin = torch.empty((qb, b // SEG), dtype=torch.float32, device=dev)
-    _launch(qT, dT, qn, dn, ids, dist, segmin, group)
+    _launch(*launch_operands(q_attrs, d_attrs, data_ids, precision), dist,
+            segmin, group)
     return dist, segmin
+
+
+def launch_operands(q_attrs, d_attrs, data_ids, precision: str = "f32"):
+    """:func:`prepare_operands` plus the ids as the kernel reads them
+    (int32, 16-byte aligned: it loads them as int4s), in :func:`_launch`'s
+    order."""
+    ids = data_ids.to(torch.int32).contiguous()
+    if ids.data_ptr() % 16:
+        ids = ids.clone()
+    return (*prepare_operands(q_attrs, d_attrs, precision), ids)
 
 
 def _launch(qT, dT, qn, dn, ids, dist, segmin, group: int) -> None:
@@ -160,7 +209,7 @@ def _launch(qT, dT, qn, dn, ids, dist, segmin, group: int) -> None:
     if rc != 0:
         raise KernelLaunchError(f"dist_segmin kernel launch failed "
                                 f"(cudaError {rc})")
-    LAUNCHES["fused_dist_segmin"] += 1
+    note_launch("fused_dist_segmin", group)
 
 
 def fused_dist_segmin(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
@@ -182,4 +231,7 @@ def fused_dist_segmin(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
     if q_attrs.device.type != "cpu":
         raise ValueError(f"fused_dist_segmin runs on cuda or cpu, not "
                          f"{q_attrs.device}")
-    return fused_dist_segmin_plain(q_attrs, d_attrs, data_ids, precision)
+    return fused_dist_segmin_plain(
+        q_attrs, d_attrs, data_ids, precision,
+        resolve_group(qb, b, a, device=q_attrs.device, precision=precision,
+                      dtype=dtype_key(d_attrs)))

@@ -16,9 +16,10 @@ QUERY_TILE = 32 rows by BLOCK_ROWS = 256 columns, with the (tile_q, kc)
 running lists in shared memory, so kc <= 512 fits the 227 KB a block may
 opt into (:func:`variant_supports` states exactly that budget).
 
-The data axis splits S ways (``splits``; :func:`choose_splits` picks S
-for the card when the caller does not). At S = 1 one CTA per query tile
-sweeps every block from the carry. At S > 1 CTA (i, s) sweeps blocks
+The data axis splits S ways (``splits``; when the caller does not say,
+:func:`resolve_splits` takes the tune cache's measured S, else
+:func:`choose_splits` picks it for the card). At S = 1 one CTA per query
+tile sweeps every block from the carry. At S > 1 CTA (i, s) sweeps blocks
 [s*nblk/S, (s+1)*nblk/S) from lists seeded with kc copies of (the
 carry's row maximum, -1) — (+inf, -1) without a carry — so its gate,
 prefilter and insertion compare against min(the k-th best of what it
@@ -41,8 +42,9 @@ import torch
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_F32,
                                             LOWP_COEF)
 from dmlp_tpu_torch.kernels import (LAUNCHES, KernelBuildError,
-                                    KernelLaunchError)
+                                    KernelLaunchError, note_launch)
 from dmlp_tpu_torch.ops.distance import require_ieee_f32
+from dmlp_tpu_torch.tune import cache as tune_cache
 
 QUERY_TILE = 32     # kernel TQ: query rows per CTA
 BLOCK_ROWS = 256    # kernel TN: data columns per block
@@ -107,8 +109,37 @@ def choose_splits(qb: int, b: int, kc: int, sm_count: int) -> int:
 def resolve_variant(kc: int, b: int, qb: int | None = None,
                     a: int | None = None, precision: str = "f32") -> dict:
     """The kernel's tiles. They are compile-time constants of the CUDA
-    source (no tune cache yet), so every shape resolves to the same."""
+    source, so every shape resolves to the same; the knob a launch does
+    resolve is S (:func:`resolve_splits`)."""
     return {"tile_q": QUERY_TILE, "tile_n": BLOCK_ROWS}
+
+
+def heuristic_splits(qb: int, b: int, kc: int, device) -> int:
+    """S without the tune cache: :func:`choose_splits` for the card's SM
+    count on a CUDA device, 1 on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    return choose_splits(qb, b, kc, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+def resolve_splits(qb: int, b: int, a: int, kc: int, *, device,
+                   gate: bool, precision: str = "f32",
+                   dtype: str = "float32") -> int:
+    """S for one launch: the tune cache's measured winner (namespace
+    ``fused_topk`` with the gate on, ``extract_topk`` with it off) where
+    one exists and :func:`check_splits` takes it for this launch, else
+    :func:`heuristic_splits`. A misfit never disables the kernel."""
+    v = tune_cache.lookup_variant(
+        "fused_topk" if gate else "extract_topk", qb=qb, b=b, a=a, kc=kc,
+        device=device, dtype=dtype, precision=precision)
+    if v is not None:
+        try:
+            return check_splits(v["splits"], b, kc)
+        except ValueError:
+            pass
+    return heuristic_splits(qb, b, kc, device)
 
 
 def variant_supports(qb: int, b: int, a: int, kc: int, v: dict) -> bool:
@@ -382,9 +413,6 @@ def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
         raise ValueError(f"untileable (qb={qb}, b={b}, a={na}, kc={kc}): "
                          f"needs b % {BLOCK_ROWS} == 0 and kc <= {KC_MAX}")
     dev = q_attrs.device
-    if splits is None:
-        splits = choose_splits(qb, b, kc, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
     splits = check_splits(splits, b, kc)
     q = q_attrs.float().contiguous()
     d = d_attrs.float().contiguous()
@@ -416,7 +444,7 @@ def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
     if rc != 0:
         raise KernelLaunchError(f"extract_topk kernel launch failed "
                                 f"(cudaError {rc})")
-    LAUNCHES["fused_topk" if mxu_gate else "extract_topk"] += 1
+    note_launch("fused_topk" if mxu_gate else "extract_topk", splits)
     if splits == 1:
         return od[0], oi[0], iters
     return (*_merge_cuda(lib, cd, ci, od, oi), iters)
@@ -435,14 +463,25 @@ def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
     id id_base + j; an optional carry (Qb, kc) is folded in; ``floor``
     (Qb, 1) masks candidates below it. On CUDA the tiles are the kernel's
     and ``tile_q``/``tile_n`` may only restate them. ``splits`` is S;
-    None means :func:`choose_splits` for the card on CUDA and 1 on the
-    CPU."""
+    None means :func:`resolve_splits` (the tune cache's winner, else
+    :func:`choose_splits` for the card on CUDA and 1 on the CPU), or 1
+    with tiles other than the kernel's."""
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unsupported first-pass precision {precision!r}")
     if (carry_d is None) != (carry_i is None):
         raise ValueError("pass both carry_d and carry_i, or neither")
+    if q_attrs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"extract_topk runs on cuda or cpu, not "
+                         f"{q_attrs.device}")
     kw = dict(n_real=n_real, id_base=id_base, kc=kc, floor=floor,
               precision=precision, mxu_gate=mxu_gate, block_skip=block_skip)
+    if splits is None:
+        tiles_fixed = (tile_q or QUERY_TILE) == QUERY_TILE \
+            and (tile_n or BLOCK_ROWS) == BLOCK_ROWS
+        splits = 1 if not tiles_fixed else resolve_splits(
+            q_attrs.shape[0], d_attrs.shape[0], q_attrs.shape[1], kc,
+            device=q_attrs.device, gate=mxu_gate, precision=precision,
+            dtype=tune_cache.dtype_key(d_attrs))
     if q_attrs.is_cuda:
         if (tile_q or QUERY_TILE) != QUERY_TILE \
                 or (tile_n or BLOCK_ROWS) != BLOCK_ROWS:
@@ -450,13 +489,10 @@ def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                              f"({QUERY_TILE}, {BLOCK_ROWS})")
         return _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i,
                                   splits=splits, **kw)
-    if q_attrs.device.type != "cpu":
-        raise ValueError(f"extract_topk runs on cuda or cpu, not "
-                         f"{q_attrs.device}")
     return extract_topk_plain(q_attrs, d_attrs, carry_d, carry_i,
                               tile_q=tile_q or QUERY_TILE,
-                              tile_n=tile_n or BLOCK_ROWS,
-                              splits=1 if splits is None else splits, **kw)
+                              tile_n=tile_n or BLOCK_ROWS, splits=splits,
+                              **kw)
 
 
 def list_tolerance(qn: torch.Tensor, dn_max: float, na: int,

@@ -7,28 +7,22 @@ real |d| range, deflated by the f32 error bound of engine.finalize) skips
 the product and the extraction when no row can improve. Gate on and gate off
 give identical lists. ``DMLP_TPU_FUSED=0`` turns the gate off everywhere,
 and so do the degradation ladder's rungs below "fused".
-There is no tune cache yet (ROADMAP A8): every shape resolves to the
-kernel's fixed tiles.
+The tiles are the kernel's fixed ones; S resolves per launch through the
+``fused_topk`` namespace of the tune cache (``ops.extract.resolve_splits``
+with the gate on), as ``pallas_fused._resolve_variant`` reads its own.
 """
 
 from __future__ import annotations
 
 import os
 
-from dmlp_tpu_torch.ops.extract import (extract_topk, resolve_variant,
-                                         supports)
+from dmlp_tpu_torch.ops.extract import extract_topk, supports
 
 
 def fused_enabled() -> bool:
     """The fused-path kill switch ($DMLP_TPU_FUSED=0 disables), read per
     call."""
     return os.environ.get("DMLP_TPU_FUSED", "1") != "0"
-
-
-def variant_for(impl: str, kc: int, b: int, qb: int | None = None,
-                a: int | None = None, precision: str = "f32") -> dict:
-    """The variant an impl label ("fused" | "extract") runs with."""
-    return resolve_variant(kc, b, qb, a, precision)
 
 
 def fused_topk(q_attrs, d_attrs, carry_d=None, carry_i=None, *, n_real,

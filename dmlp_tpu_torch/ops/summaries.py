@@ -22,10 +22,13 @@ the reference's order, so that a survivor mask is equal bit for bit.
 Kill switch: ``DMLP_TPU_PRUNE=0``. The engine prunes only on the
 degradation ladder's top ``lowp``/``prune`` rungs and in exact mode.
 
-The resident serving engine's device scorer (``score_blocks``,
-``stage_summaries``) and the ingest rebuild (``update_block``) come with
-the serving port (ROADMAP A11); the scoring tiling has no tune cache yet
-(A8) and no telemetry registry (A13).
+The host scoring's block chunk resolves through the tune cache's
+``prune_score`` namespace (:func:`resolve_score_variant`); a chunk changes
+how the bounds are sliced, never a survivor mask, and the sweep persists
+only a chunk whose masks are equal bit for bit. The resident serving
+engine's device scorer (``score_blocks``, ``stage_summaries``) and the
+ingest rebuild (``update_block``) come with the serving port (ROADMAP
+A11); the telemetry registry with A13.
 """
 
 from __future__ import annotations
@@ -55,10 +58,18 @@ def prune_enabled() -> bool:
     return os.environ.get("DMLP_TPU_PRUNE", "1") != "0"
 
 
-def resolve_score_variant(n_blocks: int, a: int) -> dict:
-    """Scoring-pass tiling: the deterministic default (``tile_q`` is the
-    host block chunk). The reference reads a measured tune-cache entry
-    first; the port has no tune cache until ROADMAP A8."""
+def resolve_score_variant(n_blocks: int, a: int, nq: Optional[int] = None,
+                          device="cpu") -> dict:
+    """Scoring-pass tiling (``tile_q`` is the host block chunk): with the
+    query count ``nq``, the tune cache's measured ``prune_score`` winner
+    for this scoring on ``device``'s machine where one exists, else the
+    deterministic default. Any chunk >= 1 fits."""
+    if nq is not None:
+        from dmlp_tpu_torch.tune import cache as tune_cache
+        v = tune_cache.lookup_variant("prune_score", qb=nq, b=n_blocks, a=a,
+                                      kc=0, device=device, dtype="float64")
+        if v is not None:
+            return {"tile_q": v["tile_q"], "ne": 1, "unroll": 1}
     return {"tile_q": _SCORE_BLOCK_CHUNK, "ne": 1, "unroll": 1}
 
 
@@ -268,7 +279,8 @@ def kth_thresholds(ub: np.ndarray, counts: np.ndarray,
 
 def prune_mask(queries: np.ndarray, ks: np.ndarray,
                summ: BlockSummaries, *, staging: str = "float32",
-               precision: str = "f32") -> Tuple[np.ndarray, Dict]:
+               precision: str = "f32",
+               block_chunk: Optional[int] = None) -> Tuple[np.ndarray, Dict]:
     """Stage 1 on the host (f64): the survivor mask over ``summ``'s blocks
     for this query batch, and a stats record.
 
@@ -277,14 +289,17 @@ def prune_mask(queries: np.ndarray, ks: np.ndarray,
     pass, ``lowp_eps``. With the split format three independently sound
     thresholds (block, piece, and the per-block norm split; each over
     disjoint row groups) combine by elementwise min, and the block lower
-    bound sharpens to the max of its own and its pieces' minimum."""
+    bound sharpens to the max of its own and its pieces' minimum.
+    ``block_chunk`` slices the bounds ``block_chunk`` blocks at a time
+    (the pieces at half that), None at the default."""
     q = np.asarray(queries, np.float64)
     na = q.shape[1]
-    lb, ub = block_bounds(q, summ)
+    lb, ub = block_bounds(q, summ, block_chunk)
     thr = kth_thresholds(ub, summ.counts, ks)
     plb = None
     if summ.pcounts is not None:
-        plb, pub = piece_bounds(q, summ)
+        plb, pub = piece_bounds(q, summ, block_chunk and max(
+            1, block_chunk // summ.pcounts.shape[1]))
         lb = np.maximum(lb, plb.min(axis=2))
         thr = np.minimum(thr, kth_thresholds(
             pub.reshape(len(q), -1), summ.pcounts.reshape(-1), ks))

@@ -14,8 +14,9 @@ prints the same bytes:
 3. ``fused``     — the dense scan on the gated kernel K1
                    (``DMLP_TPU_FUSED=0`` makes it K2);
 4. ``tuned``     — the ungated extraction kernel K2;
-5. ``heuristic`` — K2 again: the reference suppresses its tune cache
-                   here, and the port has no tune cache until ROADMAP A8;
+5. ``heuristic`` — K2 again, with the tune cache suppressed
+                   (``tune.cache.suppressed``): every launch knob and the
+                   scoring chunk fall back to their heuristics;
 6. ``streaming`` — the chunk fold
                    (``engine.single._solve_pipelined``), no running-list
                    kernel;
@@ -46,11 +47,17 @@ def _rung_context(engine, rung: str):
     after. engine.single reads it (``streaming`` skips every extract-kernel
     path; ``lowp``/``prune`` may prune; only ``lowp`` may run the bf16
     first pass) and so does ops.fused.resolve_topk_kernel (``lowp``,
-    ``prune`` and ``fused`` may launch K1)."""
+    ``prune`` and ``fused`` may launch K1); ``heuristic`` suppresses the
+    tune cache's lookups for the duration."""
     prev = getattr(engine, "_degrade_rung", "fused")
     engine._degrade_rung = rung
     try:
-        yield
+        if rung == "heuristic":
+            from dmlp_tpu_torch.tune import cache as tune_cache
+            with tune_cache.suppressed():
+                yield
+        else:
+            yield
     finally:
         engine._degrade_rung = prev
 

@@ -95,6 +95,45 @@ def test_module_entry_point_imports_no_reference(tmp_path):
     assert lines[-1] == "FORBIDDEN=[]"
 
 
+@pytest.mark.parametrize("entry", ["device_full", "tune_smoke"])
+def test_device_full_and_tune_smoke_import_no_reference(entry, tmp_path):
+    """The same scan after a ``--device-full`` solve of an input past the
+    native parser's threshold, and after ``python -m dmlp_tpu_torch.tune
+    --smoke``."""
+    if entry == "device_full":
+        text = generate_input_text(12000, 100, 16, 0.0, 50.0, 1, 16, 5,
+                                   seed=4)
+        module, argv = "dmlp_tpu_torch", [
+            "dmlp_tpu_torch", "--device", "cpu", "--pallas", "--device-full",
+            "--phase-times"]
+    else:
+        text = ""
+        module, argv = "dmlp_tpu_torch.tune", [
+            "tune", "--smoke", "--out", str(tmp_path / "smoke.json")]
+    probe = (
+        "import runpy, sys\n"
+        f"sys.argv = {argv!r}\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "from dmlp_tpu_torch.io import grammar\n"
+        "sys.stderr.write('PARSER=%s\\n' % grammar.last_parser)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        f" {FORBIDDEN!r})\n"
+        "sys.stderr.write('FORBIDDEN=%r\\n' % bad)\n")
+    p = subprocess.run([sys.executable, "-c", probe], input=text,
+                       capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert p.returncode == 0, p.stderr
+    lines = p.stderr.splitlines()
+    assert lines[-1] == "FORBIDDEN=[]"
+    if entry == "device_full":
+        assert p.stdout.count("\n") == 100
+        assert "prune: null" in lines and lines[-2] == "PARSER=native"
+    else:
+        assert '"device_kind": "cpu"' in p.stdout.splitlines()[-1]
+
+
 def test_no_source_in_the_port_imports_the_reference_or_jax():
     files = sorted((ROOT / "dmlp_tpu_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
