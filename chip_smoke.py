@@ -25,8 +25,14 @@ final result line. Standard output:
    against the plain version at the same S, ``iters`` exactly, the two
    splits' sorted lists bit for bit, gate on against gate off bit for
    bit), also with a multi-pass ``floor``, at the wide-k bulk and at the
-   multi-pass first pass; the merge of the split lists (bit for bit
-   against its plain version);
+   multi-pass first pass; on the integer ``tie_grid`` (exact f32 sums) the
+   sorted (distance, id) pairs equal the plain version's with
+   ``torch.equal`` at both S; at each main-path shape the per-block time
+   ``block_us`` (a full S = 1 launch against a one-block one, over the
+   blocks a CTA sweeps after its first and the waves of the grid) and
+   ``tile_block_us`` (K2 at S = 1 from a carry of zeros, which no distance
+   passes: the tile and its ballots without a merge); the merge of the
+   split lists (bit for bit against its plain version);
    ``kernel_case`` of the ``segmin`` phase: K3 (``dist`` and ``segmin``
    under ``ops.extract.list_tolerance``, +inf exactly where ids < 0,
    ``segmin`` bit for bit against the kernel's own tile) at its two
@@ -44,7 +50,10 @@ final result line. Standard output:
    cases (four launch keys: the config-4 chunk, the wide-k bulk, the
    multi-pass first pass, each fresh and carried, and the multi-pass
    resident pass) and K2 at the config-4 chunk, for S = 1..15, each
-   sorted list bit for bit against the heuristic S's; ``g_sweep``: K3
+   sorted list bit for bit against the heuristic S's; ``split_fill_fit``:
+   for each ``SPLIT_FILL`` of a grid, the weighted ms of the S that
+   ``choose_splits`` would pick at those cases over the sweep's least
+   (the value of least excess is what ``ops.extract`` ships); ``g_sweep``: K3
    alone at its two main-path shapes for a range of G, each output bit for
    bit against the heuristic G's; ``prune_score_sweep``: the host prune
    scoring at config 4 over block chunks, each survivor mask bit for bit
@@ -360,7 +369,8 @@ def kernel_cases(reps: int):
     summary, by_shape, sweep_inputs = {}, {}, {}
 
     def run_case(name, q, d, *, n_real, id_base, kc, carry=None,
-                 precision="f32", d_prev=None, floor=None, main=False):
+                 precision="f32", d_prev=None, floor=None, main=False,
+                 exact=False):
         cd, ci = carry if carry is not None else (None, None)
         kw = dict(n_real=n_real, id_base=id_base, kc=kc,
                   precision=precision, floor=floor)
@@ -380,16 +390,30 @@ def kernel_cases(reps: int):
                 return pd[0], pi[0], it, None
             return (*ex.merge_partials_plain(cd, ci, pd, pi), it, (pd, pi))
 
+        # The tile alone: K2 at S = 1 from a carry of zeros, which no
+        # distance passes (m < 0), so every block computes its tile and
+        # ballots and merges nothing.
+        tile_us = None
+        if name in MAIN_SHAPES:
+            zc = torch.zeros((q.shape[0], kc), device=dev)
+            zi = torch.full_like(zc, -1, dtype=torch.int32)
+            ms_tile, _ = time_ms(lambda: ex.extract_topk(
+                q, d, zc, zi, mxu_gate=False, splits=1, **kw), reps)
+            waves = -(-(-(-q.shape[0] // ex.QUERY_TILE))
+                      // (sm_count * ex.ctas_per_sm(kc)))
+            tile_us = 1e3 * ms_tile / (waves * (d.shape[0] // ex.BLOCK_ROWS))
+            del zc, zi
         outs = {}
         for gate in (True, False):
             kname = "fused_topk" if gate else "extract_topk"
-            res = {}
+            res, plain_out = {}, {}
             for splits in dict.fromkeys((chosen, 1)):
                 ms, out = time_ms(lambda: ex.extract_topk(
                     q, d, cd, ci, mxu_gate=gate, splits=splits, **kw), reps)
                 plain_ms, (pd, pi, pit, parts) = time_ms(
                     lambda: plain(gate, splits), max(1, reps // 2))
                 torch.cuda.synchronize()
+                plain_out[splits] = (pd, pi)
                 cmp = ex.compare_lists(out[0], out[1], pd, pi, tol)
                 cmp["iters_equal"] = bool(torch.equal(out[2], pit))
                 res[splits] = (ms, plain_ms, out, cmp)
@@ -401,6 +425,21 @@ def kernel_cases(reps: int):
             same = all(torch.equal(a, b) for a, b in zip(
                 sorted_lists(od, oi), sorted_lists(od1, oi1)))
             outs[gate] = (od, oi, it)
+            # Exact f32 inputs: the sorted (distance, id) pairs equal the
+            # plain version's at every S.
+            exact_equal = {s: all(torch.equal(a, b) for a, b in zip(
+                sorted_lists(*r[2][:2]), sorted_lists(*plain_out[s])))
+                for s, r in res.items()} if exact else None
+            # The per-block time: a full launch at S = 1 against one of its
+            # first block, over the blocks each CTA sweeps after the first.
+            ms_one = block_us = None
+            if name in MAIN_SHAPES:
+                ms_one, _ = time_ms(lambda: ex.extract_topk(
+                    q, d[:ex.BLOCK_ROWS], cd, ci, mxu_gate=gate, splits=1,
+                    **{**kw, "n_real": min(n_real, ex.BLOCK_ROWS)}), reps)
+                waves = -(-it1.shape[0] // (sm_count * ex.ctas_per_sm(kc)))
+                block_us = 1e3 * (ms1 - ms_one) / (
+                    waves * (d.shape[0] // ex.BLOCK_ROWS - 1))
             rec = {"phase": "kernel_case", "case": name, "kernel": kname,
                    "shape": [q.shape[0], d.shape[0], q.shape[1], kc],
                    "precision": precision, "carry": carry is not None,
@@ -417,7 +456,9 @@ def kernel_cases(reps: int):
                    and cmp1["iters_equal"], "splits_identical": same,
                    "tiles_processed": int(it.sum()),
                    "tiles_processed_s1": int(it1.sum()),
-                   "tiles": it.numel(),
+                   "tiles": it.numel(), "ms_one_block": ms_one,
+                   "block_us": block_us, "tile_block_us": tile_us,
+                   "exact_equal": exact_equal,
                    **bound(q, d, kc, it1, gate, carry is not None,
                            precision)}
             emit(rec)
@@ -428,6 +469,9 @@ def kernel_cases(reps: int):
                                         "differ from the plain version's")
             check(same, f"{name}/{kname}: S={chosen} and S=1 sorted lists "
                         "differ")
+            check(not exact or all(exact_equal.values()),
+                  f"{name}/{kname}: sorted lists differ from the plain "
+                  f"version's on exact inputs {exact_equal}")
             s = summary.setdefault(kname, {"max_abs_err": 0.0})
             s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
             if main:
@@ -437,6 +481,7 @@ def kernel_cases(reps: int):
                 by_shape[MAIN_SHAPES[name]] = {
                     "shape": rec["shape"], "splits": chosen,
                     "ctas": it.shape[0] * chosen, "ms": ms, "ms_s1": ms1,
+                    "block_us": block_us, "tile_block_us": tile_us,
                     "bound_ms": rec["bound_ms"]}
         same = torch.equal(outs[True][0], outs[False][0]) \
             and torch.equal(outs[True][1], outs[False][1])
@@ -468,7 +513,7 @@ def kernel_cases(reps: int):
              id_base=0, kc=512)
     # Duplicate-heavy tie grid: integer attrs in [0, 3), exact f32 sums.
     qt, dt = uniform((1024, na), 4, 3, True), uniform((8192, na), 5, 3, True)
-    run_case("tie_grid", qt, dt, n_real=8192, id_base=0, kc=kc)
+    run_case("tie_grid", qt, dt, n_real=8192, id_base=0, kc=kc, exact=True)
     # A ragged final chunk with a non-zero id base and a carry.
     qr, dr0, dr1 = (uniform((1000, na), 6), uniform((8192, na), 7),
                     uniform((8192, na), 8))
@@ -494,8 +539,10 @@ def kernel_cases(reps: int):
     run_case("multipass_floor", qm, dm, n_real=mp["num_data"], id_base=0,
              kc=512, floor=floor)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
+    # choose_splits takes the smallest S within SPLIT_TOL of its model's
+    # least time, so a chosen S may tie with S = 1 within that tolerance.
     for label, r in by_shape.items():
-        check(r["splits"] == 1 or r["ms"] <= r["ms_s1"],
+        check(r["splits"] == 1 or r["ms"] <= (1 + ex.SPLIT_TOL) * r["ms_s1"],
               f"{label}: S={r['splits']} measured slower than S=1 {r}")
     for label in ("multi-pass resident pass", "multi-pass first pass, fresh",
                   "multi-pass first pass, carried"):
@@ -733,12 +780,17 @@ def phase_tune(sweep_inputs, g_inputs, tmp_dir):
     from dmlp_tpu_torch.tune.cache import device_kind
 
     t0 = time.perf_counter()
-    winners = []
+    winners, lines = [], []
+
+    def keep(line):
+        lines.append(line)
+        emit(line)
     for gate, keys in TUNE_SPLIT_KEYS.items():
         for key in keys:
             winners.append(sweep.sweep_splits(
                 [sweep.SplitCase(name, *sweep_inputs[name], weight)
-                 for name, weight in key], gate=gate, reps=3, emit=emit))
+                 for name, weight in key], gate=gate, reps=3, emit=keep))
+    split_fill_fit(lines)
     for name in TUNE_GROUP_CASES:
         winners.append(sweep.sweep_groups(name, *g_inputs[name], emit=emit))
     for w in winners:
@@ -764,6 +816,40 @@ def phase_tune(sweep_inputs, g_inputs, tmp_dir):
               "measured_ms", "heuristic", "heuristic_ms", "swept",
               "changed")} for w in winners]})
     return path
+
+
+def split_fill_fit(lines):
+    """``choose_splits``' fill constant against this run's ``split_sweep``
+    lines: for each SPLIT_FILL of a grid, the S it picks at each case and
+    the weighted sum of the measured ms there over the weighted sum of
+    each case's least ms (1 is the best any rule could do). Emits one
+    ``split_fill_fit`` line; changes nothing."""
+    import torch
+    from dmlp_tpu_torch.ops import extract as ex
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    shipped, by_fill = ex.SPLIT_FILL, {}
+    best = sum(ln["weight"] * min(ln["ms_by_splits"].values())
+               for ln in lines)
+    try:
+        for fill in (0.0, 0.005, 0.01, 0.02, 0.03, 0.05, 0.075, 0.1, 0.15,
+                     0.2, 0.3, 0.5):
+            ex.SPLIT_FILL = fill
+            picks = [(ln, ex.choose_splits(*ln["shape"][:2], ln["shape"][3],
+                                           sm_count)) for ln in lines]
+            if all(s in ln["ms_by_splits"] for ln, s in picks):
+                by_fill[fill] = {"excess": sum(
+                    ln["weight"] * ln["ms_by_splits"][s]
+                    for ln, s in picks) / best,
+                    "splits": [s for _, s in picks]}
+    finally:
+        ex.SPLIT_FILL = shipped
+    emit({"phase": "split_fill_fit", "shipped": shipped,
+          "cases": [f"{ln['kernel']}/{ln['case']}" for ln in lines],
+          "best_splits": [min(ln["ms_by_splits"], key=ln["ms_by_splits"].get)
+                          for ln in lines],
+          "by_fill": by_fill,
+          "best_fill": min(by_fill, key=lambda f: by_fill[f]["excess"])
+          if by_fill else None})
 
 
 def compare_device_full(label, name, exact_record):

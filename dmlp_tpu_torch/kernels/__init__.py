@@ -87,11 +87,18 @@ def source_path(name: str) -> Path:
     return KERNEL_DIR / f"{name}.cu"
 
 
-def library_path(name: str) -> Path:
-    """The built library: keyed by the source's and the flags' hash."""
+def source_hash(name: str) -> str:
+    """The hash of ``name``'s source and the nvcc flags (16 hex digits):
+    the built library's name, and the stamp of the tune cache's entries
+    measured on that build."""
     h = hashlib.sha256(source_path(name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """The built library: keyed by :func:`source_hash`."""
+    return BUILD_DIR / f"{name}-{source_hash(name)}.so"
 
 
 def build_command(name: str, nvcc: str = "nvcc") -> Tuple[List[str], Path]:

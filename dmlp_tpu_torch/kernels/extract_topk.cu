@@ -1,4 +1,5 @@
-// Fused distance + running top-kc by threshold insertion, for Hopper (sm_90a).
+// Fused distance + running top-kc by sorted per-block merges, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel dmlp_tpu/ops/pallas_extract.py::_kernel
 // (pallas_call at :499), reached through extract_topk (:390, K2: norm gate
@@ -12,11 +13,11 @@
 //   position j >= n_real; the output lists hold the kc smallest distances of
 //   carry U block (a multiset), unsorted, with ids id_base + j (-1 padding).
 //   Insertion is strict (m < T); on equal distances the lowest position is
-//   extracted first, and the slot evicted is the one holding T with the
-//   largest id, so carry entries and earlier positions win ties. At S > 1
-//   the merge keeps the same rule: (distance asc, carry first, id asc).
-//   iters[i, j] = 1 when query tile i processed data block j, 0 when the
-//   norm gate or the block-min prefilter skipped it.
+//   extracted first, and the entry evicted is the one holding T that sorts
+//   last in the list, so carry entries and earlier positions win ties. At
+//   S > 1 the merge keeps the same rule: (distance asc, carry first, id
+//   asc). iters[i, j] = 1 when query tile i processed data block j, 0 when
+//   the norm gate or the block-min prefilter skipped it.
 //
 // Design. The grid is (ceil(Qb/TQ), S). CTA (i, s) owns TQ = 32 query rows
 // and sweeps the data blocks [s*nblk/S, (s+1)*nblk/S) of TN = 256 columns.
@@ -28,32 +29,55 @@
 // what it swept, the carry's row maximum), which is the threshold of its
 // gate, prefilter and insertion: entries the carry already beats are never
 // inserted, and a seed entry never survives the merge, since the carry's
-// kc entries all sort before it. Per block:
+// kc entries all sort before it.
+//
+// The (TQ x kc) lists live in shared memory for the whole sweep, each row
+// sorted ascending, so a row's threshold T is its last entry. A carry is
+// sorted once at the start by (distance, slot), stably (it is checked
+// first: a sorted carry is copied as it is). Per block:
 //   1. (MXU_GATE) one block-wide reduction of the block's real |d| range
 //      gives every row a lower bound (|q| - |d|)^2 deflated by the f32
 //      error bound of engine/finalize.py; when no row's bound beats its
-//      current k-th best the block is skipped before any product.
+//      T the block is skipped before any product.
 //   2. The (TQ x TN) distance tile is computed on the CUDA cores with IEEE
 //      float32 FMAs (never TF32: the eps bounds hold only for full f32
-//      products). Thread t owns column t and keeps TQ accumulators in
-//      registers; attributes are staged through shared memory AK at a time,
-//      the data chunk transposed with a padded stride (no bank conflicts),
-//      the query chunk read as broadcast float4s. BF16 rounds both operands
-//      to bfloat16 (round-to-nearest-even) and still accumulates in f32.
-//   3. The masked tile goes to shared memory; (BLOCK_SKIP) one min per row
-//      against its current threshold skips blocks that cannot insert.
-//   4. One warp per row extracts: warp argmin over the row's remaining
-//      columns (lowest position on ties), insert if strictly below T into
-//      the slot holding T, recompute T by a warp reduction over the list.
-//      The (TQ x kc) lists live in shared memory for the whole sweep.
+//      products), each (row, column) summed over the attributes in order.
+//      Thread t owns an RT x CT = 8 x 4 register micro-tile: per attribute
+//      three float4 shared loads feed 32 FMAs. The attributes arrive AK =
+//      16 at a time by cp.async into a double buffer (the data chunk
+//      transposed with a padded stride), chunk k + 1 in flight while chunk
+//      k's FMAs run, and the next block's first chunk while this block's
+//      lists are merged. BF16 rounds both operands to bfloat16
+//      (round-to-nearest-even) once staged and still accumulates in f32.
+//   3. One warp per row: each lane holds 8 of the row's tile values, a
+//      ballot per value against T selects the candidates (m < T) and popc
+//      counts them. A row without one costs its ballots and nothing more.
+//      Otherwise the candidates are compacted, in position order, as
+//      64-bit keys (distance bits, position) and sorted, then merged into
+//      the list by rank, in place: a list entry j moves to j +
+//      #(candidates < it), so list entries win ties; candidate i goes to
+//      i + #(list entries <= it); ranks past kc drop. Up to 32 candidates
+//      are sorted in registers (one key per lane) and each list entry's
+//      move is counted from the candidates' slots broadcast by shuffles;
+//      more (the first blocks of a fresh list) are sorted in the warp's
+//      shared scratch and ranked by binary search. This is exactly a
+//      stable sort of list ++ block, the plain version's rule.
+//      (BLOCK_SKIP) the OR of the ballots over the tile is the block-min
+//      prefilter: a block no row takes anything from reads iters 0.
 //
-// What bounds it on the card: the distance product, 2*Qb*B*A FLOP on the
-// FP32 pipes (no tensor cores), against ~Qb*B*A*4/TQ bytes of data re-read
-// per query tile from L2. The chunk's bytes are tiny next to that work, so
-// the kernel is bound by operations; its FMA loop issues one shared load
-// per 4 FMAs. With few query tiles (1,024 queries make 32 CTAs) the split
-// of the data axis is what fills the 132 SMs. wgmma with a split-precision
-// product and asynchronous (cp.async / TMA) staging are later work.
+// What bounds it on the card: the operations are 2*Qb*B*A FLOP on the
+// FP32 pipes (no tensor cores), about 2.1 us a block for one CTA at the
+// card's peak; the bytes (the data re-read per query tile, from L2) are
+// far below that. Measured on an H100 (chip_smoke.py's tile_block_us and
+// block_us), a block takes about 10 us for the tile alone and 14-23 us with
+// the list merges at one CTA per SM (kc 512): the kernel is bound by
+// latency, not by the FMA rate. The block's phases (staging, product,
+// extraction) are separated by barriers, and a merge is a chain of
+// dependent shared-memory steps per row; two CTAs per SM (kc 48) overlap
+// each other's phases and move 1.6 times the blocks an SM moves alone,
+// which the 128 KB lists of kc 512 do not leave room for. With few query
+// tiles (1,024 queries make 32 CTAs) the split of the data axis is what
+// fills the 132 SMs.
 //
 // The merge (extract_merge_kernel): one CTA per row packs carry ++ partials
 // into 64-bit keys (distance bits, then a carry/block flag, then id + 1),
@@ -68,77 +92,251 @@
 
 namespace {
 
+typedef unsigned long long u64;
+
 constexpr int TQ = 32;          // query rows per CTA
 constexpr int TN = 256;         // data columns per block (= threads per CTA)
 constexpr int NT = 256;         // threads per CTA
 constexpr int NW = NT / 32;     // warps per CTA
-constexpr int AK = 32;          // attributes staged per step
-constexpr int DS = TN + 1;      // padded row stride of the transposed data chunk
+constexpr int AK = 16;          // attributes per staged chunk (2 buffers)
+constexpr int DS = TN + 4;      // padded row stride of the transposed data chunk
+constexpr int RT = 8;           // tile rows of one thread's micro-tile
+constexpr int CT = 4;           // tile columns of one thread's micro-tile
+static_assert(TQ * TN == NT * RT * CT, "the micro-tiles cover the tile");
 constexpr int VPL = TN / 32;    // tile columns each lane holds during extraction
+constexpr int KC_MAX = 512;     // the widest list
+constexpr int KPL = KC_MAX / 32;  // list entries a lane moves in one merge
 constexpr int MT = 256;         // threads per merge CTA
 constexpr int MERGE_MAX = 8192; // entries one merge row may hold ((1+S)*kc)
+constexpr unsigned FULL = 0xffffffffu;
+// The seeding sort borrows the distance tile as NW x KC_MAX keys.
+static_assert(sizeof(float) * TQ * TN >= sizeof(u64) * NW * KC_MAX,
+              "the distance tile must hold the seeding sort's keys");
 
 __device__ __forceinline__ float to_bf16_rne(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Warp argmin over (value, position): smaller value, then lower position.
-__device__ __forceinline__ void warp_argmin(float& m, int& p) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float om = __shfl_xor_sync(0xffffffffu, m, off);
-    int op = __shfl_xor_sync(0xffffffffu, p, off);
-    if (om < m || (om == m && op < p)) {
-      m = om;
-      p = op;
-    }
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of attribute chunk [a0, a0 + AK) of the query tile and of
+// data block c0 into one buffer (qsb [AK][TQ]; dsb [AK][DS], transposed),
+// as one cp.async group; attributes past na and rows past nrows are
+// zero-filled by the copy (a zero product leaves the f32 sum unchanged).
+__device__ __forceinline__ void stage_chunk(float* qsb, float* dsb,
+                                            const float* q, const float* d,
+                                            int row0, int nrows, int c0,
+                                            int na, int a0, int tid) {
+  for (int idx = tid; idx < TQ * AK; idx += NT) {
+    const int ak = idx / TQ, r = idx - ak * TQ;
+    const bool ok = r < nrows && a0 + ak < na;
+    cp_async4(qsb + idx, ok ? q + (size_t)(row0 + r) * na + a0 + ak : q, ok);
+  }
+  for (int idx = tid; idx < TN * AK; idx += NT) {
+    const int c = idx / AK, ak = idx - c * AK;
+    const bool ok = a0 + ak < na;
+    cp_async4(dsb + ak * DS + c, ok ? d + (size_t)(c0 + c) * na + a0 + ak : d,
+              ok);
+  }
+  cp_async_commit();
+}
+
+// BF16: round the entries this thread staged, once its copies landed.
+__device__ __forceinline__ void round_chunk(float* qsb, float* dsb, int tid) {
+  for (int idx = tid; idx < TQ * AK; idx += NT) qsb[idx] = to_bf16_rne(qsb[idx]);
+  for (int idx = tid; idx < TN * AK; idx += NT) {
+    const int c = idx / AK, ak = idx - c * AK;
+    dsb[ak * DS + c] = to_bf16_rne(dsb[ak * DS + c]);
   }
 }
 
-__device__ __forceinline__ float warp_min(float v) {
+// acc[i][c] += q[i] * d[c] for one attribute: the RT query values at qt
+// and the CT data values at dt, both read as float4s.
+__device__ __forceinline__ void fma_step(float (&acc)[RT][CT], const float* qt,
+                                         const float* dt) {
+  const float4 dv = *reinterpret_cast<const float4*>(dt);
+  const float4 qa = *reinterpret_cast<const float4*>(qt);
+  const float4 qb = *reinterpret_cast<const float4*>(qt + 4);
+  const float qv[RT] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+  const float dw[CT] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int c = 0; c < CT; ++c) acc[i][c] = fmaf(qv[i], dw[c], acc[i][c]);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
   return v;
 }
 
-// The row's current threshold T (largest distance in its list) and the
-// slot to evict: among slots holding T, the largest id, then the lowest
-// slot. Every lane returns the same (T, slot).
-__device__ __forceinline__ void row_threshold(const float* L, const int* I,
-                                              int kc, int lane, float& t,
-                                              int& slot) {
-  float bv = -INFINITY;
-  int bi = INT32_MIN, bs = INT32_MAX;
-  for (int s = lane; s < kc; s += 32) {
-    float v = L[s];
-    int id = I[s];
-    if (v > bv || (v == bv && (id > bi || (id == bi && s < bs)))) {
-      bv = v;
-      bi = id;
-      bs = s;
+// An unsigned key that orders as the float does (-0.0 folded to +0.0).
+__device__ __forceinline__ unsigned float_key(float v) {
+  const unsigned u = __float_as_uint(v + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_dist(u64 k) {
+  return __uint_as_float((unsigned)(k >> 32));
+}
+
+// Ascending bitonic sort of one key per lane over lanes [0, m), m a power
+// of two up to 32 (the lanes past m hold equal padding keys).
+__device__ __forceinline__ u64 warp_sort(u64 key, int m, int lane) {
+  for (int size = 2; size <= m; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const u64 o = __shfl_xor_sync(FULL, key, stride);
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      key = keep_min ? (o < key ? o : key) : (o > key ? o : key);
+    }
+  }
+  return key;
+}
+
+// Ascending bitonic sort of n (a power of two) keys in shared memory by
+// one warp.
+__device__ void warp_sort_shared(u64* k, int n, int lane) {
+  __syncwarp();
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < n / 2; t += 32) {
+        const int lo = 2 * t - (t & (stride - 1)), hi = lo + stride;
+        const u64 a = k[lo], c = k[hi];
+        if ((a > c) == ((lo & size) == 0)) {
+          k[lo] = c;
+          k[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// #(entries of the sorted L[0, n) that are <= x).
+__device__ __forceinline__ int count_le(const float* L, int n, float x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (L[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// #(keys of the sorted K[0, n) whose distance is < x).
+__device__ __forceinline__ int count_lt(const u64* K, int n, float x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (key_dist(K[mid]) < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// merge_row for n <= 32 candidates sorted in registers (candidate i's key
+// in lane i): p_i = #(list entries <= c_i) is candidate i's slot less i,
+// and a list entry j moves by #(candidates < L[j]) = #(i : p_i <= j), which
+// each lane counts from the p_i broadcast by shuffles: no search per entry.
+__device__ __forceinline__ void merge_row_small(float* L, int* I, u64 key,
+                                                int n, int kc, int lane,
+                                                int idb) {
+  const float c = key_dist(key);
+  const int p = lane < n ? count_le(L, kc, c) : kc;
+  const int u = __shfl_sync(FULL, p, 0);
+  int sh[KPL];
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) sh[t] = 0;
+  for (int i = 0; i < n; ++i) {
+    const int pi = __shfl_sync(FULL, p, i);
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) sh[t] += pi <= u + lane + 32 * t;
+  }
+  float lv[KPL];
+  int lid[KPL], lnew[KPL];
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    const int j = u + lane + 32 * t;
+    lnew[t] = j < kc ? j + sh[t] : kc;
+    if (lnew[t] < kc) {
+      lv[t] = L[j];
+      lid[t] = I[j];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    if (lnew[t] < kc) {
+      L[lnew[t]] = lv[t];
+      I[lnew[t]] = lid[t];
+    }
+  }
+  if (lane < n && lane + p < kc) {
+    L[lane + p] = c;
+    I[lane + p] = idb + (int)(key & 0xffffffffu);
+  }
+  __syncwarp();
+}
+
+// Merge the n sorted candidate keys K (distance bits, tile position) into
+// the row's sorted list (L, I) of kc entries, in place, by rank: a list
+// entry j goes to j + #(candidates < it), candidate i to i + #(list
+// entries <= it); ranks >= kc drop. Entries at or below the smallest
+// candidate keep their slots. Ids are idb + position.
+__device__ __forceinline__ void merge_row(float* L, int* I, const u64* K,
+                                          int n, int kc, int lane, int idb) {
+  const int u = count_le(L, kc, key_dist(K[0]));
+  float lv[KPL];
+  int lid[KPL], lnew[KPL];
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    const int j = u + lane + 32 * t;
+    lnew[t] = kc;
+    if (j < kc) {
+      lv[t] = L[j];
+      lid[t] = I[j];
+      lnew[t] = j + count_lt(K, n, lv[t]);
+    }
+  }
+  int cnew[VPL];
+#pragma unroll
+  for (int t = 0; t < VPL; ++t) {
+    const int i = lane + 32 * t;
+    cnew[t] = kc;
+    if (i < n) cnew[t] = i + u + count_le(L + u, kc - u, key_dist(K[i]));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    if (lnew[t] < kc) {
+      L[lnew[t]] = lv[t];
+      I[lnew[t]] = lid[t];
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    int os = __shfl_xor_sync(0xffffffffu, bs, off);
-    if (ov > bv || (ov == bv && (oi > bi || (oi == bi && os < bs)))) {
-      bv = ov;
-      bi = oi;
-      bs = os;
+  for (int t = 0; t < VPL; ++t) {
+    if (cnew[t] < kc) {
+      const u64 k = K[lane + 32 * t];
+      L[cnew[t]] = key_dist(k);
+      I[cnew[t]] = idb + (int)(k & 0xffffffffu);
     }
   }
-  t = bv;
-  slot = bs;
+  __syncwarp();
 }
 
 // Block-wide min / max / max over one value per thread (NT threads).
@@ -148,9 +346,9 @@ __device__ __forceinline__ void block_range(float mn, float mx, float hi,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    mn = fminf(mn, __shfl_xor_sync(FULL, mn, off));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    hi = fmaxf(hi, __shfl_xor_sync(FULL, hi, off));
   }
   if (lane == 0) {
     red[0][warp] = mn;
@@ -171,7 +369,7 @@ __device__ __forceinline__ void block_range(float mn, float mx, float hi,
 }
 
 template <bool MXU_GATE, bool BLOCK_SKIP, bool BF16>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
                     const float* __restrict__ qn, const float* __restrict__ dn,
                     const float* __restrict__ floor_, const float* __restrict__ cd,
@@ -179,14 +377,15 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
                     int* __restrict__ oi, int* __restrict__ iters, int qb, int b,
                     int na, int kc, int n_real, int id_base, float eps_rel,
                     float eps_coef) {
-  extern __shared__ float smem[];
-  float* dist = smem;                     // [TQ][TN]
-  float* qs = dist + TQ * TN;             // [AK][TQ]
-  float* ds = qs + AK * TQ;               // [AK][DS]
-  float* tcur = ds + AK * DS;             // [TQ] current thresholds
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  u64* ck = reinterpret_cast<u64*>(smem_raw);  // [NW][TN] candidate keys
+  float* dist = reinterpret_cast<float*>(ck + NW * TN);  // [TQ][TN]
+  float* qs = dist + TQ * TN;             // [2][AK][TQ]
+  float* ds = qs + 2 * AK * TQ;           // [2][AK][DS]
+  float* tcur = ds + 2 * AK * DS;         // [TQ] thresholds: L[kc - 1]
   float* qn_s = tcur + TQ;                // [TQ]
   float* fl_s = qn_s + TQ;                // [TQ]
-  float* ld = fl_s + TQ;                  // [TQ][kc] list distances
+  float* ld = fl_s + TQ;                  // [TQ][kc] list distances, sorted
   int* li = reinterpret_cast<int*>(ld + TQ * kc);  // [TQ][kc] list ids
   __shared__ float red[3][NW];
 
@@ -201,49 +400,71 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
   od += (size_t)split * qb * kc;
   oi += (size_t)split * qb * kc;
 
-  // S > 1: the carry's row maxima, the value the split lists start from.
-  for (int r = warp; r < TQ; r += NW) {
-    float cmax = INFINITY;
-    if (!seed && cd != nullptr && r < nrows) {
-      float m = -INFINITY;
-      for (int c = lane; c < kc; c += 32)
-        m = fmaxf(m, cd[(size_t)(row0 + r) * kc + c]);
-      cmax = warp_max(m);
-    }
-    if (lane == 0) tcur[r] = cmax;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < TQ * kc; idx += NT) {
-    const int r = idx / kc;
-    float v = INFINITY;
-    int id = -1;
-    if (r < nrows) {
-      v = seed ? cd[(size_t)row0 * kc + idx] : tcur[r];
-      id = seed ? ci[(size_t)row0 * kc + idx] : -1;
-    }
-    ld[idx] = v;
-    li[idx] = id;
-  }
   for (int r = tid; r < TQ; r += NT) {
     qn_s[r] = r < nrows ? qn[row0 + r] : 0.f;
     fl_s[r] = (r < nrows && floor_ != nullptr) ? floor_[row0 + r] : -INFINITY;
   }
-  __syncthreads();
-  for (int r = warp; r < TQ; r += NW) {
-    float t;
-    int s;
-    row_threshold(ld + r * kc, li + r * kc, kc, lane, t, s);
-    if (lane == 0) tcur[r] = t;
+  if (seed) {
+    // Each warp sorts its rows of the carry by (distance, slot), stably,
+    // in its KC_MAX keys of the (still unused) distance tile.
+    u64* keys = reinterpret_cast<u64*>(dist) + warp * KC_MAX;
+    for (int r = warp; r < nrows; r += NW) {
+      const float* crow = cd + (size_t)(row0 + r) * kc;
+      const int* irow = ci + (size_t)(row0 + r) * kc;
+      float* L = ld + r * kc;
+      int* I = li + r * kc;
+      int unsorted = 0;
+      for (int c = lane; c + 1 < kc; c += 32)
+        unsorted |= !(crow[c] <= crow[c + 1]);
+      if (!__any_sync(FULL, unsorted)) {
+        for (int c = lane; c < kc; c += 32) {
+          L[c] = crow[c] + 0.0f;
+          I[c] = irow[c];
+        }
+        continue;
+      }
+      int npad = 32;
+      while (npad < kc) npad <<= 1;
+      for (int e = lane; e < npad; e += 32)
+        keys[e] = e < kc ? ((u64)float_key(crow[e]) << 32) | (unsigned)e
+                         : ~0ull;
+      warp_sort_shared(keys, npad, lane);
+      for (int c = lane; c < kc; c += 32) {
+        const int slot = (int)(keys[c] & 0xffffffffu);
+        L[c] = crow[slot] + 0.0f;
+        I[c] = irow[slot];
+      }
+      __syncwarp();
+    }
+  } else {
+    // kc copies of (the carry's row maximum, -1) at S > 1, of (+inf, -1)
+    // without a carry: sorted as they stand.
+    for (int r = warp; r < nrows; r += NW) {
+      float cmax = INFINITY;
+      if (cd != nullptr) {
+        float m = -INFINITY;
+        for (int c = lane; c < kc; c += 32)
+          m = fmaxf(m, cd[(size_t)(row0 + r) * kc + c]);
+        cmax = warp_max(m) + 0.0f;
+      }
+      for (int c = lane; c < kc; c += 32) {
+        ld[r * kc + c] = cmax;
+        li[r * kc + c] = -1;
+      }
+    }
   }
   __syncthreads();
+  for (int r = tid; r < TQ; r += NT)
+    tcur[r] = r < nrows ? ld[r * kc + kc - 1] : INFINITY;
+  __syncthreads();
 
+  const int nch = (na + AK - 1) / AK;
+  int staged = -1;  // the block whose first chunk is in (or bound for) buffer 0
   for (int j = j0; j < j1; ++j) {
     const int c0 = j * TN;
-    const int pos = c0 + tid;            // this thread's column
-    const bool real = pos < n_real;
-    const float dnv = dn[pos];
-
     if (MXU_GATE) {
+      const bool real = c0 + tid < n_real;  // this thread's column
+      const float dnv = dn[c0 + tid];
       // Norm-bound gate: |q - d|^2 >= (|q| - |d|)^2 over the block's real
       // |d| range, deflated by the f32 error bound. An all-sentinel block
       // gives inf - inf = NaN, which skips (the Pallas kernel relies on
@@ -272,98 +493,113 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
       }
     }
 
-    // Distance tile on the FP32 pipes.
-    float acc[TQ];
+    // Distance tile on the FP32 pipes. Chunk k + 1 is copied while chunk
+    // k's FMAs run; the first chunk was started during the previous
+    // block's extraction unless the gate skipped the block it was for.
+    if (staged != j) {
+      cp_async_wait<0>();  // a copy for a skipped block still lands first
+      stage_chunk(qs, ds, q, d, row0, nrows, c0, na, 0, tid);
+    }
+    // Thread t computes rows [RT*rg, RT*rg + RT) x columns [CT*cg, CT*cg
+    // + CT) of the tile (rg = t / 64 is one per warp, so the q reads are
+    // broadcasts): per attribute 3 float4 shared loads feed 32 FMAs.
+    const int rg = tid / (TN / CT), cg = tid % (TN / CT);
+    float acc[RT][CT];
 #pragma unroll
-    for (int r = 0; r < TQ; ++r) acc[r] = 0.f;
-    for (int a0 = 0; a0 < na; a0 += AK) {
-      const int ak_n = min(AK, na - a0);
-      __syncthreads();  // previous chunk's readers are done
-      for (int idx = tid; idx < TQ * AK; idx += NT) {
-        const int ak = idx / TQ, r = idx - ak * TQ;
-        float v = 0.f;
-        if (r < nrows && ak < ak_n) v = q[(size_t)(row0 + r) * na + a0 + ak];
-        qs[idx] = BF16 ? to_bf16_rne(v) : v;
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
+    for (int k = 0; k < nch; ++k) {
+      const int ak_n = min(AK, na - k * AK);
+      float* qsb = qs + (k & 1) * AK * TQ;
+      float* dsb = ds + (k & 1) * AK * DS;
+      if (k + 1 < nch) {
+        stage_chunk(qs + ((k + 1) & 1) * AK * TQ, ds + ((k + 1) & 1) * AK * DS,
+                    q, d, row0, nrows, c0, na, (k + 1) * AK, tid);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-      for (int idx = tid; idx < TN * AK; idx += NT) {
-        const int c = idx / AK, ak = idx - c * AK;
-        float v = 0.f;
-        if (ak < ak_n) v = d[(size_t)(c0 + c) * na + a0 + ak];
-        ds[ak * DS + c] = BF16 ? to_bf16_rne(v) : v;
-      }
+      if (BF16) round_chunk(qsb, dsb, tid);
       __syncthreads();
-      for (int ak = 0; ak < ak_n; ++ak) {
-        const float dv = ds[ak * DS + tid];
-        const float4* qv = reinterpret_cast<const float4*>(qs + ak * TQ);
+      const float* qt = qsb + RT * rg;
+      const float* dt = dsb + CT * cg;
+      if (ak_n == AK) {  // a whole chunk, unrolled so that loads run ahead
 #pragma unroll
-        for (int r4 = 0; r4 < TQ / 4; ++r4) {
-          const float4 x = qv[r4];
-          acc[4 * r4 + 0] = fmaf(x.x, dv, acc[4 * r4 + 0]);
-          acc[4 * r4 + 1] = fmaf(x.y, dv, acc[4 * r4 + 1]);
-          acc[4 * r4 + 2] = fmaf(x.z, dv, acc[4 * r4 + 2]);
-          acc[4 * r4 + 3] = fmaf(x.w, dv, acc[4 * r4 + 3]);
-        }
+        for (int ak = 0; ak < AK; ++ak) fma_step(acc, qt + ak * TQ, dt + ak * DS);
+      } else {
+        for (int ak = 0; ak < ak_n; ++ak) fma_step(acc, qt + ak * TQ, dt + ak * DS);
       }
+      __syncthreads();  // this buffer is staged again two chunks on
+    }
+    if (j + 1 < j1) {
+      stage_chunk(qs, ds, q, d, row0, nrows, c0 + TN, na, 0, tid);
+      staged = j + 1;
+    }
+    float dnc[CT];
+    bool realc[CT];
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      dnc[c] = dn[c0 + CT * cg + c];
+      realc[c] = c0 + CT * cg + c < n_real;
     }
 #pragma unroll
-    for (int r = 0; r < TQ; ++r) {
-      float v = fmaxf(qn_s[r] + dnv - 2.f * acc[r], 0.f);
-      if (v < fl_s[r] || !real) v = INFINITY;
-      dist[r * TN + tid] = v;
+    for (int i = 0; i < RT; ++i) {
+      const int r = RT * rg + i;
+      float v[CT];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        v[c] = fmaxf(qn_s[r] + dnc[c] - 2.f * acc[i][c], 0.f);
+        if (v[c] < fl_s[r] || !realc[c]) v[c] = INFINITY;
+      }
+      *reinterpret_cast<float4*>(dist + r * TN + CT * cg) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
 
-    int proc = 1;
-    if (BLOCK_SKIP) {
-      int any = 0;
-      for (int r = warp; r < nrows; r += NW) {
-        float m = INFINITY;
-#pragma unroll
-        for (int k = 0; k < VPL; ++k) m = fminf(m, dist[r * TN + lane + 32 * k]);
-        any |= warp_min(m) < tcur[r];
-      }
-      proc = __syncthreads_or(any);
-    }
-    if (tid == 0) iters[blockIdx.x * nblk + j] = proc;
-    if (!proc) continue;
-
+    // One warp per row: ballot the candidates below T, sort and merge.
+    int any = 0;
+    u64* K = ck + warp * TN;
     for (int r = warp; r < nrows; r += NW) {
-      float* L = ld + r * kc;
-      int* I = li + r * kc;
+      const float t = tcur[r];
       float v[VPL];
+      unsigned m[VPL];
+      int n = 0;
 #pragma unroll
-      for (int k = 0; k < VPL; ++k) v[k] = dist[r * TN + lane + 32 * k];
-      float t;
-      int slot;
-      row_threshold(L, I, kc, lane, t, slot);
-      while (true) {
-        float m = INFINITY;
-        int p = INT32_MAX;
-#pragma unroll
-        for (int k = 0; k < VPL; ++k) {
-          if (v[k] < m) {
-            m = v[k];
-            p = lane + 32 * k;
-          }
-        }
-        warp_argmin(m, p);
-        if (!(m < t)) break;
-        if (lane == 0) {
-          L[slot] = m;
-          I[slot] = id_base + c0 + p;
-        }
-        if (lane == (p & 31)) {
-#pragma unroll
-          for (int k = 0; k < VPL; ++k)
-            if (k == (p >> 5)) v[k] = INFINITY;
-        }
-        __syncwarp();
-        row_threshold(L, I, kc, lane, t, slot);
+      for (int k = 0; k < VPL; ++k) {
+        v[k] = dist[r * TN + lane + 32 * k] + 0.0f;
+        m[k] = __ballot_sync(FULL, v[k] < t);
+        n += __popc(m[k]);
       }
-      if (lane == 0) tcur[r] = t;
+      if (n == 0) continue;
+      any = 1;
+      const unsigned below = (1u << lane) - 1u;
+      int base = 0;
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        if ((m[k] >> lane) & 1u)
+          K[base + __popc(m[k] & below)] =
+              ((u64)__float_as_uint(v[k]) << 32) | (unsigned)(lane + 32 * k);
+        base += __popc(m[k]);
+      }
+      __syncwarp();
+      float* L = ld + r * kc;
+      int npad = 1;
+      while (npad < n) npad <<= 1;
+      if (n <= 32) {
+        const u64 key = warp_sort(lane < n ? K[lane] : ~0ull, npad, lane);
+        merge_row_small(L, li + r * kc, key, n, kc, lane, id_base + c0);
+      } else {
+        for (int e = n + lane; e < npad; e += 32) K[e] = ~0ull;
+        warp_sort_shared(K, npad, lane);
+        merge_row(L, li + r * kc, K, n, kc, lane, id_base + c0);
+      }
+      if (lane == 0) tcur[r] = L[kc - 1];
     }
-    __syncthreads();
+    const int proc = __syncthreads_or(any);
+    if (tid == 0) iters[blockIdx.x * nblk + j] = BLOCK_SKIP ? proc : 1;
   }
+  cp_async_wait<0>();
 
   for (int idx = tid; idx < nrows * kc; idx += NT) {
     od[(size_t)row0 * kc + idx] = ld[idx];
@@ -428,8 +664,9 @@ extract_merge_kernel(const float* __restrict__ cd, const int* __restrict__ ci,
 }
 
 size_t smem_bytes(int kc) {
-  return sizeof(float) * ((size_t)TQ * TN + (size_t)AK * TQ + (size_t)AK * DS +
-                          3 * (size_t)TQ) +
+  return sizeof(u64) * (size_t)NW * TN +
+         sizeof(float) * ((size_t)TQ * TN + 2 * (size_t)AK * TQ +
+                          2 * (size_t)AK * DS + 3 * (size_t)TQ) +
          (sizeof(float) + sizeof(int)) * (size_t)TQ * kc;
 }
 
@@ -462,9 +699,10 @@ int dmlp_extract_merge_max() { return MERGE_MAX; }
 long long dmlp_extract_smem_bytes(int kc) { return (long long)smem_bytes(kc); }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// floor_, cd and ci may be null (no floor / no carry). b % TN == 0 and
-// 1 <= splits <= b / TN. At splits > 1, od and oi are the (splits, qb, kc)
-// partial-list scratch that dmlp_extract_merge reads.
+// floor_, cd and ci may be null (no floor / no carry). b % TN == 0,
+// 1 <= kc <= KC_MAX and 1 <= splits <= b / TN. At splits > 1, od and oi
+// are the (splits, qb, kc) partial-list scratch that dmlp_extract_merge
+// reads.
 int dmlp_extract_topk(const float* q, const float* d, const float* qn,
                       const float* dn, const float* floor_, const float* cd,
                       const int* ci, float* od, int* oi, int* iters, int qb,
@@ -472,7 +710,7 @@ int dmlp_extract_topk(const float* q, const float* d, const float* qn,
                       int splits, int mxu_gate, int block_skip, int bf16,
                       float eps_rel, float eps_coef, void* stream) {
   if (qb <= 0 || b <= 0 || b % TN != 0 || na <= 0 || kc <= 0 ||
-      splits < 1 || splits > b / TN || splits > 65535)
+      kc > KC_MAX || splits < 1 || splits > b / TN || splits > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DMLP_LAUNCH(G, S, H)                                                   \

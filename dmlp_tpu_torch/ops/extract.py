@@ -48,7 +48,7 @@ from dmlp_tpu_torch.tune import cache as tune_cache
 
 QUERY_TILE = 32     # kernel TQ: query rows per CTA
 BLOCK_ROWS = 256    # kernel TN: data columns per block
-_AK = 32            # kernel AK: attributes staged per step
+_AK = 16            # kernel AK: attributes per staged chunk (2 buffers)
 KC_MAX = 512
 MERGE_MAX = 8192    # kernel MERGE_MAX: entries one merge row holds, (1+S)*kc
 # Opt-in dynamic shared memory per block on sm_90 (232,448 bytes), less
@@ -59,20 +59,24 @@ SMEM_BUDGET = 232448 - 1024
 SM_SMEM = 233472
 CTA_SMEM_RESERVED = 1024
 # choose_splits' cost model: a CTA that starts from empty lists spends
-# about SPLIT_FILL data blocks' time per list slot filling them (fitted to
-# H100 sweeps of chip_smoke.py's split_sweep phase), and S is the smallest
-# whose modelled time is within SPLIT_TOL of the least.
-SPLIT_FILL = 0.5
+# about SPLIT_FILL data blocks' time per list slot filling them (the grid
+# value of least excess in chip_smoke.py's split_fill_fit line, over the
+# split_sweep lines of an H100 run), and S is the smallest whose modelled
+# time is within SPLIT_TOL of the least.
+SPLIT_FILL = 0.02
 SPLIT_TOL = 0.05
 
 
 def smem_bytes(kc: int, tile_q: int = QUERY_TILE,
                tile_n: int = BLOCK_ROWS) -> int:
-    """Dynamic shared memory of one CTA: distance tile, staged q/d
-    attribute chunks (d transposed, padded stride), three per-row
-    vectors, and the (tile_q, kc) distance + id lists."""
-    return 4 * (tile_q * tile_n + _AK * tile_q + _AK * (tile_n + 1)
-                + 3 * tile_q) + 8 * tile_q * kc
+    """Dynamic shared memory of one CTA: each warp's tile_n 64-bit
+    candidate keys (one warp per 32 of the tile_n threads), distance
+    tile, two buffers of staged q/d attribute chunks (d transposed, padded
+    stride), three per-row vectors, and the (tile_q, kc) distance + id
+    lists."""
+    return 8 * (tile_n // 32) * tile_n \
+        + 4 * (tile_q * tile_n + 2 * _AK * tile_q + 2 * _AK * (tile_n + 4)
+               + 3 * tile_q) + 8 * tile_q * kc
 
 
 def ctas_per_sm(kc: int) -> int:

@@ -21,6 +21,11 @@ The reference's design rules hold:
   initialises CUDA).
 - **Keys are buckets.** Row counts bucket to the next power of two; kc
   keys directly. A corrupt entry misses only itself.
+- **A variant belongs to the kernel it was measured on.** An entry of
+  K1/K2 (``fused_topk``, ``extract_topk``) carries the hash their library
+  is named by (``kernels.source_hash`` of ``extract_topk.cu`` and the nvcc
+  flags); an entry for another source misses, so an S measured on an old
+  kernel is never served to a new one.
 - **A hit never disables a kernel.** The callers re-validate a hit against
   the concrete launch (``ops.extract.check_splits``, G within 1..nseg) and
   fall through to the heuristic on a misfit.
@@ -58,6 +63,16 @@ FAMILY = "dmlp_tpu_torch_variants"
 KNOBS = {"fused_topk": "splits", "extract_topk": "splits",
          "fused_dist_segmin": "group", "prune_score": "tile_q"}
 PRECISIONS = ("f32", "bf16")
+#: kernel namespace -> the CUDA source (``dmlp_tpu_torch/kernels/<name>.cu``)
+#: whose hash its entries carry
+SOURCES = {"fused_topk": "extract_topk", "extract_topk": "extract_topk"}
+
+
+def source_stamp(kernel: str) -> Optional[str]:
+    """The hash an entry of ``kernel`` must carry, None for a namespace
+    without a CUDA kernel."""
+    from dmlp_tpu_torch.kernels import source_hash
+    return source_hash(SOURCES[kernel]) if kernel in SOURCES else None
 
 
 def cache_path() -> str:
@@ -116,20 +131,25 @@ class VariantCache:
             raise ValueError(f"unknown precision {precision!r}")
         key = make_key(kernel, device_kind, qb=qb, b=b, a=a, kc=kc,
                        dtype=dtype, precision=precision)
+        stamp = source_stamp(kernel)
         self.entries[key] = {"variant": dict(variant),
-                             "created_unix": time.time(), **record}
+                             "created_unix": time.time(),
+                             **({"source": stamp} if stamp else {}),
+                             **record}
         return key
 
     def get(self, kernel: str, device_kind: str, *, qb: int, b: int, a: int,
             kc: int, dtype: str = "float32",
             precision: str = "f32") -> Optional[Dict]:
         """The cached variant for this key after per-entry validation, or
-        None on a miss or a corrupt entry."""
+        None on a miss, a corrupt entry or one measured on another source
+        of the namespace's kernel."""
         e = self.entries.get(make_key(kernel, device_kind, qb=qb, b=b, a=a,
                                       kc=kc, dtype=dtype,
                                       precision=precision))
         if not isinstance(e, dict) or not validate_variant(
-                kernel, e.get("variant")):
+                kernel, e.get("variant")) \
+                or e.get("source") != source_stamp(kernel):
             return None
         return dict(e["variant"])
 

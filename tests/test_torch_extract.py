@@ -374,6 +374,37 @@ def test_choose_splits_splits_the_multipass_shapes():
     assert ex.choose_splits(1024, 204800, 512, 32) == 1   # already full
 
 
+def test_smem_layout_of_the_sorted_list_kernel():
+    """One CTA's dynamic shared memory as the kernel lays it out: 8 warps'
+    256 candidate keys (16 KB), the 32 x 256 distance tile (32 KB), two
+    buffers of 16 staged attributes (q 32 wide, d 256 + 4 wide), three
+    per-row vectors and the 32 x kc lists; kc 512 fits the opt-in budget
+    with one CTA per SM, kc 48 leaves room for two."""
+    fixed = 8 * 8 * 256 + 4 * (32 * 256 + 2 * 16 * 32 + 2 * 16 * 260
+                               + 3 * 32)
+    for kc in (1, 48, 100, 512):
+        assert ex.smem_bytes(kc) == fixed + 8 * 32 * kc
+    assert ex.smem_bytes(512) == 217984 <= ex.SMEM_BUDGET
+    assert [ex.ctas_per_sm(kc) for kc in (1, 48, 100, 512)] == [2, 2, 2, 1]
+
+
+def test_choose_splits_after_the_fill_refit(monkeypatch):
+    """The sorted lists fill in a few blocks, so the fill no longer caps
+    the split: the wide-k bulk (137 query tiles of kc 512, two waves on
+    132 SMs at S = 1) splits where the old fill of half a block per slot
+    kept it whole, config 4's chunk (313 tiles, two CTAs per SM) splits
+    further, and a grid that already fills the card stays at S = 1."""
+    assert ex.SPLIT_FILL < 0.1
+    new = [ex.choose_splits(4384, 50176, 512, 132),
+           ex.choose_splits(10016, 50176, 48, 132)]
+    assert ex.choose_splits(1024, 204800, 512, 132) == 4
+    assert ex.choose_splits(1024, 204800, 512, 32) == 1
+    monkeypatch.setattr(ex, "SPLIT_FILL", 0.5)
+    old = [ex.choose_splits(4384, 50176, 512, 132),
+           ex.choose_splits(10016, 50176, 48, 132)]
+    assert old[0] == 1 < new[0] and new[1] > old[1] > 1
+
+
 def test_fused_topk_passes_splits_through():
     rng = np.random.default_rng(4)
     q = torch.from_numpy(rng.uniform(0, 1, (16, 4)).astype(np.float32))
@@ -399,3 +430,134 @@ def test_cpu_default_is_one_split(monkeypatch):
     for bad in (0, 5):                    # 4 blocks: 1 <= S <= 4
         with pytest.raises(ValueError):
             ex.extract_topk(q, d, n_real=1000, kc=8, splits=bad)
+
+
+# The CUDA kernel's per-block step, modelled on tensors. Each row's list
+# stays sorted ascending (a carry is first sorted stably by (distance,
+# slot)), so its threshold T is the last entry; per block the candidates
+# are the tile values strictly below T (the warp's ballots), sorted by
+# (distance, position) as 64-bit keys, and merged into the list by rank:
+# a list entry j moves to j + #(candidates < it), candidate i to
+# i + #(list entries <= it), ranks past kc drop. That must be exactly the
+# plain version's stable sort of list ++ block.
+
+def _kernel_model(q, d, carry_d, carry_i, *, n_real, id_base, kc,
+                  floor=None, tile_n=256, splits=1):
+    qb, b = q.shape[0], d.shape[0]
+    nblk = b // tile_n
+    qn, dn = (q * q).sum(-1), (d * d).sum(-1)
+    parts = []
+    for sp in range(splits):
+        if carry_d is not None and splits == 1:
+            cd = carry_d.float() + 0.0          # -0.0 folds to +0.0
+            order = torch.argsort(cd, dim=1, stable=True)
+            ld = torch.gather(cd, 1, order)
+            li = torch.gather(carry_i.to(torch.int32), 1, order)
+        else:
+            seed = torch.full((qb, 1), torch.inf)
+            if carry_d is not None:
+                seed = carry_d.float().max(1, keepdim=True).values + 0.0
+            ld = seed.expand(qb, kc).clone()
+            li = torch.full((qb, kc), -1, dtype=torch.int32)
+        for j in range(sp * nblk // splits, (sp + 1) * nblk // splits):
+            lo, hi = j * tile_n, (j + 1) * tile_n
+            dist = torch.clamp_min(qn[:, None] + dn[None, lo:hi]
+                                   - 2.0 * (q @ d[lo:hi].T), 0.0)
+            if floor is not None:
+                dist = torch.where(dist < floor.reshape(qb, 1), torch.inf,
+                                   dist)
+            dist = torch.where(torch.arange(lo, hi)[None, :] < n_real, dist,
+                               torch.inf)
+            for r in range(qb):
+                v = dist[r] + 0.0
+                sel = v < ld[r, -1]
+                n = int(sel.sum())
+                if n == 0:
+                    continue
+                pos = torch.nonzero(sel).flatten()
+                keys = (v[pos].view(torch.int32).to(torch.int64) << 32) | pos
+                order = torch.argsort(keys)
+                cv, cp = v[pos][order], pos[order]
+                L, ids = ld[r].clone(), li[r].clone()
+                lnew = torch.arange(kc) + torch.searchsorted(cv, L)
+                p = torch.searchsorted(L, cv, right=True)
+                cnew = torch.arange(n) + p
+                # The kernel's register path for n <= 32: a list entry j
+                # moves by #(i : p_i <= j), p_i = #(list entries <= c_i).
+                assert torch.equal(lnew, torch.arange(kc) + (
+                    p[None, :] <= torch.arange(kc)[:, None]).sum(1))
+                keep = lnew < kc
+                ld[r, lnew[keep]] = L[keep]
+                li[r, lnew[keep]] = ids[keep]
+                keep = cnew < kc
+                ld[r, cnew[keep]] = cv[keep]
+                li[r, cnew[keep]] = (id_base + lo + cp[keep]).to(torch.int32)
+            assert torch.all(ld[:, 1:] >= ld[:, :-1])   # stays sorted
+        parts.append((ld, li))
+    return parts
+
+
+def _model_inputs(name):
+    """(q, d, carry_d, carry_i, kw) of one model case."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    t = torch.from_numpy
+    kw = dict(n_real=1000, id_base=0, kc=24, tile_n=64)
+    if name == "all_inf_full_tile":
+        # Fresh lists of kc > 256: the first block's 256 real columns all
+        # go in by one merge.
+        q, d = _data(rng, (8, 4), "float"), _data(rng, (512, 4), "float")
+        return t(q), t(d), None, None, dict(n_real=280, id_base=0, kc=300,
+                                            tile_n=256)
+    if name == "ties_fresh":
+        q, d = _data(rng, (40, 8), "ties"), _data(rng, (1024, 8), "ties")
+        return t(q), t(d), None, None, kw
+    q, d = _data(rng, (40, 8), "ties"), _data(rng, (1024, 8), "ties")
+    near = _data(rng, (256, 8), "ties")
+    cd, ci, _ = ex.extract_topk_plain(t(q), t(near), n_real=256, kc=24,
+                                      tile_n=64)
+    # Not sorted: each row's entries permuted, ties among them kept.
+    perm = torch.from_numpy(np.argsort(rng.random((40, 24)), 1))
+    cd, ci = torch.gather(cd, 1, perm), torch.gather(ci, 1, perm)
+    kw = {**kw, "id_base": 256}
+    if name == "neg_zero":
+        # Exact zero distances in the block (data rows equal to queries)
+        # and -0.0 in the carry.
+        d[64:104] = q
+        cd = torch.where(cd == 0.0, -0.0, cd)
+        cd[:, 3] = -0.0
+    if name == "floor":
+        q, d = _data(rng, (40, 8), "int"), _data(rng, (1024, 8), "int")
+        floor = (rng.integers(0, 40, (40, 1)) + 0.5).astype(np.float32)
+        return t(q), t(d), None, None, {**kw, "floor": t(floor)}
+    return t(q), t(d), cd, ci, kw
+
+
+MODEL_CASES = ["ties_fresh", "ties_unsorted_carry", "all_inf_full_tile",
+               "neg_zero", "floor"]
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("name", MODEL_CASES)
+def test_rank_merge_model_is_the_stable_sort(name, splits):
+    """Many exact ties inside the list, inside the block and between the
+    two; an all-+inf list; -0.0; a floor; an unsorted carry: the model's
+    lists equal the plain version's, stably sorted by distance, entry for
+    entry (the plain version leaves a carry row that no block changed
+    unsorted)."""
+    q, d, cd, ci, kw = _model_inputs(name)
+    if kw["kc"] * (1 + splits) > ex.MERGE_MAX or splits > d.shape[0] // \
+            kw["tile_n"]:
+        splits = 1
+    part_d, part_i, _ = ex.split_partials_plain(q, d, cd, ci, splits=splits,
+                                                **kw)
+    model = _kernel_model(q, d, cd, ci, splits=splits, **kw)
+    for s, (md, mi) in enumerate(model):
+        order = torch.argsort(part_d[s], dim=1, stable=True)
+        assert torch.equal(md, torch.gather(part_d[s], 1, order))
+        assert torch.equal(mi, torch.gather(part_i[s], 1, order))
+    if name == "all_inf_full_tile":
+        assert torch.isfinite(model[0][0][:, :280]).all()
+        assert torch.isinf(model[0][0][:, 280:]).all()
+    if name == "neg_zero":
+        assert (model[0][0] == 0).any()
+        assert not torch.signbit(model[0][0]).any()

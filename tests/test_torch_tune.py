@@ -19,7 +19,7 @@ import torch
 pytest.importorskip("jax")
 
 from dmlp_tpu.tune import cache as ref_cache  # noqa: E402
-from dmlp_tpu_torch import cli  # noqa: E402
+from dmlp_tpu_torch import cli, kernels  # noqa: E402
 from dmlp_tpu_torch.config import EngineConfig  # noqa: E402
 from dmlp_tpu_torch.engine import single  # noqa: E402
 from dmlp_tpu_torch.golden.fast import knn_golden_fast  # noqa: E402
@@ -177,6 +177,51 @@ def test_misfit_falls_through_to_the_heuristic(tmp_path, monkeypatch):
     assert ex.resolve_splits(32, 1024, 8, 24, gate=False, **kw) == 3
     assert ds.resolve_group(16, 1024, 8, **kw) == 1024 // ds.SEG
     assert ds.resolve_group(16, 2048, 8, **kw) == 2
+
+
+def test_entries_carry_the_kernel_source_hash(tmp_path, monkeypatch):
+    """K1/K2's entries carry the hash their library is named by
+    (extract_topk.cu and the nvcc flags): a cache written for another
+    source, or before the stamp, is a miss and the heuristic serves; K3's
+    G and the scoring chunk carry none. The envelope's rules do not
+    change."""
+    k1 = _point(qb=32, b=1024, a=8, kc=24)
+    path = _write(tmp_path, monkeypatch, [
+        ("fused_topk", {"splits": 3}, k1), ("extract_topk", {"splits": 3}, k1),
+        ("fused_dist_segmin", {"group": 2}, _point(qb=16, b=2048, a=8, kc=0)),
+        ("prune_score", {"tile_q": 4}, _point(kc=0, dtype="float64"))])
+    doc = json.loads(open(path).read())
+    stamp = kernels.source_hash("extract_topk")
+    for key, e in doc["entries"].items():
+        assert e.get("source") == (stamp if key.split("|")[0] in (
+            "fused_topk", "extract_topk") else None)
+    kw = dict(device="cpu", precision="f32")
+
+    def resolved():
+        cache.clear_lookup_memo()
+        return (ex.resolve_splits(32, 1024, 8, 24, gate=True, **kw),
+                ex.resolve_splits(32, 1024, 8, 24, gate=False, **kw),
+                ds.resolve_group(16, 2048, 8, **kw))
+
+    assert resolved() == (3, 3, 2)
+    # The same file after an edit of the kernel's source.
+    real = kernels.source_path
+    edited = tmp_path / "extract_topk.cu"
+    edited.write_bytes(real("extract_topk").read_bytes() + b"// edited\n")
+    monkeypatch.setattr(kernels, "source_path", lambda n: edited
+                        if n == "extract_topk" else real(n))
+    assert kernels.source_hash("extract_topk") != stamp
+    assert resolved() == (1, 1, 2)
+    monkeypatch.setattr(kernels, "source_path", real)
+    assert resolved() == (3, 3, 2)
+    # Entries written for another source, or before the stamp.
+    doc["entries"][cache.make_key("fused_topk", "cpu", **k1)]["source"] = \
+        "0" * 16
+    del doc["entries"][cache.make_key("extract_topk", "cpu", **k1)]["source"]
+    open(path, "w").write(json.dumps(doc))
+    cache.VariantCache.validate_doc(doc)
+    assert tune_cli.main(["--validate", path]) == 0
+    assert resolved() == (1, 1, 2)
 
 
 def test_absent_cache_makes_no_cuda_call_and_changes_nothing(monkeypatch):
