@@ -25,7 +25,9 @@ final result line. Standard output:
    against the plain version at the same S, ``iters`` exactly, the two
    splits' sorted lists bit for bit, gate on against gate off bit for
    bit), also with a multi-pass ``floor``, at the wide-k bulk and at the
-   multi-pass first pass; on the integer ``tie_grid`` (exact f32 sums) the
+   multi-pass first pass, and at the mesh path's per-rank shapes (config
+   3's shard fresh and carried, the wide-k bulk on the (4, 2) mesh, config
+   5's 32-attribute shard); on the integer ``tie_grid`` (exact f32 sums) the
    sorted (distance, id) pairs equal the plain version's with
    ``torch.equal`` at both S; at each main-path shape the per-block time
    ``block_us`` (a full S = 1 launch against a one-block one, over the
@@ -37,7 +39,8 @@ final result line. Standard output:
    under ``ops.extract.list_tolerance``, +inf exactly where ids < 0,
    ``segmin`` bit for bit against the kernel's own tile) at its two
    main-path shapes (the wide-k mix's outliers in f32 and bf16, config
-   2's seg step) and at edge shapes (13 rows with all-sentinel segments;
+   2's seg step), at a rank's outlier fold on the (4, 2) mesh, and at
+   edge shapes (13 rows with all-sentinel segments;
    5 attributes; 100 attributes with a ragged row tile and a segment
    count that G does not divide), every G a case names bit for bit equal,
    and at each main-path shape ``kernel_ms`` (the kernel alone: operands
@@ -101,6 +104,32 @@ final result line. Standard output:
    output holds one checksum line per query and the exact ones match the
    port's float64 oracle (``golden.fast``) on a seeded subset byte for
    byte;
+   ``mesh``: whether NCCL takes two ranks of one communicator on one card
+   (two processes, recorded, not checked); the CLI refusing 8 NCCL ranks
+   on one card without ``--backend gloo``; then the mesh engines through
+   ``cli.main`` on the card (this process is rank 0): bench config 4 on a
+   (1, 1) mesh on NCCL, sharded and ring, each printing the single-device
+   config-4 solve's bytes; bench config 3 (config 2's data on a (4, 2)
+   mesh, 8 ranks on cuda:0 with gloo), sharded and ring, and sharded with
+   ``DMLP_TPU_FUSED=0`` (K2 in the chunk fold), and config 2's
+   data with k in 1..1024 (the router's wide-k outliers through K3 in each
+   rank's outlier fold), sharded, each printing the bytes of the
+   single-device solve of the same input; each run solves once untimed
+   first (``--warmup``: every rank's first launches and allocations stay
+   out of ``Time taken``), and its line holds ``Time
+   taken``, rank 0's phases and every rank's (``stage_enqueue``, ``fold``,
+   ``merge``, ``gather``, ...), the backend, the rank -> device map,
+   ``last_hetk``, ``last_prune``, the repairs and each rank's kernel
+   launches, which must be the plan's (K1 once per chunk of its shard, a
+   merge where S > 1, K3 per chunk for the outliers; twice, for the
+   warm-up) and at a shape the kernels and segmin phases held; then bench
+   config 5 (50,000 x 2,000 x 32, k in 1..24) through ``python -m
+   dmlp_tpu_torch.distributed --supervise 2 --backend gloo``, whose rank
+   0 stdout must equal the float64 oracle's in full, with no relaunch, K1
+   launched by both ranks at a held shape, and the queries the ranks
+   rescore exactly (summed over ranks) counted. Every mesh run holds a
+   1,000-query subset against the oracle and repairs at most 1% of its
+   queries;
    ``real_oom``: an allocation of four times the card's memory, outside
    the engine, raises an error that ``resilience.retry.classify`` calls
    "oom";
@@ -114,12 +143,14 @@ final result line. Standard output:
    over 3.35 TB/s or operations over the peak for their type, whichever
    is larger) and the library time (none: no single PyTorch call computes
    these functions); K1's row also has its time at S = 1 and at the
-   chosen S at each main-path shape, K3's its times, bound shares and
-   ``sgemm_ms`` at each main-path shape;
+   chosen S at each main-path shape and its times, plain time and bound
+   at each mesh shape, K3's its times, bound shares and ``sgemm_ms`` at
+   each main-path shape and the mesh's outlier fold;
 4. ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
-build,segmin`` holds and times K3 alone; ``tune`` needs ``kernels`` and
+build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
+the single-device references itself; ``tune`` needs ``kernels`` and
 ``segmin``); the default runs everything.
 """
 
@@ -154,6 +185,14 @@ CONFIGS = {
                      num_labels=10, seed=42),
     "config2": dict(num_data=100_000, num_queries=5_000, num_attrs=64,
                     attr_min=0.0, attr_max=100.0, min_k=1, max_k=32,
+                    num_labels=10, seed=42),
+    # Config 2's sizes with k in 1..1024 (the wide-k mix's rule), and
+    # bench config 5 (configs.py:69): the mesh phase's inputs.
+    "widek_config2": dict(num_data=100_000, num_queries=5_000, num_attrs=64,
+                          attr_min=0.0, attr_max=100.0, min_k=1,
+                          max_k=1024, num_labels=10, seed=42),
+    "config5": dict(num_data=50_000, num_queries=2_000, num_attrs=32,
+                    attr_min=0.0, attr_max=100.0, min_k=1, max_k=24,
                     num_labels=10, seed=42),
     # Config 4's and config 2's sizes on a banded corpus: uniform
     # [0, 100) plus 1,000 x (row // chunk_rows - qband) on attribute 0,
@@ -268,12 +307,25 @@ MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
                "widek_bulk_carried": "wide-k bulk, carried",
                "config4_fresh_f32": "config-4 chunk, fresh",
                "config4_carried_f32": "config-4 chunk, carried"}
+# K1's and K3's per-rank shapes on the mesh path: kernel case -> the label
+# of its row in PERF.md. The mesh phase checks that every mesh run launches
+# at a shape the kernels and segmin phases held.
+MESH_SHAPES = {"mesh_config3_fresh": "config 3, a rank's shard",
+               "mesh_config3_carried": "config 3, carried",
+               "mesh_widek_bulk": "wide-k bulk on the (4, 2) mesh",
+               "mesh_config5": "config 5, a rank's shard",
+               "mesh_outlier_f32": "wide-k outliers on the (4, 2) mesh"}
+# (qb, b, na, kc) of every K1/K2 case and (qb, b, na) of every K3 case held
+# against its plain version in this run.
+HELD = {"k1": set(), "k3": set()}
 # At most this share of a run's queries may go to the float64 host oracle
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
-PHASES = ("build", "kernels", "segmin", "tune", "main", "real_oom",
-          "profile")
+PHASES = ("build", "kernels", "segmin", "tune", "main", "mesh",
+          "real_oom", "profile")
 _TEXTS: dict = {}
+# stdout of the single-device solves, by run (the main and mesh phases)
+OUTPUTS: dict = {}
 _INPUTS: dict = {}
 _ORACLE: dict = {}
 
@@ -366,7 +418,7 @@ def kernel_cases(reps: int):
     qb = single.round_up(CONFIG4["num_queries"], ex.QUERY_TILE)
     kc = single.resolve_kcap(cfg, CONFIG4["max_k"], "extract", 1 << 30)
     uniform = seeded_uniform(dev)
-    summary, by_shape, sweep_inputs = {}, {}, {}
+    summary, by_shape, mesh_by_shape, sweep_inputs = {}, {}, {}, {}
 
     def run_case(name, q, d, *, n_real, id_base, kc, carry=None,
                  precision="f32", d_prev=None, floor=None, main=False,
@@ -380,6 +432,7 @@ def kernel_cases(reps: int):
         tol = ex.list_tolerance(qn, float(dn_all.max()), q.shape[1],
                                 precision)
         chosen = ex.choose_splits(q.shape[0], d.shape[0], kc, sm_count)
+        HELD["k1"].add((q.shape[0], d.shape[0], q.shape[1], kc))
         if name in MAIN_SHAPES:
             sweep_inputs[name] = (q, d, cd, ci, kw)
 
@@ -477,6 +530,12 @@ def kernel_cases(reps: int):
             if main:
                 s.update(ms=ms, plain_ms=plain_ms, bound=rec,
                          shape=f"{name} {rec['shape']} S={chosen}")
+            if gate and name in MESH_SHAPES:
+                mesh_by_shape[MESH_SHAPES[name]] = {
+                    "shape": rec["shape"], "splits": chosen,
+                    "carry": carry is not None, "ms": ms, "ms_s1": ms1,
+                    "plain_ms": plain_ms, "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"]}
             if gate and name in MAIN_SHAPES:
                 by_shape[MAIN_SHAPES[name]] = {
                     "shape": rec["shape"], "splits": chosen,
@@ -538,6 +597,38 @@ def kernel_cases(reps: int):
         na=na)
     run_case("multipass_floor", qm, dm, n_real=mp["num_data"], id_base=0,
              kc=512, floor=floor)
+    # The mesh path, per rank: a 25,000-row shard in one chunk of 25,088
+    # rows (88 sentinel rows), rank 1's ids (from 25,000); zero query
+    # padding. Config 3 on (4, 2): 2,500 queries (qloc 2,528) at config
+    # 2's kc, and carried as a second chunk would be; the wide-k mix on
+    # (4, 2): 1,098 bulk queries (qloc 1,120) at kc 512; config 5 on (2, 1):
+    # 2,000 queries (2,016) over 32 attributes at its kc.
+    c2, c5 = CONFIGS["config2"], CONFIGS["config5"]
+    shard = c2["num_data"] // 4
+    rows3 = single.round_up(shard, cfg.resolve_granule("extract"))
+    q3 = uniform((single.round_up(c2["num_queries"] // 2, ex.QUERY_TILE),
+                  na), 21)
+    q3[c2["num_queries"] // 2:] = 0.0
+    d3, d3b = uniform((rows3, na), 22), uniform((rows3, na), 23)
+    kc3 = single.resolve_kcap(cfg, c2["max_k"], "extract", 1 << 30)
+    first = run_case("mesh_config3_fresh", q3, d3, n_real=shard,
+                     id_base=shard, kc=kc3)
+    run_case("mesh_config3_carried", q3, d3b, n_real=shard,
+             id_base=2 * shard, kc=kc3, carry=first[:2], d_prev=d3)
+    qwm = q3[:1120].clone()
+    qwm[1098:] = 0.0
+    run_case("mesh_widek_bulk", qwm, d3, n_real=shard, id_base=shard,
+             kc=512)
+    del q3, d3, d3b, qwm
+    shard5 = c5["num_data"] // 2
+    q5 = uniform((single.round_up(c5["num_queries"], ex.QUERY_TILE),
+                  c5["num_attrs"]), 24)
+    q5[c5["num_queries"]:] = 0.0
+    d5 = uniform((single.round_up(shard5, cfg.resolve_granule("extract")),
+                  c5["num_attrs"]), 25)
+    run_case("mesh_config5", q5, d5, n_real=shard5, id_base=shard5,
+             kc=single.resolve_kcap(cfg, c5["max_k"], "extract", 1 << 30))
+    del q5, d5
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
     # choose_splits takes the smallest S within SPLIT_TOL of its model's
     # least time, so a chosen S may tie with S = 1 within that tolerance.
@@ -550,6 +641,7 @@ def kernel_cases(reps: int):
         check(r["splits"] > 1 and r["ms"] < r["ms_s1"],
               f"{label}: the split does not pay {r}")
     summary["fused_topk"]["ms_by_shape"] = by_shape
+    summary["fused_topk"]["ms_by_mesh_shape"] = mesh_by_shape
     return summary, sweep_inputs
 
 
@@ -609,6 +701,7 @@ def segmin_cases(summary, reps):
     def case(name, q, d, ids, precision="f32", groups=(), main=None):
         qb, b = q.shape[0], d.shape[0]
         chosen = ds.choose_group(qb, b, sm_count)
+        HELD["k3"].add((qb, b, q.shape[1]))
         ms, (dist, segmin) = time_ms(
             lambda: ds.fused_dist_segmin(q, d, ids, precision), reps)
         plain_ms, (pd, psm) = time_ms(
@@ -683,6 +776,15 @@ def segmin_cases(summary, reps):
     case("streaming_seg", uniform((1024, na), 13), uniform((50176, na), 14),
          torch.arange(50176, dtype=torch.int32, device=dev),
          main="config 2 seg step")
+    # A rank's outlier fold on the (4, 2) mesh: 1,402 of the wide-k mix's
+    # outliers (qloc 1,408) against rank 1's chunk of 25,088 rows, ids
+    # from 25,000 and 88 sentinels.
+    qom = uniform((1408, na), 26)
+    qom[1402:] = 0.0
+    iota = torch.arange(25088, dtype=torch.int32, device=dev)
+    case("mesh_outlier_f32", qom, uniform((25088, na), 27),
+         torch.where(iota < 25000, 25000 + iota, -1),
+         main=MESH_SHAPES["mesh_outlier_f32"])
     case("ragged", uniform((13, na), 15), uniform((1024, na), 16),
          ragged_ids, groups=(1, 3, 8))
     case("na5", uniform((256, 5), 17), uniform((4096, 5), 18),
@@ -1072,6 +1174,7 @@ def main_path(tune_path):
             check(text_out == outputs[extra["same_as"]],
                   f"{label}: stdout differs from {extra['same_as']}'s")
         outputs[label], launches[label] = text_out, got
+        OUTPUTS[label] = text_out
         if subset:
             golden_subset(label, name, out_lines, subset)
         if "exact" in extra:
@@ -1080,6 +1183,301 @@ def main_path(tune_path):
     tmp.cleanup()
     check(outputs["config4_K1"] == outputs["config4_K2_warmup"],
           "gated and ungated config-4 solves print different results")
+    return launches
+
+
+# The mesh phase's solves through the port's entry points on the card:
+# (run, config, flags, world, backend, the single-device run whose stdout
+# it must equal, DMLP_TPU_FUSED). Config 3 (configs.py:64) is config 2's
+# data on a (4, 2) mesh; the (4, 2) runs put 8 ranks on one card with gloo
+# collectives. With DMLP_TPU_FUSED=0 the chunk fold runs K2.
+MESH_RUNS = (
+    ("mesh_1x1_config4", "config4",
+     ["--mode", "sharded", "--mesh", "1,1", "--pallas"], 1, "nccl",
+     "config4_K1", "1"),
+    ("mesh_1x1_config4_ring", "config4",
+     ["--mode", "ring", "--mesh", "1,1", "--pallas"], 1, "nccl",
+     "config4_K1", "1"),
+    ("mesh_4x2_config3", "config2",
+     ["--mode", "sharded", "--mesh", "4,2", "--pallas", "--backend",
+      "gloo"], 8, "gloo", "config2_seg", "1"),
+    ("mesh_4x2_config3_ring", "config2",
+     ["--mode", "ring", "--mesh", "4,2", "--pallas", "--backend", "gloo"],
+     8, "gloo", "config2_seg", "1"),
+    ("mesh_4x2_config3_K2", "config2",
+     ["--mode", "sharded", "--mesh", "4,2", "--pallas", "--backend",
+      "gloo"], 8, "gloo", "config2_seg", "0"),
+    ("mesh_4x2_widek", "widek_config2",
+     ["--mode", "sharded", "--mesh", "4,2", "--pallas", "--backend",
+      "gloo"], 8, "gloo", "widek_config2_single", "1"),
+)
+# A single-device solve the mesh phase makes itself when the main phase
+# did not (or never) solve it: (run, config, flags).
+MESH_SINGLE = {"config4_K1": ("config4", ["--pallas"]),
+               "config2_seg": ("config2", ["--select", "seg", "--pallas"]),
+               "widek_config2_single": ("widek_config2", ["--pallas"])}
+
+
+def mesh_k1_plan(name, r, c):
+    """What a rank of an (r, c) mesh launches K1 at under the mesh chunk
+    fold for the config ``name``: (launches per rank, qloc, chunk rows,
+    kc), and the outliers' qloc where the router splits them off (K3 folds
+    them), else None."""
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.single import (hetk_split, plan_chunks,
+                                              resolve_kcap, round_up)
+    from dmlp_tpu_torch.ops.extract import QUERY_TILE
+    cfg = EngineConfig(use_pallas=True)
+    inp = config_input(name)
+    n, nq = inp.params.num_data, inp.params.num_queries
+    split = hetk_split(cfg, "float32", inp.ks, n,
+                       round_up(-(-n // r), 8))
+    idx = split[0] if split is not None else range(nq)
+    shard_rows, nchunks, chunk_rows = plan_chunks(
+        -(-n // r), cfg.resolve_granule("extract"), None)
+    qloc = round_up(-(-len(idx) // c), QUERY_TILE)
+    kc = resolve_kcap(cfg, int(inp.ks[list(idx)].max()), "extract",
+                      r * shard_rows)
+    oqloc = None if split is None else round_up(-(-len(split[1]) // c), 8)
+    return nchunks, qloc, chunk_rows, kc, oqloc
+
+
+def _phase_lines(err: str):
+    """(Time taken ms, phases, the other --phase-times records) of a mesh
+    run's stderr (where the transport's own warnings may stand too)."""
+    lines = err.splitlines()
+    m = next((re.fullmatch(r"Time taken: (\d+) ms", ln) for ln in lines
+              if ln.startswith("Time taken: ")), None)
+    check(m is not None, f"mesh: no Time taken line in {lines[-5:]}")
+    phases = {ln.split(":")[0][len("phase "):]: float(
+        ln.split(":")[1].split()[0]) for ln in lines if
+        ln.startswith("phase ")}
+    recs = {}
+    for key in ("repairs", "prune", "hetk", "mesh"):
+        got = [ln[len(key) + 2:] for ln in lines
+               if ln.startswith(key + ": ")]
+        recs[key] = json.loads(got[0]) if got else None
+    return int(m.group(1)), phases, recs
+
+
+def nccl_two_ranks_one_card():
+    """Whether NCCL takes two ranks of one communicator on one card: two
+    processes init NCCL on cuda:0 and all-reduce (60 s deadline). Emits
+    the outcome; checks nothing (the port refuses such a group itself)."""
+    import tempfile
+
+    from dmlp_tpu_torch.parallel.distributed import free_port
+    script = (
+        "import datetime, sys, torch, torch.distributed as dist\n"
+        "rank = int(sys.argv[1])\n"
+        "torch.cuda.set_device(0)\n"
+        "dist.init_process_group('nccl', init_method=sys.argv[2],"
+        " world_size=2, rank=rank,"
+        " timeout=datetime.timedelta(seconds=30))\n"
+        "t = torch.ones(4, device='cuda')\n"
+        "dist.all_reduce(t)\n"
+        "torch.cuda.synchronize()\n"
+        "print('all_reduce', t.tolist())\n"
+        "dist.destroy_process_group()\n")
+    url = f"tcp://localhost:{free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, "-c", script, str(r), url],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, cwd=tmp)
+                 for r in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=60))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate())
+    errs = [[ln for ln in e.splitlines() if "rror" in ln or "uplicate"
+             in ln][-3:] for _o, e in outs]
+    emit({"phase": "nccl_two_ranks_one_card",
+          "returncodes": [p.returncode for p in procs],
+          "stdout": [o.strip()[-200:] for o, _e in outs], "errors": errs})
+
+
+def mesh_phase():
+    """The mesh engines through ``cli.main`` on the card (rank 0 in this
+    process; the (4, 2) runs start 7 more ranks on cuda:0 with gloo), and
+    bench config 5 through ``python -m dmlp_tpu_torch.distributed
+    --supervise 2`` (gloo): each stdout equal to the single-device solve
+    of the same input and to the float64 oracle on a subset, K1 (K2 under
+    ``DMLP_TPU_FUSED=0``) launched by every rank of the mesh path (K3 too
+    for the routed outliers) at a shape the kernels phase held, at most 1%
+    of the queries repaired. Returns the launches per run (summed over
+    ranks)."""
+    import tempfile
+
+    import torch
+    from dmlp_tpu_torch import cli, kernels
+    from dmlp_tpu_torch.ops.extract import heuristic_splits
+
+    nccl_two_ranks_one_card()
+    # NCCL is never swapped for gloo behind the caller's back: 8 ranks on
+    # one card without --backend gloo raise before any rank starts.
+    refused = None
+    try:
+        cli.main(["--mode", "sharded", "--mesh", "4,2", "--pallas"],
+                 stdin=io.StringIO(config_text("config2")),
+                 stdout=io.StringIO(), stderr=io.StringIO())
+    except RuntimeError as e:
+        refused = str(e)
+    emit({"phase": "mesh_nccl_refused", "error": refused})
+    check(refused is not None and "--backend gloo" in refused,
+          f"8 NCCL ranks on one card were not refused: {refused}")
+    launches = {}
+    for label, (name, flags) in MESH_SINGLE.items():
+        if label in OUTPUTS:
+            continue
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        check(cli.main(flags + ["--phase-times"], stdin=io.StringIO(
+            config_text(name)), stdout=out, stderr=err) == 0,
+            f"{label}: cli.main failed")
+        OUTPUTS[label] = out.getvalue()
+        taken, phases, recs = _phase_lines(err.getvalue())
+        emit({"phase": "mesh_reference", "run": label, "flags": flags,
+              "time_taken_ms": taken, "phases_ms": phases,
+              "repairs": recs["repairs"],
+              "wall_ms": (time.perf_counter() - t0) * 1e3})
+    for label, name, flags, world, backend, same_as, fused in MESH_RUNS:
+        c = CONFIGS[name]
+        r, cc = (int(x) for x in flags[flags.index("--mesh") + 1].split(","))
+        nchunks, qloc, chunk_rows, kc, oqloc = mesh_k1_plan(name, r, cc)
+        routed = oqloc is not None
+        s = heuristic_splits(qloc, chunk_rows, kc, "cuda")
+        k12 = ("fused_topk", "extract_topk")[fused == "0"]
+        # Per rank, for the warm-up solve and the timed one.
+        want_rank = {"fused_topk": 0, "extract_topk": 0, k12: 2 * nchunks,
+                     "extract_merge": 2 * nchunks if s > 1 else 0,
+                     "fused_dist_segmin": 2 * nchunks if routed else 0}
+        check(not HELD["k1"] or (qloc, chunk_rows, c["num_attrs"], kc)
+              in HELD["k1"], f"{label}: K1/K2 at {qloc} x {chunk_rows} x "
+                             f"{c['num_attrs']}, kc {kc}: no kernels case")
+        check(not routed or not HELD["k3"] or (oqloc, chunk_rows,
+                                               c["num_attrs"]) in HELD["k3"],
+              f"{label}: K3 at {oqloc} x {chunk_rows}: no segmin case")
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        # The ranks this process starts inherit its environment.
+        os.environ["DMLP_TPU_FUSED"] = fused
+        t0 = time.perf_counter()
+        # --warmup: each rank's first solve (its kernels' load, its CUDA
+        # context's first allocations) stays out of the timed one.
+        try:
+            rc = cli.main(flags + ["--warmup", "--phase-times"],
+                          stdin=io.StringIO(config_text(name)), stdout=out,
+                          stderr=err)
+        finally:
+            os.environ.pop("DMLP_TPU_FUSED")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        check(rc == 0, f"{label}: cli.main returned {rc}")
+        taken, phases, recs = _phase_lines(err.getvalue())
+        mesh = recs["mesh"]
+        ranks = mesh["ranks"]
+        total = {k: sum(rk["launches"][k] for rk in ranks)
+                 for k in KERNELS}
+        launches[label] = total
+        merge_ms = [rk["phases_ms"].get("merge", 0.0) for rk in ranks]
+        text = out.getvalue()
+        emit({"phase": "mesh", "run": label, "flags": flags,
+              "time_taken_ms": taken, "phases_ms": phases,
+              "wall_ms": wall_ms, "backend": mesh["backend"],
+              "shape": mesh["shape"],
+              "rank_devices": {rk["rank"]: rk["device"] for rk in ranks},
+              "rank_coords": {rk["rank"]: rk["coords"] for rk in ranks},
+              "last_hetk": recs["hetk"], "last_prune": recs["prune"],
+              "repairs": recs["repairs"],
+              "launches_by_rank": {rk["rank"]: rk["launches"]
+                                   for rk in ranks},
+              "launches_per_rank_expected": want_rank,
+              "DMLP_TPU_FUSED": fused,
+              "k1_shape": [qloc, chunk_rows, c["num_attrs"], kc, s],
+              "k3_shape": None if not routed else [oqloc, chunk_rows,
+                                                   c["num_attrs"]],
+              "merge_ms_by_rank": merge_ms,
+              "rank_phases_ms": {rk["rank"]: rk["phases_ms"]
+                                 for rk in ranks},
+              "same_as": same_as, "stdout_lines": text.count("\n")})
+        check(mesh["backend"] == backend and len(ranks) == world
+              and all(rk["device"] == "cuda:0" for rk in ranks),
+              f"{label}: backend {mesh['backend']}, ranks {ranks}")
+        for rk in ranks:
+            check(rk["launches"] == want_rank,
+                  f"{label}: rank {rk['rank']} launched {rk['launches']}, "
+                  f"want {want_rank}")
+        check(recs["repairs"] <= MAX_REPAIR_SHARE * c["num_queries"],
+              f"{label}: {recs['repairs']} of {c['num_queries']} queries "
+              "repaired on the host")
+        check((recs["hetk"] is not None) == routed,
+              f"{label}: last_hetk {recs['hetk']}, routed {routed}")
+        check(text == OUTPUTS[same_as],
+              f"{label}: stdout differs from {same_as}'s")
+        golden_subset(label, name, text.splitlines(), 1000)
+
+    # Bench config 5: 2 processes through the supervised launcher.
+    c = CONFIGS["config5"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config5.in")
+        with open(path, "w") as f:
+            f.write(config_text("config5"))
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "dmlp_tpu_torch.distributed",
+             "--supervise", "2", "--input", path, "--pallas", "--backend",
+             "gloo", "--warmup", "--phase-times", "--supervise-timeout",
+             "300",
+             "--supervise-dir", os.path.join(tmp, "sup")],
+            capture_output=True, text=True, timeout=420,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(p.returncode == 0, f"distributed_config5: exit {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    taken, _phases, recs = _phase_lines(p.stderr)
+    ranks = recs["mesh"]["ranks"]
+    # Each rank's one K1 launch: its shard (25,088 rows) against every
+    # query (one query column).
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.single import resolve_kcap, round_up
+    from dmlp_tpu_torch.ops.extract import QUERY_TILE
+    cfg = EngineConfig(use_pallas=True)
+    rows5 = round_up(-(-c["num_data"] // 2), cfg.resolve_granule("extract"))
+    k1_5 = (round_up(c["num_queries"], QUERY_TILE), rows5, c["num_attrs"],
+            resolve_kcap(cfg, int(config_input("config5").ks.max()),
+                         "extract", rows5))
+    check(not HELD["k1"] or k1_5 in HELD["k1"],
+          f"distributed_config5: K1 at {k1_5}: no kernels case")
+    launches["distributed_config5"] = {
+        k: sum(rk["launches"][k] for rk in ranks) for k in KERNELS}
+    from dmlp_tpu_torch.golden.fast import knn_golden_fast
+    from dmlp_tpu_torch.io.report import format_results
+    t1 = time.perf_counter()
+    golden = format_results(knn_golden_fast(config_input("config5")))
+    emit({"phase": "mesh", "run": "distributed_config5",
+          "time_taken_ms": taken, "wall_ms": wall_ms,
+          "backend": recs["mesh"]["backend"],
+          "shape": recs["mesh"]["shape"],
+          "rank_devices": {rk["rank"]: rk["device"] for rk in ranks},
+          "launches_by_rank": {rk["rank"]: rk["launches"] for rk in ranks},
+          "k1_shape": list(k1_5), "repairs": recs["repairs"],
+          "repairs_by_rank": {rk["rank"]: rk["repairs"] for rk in ranks},
+          "relaunched": "supervise:" in p.stderr,
+          "golden_ms": (time.perf_counter() - t1) * 1e3,
+          "stdout_lines": p.stdout.count("\n"),
+          "golden_match": p.stdout == golden})
+    check("supervise:" not in p.stderr,
+          f"distributed_config5: {p.stderr[-1000:]}")
+    check(all(rk["launches"]["fused_topk"] >= 1 for rk in ranks)
+          and len(ranks) == 2, f"distributed_config5: launches {ranks}")
+    check(recs["repairs"] is not None and recs["repairs"]
+          <= MAX_REPAIR_SHARE * c["num_queries"],
+          f"distributed_config5: {recs['repairs']} of {c['num_queries']} "
+          "queries rescored exactly on the ranks")
+    check(p.stdout == golden, "distributed_config5: stdout is not golden's")
     return launches
 
 
@@ -1233,6 +1631,8 @@ def main(argv=None) -> int:
         tune_path = phase_tune(sweep_inputs, g_inputs, tmp.name)
         del sweep_inputs, g_inputs
     launches = main_path(tune_path) if "main" in phases else {}
+    if "mesh" in phases:
+        launches.update(mesh_phase())
     if "real_oom" in phases:
         real_oom()
     if "profile" in phases:
@@ -1254,8 +1654,8 @@ def main(argv=None) -> int:
                          "bound_ms": s["bound"]["bound_ms"],
                          "bound_by": s["bound"]["bound_by"],
                          "library_ms": None,
-                         **({"ms_by_shape": s["ms_by_shape"]}
-                            if "ms_by_shape" in s else {})})
+                         **{k: s[k] for k in ("ms_by_shape",
+                                              "ms_by_mesh_shape") if k in s}})
         print(json.dumps({"kernels": rows}), flush=True)
     tmp.cleanup()
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

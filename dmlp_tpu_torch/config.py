@@ -20,8 +20,10 @@ class EngineConfig:
     """Configuration for the KNN engine.
 
     Attributes (as in the reference package unless noted):
-      mode: "single" | "sharded" | "ring" | "auto". The port implements
-        "single"; the mesh engines are ROADMAP item A9.
+      mode: "single" | "sharded" | "ring" | "auto". "single" is
+        ``engine.single``, "sharded" and "ring" the mesh engines of
+        ``engine.sharded``; "auto" (the compiler-sharded engine) is
+        ROADMAP item A10, not ported yet.
       mesh_shape: (data_axis_size, query_axis_size) for the mesh engines.
       data_block: data rows per staged chunk / inner step. None = per
         select strategy (2048 for "sort", 65536 for the chunked paths).

@@ -34,8 +34,8 @@ segments, then the vote and the report order on the device in f32
 The kernels' launch knobs (S of K1/K2, G of K3) and the prune scoring's
 block chunk resolve through the tune cache (``tune.cache``) where it
 holds a measured winner, else through their heuristics. On the CPU every
-kernel runs its plain PyTorch version. Not ported yet (ROADMAP.md):
-the mesh engines (A9) and observability (A13).
+kernel runs its plain PyTorch version. The mesh engines are
+``engine.sharded``; observability (A13) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -357,9 +357,10 @@ class SingleChipEngine:
 
     def __init__(self, config: EngineConfig = EngineConfig()):
         if config.mode != "single":
-            raise NotImplementedError(
-                f"mode {config.mode!r}: the mesh engines are ROADMAP.md "
-                "item A9 — not ported yet")
+            raise ValueError(
+                f"mode {config.mode!r} is not the one-device engine's: the "
+                "mesh engines are dmlp_tpu_torch.engine.sharded "
+                "(ShardedEngine, RingEngine), built by cli.make_engine")
         self.config = config
         self.device = config.torch_device()
         self._staging = config.resolve_dtype()

@@ -7,9 +7,9 @@ same bytes, its last rung being the float64 oracle itself.
 
 Layout: :mod:`.inject` (seeded fault schedules and the named injection
 sites), :mod:`.retry` (bounded backoff and error classification),
-:mod:`.degrade` (the OOM ladder), :mod:`.stats` (the counters).
-Cluster supervision (``supervise.py``) comes with the mesh engines
-(ROADMAP A9).
+:mod:`.degrade` (the OOM ladder), :mod:`.stats` (the counters),
+:mod:`.supervise` (heartbeats, bounded cluster relaunch and the
+single-process fallback of ``dmlp_tpu_torch.distributed``).
 """
 
 from dmlp_tpu_torch.resilience.inject import (FaultSchedule, InjectedFault,

@@ -56,14 +56,17 @@ SITES: Dict[str, str] = {
     "single.extract_solve": "extract-kernel solve dispatch "
                             "(engine.single._solve_extract*; oom faults "
                             "here drive the degradation ladder)",
-    "sharded.solve": "mesh shard-solve dispatch (the mesh engines; not "
-                     "ported yet)",
-    "sharded.fetch": "fenced readback in the mesh engines (not ported "
-                     "yet)",
+    "sharded.solve": "a rank's shard solve in the mesh engines "
+                     "(engine.sharded: the merged path and "
+                     "solve_local_shards; rank-local, so a transient "
+                     "retries without a collective)",
+    "sharded.fetch": "rank 0's readback of the merged lists in the mesh "
+                     "engines (engine.sharded, through resilient_get)",
     "dist.rank_solve": "per-rank shard solve inside the distributed "
-                       "contract (not ported yet)",
-    "dist.allgather": "host all-gather of the candidate tensors (not "
-                      "ported yet)",
+                       "contract (parallel.distributed."
+                       "distributed_contract_run)",
+    "dist.allgather": "host all-gather of the rescored candidate lists "
+                      "(parallel.distributed.distributed_contract_run)",
     "train.step": "one optimizer step (the train extension; not ported "
                   "yet)",
     "serve.admit": "serving-daemon admission decision (not ported yet)",

@@ -225,14 +225,22 @@ def test_multipass_declines_and_streams():
 
 def test_not_ported_paths_raise():
     """What the port once refused here (a kc above 512 with --pallas, and
-    select="seg") now equals the reference. The mesh engines still
-    raise."""
+    select="seg") now equals the reference. The one-device engine refuses
+    a mesh mode and points to the mesh engines; the compiler-sharded
+    "auto" mode is not ported and raises naming its ROADMAP item."""
+    import io
+
+    from dmlp_tpu_torch import cli
     inp = parse_input_text(generate_input_text(9000, 4, 4, 0, 10, 600, 600,
                                                3, seed=2))
     assert _against_reference(inp, use_pallas=True).last_mp_passes == 2
     assert _against_reference(inp, select="seg")._last_select == "seg"
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="engine.sharded"):
         SingleChipEngine(EngineConfig(mode="sharded", device="cpu"))
+    with pytest.raises(NotImplementedError, match="A10"):
+        cli.main(["--device", "cpu", "--mode", "auto"],
+                 stdin=io.StringIO("1 1 1\n0 1\nQ 1 1\n"),
+                 stdout=io.StringIO(), stderr=io.StringIO())
 
 
 def test_cuda_requested_without_a_card_raises():
