@@ -130,6 +130,32 @@ final result line. Standard output:
    rescore exactly (summed over ranks) counted. Every mesh run holds a
    1,000-query subset against the oracle and repairs at most 1% of its
    queries;
+   ``serve`` (before it, the kernels phase holds K1/K2 at every resident
+   chunk shape of every warmed (qpad, kcap), the multi-pass first and
+   resident passes at every qpad, and a carry folded from a later chunk,
+   uniform and on an exact tie grid chained over three chunks; the segmin
+   phase K3 at the stream bucket): ``python -m dmlp_tpu_torch.serve
+   --pallas`` in a subprocess over bench config 4's corpus at capacity
+   262,144 (one resident buffer, 6 chunks of 43,776 rows), every bucket a
+   coalesced batch of up to 1,024 queries can take warmed first; a seeded
+   40-request trace (queries per request straddling the 32-row buckets, k
+   in 1..32, some per-query ks, four k = 1,024 requests on the multi-pass
+   bucket) replayed over 4 connections, 1,000 seeded queries of the
+   responses against the float64 oracle; the builds and kernel library
+   loads unchanged by the warmed replay; every micro-batch's launches
+   (from the daemon's ``batch_log``) equal to its plan (K1 per non-empty
+   chunk the prune kept, the multi-pass passes, a merge per launch at S >
+   1) and at shapes the kernels phase held; at most 1% of queries
+   repaired; two wire ingests of 12,000 rows (the second across a chunk
+   boundary) and a second replay over the grown corpus with no new build
+   and the touched chunks' summaries rebuilt; an ``oom`` fault at
+   ``serve.admit`` that sheds exactly one request with the ladder
+   untouched; a second daemon whose ``--faults`` schedule lands one batch
+   on ``tuned`` (K2) and one on ``streaming`` (K3 over the resident
+   buffer), both golden; each daemon drained by SIGTERM with exit code 0;
+   one ``serve`` line with the cold start, the buckets and paths,
+   requests/s, latency quantiles, phase times per path, the gate and
+   prune stats, launches by kernel and peak memory beside the model;
    ``real_oom``: an allocation of four times the card's memory, outside
    the engine, raises an error that ``resilience.retry.classify`` calls
    "oom";
@@ -138,7 +164,8 @@ final result line. Standard output:
    device time by kernel (the split kernel, the merge and K3 by name),
    device busy time, idle share, and the host's blocking reads;
 3. one ``{"kernels": [...]}`` line: per kernel its route, source, the TPU
-   kernel it replaces, main-path launches (in all and per path), max
+   kernel it replaces, main-path launches (in all and per path, the serve
+   replays' and the ladder daemon's included), max
    error, time and the shape it is from, plain time, the bound (bytes
    over 3.35 TB/s or operations over the peak for their type, whichever
    is larger) and the library time (none: no single PyTorch call computes
@@ -151,7 +178,9 @@ final result line. Standard output:
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
 build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
 the single-device references itself; ``tune`` needs ``kernels`` and
-``segmin``); the default runs everything.
+``segmin``; ``serve`` checks its launch shapes against what ``kernels``
+held, so ``--phases build,kernels,segmin,serve``); the default runs
+everything.
 """
 
 from __future__ import annotations
@@ -315,13 +344,22 @@ MESH_SHAPES = {"mesh_config3_fresh": "config 3, a rank's shard",
                "mesh_widek_bulk": "wide-k bulk on the (4, 2) mesh",
                "mesh_config5": "config 5, a rank's shard",
                "mesh_outlier_f32": "wide-k outliers on the (4, 2) mesh"}
+# The serve phase's replay: request sizes that straddle the port's query
+# buckets (granule 32), k in 1..32 (some requests with per-query ks), and
+# four k = 1,024 requests for the wide-k bucket; the daemon warms every
+# (qpad, k-bucket) a coalesced batch of up to 1,024 queries can take.
+SERVE_NQ = (1, 7, 8, 9, 31, 32, 33, 127, 128, 129, 500, 1024)
+SERVE_WIDE_NQ = (32, 64, 128, 256)
+SERVE_QPADS = (32, 64, 128, 256, 512, 1024)
+SERVE_KBS = (1, 2, 4, 8, 16, 32, 1024)
+SERVE_GOLDEN_QUERIES = 1000
 # (qb, b, na, kc) of every K1/K2 case and (qb, b, na) of every K3 case held
 # against its plain version in this run.
 HELD = {"k1": set(), "k3": set()}
 # At most this share of a run's queries may go to the float64 host oracle
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
-PHASES = ("build", "kernels", "segmin", "tune", "main", "mesh",
+PHASES = ("build", "kernels", "segmin", "tune", "main", "mesh", "serve",
           "real_oom", "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
@@ -629,6 +667,7 @@ def kernel_cases(reps: int):
     run_case("mesh_config5", q5, d5, n_real=shard5, id_base=shard5,
              kc=single.resolve_kcap(cfg, c5["max_k"], "extract", 1 << 30))
     del q5, d5
+    serve_kernel_cases(run_case, uniform, reps)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
     # choose_splits takes the smallest S within SPLIT_TOL of its model's
     # least time, so a chosen S may tie with S = 1 within that tolerance.
@@ -643,6 +682,140 @@ def kernel_cases(reps: int):
     summary["fused_topk"]["ms_by_shape"] = by_shape
     summary["fused_topk"]["ms_by_mesh_shape"] = mesh_by_shape
     return summary, sweep_inputs
+
+
+def serve_geometry():
+    """The serving engine's resident layout for config 4's corpus at the
+    default capacity (shape_bucket(200,000) = 262,144 rows), computed with
+    the engine's own planning functions: the extraction chunks, the
+    streaming blocks, and each k-bucket's candidate width."""
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine import single
+    from dmlp_tpu_torch.tune.cache import shape_bucket
+    cfg = EngineConfig(use_pallas=True)
+    cap = shape_bucket(CONFIG4["num_data"])
+    select = cfg.resolve_streaming_select(single.round_up(cap, 8))
+    block = single.fit_blocks(cap, cfg.resolve_data_block(select),
+                              granule=cfg.resolve_granule(select))
+    rows = single.round_up(cap, block)
+    _, nchunks, chunk_rows = single.plan_chunks(
+        rows, cfg.resolve_granule("extract"), None)
+    return {"capacity_rows": rows, "data_block": block,
+            "nchunks": nchunks, "chunk_rows": chunk_rows,
+            "ex_rows": nchunks * chunk_rows,
+            "kcap": {kb: single.resolve_kcap(cfg, kb, select, rows)
+                     for kb in SERVE_KBS}}
+
+
+def serve_kernel_cases(run_case, uniform, reps):
+    """K1/K2 at the serving engine's resident shapes: every chunk shape at
+    every warmed (qpad, kcap) and the multi-pass first pass and resident
+    pass (with its floor, over all the chunks' rows) at every qpad, held
+    against the plain version at the chosen S and at S = 1; the carry
+    folded from a later chunk (hot-chunks-first order) timed in full, on
+    uniform data and on an exact integer tie grid chained over three
+    chunks."""
+    import torch
+    from dmlp_tpu_torch.engine import single
+    from dmlp_tpu_torch.ops import extract as ex
+    from dmlp_tpu_torch.serve.engine import query_bucket
+    from dmlp_tpu_torch.tune.sweep import sorted_lists
+
+    dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = serve_geometry()
+    na, cr, full = CONFIG4["num_attrs"], geo["chunk_rows"], geo["ex_rows"]
+    n = CONFIG4["num_data"]
+
+    def hold(name, q, d, *, n_real, id_base, kc, gate=True, floor=None):
+        """The kernel against the plain version at the chosen S and at
+        S = 1 (lists under compare_lists' tolerance, iters exactly), the
+        two S's sorted lists bit for bit; its time at the chosen S."""
+        kw = dict(n_real=n_real, id_base=id_base, kc=kc, floor=floor,
+                  mxu_gate=gate)
+        tol = ex.list_tolerance((q * q).sum(-1),
+                                float((d * d).sum(-1).max()), na)
+        chosen = ex.choose_splits(q.shape[0], d.shape[0], kc, sm_count)
+        outs, cmps = {}, {}
+        for splits in dict.fromkeys((chosen, 1)):
+            outs[splits] = ex.extract_topk(q, d, splits=splits, **kw)
+            t0 = time.perf_counter()
+            pd, pi, pit = ex.extract_topk_plain(q, d, splits=splits, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            cmps[splits] = ex.compare_lists(*outs[splits][:2], pd, pi, tol)
+            cmps[splits]["iters_equal"] = bool(torch.equal(
+                outs[splits][2], pit))
+        same = all(torch.equal(a, b) for a, b in zip(
+            sorted_lists(*outs[chosen][:2]), sorted_lists(*outs[1][:2])))
+        ms, _ = time_ms(lambda: ex.extract_topk(q, d, splits=chosen, **kw),
+                        max(1, reps // 2))
+        HELD["k1"].add((q.shape[0], d.shape[0], na, kc))
+        rec = {"phase": "kernel_case", "case": name,
+               "kernel": "fused_topk" if gate else "extract_topk",
+               "shape": [q.shape[0], d.shape[0], na, kc], "splits": chosen,
+               "floor": floor is not None, "ms": ms, "plain_ms_s1": plain_ms,
+               "max_abs_err": max(c["max_abs_err"] for c in cmps.values()),
+               "splits_identical": same,
+               **bound(q, d, kc, outs[1][2], gate, False, "f32")}
+        emit(rec)
+        for splits, c in cmps.items():
+            check(c["ok"] and c["iters_equal"],
+                  f"{name}/S={splits}: kernel disagrees with the plain "
+                  f"version {c}")
+        check(same, f"{name}: S={chosen} and S=1 sorted lists differ")
+        return outs[chosen]
+
+    d = [uniform((cr, na), 40 + c) for c in range(3)]
+    # The warm-up's bucket for the corpus file's own 10,000 queries.
+    qfile = query_bucket(CONFIG4["num_queries"], ex.QUERY_TILE)
+    hold(f"serve_chunk_q{qfile}_kc{geo['kcap'][32]}",
+         uniform((qfile, na), 38), d[0], n_real=cr, id_base=0,
+         kc=geo["kcap"][32])
+    qmax = uniform((max(SERVE_QPADS), na), 39)
+    for qpad in SERVE_QPADS:
+        q = qmax[:qpad].contiguous()
+        for kc in sorted(set(geo["kcap"][kb] for kb in SERVE_KBS
+                             if geo["kcap"][kb] <= ex.KC_MAX)):
+            for gate in ((True, False) if qpad == SERVE_QPADS[0]
+                         else (True,)):
+                hold(f"serve_chunk_q{qpad}_kc{kc}", q, d[0], n_real=cr,
+                     id_base=0, kc=kc, gate=gate)
+    # The carry from a later chunk, timed in full (both gates, both S):
+    # chunk 2 fresh, then chunk 0 with its lists, as the hot-first order
+    # folds them.
+    q = qmax[:SERVE_QPADS[0]].contiguous()
+    kc = geo["kcap"][32]
+    first = run_case("serve_fresh_chunk2", q, d[2], n_real=cr,
+                     id_base=2 * cr, kc=kc)
+    run_case("serve_carry_above", q, d[0], n_real=cr, id_base=0, kc=kc,
+             carry=first[:2], d_prev=d[2])
+    # The exact tie grid chained chunk 2 -> 0 -> 1: the third launch's
+    # carry holds tie groups whose ids do not ascend in slot order.
+    qt = uniform((SERVE_QPADS[0], na), 46, 3, True)
+    dt = [uniform((cr, na), 47 + c, 3, True) for c in range(3)]
+    first = run_case("serve_tie_chunk2", qt, dt[2], n_real=cr,
+                     id_base=2 * cr, kc=kc, exact=True)
+    second = run_case("serve_tie_carry_above", qt, dt[0], n_real=cr,
+                      id_base=0, kc=kc, carry=first[:2], d_prev=dt[2],
+                      exact=True)
+    run_case("serve_tie_carry_mixed", qt, dt[1], n_real=cr, id_base=cr,
+             kc=kc, carry=second[:2], d_prev=dt[0], exact=True)
+    del qt, dt
+    # The multi-pass bucket (k-bucket 1,024): the first pass per chunk and
+    # the resident pass over all the chunks' rows with a floor from
+    # _mp_floor, at every qpad.
+    dfull = torch.cat([d[0], d[1], d[2], uniform((full - 3 * cr, na), 45)])
+    for qpad in SERVE_QPADS:
+        q = qmax[:qpad].contiguous()
+        od, _, _ = hold(f"serve_mp_first_q{qpad}", q, d[0], n_real=cr,
+                        id_base=0, kc=ex.KC_MAX)
+        floor, _ = single._mp_floor(od, (q * q).sum(-1),
+                                    (dfull * dfull).sum(-1).max(),
+                                    staging="float32", na=na)
+        hold(f"serve_mp_resident_q{qpad}", q, dfull, n_real=n, id_base=0,
+             kc=ex.KC_MAX, floor=floor)
+    del d, dfull, qmax
 
 
 def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
@@ -785,6 +958,17 @@ def segmin_cases(summary, reps):
     case("mesh_outlier_f32", qom, uniform((25088, na), 27),
          torch.where(iota < 25000, 25000 + iota, -1),
          main=MESH_SHAPES["mesh_outlier_f32"])
+    # The serving engine's stream fold (the "streaming" rung of a resident
+    # batch): a 32-query bucket against the last 65,536-row block of the
+    # resident buffer, real rows to 200,000 and sentinels past them.
+    geo = serve_geometry()
+    blk = geo["data_block"]
+    rows = torch.arange(geo["capacity_rows"] - blk, geo["capacity_rows"],
+                        dtype=torch.int32, device=dev)
+    case("serve_stream", uniform((SERVE_QPADS[0], na), 28),
+         uniform((blk, na), 29),
+         torch.where(rows < c4["num_data"], rows, -1),
+         main="serve stream bucket")
     case("ragged", uniform((13, na), 15), uniform((1024, na), 16),
          ragged_ids, groups=(1, 3, 8))
     case("na5", uniform((256, 5), 17), uniform((4096, 5), 18),
@@ -1481,6 +1665,322 @@ def mesh_phase():
     return launches
 
 
+def serve_trace():
+    """The serve phase's seeded trace over config 4's corpus (see
+    SERVE_NQ): a serve_trace_schema header and its request lines."""
+    import numpy as np
+    c = CONFIG4
+    header = {"serve_trace_schema": 1, "corpus": {
+        "num_data": c["num_data"], "num_queries": c["num_queries"],
+        "num_attrs": c["num_attrs"], "min_attr": c["attr_min"],
+        "max_attr": c["attr_max"], "min_k": c["min_k"],
+        "max_k": c["max_k"], "num_labels": c["num_labels"],
+        "seed": c["seed"]}}
+    rng = np.random.default_rng(10)
+    reqs = []
+    for i in range(3 * len(SERVE_NQ)):
+        nq = SERVE_NQ[i % len(SERVE_NQ)]
+        r = {"nq": nq, "seed": 1000 + i}
+        if i % 3 == 2:
+            r["ks"] = [int(v) for v in rng.integers(1, c["max_k"] + 1, nq)]
+        else:
+            r["k"] = int(rng.integers(1, c["max_k"] + 1))
+        reqs.append(r)
+    for j, nq in enumerate(SERVE_WIDE_NQ):
+        reqs.insert(4 + 9 * j, {"nq": nq, "k": 1024, "seed": 2000 + j})
+    return header, reqs
+
+
+def serve_golden(label, corpus, header, reqs, responses):
+    """At least SERVE_GOLDEN_QUERIES seeded queries of the responses
+    against golden.fast over ``corpus``, byte for byte (all of them where
+    the replay holds fewer)."""
+    import numpy as np
+    from dmlp_tpu_torch.golden.fast import knn_golden_fast
+    from dmlp_tpu_torch.io.grammar import KNNInput, Params
+    from dmlp_tpu_torch.serve import client as sc
+
+    pairs = [(i, j) for i, r in enumerate(reqs) for j in range(r["nq"])]
+    rng = np.random.default_rng(11)
+    pick = sorted(rng.choice(len(pairs), min(SERVE_GOLDEN_QUERIES,
+                                             len(pairs)), replace=False))
+    q = {i: sc.materialize_queries(r, header) for i, r in enumerate(reqs)}
+    ks = {i: sc.request_ks(r) for i, r in enumerate(reqs)}
+    sel = [pairs[p] for p in pick]
+    t0 = time.perf_counter()
+    inp = KNNInput(Params(corpus.params.num_data, len(sel),
+                          corpus.params.num_attrs), corpus.labels,
+                   corpus.data_attrs,
+                   np.array([ks[i][j] for i, j in sel], np.int32),
+                   np.array([q[i][j] for i, j in sel]))
+    want = [int(r.checksum()) for r in knn_golden_fast(inp)]
+    got = [responses[i]["checksums"][j] for i, j in sel]
+    emit({"phase": "serve_golden", "run": label, "queries": len(sel),
+          "of": len(pairs), "match": got == want,
+          "oracle_ms": (time.perf_counter() - t0) * 1e3})
+    check(got == want, f"{label}: responses differ from the float64 oracle")
+
+
+def serve_batch_plan(geo, b, n_real):
+    """The kernel launches one logged micro-batch must have made: K1 once
+    per non-empty resident chunk the prune kept (plus a pass per further
+    multi-pass sweep), K2 in its place on the tuned/heuristic rungs, K3
+    once per streaming block and query block on the streaming rung, and a
+    merge for every K1/K2 launch at S > 1."""
+    nonempty = min(geo["nchunks"], -(-n_real // geo["chunk_rows"]))
+    want = {k: 0 for k in KERNELS}
+    rung = b["rung"]
+    if rung == "streaming" or b["path"] == "stream":
+        qb = min(1 << max(min(1024, b["qpad"]).bit_length() - 1, 3),
+                 b["qpad"])
+        want["fused_dist_segmin"] = (geo["capacity_rows"]
+                                     // geo["data_block"]) * (b["qpad"] // qb)
+        return want
+    k = "fused_topk" if rung in ("lowp", "prune", "fused") \
+        else "extract_topk"
+    if b["path"] == "multipass":
+        want[k] = nonempty + b["mp_passes"] - 1
+    else:
+        want[k] = nonempty - (b["blocks_pruned"] or 0)
+    want["extract_merge"] = sum(
+        n for kern in ("fused_topk", "extract_topk")
+        for s, n in b["launch_variants"].get(kern, {}).items()
+        if int(s) > 1)
+    return want
+
+
+def serve_check_batches(label, geo, stats, seen, launches):
+    """Hold every micro-batch the daemon logged since ``seen`` against its
+    launch plan and its shapes against the ones the kernels phase held;
+    add its launches to ``launches``. Returns the last sequence number."""
+    log = stats["engine"]["batch_log"]
+    new = [b for b in log if b["seq"] > seen]
+    check(not new or new[0]["seq"] == seen + 1,
+          f"{label}: the batch log lost batches after {seen}")
+    for b in new:
+        want = serve_batch_plan(geo, b, b["n_real"])
+        check(b["launches"] == want,
+              f"{label}: batch {b['seq']} ({b['bucket']}, {b['path']}, "
+              f"{b['rung']}) launched {b['launches']}, its plan {want}")
+        qpad, kb = b["qpad"], int(b["bucket"].split("k")[1])
+        if b["rung"] != "streaming" and b["path"] == "extract":
+            shapes = [(qpad, geo["chunk_rows"], 64, geo["kcap"][kb])]
+        elif b["rung"] != "streaming" and b["path"] == "multipass":
+            shapes = [(qpad, geo["chunk_rows"], 64, 512),
+                      (qpad, geo["ex_rows"], 64, 512)]
+        else:
+            shapes = []
+        check(all(sh in HELD["k1"] for sh in shapes),
+              f"{label}: batch {b['seq']} launched K1/K2 at {shapes}, not "
+              "all held by the kernels phase")
+        for k, v in b["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return new[-1]["seq"] if new else seen
+
+
+def serve_phase(tmp_dir):
+    """The resident daemon on the card over config 4's corpus: warm-up,
+    a 4-connection replay, ingest across a chunk boundary and a second
+    replay, the admission squeeze, a second daemon under a fault schedule
+    for the tuned and streaming rungs, and the SIGTERM drains. Returns the
+    launches of the replays and the ladder batches."""
+    import numpy as np
+    from dmlp_tpu_torch.io.grammar import KNNInput, Params
+    from dmlp_tpu_torch.serve import client as sc
+    from dmlp_tpu_torch.serve.daemon import default_warm_buckets
+    from dmlp_tpu_torch.serve.engine import k_bucket, query_bucket
+
+    geo = serve_geometry()
+    header, reqs = serve_trace()
+    corpus_path = os.path.join(tmp_dir, "serve_corpus.txt")
+    with open(corpus_path, "w") as f:
+        f.write(config_text("config4"))
+    corpus = config_input("config4")
+    warm = sc.warm_buckets_for_trace(reqs, 1024)
+    second = reqs[:14]
+    admitted_before = len(reqs) + len(second)
+
+    def start(label, faults, warm_spec):
+        fpath = os.path.join(tmp_dir, f"{label}_faults.json")
+        with open(fpath, "w") as f:
+            json.dump({"schema": 1, "seed": 0, "faults": faults}, f)
+        ready = os.path.join(tmp_dir, f"{label}_ready.json")
+        err = os.path.join(tmp_dir, f"{label}_stderr.txt")
+        ef = open(err, "w")
+        t0 = time.perf_counter()
+        # No tune cache: every launch knob takes its heuristic, as the
+        # kernels phase held it.
+        env = {**os.environ, "DMLP_TPU_TUNE_CACHE": os.path.join(
+            tmp_dir, "absent.json")}
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dmlp_tpu_torch.serve", "--corpus",
+             corpus_path, "--pallas", "--port", "0", "--ready-file", ready,
+             "--warm-buckets", warm_spec, "--faults", fpath],
+            stdout=subprocess.DEVNULL, stderr=ef, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        ef.close()
+        try:
+            doc = sc.await_ready(proc, ready, timeout_s=300, errlog=err)
+        except BaseException:
+            proc.kill()
+            proc.wait(timeout=60)
+            raise
+        doc["ready_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        return proc, doc, err
+
+    def stop(proc, err):
+        try:
+            sc.sigterm_drain(proc, timeout_s=120, errlog=err)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+    launches = {"serve_replay": {}, "serve_ladder": {}}
+    # -- the daemon: warm-up, replay, ingest, replay, squeeze, drain -------
+    spec = ",".join(f"{nq}x{k}" for nq, k in warm)
+    proc, ready, err = start(
+        "serve", [{"site": "serve.admit", "kind": "oom",
+                   "after": admitted_before}], spec)
+    try:
+        cli = sc.ServeClient(ready["port"])
+        st0 = cli.stats()["stats"]
+        warm_seq = seq = serve_check_batches("serve warm-up", geo, st0, 0,
+                                             {})
+        t0 = time.perf_counter()
+        res = sc.replay(ready["port"], header, reqs, connections=4)
+        replay_s = time.perf_counter() - t0
+        check(all(r["ok"] for r in res), f"serve replay: a request failed "
+              f"{[r for r in res if not r['ok']][:1]}")
+        st1 = cli.stats()["stats"]
+        eng1 = st1["engine"]
+        seq = serve_check_batches("serve replay", geo, st1, seq,
+                                  launches["serve_replay"])
+        check(eng1["compile_count"] == ready["compile_count"]
+              and eng1["kernel_loads"] == ready["kernel_loads"]
+              and eng1["buckets"] == ready["buckets"],
+              f"serve replay: builds {eng1['compile_count']} / loads "
+              f"{eng1['kernel_loads']} after a warmed replay, "
+              f"{ready['compile_count']} / {ready['kernel_loads']} at ready")
+        replay_batches = [b for b in eng1["batch_log"]
+                          if b["seq"] > warm_seq]
+        nq_all = sum(b["nq"] for b in replay_batches)
+        repairs = sum(b["repairs"] for b in replay_batches)
+        check(repairs <= MAX_REPAIR_SHARE * nq_all,
+              f"serve replay: {repairs} of {nq_all} queries repaired")
+        serve_golden("serve_replay", corpus, header, reqs, res)
+        # Ingest: 12,000 rows inside chunk 4, then 12,000 more across its
+        # boundary into chunk 5 (empty until then).
+        rng = np.random.default_rng(12)
+        rows = rng.uniform(0.0, 100.0, (24000, CONFIG4["num_attrs"]))
+        labels = rng.integers(0, CONFIG4["num_labels"], 24000)
+        for part in (slice(0, 12000), slice(12000, 24000)):
+            r = cli.ingest(labels[part], rows[part])
+            check(r["ok"], f"serve ingest: {r}")
+        grown = KNNInput(Params(CONFIG4["num_data"] + 24000, 0,
+                                CONFIG4["num_attrs"]),
+                         np.concatenate([corpus.labels,
+                                         labels.astype(np.int32)]),
+                         np.vstack([corpus.data_attrs, rows]),
+                         np.zeros(0, np.int32),
+                         np.zeros((0, CONFIG4["num_attrs"])))
+        cr = geo["chunk_rows"]
+        touched = len(range(CONFIG4["num_data"] // cr,
+                            -(-(CONFIG4["num_data"] + 12000) // cr))) \
+            + len(range((CONFIG4["num_data"] + 12000) // cr,
+                        -(-(CONFIG4["num_data"] + 24000) // cr)))
+        res2 = sc.replay(ready["port"], header, second, connections=4)
+        check(all(r["ok"] for r in res2), "serve replay 2: a request failed")
+        st2 = cli.stats()["stats"]
+        eng2 = st2["engine"]
+        seq = serve_check_batches("serve replay 2", geo, st2, seq,
+                                  launches["serve_replay"])
+        check(eng2["compile_count"] == ready["compile_count"]
+              and eng2["summary_rebuilds"] == touched
+              and st2["corpus"]["rows"] == grown.params.num_data,
+              f"serve ingest: builds {eng2['compile_count']}, summary "
+              f"rebuilds {eng2['summary_rebuilds']} (want {touched}), rows "
+              f"{st2['corpus']['rows']}")
+        serve_golden("serve_replay_grown", grown, header, second, res2)
+        # The admission squeeze: the next request is shed, the one after
+        # served, and the ladder untouched.
+        q = sc.materialize_queries({"nq": 8, "seed": 3000}, header)
+        shed = cli.query(q, k=5)
+        served = cli.query(q, k=5)
+        st3 = cli.stats()["stats"]
+        seq = serve_check_batches("serve squeeze", geo, st3, seq, {})
+        check(not shed["ok"] and shed["error"] == "rejected: "
+              "injected_squeeze" and served["ok"]
+              and st3["admission"]["rejected"] == {"injected_squeeze": 1}
+              and all(b["rung"] == "lowp"
+                      for b in st3["engine"]["batch_log"]),
+              f"serve squeeze: shed {shed}, served {served.get('ok')}, "
+              f"rejected {st3['admission']['rejected']}")
+        cli.close()
+    finally:
+        stop(proc, err)
+    by_path = {}
+    for b in st3["engine"]["batch_log"]:
+        if b["seq"] > warm_seq:
+            by_path.setdefault(b["path"], b)
+    # -- the ladder daemon: one batch on tuned (K2), one on streaming (K3)
+    lwarm = default_warm_buckets(corpus) + [(32, 32)]
+    w = len({(query_bucket(nq, 32), k_bucket(min(k, geo["capacity_rows"])))
+             for nq, k in lwarm})
+    # Listed first, the streaming entry counts every stage_put hit; the
+    # tuned one skips the warm-up's w hits and fires on the next three.
+    faults = [{"site": "single.stage_put", "kind": "oom", "times": 5,
+               "after": w + 4},
+              {"site": "single.stage_put", "kind": "oom", "times": 3,
+               "after": w}]
+    proc, lready, lerr = start("serve_ladder", faults, "32x32")
+    try:
+        check(len(lready["buckets"]) == w,
+              f"serve ladder: {lready['buckets']} warmed, want {w}")
+        lreqs = [{"nq": 32, "k": 20, "seed": 3001},
+                 {"nq": 32, "k": 20, "seed": 3002}]
+        lres = [sc.replay(lready["port"], header, [r], connections=1)[0]
+                for r in lreqs]
+        cli = sc.ServeClient(lready["port"])
+        lst = cli.stats()["stats"]
+        cli.close()
+        rungs = [b["rung"] for b in lst["engine"]["batch_log"][-2:]]
+        check(rungs == ["tuned", "streaming"] and all(
+            r["ok"] for r in lres),
+            f"serve ladder: batches on {rungs}")
+        serve_check_batches("serve ladder", geo, lst, w,
+                            launches["serve_ladder"])
+        serve_golden("serve_ladder", corpus, header, lreqs, lres)
+        for b in lst["engine"]["batch_log"][-2:]:
+            by_path.setdefault(b["rung"], b)
+    finally:
+        stop(proc, lerr)
+    emit({"phase": "serve", "corpus_rows": CONFIG4["num_data"],
+          "capacity_rows": geo["capacity_rows"],
+          "chunks": [geo["nchunks"], geo["chunk_rows"]],
+          "cold_start_ms": ready["cold_start_compile_ms"],
+          "ready_wall_ms": ready["ready_wall_ms"],
+          "buckets": ready["paths"], "compile_count": ready["compile_count"],
+          "kernel_loads": ready["kernel_loads"],
+          "requests": len(reqs), "queries": sum(r["nq"] for r in reqs),
+          "replay_s": replay_s, "client_requests_per_s": len(reqs) / replay_s,
+          "client_ms": sorted(r["client_ms"] for r in res),
+          "requests_per_sec": st1["requests_per_sec"],
+          "request_latency_ms": st3.get("request_latency_ms"),
+          "batches": len(replay_batches),
+          "phase_ms_by_path": {p: {"bucket": b["bucket"], "nq": b["nq"],
+                                   "phase_ms": b["phase_ms"]}
+                               for p, b in by_path.items()},
+          "last_gated_fraction": eng2["last_gated_fraction"],
+          "last_prune": eng2["last_prune"], "repairs": repairs,
+          "summary_rebuilds": eng2["summary_rebuilds"],
+          "launches": launches,
+          "device_memory": st3.get("device_memory"),
+          "ladder_rungs": rungs, "ladder_cold_start_ms":
+          lready["cold_start_compile_ms"]})
+    return launches
+
+
 def real_oom():
     """An allocation of four times the card's memory, outside the engine:
     what it raises must classify as "oom", the class on which the
@@ -1633,6 +2133,8 @@ def main(argv=None) -> int:
     launches = main_path(tune_path) if "main" in phases else {}
     if "mesh" in phases:
         launches.update(mesh_phase())
+    if "serve" in phases:
+        launches.update(serve_phase(tmp.name))
     if "real_oom" in phases:
         real_oom()
     if "profile" in phases:

@@ -74,6 +74,12 @@ _TILE_BUDGET = 1 << 30
 # Max staged-but-unfolded chunks in flight (the reference's window).
 _CHUNK_WINDOW = 8
 
+# Widest k a bfloat16-staged resident engine serves (the reference's
+# constant): the bf16 kcap margin (96 + k/2, resolve_kcap) was calibrated
+# inside the extraction kernel's window and stops clearing the bf16 eps on
+# dense distance spectra far beyond it.
+_BF16_AUTO_K_CAP = 512
+
 
 class ChunkThrottle:
     """Sliding-window backpressure for chunked staging: ``tick()`` after
@@ -254,10 +260,18 @@ def active_precision(engine) -> str:
     lossy first pass sound), and the degradation ladder still sits on its
     top "lowp" rung: the first OOM step gives the low-precision pass back.
     Candidate windows do not consult this; resolve_kcap plans from the
-    configured precision, so a window stays the same across rungs."""
+    configured precision, so a window stays the same across rungs. An
+    engine that freezes a precision plan at construction (the resident
+    serving engine: its bucket windows and staged summary eps derive from
+    it) exposes ``_precision_plan``, and the pass clamps to it: flipping
+    ``$DMLP_TPU_PRECISION`` to "bf16" under windows planned for f32 never
+    runs a bf16 pass."""
     if engine._degrade_rung != "lowp":
         return "f32"
     if not engine.config.exact:
+        return "f32"
+    plan = getattr(engine, "_precision_plan", None)
+    if plan is not None and plan != "bf16":
         return "f32"
     return engine.config.resolve_precision()
 

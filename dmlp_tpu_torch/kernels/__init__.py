@@ -38,6 +38,10 @@ LAUNCHES: Dict[str, int] = {"fused_topk": 0, "extract_topk": 0,
 # The same launches by the value of their knob: {kernel: {S or G: launches}}
 # (S for K1/K2, G for K3).
 LAUNCH_VARIANTS: Dict[str, Dict[int, int]] = {}
+# Kernel libraries loaded into this process, by source name: :func:`load`
+# adds one when it loads a library (once per name and process). A serving
+# replay whose buckets were all warmed leaves it unchanged.
+LOADS: Dict[str, int] = {}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -157,4 +161,5 @@ def load(name: str) -> ctypes.CDLL:
                 raise KernelBuildError(
                     f"cannot load {library_path(name)}: {e}") from e
             _loaded[name] = lib
+            LOADS[name] = LOADS.get(name, 0) + 1
         return lib

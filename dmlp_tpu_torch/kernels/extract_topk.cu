@@ -15,8 +15,10 @@
 //   Insertion is strict (m < T); on equal distances the lowest position is
 //   extracted first, and the entry evicted is the one holding T that sorts
 //   last in the list, so carry entries and earlier positions win ties. At
-//   S > 1 the merge keeps the same rule: (distance asc, carry first, id
-//   asc). iters[i, j] = 1 when query tile i processed data block j, 0 when
+//   S > 1 the merge keeps the same rule: (distance asc, carry first in the
+//   carry's own order, then id asc), so the lists equal S = 1's as sets
+//   whatever the carry's ids. iters[i, j] = 1 when query tile i processed
+//   data block j, 0 when
 //   the norm gate or the block-min prefilter skipped it.
 //
 // Design. The grid is (ceil(Qb/TQ), S). CTA (i, s) owns TQ = 32 query rows
@@ -80,8 +82,15 @@
 // fills the 132 SMs.
 //
 // The merge (extract_merge_kernel): one CTA per row packs carry ++ partials
-// into 64-bit keys (distance bits, then a carry/block flag, then id + 1),
-// bitonic-sorts them in shared memory and writes the first kc, sorted.
+// into 64-bit keys (distance bits, then a carry/block flag, then the slot
+// for a carry entry and id + 1 for a partial one), bitonic-sorts them in
+// shared memory and writes the first kc, sorted, reading a carry entry's
+// id back from its slot. Carry entries keep the order S = 1 gives them
+// (sorted by (distance, slot)), not the order of their ids: a carry folded
+// from a later chunk than the block, as the serving engine's hot-chunks-
+// first order folds, holds tie groups whose ids do not ascend in slot
+// order, and ordering them by id would evict other members of a tie group
+// at the boundary than S = 1 does.
 // Non-negative floats and +inf order as unsigned integers; -0.0 is folded
 // to +0.0 first. It moves (1+S)*Qb*kc*8 bytes and is bound by them.
 
@@ -608,7 +617,8 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
 }
 
 // One CTA per row: the exact top-kc of carry ++ partial_0 ++ ... ++
-// partial_{S-1} by (distance asc, carry before block, id asc), sorted.
+// partial_{S-1} by (distance asc, carry before block, then carry slot asc
+// for carry entries and id asc for partial ones), sorted.
 // npad is the entry count rounded up to a power of two; the padding keys
 // are all ones and sort last.
 __global__ void __launch_bounds__(MT)
@@ -624,21 +634,21 @@ extract_merge_kernel(const float* __restrict__ cd, const int* __restrict__ ci,
     unsigned long long key = ~0ull;
     if (e < n) {
       float v;
-      int id;
+      unsigned low;
       unsigned long long flag;
       if (e < nc) {
         v = cd[(size_t)row * kc + e];
-        id = ci[(size_t)row * kc + e];
+        low = (unsigned)e;
         flag = 0;
       } else {
         const int p = e - nc, s = p / kc, c = p - s * kc;
         const size_t at = ((size_t)s * qb + row) * kc + c;
         v = pd[at];
-        id = pi[at];
+        low = (unsigned)(pi[at] + 1);
         flag = 1;
       }
       key = ((unsigned long long)__float_as_uint(v + 0.0f) << 32) |
-            (flag << 31) | (unsigned long long)(unsigned)(id + 1);
+            (flag << 31) | (unsigned long long)low;
     }
     keys[e] = key;
   }
@@ -658,8 +668,10 @@ extract_merge_kernel(const float* __restrict__ cd, const int* __restrict__ ci,
   }
   for (int c = tid; c < kc; c += MT) {
     const unsigned long long key = keys[c];
+    const int low = (int)(key & 0x7fffffffull);
     od[(size_t)row * kc + c] = __uint_as_float((unsigned)(key >> 32));
-    oi[(size_t)row * kc + c] = (int)(key & 0x7fffffffull) - 1;
+    oi[(size_t)row * kc + c] =
+        (key >> 31) & 1ull ? low - 1 : ci[(size_t)row * kc + low];
   }
 }
 

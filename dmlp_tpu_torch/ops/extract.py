@@ -24,12 +24,15 @@ tile sweeps every block from the carry. At S > 1 CTA (i, s) sweeps blocks
 carry's row maximum, -1) — (+inf, -1) without a carry — so its gate,
 prefilter and insertion compare against min(the k-th best of what it
 swept, the carry's row maximum); a merge kernel then takes the exact
-top-kc of carry ++ partials by (distance asc, carry first, id asc), and
+top-kc of carry ++ partials by (distance asc, carry first, then the
+carry's own order for carry entries and id asc for the partials'), and
 the lists come out sorted. A seed entry never survives the merge: the
 carry's kc entries sort before it. Each block belongs to one split, so
 ``iters`` keeps its layout and meaning. The lists equal S = 1's as sets
-whenever the carry's ids lie below the chunk's, as they do in every
-engine launch.
+for any carry: S = 1 sorts the carry stably by (distance, slot) and keeps
+that order on ties, and so does the merge. (Ordering carry entries by id
+instead broke this where the carry's ids lie above the chunk's, as in the
+serving engine's hot-chunks-first fold.)
 """
 
 from __future__ import annotations
@@ -290,19 +293,23 @@ def merge_partials_plain(carry_d: Optional[torch.Tensor],
                          part_d: torch.Tensor, part_i: torch.Tensor):
     """The merge kernel's plain version: per row, the exact top-kc of
     carry ++ part_0 ++ ... ++ part_{S-1} by (distance asc, carry before
-    block, id asc), sorted, as successive stable sorts (id, then flag,
-    then distance). -0.0 is folded to +0.0 as the kernel's keys fold it."""
+    block, then carry slot asc for carry entries and id asc for partial
+    ones), sorted, as successive stable sorts (slot or id, then flag, then
+    distance). -0.0 is folded to +0.0 as the kernel's keys fold it."""
     nsplit, qb, kc = part_d.shape
     ds_, is_ = list(part_d.float().unbind(0)), list(part_i.int().unbind(0))
+    ties = list(is_)
     flag = torch.ones((qb, nsplit * kc), dtype=torch.int32,
                       device=part_d.device)
     if carry_d is not None:
         ds_.insert(0, carry_d.float())
         is_.insert(0, carry_i.to(torch.int32))
+        ties.insert(0, torch.arange(kc, dtype=torch.int32,
+                                    device=part_d.device).expand(qb, kc))
         flag = torch.cat([torch.zeros_like(flag[:, :kc]), flag], 1)
     alld = torch.cat(ds_, 1) + 0.0
     alli = torch.cat(is_, 1)
-    order = torch.argsort(alli, dim=1, stable=True)
+    order = torch.argsort(torch.cat(ties, 1), dim=1, stable=True)
     for key in (flag, alld):
         order = torch.gather(order, 1, torch.argsort(
             torch.gather(key, 1, order), dim=1, stable=True))

@@ -25,10 +25,14 @@ degradation ladder's top ``lowp``/``prune`` rungs and in exact mode.
 The host scoring's block chunk resolves through the tune cache's
 ``prune_score`` namespace (:func:`resolve_score_variant`); a chunk changes
 how the bounds are sliced, never a survivor mask, and the sweep persists
-only a chunk whose masks are equal bit for bit. The resident serving
-engine's device scorer (``score_blocks``, ``stage_summaries``) and the
-ingest rebuild (``update_block``) come with the serving port (ROADMAP
-A11); the telemetry registry with A13.
+only a chunk whose masks are equal bit for bit.
+
+The resident serving engine (``serve.engine``) keeps one summary block per
+resident extraction chunk, rebuilds exactly the blocks an ingest touches
+(:func:`update_block`), and scores them per micro-batch on the device
+(:func:`stage_summaries`, :func:`score_blocks`: plain torch in f32 with
+the same bound, threshold and eps structure as :func:`prune_mask`). The
+telemetry counters of the reference's ``note_scan`` come with ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -186,6 +190,26 @@ def build_summaries(attrs: np.ndarray,
                           nq50, nq50_cnt)
 
 
+def update_block(summ: BlockSummaries, b: int, rows: np.ndarray,
+                 lo_hi: Optional[Tuple[int, int]] = None) -> None:
+    """Rebuild exactly block ``b`` from its current real rows, pieces
+    included: the serving ingest path calls it for every block it touches
+    (a stale summary could keep a block pruned whose new rows belong in a
+    top-k, the one fault the boundary repair cannot catch)."""
+    if lo_hi is not None:
+        summ.ranges[b] = (int(lo_hi[0]), int(lo_hi[1]))
+    na = summ.lo.shape[1]
+    rows = np.asarray(rows, np.float64)
+    (summ.counts[b], summ.nmin[b], summ.nmax[b],
+     summ.lo[b], summ.hi[b]) = summarize_rows(rows, na)
+    if summ.pcounts is not None:
+        pc, summ.nq50[b], summ.nq50_cnt[b] = split_rows(rows, na)
+        for p, (cm, cn, cx, cl, ch) in enumerate(pc):
+            summ.pcounts[b, p], summ.pnmin[b, p], summ.pnmax[b, p] = \
+                cm, cn, cx
+            summ.plo[b, p], summ.phi[b, p] = cl, ch
+
+
 def block_bounds(queries: np.ndarray, summ: BlockSummaries,
                  block_chunk: Optional[int] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
@@ -332,6 +356,89 @@ def prune_mask(queries: np.ndarray, ks: np.ndarray,
         stats["lb_positive_fraction"] = (
             round(float((flat > 0.0).mean()), 6) if flat.size else 0.0)
     return survivors, stats
+
+
+def _directed_f32(x, up: bool) -> np.ndarray:
+    """float64 -> float32 rounded up (``up``) or down, so the f32 value
+    bounds the f64 one on the stated side."""
+    x = np.asarray(x, np.float64)
+    x32 = x.astype(np.float32)
+    back = x32.astype(np.float64)
+    bad = (back < x) if up else (back > x)
+    adj = np.nextafter(x32, np.float32(np.inf if up else -np.inf))
+    return np.where(bad, adj, x32).astype(np.float32)
+
+
+def stage_summaries(summ: BlockSummaries, device) -> Dict:
+    """Conservative f32 copies of the whole-block summaries on ``device``
+    (O(blocks * a) bytes). Box lows and norm minima round down, box highs
+    and norm maxima round up, so the f32 box and band contain the f64
+    ones: the device lower bounds can only loosen, never become unsound;
+    the scorer's own f32 arithmetic error is the eps margin's job."""
+    import torch
+    live = summ.counts > 0
+    dn_max = float(np.square(summ.nmax[live]).max()) if live.any() else 0.0
+
+    def put(a):
+        return torch.as_tensor(np.array(a)).to(device)
+
+    return {
+        "counts": put(np.asarray(summ.counts, np.int32)),
+        "nmin": put(_directed_f32(summ.nmin, up=False)),
+        "nmax": put(_directed_f32(summ.nmax, up=True)),
+        "lo": put(_directed_f32(summ.lo, up=False)),
+        "hi": put(_directed_f32(summ.hi, up=True)),
+        "dn_max": put(_directed_f32(np.float64(dn_max), up=True)),
+    }
+
+
+def score_terms(q, qvalid, ks, counts, nmin, nmax, lo, hi, dn_max,
+                eps_rel, eps_cancel):
+    """The terms of :func:`score_blocks`, in f32 on the tensors' device:
+    (lb (Qp, B) lower bounds, thr (Qp,) k-th-best upper bounds, eps (Qp,)
+    margins, keep (B,) survivor mask)."""
+    import torch
+    q32 = q.float()
+    qn = (q32 * q32).sum(-1)
+    qnorm = torch.sqrt(qn)
+    band = torch.maximum(nmin[None, :] - qnorm[:, None],
+                         qnorm[:, None] - nmax[None, :])
+    lbn = torch.square(torch.clamp_min(band, 0.0))
+    gap = torch.clamp_min(torch.maximum(lo[None] - q32[:, None, :],
+                                        q32[:, None, :] - hi[None]), 0.0)
+    lbb = (gap * gap).sum(-1)
+    far = torch.maximum(torch.abs(q32[:, None, :] - lo[None]),
+                        torch.abs(q32[:, None, :] - hi[None]))
+    ubb = (far * far).sum(-1)
+    ub = torch.minimum(ubb, torch.square(qnorm[:, None] + nmax[None, :]))
+    empty = counts <= 0
+    ub = torch.where(empty[None, :], torch.inf, ub)
+    lb = torch.where(empty[None, :], torch.inf, torch.maximum(lbn, lbb))
+    # The accumulation's order must be stable, as jnp.argsort's is.
+    order = torch.argsort(ub, dim=1, stable=True)
+    sub = torch.gather(ub, 1, order)
+    csum = torch.cumsum(counts.long()[order], dim=1)
+    reached = csum >= ks.long()[:, None]
+    idx = torch.argmax(reached.to(torch.int8), dim=1)
+    thr = torch.where(reached.any(1),
+                      torch.gather(sub, 1, idx[:, None])[:, 0], torch.inf)
+    scale = qn + dn_max
+    eps = (eps_rel * torch.sqrt(torch.clamp_min(thr, 0.0) * scale)
+           + eps_cancel * scale)
+    keep = qvalid[:, None] & (lb <= (thr + eps)[:, None])
+    return lb, thr, eps, keep.any(0) & ~empty
+
+
+def score_blocks(q, qvalid, ks, counts, nmin, nmax, lo, hi, dn_max,
+                 eps_rel, eps_cancel):
+    """Stage 1 on the device for one padded micro-batch: the (B,) bool
+    survivor mask over the resident summaries, with the bound, threshold
+    and eps structure of :func:`prune_mask` in f32. ``qvalid`` masks the
+    bucket's padding queries out of the union; ``eps_rel`` and
+    ``eps_cancel`` are the staging-eps constants, prescaled on the host
+    (rel, and EPS_CANCEL_COEF * (na + 2) plus the plan's LOWP_COEF)."""
+    return score_terms(q, qvalid, ks, counts, nmin, nmax, lo, hi, dn_max,
+                       eps_rel, eps_cancel)[3]
 
 
 def note_scan(engine, *, scanned_bytes: int, dense_bytes: int,

@@ -69,9 +69,11 @@ SITES: Dict[str, str] = {
                       "(parallel.distributed.distributed_contract_run)",
     "train.step": "one optimizer step (the train extension; not ported "
                   "yet)",
-    "serve.admit": "serving-daemon admission decision (not ported yet)",
-    "serve.solve": "serving-daemon micro-batch solve (not ported yet)",
-    "serve.ingest": "serving-daemon ingest execution (not ported yet)",
+    "serve.admit": "serving-daemon admission decision (serve.admission "
+                   "precheck; an oom fault is the memory squeeze: the "
+                   "request is shed, the ladder untouched)",
+    "serve.solve": "serving-daemon micro-batch solve (serve.batching)",
+    "serve.ingest": "serving-daemon ingest execution (serve.batching)",
 }
 
 KINDS = ("delay", "transient", "oom", "corrupt", "nan")
