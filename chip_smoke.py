@@ -104,6 +104,21 @@ final result line. Standard output:
    output holds one checksum line per query and the exact ones match the
    port's float64 oracle (``golden.fast``) on a seeded subset byte for
    byte;
+   ``obs``: observability (``dmlp_tpu_torch.obs``) on the card — config 4
+   (K1 and its merge) and config 2 with ``--select seg`` (K3) through
+   ``cli.main`` with ``--warmup --trace --metrics --counters --telemetry
+   --telemetry-port 0``: stdout equal to the flag-free solve's, the trace
+   and metrics passing ``tools/check_trace.py``, a ``GET /metrics``
+   scrape taken while the session is open passing
+   ``validate_openmetrics``, each kernel's recorded launches equal to the
+   timed solve's share of ``LAUNCHES`` and to its plan, K1's and the
+   merge's FLOPs equal to ``obs.kernel_cost``'s sum over the launches
+   (K1's with the measured ``iters``), and each kernel's bound share (the
+   least time of its modeled bytes and products over its CUDA-event
+   device time) at most 1.05; one ``obs`` line with each kernel's
+   achieved FLOP/s, its share of the peak and its bound share, and config
+   4's ``Time taken`` with every flag on and with none (3 runs each,
+   interleaved);
    ``mesh``: whether NCCL takes two ranks of one communicator on one card
    (two processes, recorded, not checked); the CLI refusing 8 NCCL ranks
    on one card without ``--backend gloo``; then the mesh engines through
@@ -129,7 +144,9 @@ final result line. Standard output:
    launched by both ranks at a held shape, and the queries the ranks
    rescore exactly (summed over ranks) counted. Every mesh run holds a
    1,000-query subset against the oracle and repairs at most 1% of its
-   queries;
+   queries; config 3's sharded run also writes ``--metrics``, whose
+   ``comms`` block (every rank's record, equal on every rank) must equal
+   ``obs.comms``' analytic bytes for the (4, 2) mesh;
    ``serve`` (before it, the kernels phase holds K1/K2 at every resident
    chunk shape of every warmed (qpad, kcap), the multi-pass first and
    resident passes at every qpad, and a carry folded from a later chunk,
@@ -153,6 +170,11 @@ final result line. Standard output:
    untouched; a second daemon whose ``--faults`` schedule lands one batch
    on ``tuned`` (K2) and one on ``streaming`` (K3 over the resident
    buffer), both golden; each daemon drained by SIGTERM with exit code 0;
+   the first daemon runs with ``--telemetry --telemetry-port 0`` and one
+   ``--slo`` objective: after the replay its ``GET /metrics`` validates,
+   the request latency histogram counts every request served, ``stats``
+   carries the SLO block, and every micro-batch's launches recorded by
+   the session's cost probe equal its logged launches;
    one ``serve`` line with the cold start, the buckets and paths,
    requests/s, latency quantiles, phase times per path, the gate and
    prune stats, launches by kernel and peak memory beside the model;
@@ -166,9 +188,10 @@ final result line. Standard output:
 3. one ``{"kernels": [...]}`` line: per kernel its route, source, the TPU
    kernel it replaces, main-path launches (in all and per path, the serve
    replays' and the ladder daemon's included), max
-   error, time and the shape it is from, plain time, the bound (bytes
-   over 3.35 TB/s or operations over the peak for their type, whichever
-   is larger) and the library time (none: no single PyTorch call computes
+   error, time and the shape it is from, plain time, the bound
+   (``obs.kernel_cost``'s bytes over 3.35 TB/s or its operations over the
+   peak for their type, whichever is larger, from ``obs.counters``' H100
+   row) and the library time (none: no single PyTorch call computes
    these functions); K1's row also has its time at S = 1 and at the
    chosen S at each main-path shape and its times, plain time and bound
    at each mesh shape, K3's its times, bound shares and ``sgemm_ms`` at
@@ -194,10 +217,10 @@ import subprocess
 import sys
 import time
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth,
-# float32 on the CUDA cores, bf16 on the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# The H100's row of the port's peak table (dmlp_tpu_torch.obs.counters:
+# the published SXM data-sheet rates, dense): every bound below is this
+# card's, whatever card the run lands on (the run prints the card's name).
+H100 = "NVIDIA H100 80GB HBM3"
 
 # Generator arguments of the solved inputs (dmlp_tpu_torch.io.datagen):
 # bench configs 4 and 2 (dmlp_tpu/bench/configs.py), config 4's data with
@@ -359,8 +382,8 @@ HELD = {"k1": set(), "k3": set()}
 # At most this share of a run's queries may go to the float64 host oracle
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
-PHASES = ("build", "kernels", "segmin", "tune", "main", "mesh", "serve",
-          "real_oom", "profile")
+PHASES = ("build", "kernels", "segmin", "tune", "main", "obs", "mesh",
+          "serve", "real_oom", "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
 OUTPUTS: dict = {}
@@ -829,14 +852,15 @@ def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
         lambda: ex.merge_partials_plain(cd, ci, part_d, part_i), reps)
     torch.cuda.synchronize()
     same = torch.equal(od, pd) and torch.equal(oi, pi)
+    from dmlp_tpu_torch.obs import counters, kernel_cost
     nsplit, qb, kc = part_d.shape
-    nbytes = 8 * qb * kc * (nsplit + (cd is not None) + 1)
     rec = {"phase": "kernel_case", "case": name, "kernel": "extract_merge",
            "shape": [qb, nsplit, kc], "carry": cd is not None, "ms": ms,
            "plain_ms": plain_ms, "identical": bool(same),
            "max_abs_err": float((od.double() - pd.double()).abs().nan_to_num(
                0.0).max()),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+           **kernel_cost.bound_ms(kernel_cost.extract_merge_cost(
+               qb, kc, nsplit, cd is not None), counters.PEAKS[H100])}
     emit(rec)
     check(same, f"{name}: the merge kernel differs from its plain version")
     s = summary.setdefault("extract_merge", {"max_abs_err": 0.0})
@@ -985,31 +1009,28 @@ def segmin_cases(summary, reps):
 
 
 def segmin_bound(qb, b, a, precision):
-    """Least time for one K3 launch: inputs (q, d, ids) read once and
-    outputs (dist, segmin) written once over HBM bandwidth, against the
-    product's operations over the peak for their type."""
-    nbytes = 4 * (qb * a + b * a + b + qb * b + qb * (b // 128))
-    ops = 2.0 * qb * b * a
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[precision]
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    """Least time for one K3 launch (obs.kernel_cost's model): inputs (q,
+    d, ids) read once and outputs (dist, segmin) written once over HBM
+    bandwidth, against the product's operations over the peak for their
+    type."""
+    from dmlp_tpu_torch.obs import counters, kernel_cost
+    return kernel_cost.bound_ms(kernel_cost.fused_dist_segmin_cost(
+        qb, b, a, precision), counters.PEAKS[H100])
 
 
 def bound(q, d, kc, iters, gate, carried, precision):
-    """Least time for this launch's work: the larger of the bytes over
-    HBM bandwidth (inputs read once, outputs written once) and the
-    products this data needs over the peak for their type (with the gate
-    on, only the tiles the gate let through)."""
-    from dmlp_tpu_torch.ops import extract as ex
+    """Least time for this launch's work (obs.kernel_cost's model): the
+    larger of the bytes over HBM bandwidth (inputs read once, outputs
+    written once) and the products this data needs over the peak for
+    their type (with the gate on, only the tiles the gate let through,
+    from ``iters``)."""
+    from dmlp_tpu_torch.obs import counters, kernel_cost
     qb, na = q.shape
-    b = d.shape[0]
-    nbytes = 4 * (qb * na + b * na) + 8 * qb * kc * (2 if carried else 1) \
-        + 4 * iters.numel()
-    ops = 2.0 * na * (ex.QUERY_TILE * ex.BLOCK_ROWS * int(iters.sum())
-                      if gate else qb * b)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[precision]
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    cost = (kernel_cost.fused_topk_cost if gate
+            else kernel_cost.extract_topk_cost)(
+        qb, d.shape[0], na, kc, int(iters.sum()), precision,
+        carried=carried)
+    return kernel_cost.bound_ms(cost, counters.PEAKS[H100])
 
 
 def config_text(name: str) -> str:
@@ -1370,6 +1391,214 @@ def main_path(tune_path):
     return launches
 
 
+def _scrape_while(fn):
+    """Run ``fn()`` while a thread scrapes the telemetry session's
+    ``GET /metrics`` every 50 ms; returns (fn's result, the last text
+    scraped while the session was open, or None)."""
+    import threading
+    import urllib.request
+    from dmlp_tpu_torch.obs import telemetry
+    got, stop = [], threading.Event()
+
+    def scrape():
+        while not stop.wait(0.05):
+            sess = telemetry.session()
+            if sess is None or sess.http_port is None:
+                continue
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{sess.http_port}/metrics",
+                        timeout=5) as r:
+                    got.append(r.read().decode())
+            except OSError:
+                pass       # the session closed between the read and GET
+    t = threading.Thread(target=scrape, daemon=True)
+    t.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        t.join(timeout=10)
+    return out, (got[-1] if got else None)
+
+
+def obs_solve(name, flags, tmp_dir, label, check_files=True):
+    """One ``cli.main`` solve with every obs flag on (a trace, a metrics
+    file, ``--counters``, a telemetry file and an ephemeral scrape port;
+    ``--warmup`` where ``check_files``), the launch counts set to 0 before
+    it: returns (stdout, Time taken, the summary record, the last scrape,
+    launches, stderr lines), with ``tools/check_trace.py`` passing the
+    trace and the metrics where ``check_files``."""
+    from dmlp_tpu_torch import cli, kernels
+    paths = {k: os.path.join(tmp_dir, f"{label}.{k}")
+             for k in ("trace", "metrics", "telemetry")}
+    argv = [*flags, "--trace", paths["trace"], "--metrics",
+            paths["metrics"], "--counters", "--telemetry",
+            paths["telemetry"], "--telemetry-port", "0"] \
+        + (["--warmup"] if check_files else [])
+    out, err = io.StringIO(), io.StringIO()
+    kernels.reset_launch_counts()
+    rc, text = _scrape_while(lambda: cli.main(
+        argv, stdin=io.StringIO(config_text(name)), stdout=out, stderr=err))
+    launches = dict(kernels.LAUNCHES)
+    check(rc == 0, f"{label}: cli.main returned {rc}")
+    lines = err.getvalue().splitlines()
+    m = re.fullmatch(r"Time taken: (\d+) ms", lines[0])
+    check(m is not None and lines[1].startswith("counters: ")
+          and lines[2].startswith("roofline: "),
+          f"{label}: stderr {lines[:3]}")
+    if not check_files:
+        return out.getvalue(), int(m.group(1)), None, text, launches, lines
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run([sys.executable, "tools/check_trace.py",
+                        paths["trace"], paths["metrics"]],
+                       capture_output=True, text=True, cwd=here, timeout=120)
+    check(p.returncode == 0, f"{label}: check_trace: {p.stdout}{p.stderr}")
+    with open(paths["metrics"]) as f:
+        summary = json.loads(f.read().splitlines()[-1])
+    return out.getvalue(), int(m.group(1)), summary, text, launches, lines
+
+
+def obs_kernel_checks(label, counters, launches, want):
+    """The counters of one obs solve against the launches: each kernel's
+    recorded launches are the timed solve's (half the run's, which has a
+    warm-up) and the plan's ``want``, and no kernel's device time beats
+    the least time its modeled bytes and products need (bound share at
+    most 1.05). Returns each kernel's achieved rate and shares."""
+    from dmlp_tpu_torch.obs.counters import PEAKS
+    per = counters["per_kernel"]
+    rows = {}
+    for k in KERNELS:
+        n = per.get(k, {}).get("dispatches", 0)
+        check(2 * n == launches[k] and n == want.get(k, 0),
+              f"{label}: {k} recorded {n} launches, LAUNCHES {launches[k]} "
+              f"(warm-up included), the plan {want.get(k, 0)}")
+        if not n:
+            continue
+        agg = per[k]
+        check(agg.get("timed_launches") == n and agg["device_ms"] > 0,
+              f"{label}: {k}: {agg.get('timed_launches')} of {n} launches "
+              "timed")
+        share = agg["bound_ms"] / agg["device_ms"]
+        rate = agg["flops"] / agg["device_ms"] * 1e3
+        rows[k] = {"launches": n, "device_ms": agg["device_ms"],
+                   "flops": agg["flops"], "bytes_min": agg["bytes_min"],
+                   "bytes_accessed": agg["bytes_accessed"],
+                   "achieved_flops_per_s": rate,
+                   "peak_share": rate / PEAKS[H100][agg["precision"]],
+                   "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
+                   "bound_share": share}
+        check(share <= 1.05, f"{label}: {k} bound share {share:.3f}: its "
+                             "device time is below the least time its "
+                             "work needs")
+    return rows
+
+
+def obs_phase(tmp_dir):
+    """Observability on the card (``dmlp_tpu_torch.obs``): config 4 (K1
+    and its merge) and config 2 with ``--select seg`` (K3) through
+    ``cli.main`` with every obs flag on. Each prints the bytes of the
+    flag-free solve; its trace and metrics pass ``tools/check_trace.py``;
+    its ``GET /metrics`` scrape, taken while the session is open, passes
+    ``validate_openmetrics``; each kernel's recorded launches are the
+    plan's and LAUNCHES'; K1's and the merge's FLOPs equal
+    obs.kernel_cost's sum over the launches, K1's with the measured
+    ``iters``; no kernel reads below its roofline bound. Then config 4's
+    ``Time taken`` with every flag on and with none, 3 runs each,
+    interleaved, after those solves warmed the process: for information.
+    The phase opens no ``torch.profiler`` session: a second profiler user
+    in one process read wrong device times in the profile phase."""
+    t_phase = time.perf_counter()
+    # No tune cache: every launch knob takes its heuristic, as the plan
+    # below computes it.
+    os.environ["DMLP_TPU_TUNE_CACHE"] = os.path.join(tmp_dir, "absent.json")
+    try:
+        _obs_runs(tmp_dir, t_phase)
+    finally:
+        os.environ.pop("DMLP_TPU_TUNE_CACHE")
+
+
+def _obs_runs(tmp_dir, t_phase):
+    from dmlp_tpu_torch import cli
+    from dmlp_tpu_torch.obs import kernel_cost
+    from dmlp_tpu_torch.obs.telemetry import validate_openmetrics
+    from dmlp_tpu_torch.ops.extract import heuristic_splits
+
+    for label, (name, flags) in (("config4_K1", ("config4", ["--pallas"])),
+                                 ("config2_seg", ("config2", [
+                                     "--select", "seg", "--pallas"]))):
+        if label not in OUTPUTS:
+            out = io.StringIO()
+            check(cli.main(flags, stdin=io.StringIO(config_text(name)),
+                           stdout=out, stderr=io.StringIO()) == 0,
+                  f"obs: the {label} reference solve failed")
+            OUTPUTS[label] = out.getvalue()
+    records = {}
+    # Config 4: K1 over 4 chunks of 50,176 rows at kc 48, the first fresh,
+    # a merge per launch where the launch splits.
+    (n4, qb, b, kc), = MAIN_RUNS[1][5]
+    s4 = heuristic_splits(qb, b, kc, "cuda")
+    text, _taken, rec, scrape, launches, lines = obs_solve(
+        "config4", ["--pallas"], tmp_dir, "obs_config4")
+    check(text == OUTPUTS["config4_K1"],
+          "obs_config4: stdout with every obs flag differs from config 4's")
+    check(scrape is not None and validate_openmetrics(scrape) == [],
+          f"obs_config4: GET /metrics: "
+          f"{scrape and validate_openmetrics(scrape)}")
+    c = rec["counters"]
+    want = {"fused_topk": n4, "extract_merge": n4 if s4 > 1 else 0}
+    rows = obs_kernel_checks("obs_config4", c, launches, want)
+    iters = c["per_kernel"]["fused_topk"]["extract_iters_total"]
+    k1 = sum(kernel_cost.fused_topk_cost(
+        qb, b, 64, kc, carried=i > 0, splits=s4)["flops"]
+        for i in range(n4)) + kernel_cost.extract_loop_cost(qb, b, 64, kc,
+                                                            iters)
+    got = c["per_kernel"]["fused_topk"]["flops"]
+    check(c["per_kernel"]["fused_topk"]["extraction_term"] == "measured"
+          and abs(got - k1) <= 1e-9 * k1,
+          f"obs_config4: K1 flops {got} != kernel_cost's {k1}")
+    if s4 > 1:
+        mg = sum(kernel_cost.extract_merge_cost(qb, kc, s4, i > 0)["flops"]
+                 for i in range(n4))
+        got = c["per_kernel"]["extract_merge"]["flops"]
+        check(abs(got - mg) <= 1e-9 * mg,
+              f"obs_config4: merge flops {got} != kernel_cost's {mg}")
+    records["config4"] = {"stderr": lines[1:3], "kernels": rows,
+                          "mem": rec.get("mem"), "splits": s4,
+                          "kernels_idle_share": c.get("kernels_idle_share"),
+                          "extract_iters_total": iters,
+                          "scrape_lines": len(scrape.splitlines())}
+    # Config 2 with --select seg: K3 10 times (2 chunks x 5 query blocks).
+    text, _taken, rec, scrape, launches, lines = obs_solve(
+        "config2", ["--select", "seg", "--pallas"], tmp_dir, "obs_config2")
+    check(text == OUTPUTS["config2_seg"],
+          "obs_config2: stdout with every obs flag differs from config 2's")
+    check(scrape is not None and validate_openmetrics(scrape) == [],
+          "obs_config2: GET /metrics does not validate")
+    records["config2_seg"] = {
+        "stderr": lines[1:3],
+        "kernels": obs_kernel_checks("obs_config2", rec["counters"],
+                                     launches, MAIN_RUNS[4][4]),
+        "mem": rec.get("mem"),
+        "kernels_idle_share": rec["counters"].get("kernels_idle_share")}
+    # Time taken, config 4, every flag on against none, 3 runs each,
+    # interleaved, after the solves above warmed this process.
+    taken_on, taken_off = [], []
+    for i in range(3):
+        out, err = io.StringIO(), io.StringIO()
+        check(cli.main(["--pallas"], stdin=io.StringIO(
+            config_text("config4")), stdout=out, stderr=err) == 0,
+            "obs: the flag-free config-4 solve failed")
+        taken_off.append(int(err.getvalue().split()[2]))
+        taken_on.append(obs_solve("config4", ["--pallas"], tmp_dir,
+                                  f"obs_config4_{i}", check_files=False)[1])
+    emit({"phase": "obs", "records": records,
+          "time_taken_on_ms": taken_on, "time_taken_off_ms": taken_off,
+          "time_taken_on_median_ms": sorted(taken_on)[1],
+          "time_taken_off_median_ms": sorted(taken_off)[1],
+          "phase_s": time.perf_counter() - t_phase})
+
+
 # The mesh phase's solves through the port's entry points on the card:
 # (run, config, flags, world, backend, the single-device run whose stdout
 # it must equal, DMLP_TPU_FUSED). Config 3 (configs.py:64) is config 2's
@@ -1483,7 +1712,39 @@ def nccl_two_ranks_one_card():
           "stdout": [o.strip()[-200:] for o, _e in outs], "errors": errs})
 
 
-def mesh_phase():
+def mesh_comms_check(label, name, shape, metrics):
+    """The mesh run's metrics record: its ``comms`` block (every rank's
+    traffic record, gathered to rank 0 and equal on every rank) equals
+    obs.comms' analytic bytes for this mesh and plan — the root's scatters
+    of the row and query shards, the all-gather merge over the data axis,
+    row 0's gather over the query axis."""
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.single import plan_chunks
+    from dmlp_tpu_torch.obs import comms
+    with open(metrics) as f:
+        rec = json.loads(f.read().splitlines()[-1])
+    nchunks, qloc, chunk_rows, kc, oqloc = mesh_k1_plan(name, *shape)
+    check(oqloc is None, f"{label}: the comms check expects no outliers")
+    inp = config_input(name)
+    shard_rows = plan_chunks(-(-inp.params.num_data // shape[0]),
+                             EngineConfig(use_pallas=True).resolve_granule(
+                                 "extract"), None)[0]
+    want = comms.summarize(
+        comms.scatter_comms(shape, shard_rows, inp.params.num_attrs,
+                            [qloc])
+        + comms.engine_comms("allgather", shape, qloc, kc)
+        + comms.gather_comms(shape, qloc, kc))
+    got = rec["comms"]
+    emit({"phase": "mesh_comms", "run": label, "comms": got,
+          "counters_dispatches": rec["counters"].get(
+              "dispatches_recorded")})
+    check(got["ranks_agree"] and got["bytes_total"] == want["bytes_total"]
+          and got["collectives"] == want["collectives"],
+          f"{label}: comms {got['bytes_total']} B != the analytic "
+          f"{want['bytes_total']} B")
+
+
+def mesh_phase(tmp_dir):
     """The mesh engines through ``cli.main`` on the card (rank 0 in this
     process; the (4, 2) runs start 7 more ranks on cuda:0 with gloo), and
     bench config 5 through ``python -m dmlp_tpu_torch.distributed
@@ -1550,10 +1811,15 @@ def mesh_phase():
         # The ranks this process starts inherit its environment.
         os.environ["DMLP_TPU_FUSED"] = fused
         t0 = time.perf_counter()
+        # One run also writes the metrics record: its comms block is held
+        # against obs.comms' analytic bytes for this mesh.
+        metrics = os.path.join(tmp_dir, f"{label}.metrics") \
+            if label == "mesh_4x2_config3" else None
         # --warmup: each rank's first solve (its kernels' load, its CUDA
         # context's first allocations) stays out of the timed one.
         try:
-            rc = cli.main(flags + ["--warmup", "--phase-times"],
+            rc = cli.main(flags + ["--warmup", "--phase-times"]
+                          + (["--metrics", metrics] if metrics else []),
                           stdin=io.StringIO(config_text(name)), stdout=out,
                           stderr=err)
         finally:
@@ -1602,6 +1868,8 @@ def mesh_phase():
         check(text == OUTPUTS[same_as],
               f"{label}: stdout differs from {same_as}'s")
         golden_subset(label, name, text.splitlines(), 1000)
+        if metrics:
+            mesh_comms_check(label, name, (r, cc), metrics)
 
     # Bench config 5: 2 processes through the supervised launcher.
     c = CONFIGS["config5"]
@@ -1762,6 +2030,12 @@ def serve_check_batches(label, geo, stats, seen, launches):
         check(b["launches"] == want,
               f"{label}: batch {b['seq']} ({b['bucket']}, {b['path']}, "
               f"{b['rung']}) launched {b['launches']}, its plan {want}")
+        # With the telemetry session's probe: the launches it recorded.
+        check("dispatches" not in b or all(
+            b["dispatches"].get(k, 0) == n for k, n in
+            b["launches"].items()),
+            f"{label}: batch {b['seq']} recorded {b.get('dispatches')}, "
+            f"launched {b['launches']}")
         qpad, kb = b["qpad"], int(b["bucket"].split("k")[1])
         if b["rung"] != "streaming" and b["path"] == "extract":
             shapes = [(qpad, geo["chunk_rows"], 64, geo["kcap"][kb])]
@@ -1800,7 +2074,7 @@ def serve_phase(tmp_dir):
     second = reqs[:14]
     admitted_before = len(reqs) + len(second)
 
-    def start(label, faults, warm_spec):
+    def start(label, faults, warm_spec, obs_flags=()):
         fpath = os.path.join(tmp_dir, f"{label}_faults.json")
         with open(fpath, "w") as f:
             json.dump({"schema": 1, "seed": 0, "faults": faults}, f)
@@ -1815,7 +2089,7 @@ def serve_phase(tmp_dir):
         proc = subprocess.Popen(
             [sys.executable, "-m", "dmlp_tpu_torch.serve", "--corpus",
              corpus_path, "--pallas", "--port", "0", "--ready-file", ready,
-             "--warm-buckets", warm_spec, "--faults", fpath],
+             "--warm-buckets", warm_spec, "--faults", fpath, *obs_flags],
             stdout=subprocess.DEVNULL, stderr=ef, env=env,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         ef.close()
@@ -1839,9 +2113,14 @@ def serve_phase(tmp_dir):
     launches = {"serve_replay": {}, "serve_ladder": {}}
     # -- the daemon: warm-up, replay, ingest, replay, squeeze, drain -------
     spec = ",".join(f"{nq}x{k}" for nq, k in warm)
+    # The first daemon runs the telemetry session (the scrape port, the
+    # probe behind each batch's recorded launches) and one SLO objective.
     proc, ready, err = start(
         "serve", [{"site": "serve.admit", "kind": "oom",
-                   "after": admitted_before}], spec)
+                   "after": admitted_before}], spec,
+        ["--telemetry", os.path.join(tmp_dir, "serve_telemetry.om"),
+         "--telemetry-port", "0", "--slo",
+         "serve.request_latency_ms p99 < 60000 over 5m"])
     try:
         cli = sc.ServeClient(ready["port"])
         st0 = cli.stats()["stats"]
@@ -1856,6 +2135,7 @@ def serve_phase(tmp_dir):
         eng1 = st1["engine"]
         seq = serve_check_batches("serve replay", geo, st1, seq,
                                   launches["serve_replay"])
+        scrape = serve_scrape(ready, st1)
         check(eng1["compile_count"] == ready["compile_count"]
               and eng1["kernel_loads"] == ready["kernel_loads"]
               and eng1["buckets"] == ready["buckets"],
@@ -1977,8 +2257,31 @@ def serve_phase(tmp_dir):
           "launches": launches,
           "device_memory": st3.get("device_memory"),
           "ladder_rungs": rungs, "ladder_cold_start_ms":
-          lready["cold_start_compile_ms"]})
+          lready["cold_start_compile_ms"], "scrape": scrape,
+          "slo": st3.get("slo")})
     return launches
+
+
+def serve_scrape(ready, stats):
+    """``GET /metrics`` of the daemon's telemetry session after the
+    replay: it validates, its request-latency histogram counts every
+    request served, and the stats op carries the SLO block."""
+    import urllib.request
+    from dmlp_tpu_torch.obs.telemetry import validate_openmetrics
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{ready['telemetry_port']}/metrics",
+            timeout=30) as r:
+        text = r.read().decode()
+    problems = validate_openmetrics(text)
+    count = [int(ln.split()[1]) for ln in text.splitlines()
+             if ln.startswith("serve_request_latency_ms_count ")]
+    check(not problems, f"serve: GET /metrics: {problems[:3]}")
+    check(count == [stats["requests_completed"]],
+          f"serve: request latency count {count}, served "
+          f"{stats['requests_completed']}")
+    check("slo" in stats and stats["slo"]["objectives"],
+          f"serve: no SLO block in stats: {stats.get('slo')}")
+    return {"lines": len(text.splitlines()), "request_count": count[0]}
 
 
 def real_oom():
@@ -2039,6 +2342,7 @@ def profile_main_path():
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.engine.single import SingleChipEngine
     from dmlp_tpu_torch.io.report import format_results
+    from dmlp_tpu_torch.obs.counters import busy_ms
 
     for label, name, select in (("config4_K1", "config4", "auto"),
                                 ("widek_mix", "widek_mix", "auto"),
@@ -2059,15 +2363,7 @@ def profile_main_path():
                if e.device_type == torch.autograd.DeviceType.CUDA]
         check(len(dev) > 0, f"{label}: the profiler recorded no device "
                             "activity")
-        spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-        busy_us, cur_s, cur_e = 0.0, None, None
-        for a, b in spans:
-            if cur_e is None or a > cur_e:
-                busy_us += 0 if cur_e is None else cur_e - cur_s
-                cur_s, cur_e = a, b
-            else:
-                cur_e = max(cur_e, b)
-        busy_us += cur_e - cur_s
+        busy = busy_ms((e.time_range.start, e.time_range.end) for e in dev)
         by_name = {}
         for e in dev:
             by_name[e.name] = by_name.get(e.name, 0.0) \
@@ -2081,8 +2377,8 @@ def profile_main_path():
         emit({"phase": "profile", "run": label, "wall_ms": wall_ms,
               "engine_phases_ms": engine.last_phase_ms,
               "repairs": engine.last_repairs,
-              "device_busy_ms": busy_us / 1e3,
-              "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+              "device_busy_ms": busy,
+              "device_idle_share": 1 - busy / wall_ms,
               "host_scalar_reads": len(syncs),
               "host_scalar_read_ms": sum(
                   e.time_range.elapsed_us() for e in syncs) / 1e3,
@@ -2131,8 +2427,10 @@ def main(argv=None) -> int:
         tune_path = phase_tune(sweep_inputs, g_inputs, tmp.name)
         del sweep_inputs, g_inputs
     launches = main_path(tune_path) if "main" in phases else {}
+    if "obs" in phases:
+        obs_phase(tmp.name)
     if "mesh" in phases:
-        launches.update(mesh_phase())
+        launches.update(mesh_phase(tmp.name))
     if "serve" in phases:
         launches.update(serve_phase(tmp.name))
     if "real_oom" in phases:

@@ -29,11 +29,30 @@ on the card and gloo on the CPU; ``--backend gloo`` runs the ranks on
 shared cards (NCCL takes one card per rank) with gloo collectives staged
 through host memory. ``--phase-times`` then also prints the mesh, the
 backend and each rank's device, phases and kernel launches.
+
+Observability (``dmlp_tpu_torch.obs``) is opt-in and leaves both contract
+channels byte-identical; its extra stderr lines come after ``Time
+taken``. ``--trace FILE`` writes a Perfetto-loadable span trace,
+``--metrics FILE`` appends JSONL records whose final summary carries the
+per-kernel cost counters (analytic FLOPs and bytes of every launch, and
+on the card each kernel's CUDA-event device time and roofline share),
+the collective traffic of the mesh engines, the memory model against the
+allocator's peak, the scan, precision and resilience records;
+``--counters`` prints the ``counters:`` / ``roofline:`` summary on stderr;
+``--telemetry FILE`` / ``--telemetry-port PORT`` run the live telemetry
+session (OpenMetrics snapshot and scrape endpoint, device-memory sampler,
+crash flight recorder, ``FLIGHT_*.json`` beside FILE); ``--profile DIR``
+writes a ``torch.profiler`` Chrome trace of the timed solve, and the
+summary's ``profile`` block the device's busy time and idle share over
+it. On the mesh
+rank 0 writes every artifact, and the ranks' counters are gathered into
+its record.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -43,6 +62,7 @@ from typing import IO, Optional, Sequence
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.io.grammar import parse_input
 from dmlp_tpu_torch.io.report import format_results
+from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.utils.timing import EngineTimer
 
 
@@ -99,6 +119,29 @@ def build_parser() -> argparse.ArgumentParser:
                              "dmlp_tpu_torch.resilience.inject); "
                              "$DMLP_TPU_FAULTS sets it too. Recovery keeps "
                              "stdout byte-identical")
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="write a torch.profiler Chrome trace of the "
+                             "timed solve to DIR/profile.json")
+    parser.add_argument("--trace", metavar="FILE", default=None,
+                        help="write a Perfetto/Chrome-trace JSON of the "
+                             "run's spans to FILE (obs.trace)")
+    parser.add_argument("--metrics", metavar="FILE", default=None,
+                        help="append JSONL metrics to FILE; the final "
+                             "summary record carries the cost counters and "
+                             "the collective traffic")
+    parser.add_argument("--counters", action="store_true",
+                        help="print the cost counters and the roofline on "
+                             "stderr after the contract line")
+    parser.add_argument("--telemetry", metavar="FILE", default=None,
+                        help="live telemetry (obs.telemetry): rewrite FILE "
+                             "as an OpenMetrics snapshot, sample the "
+                             "device's memory, arm the crash flight "
+                             "recorder (FLIGHT_*.json beside FILE)")
+    parser.add_argument("--telemetry-port", type=int, default=None,
+                        metavar="PORT",
+                        help="serve the OpenMetrics text on "
+                             "localhost:PORT/metrics (0 = ephemeral; "
+                             "implies the telemetry session)")
     return parser
 
 
@@ -159,16 +202,59 @@ def main(argv: Optional[Sequence[str]] = None,
 
     from dmlp_tpu_torch.resilience import inject as rs_inject
     from dmlp_tpu_torch.resilience import stats as rs_stats
-    rs_stats.reset()
+    mesh = args.engine == "torch" and args.mode in ("sharded", "ring")
+    # A mesh rank started by local_cluster or torchrun carries RANK: only
+    # rank 0 writes the trace, the telemetry file and the metrics; every
+    # rank counts its own launches for rank 0's record.
+    root = not mesh or os.environ.get("RANK", "0") == "0"
+    rs_stats.reset()   # resets the registry's resilience.* counters too
+    tracer = probe = session = None
+    telemetry_on = root and (args.telemetry
+                             or args.telemetry_port is not None)
+    if (args.metrics or telemetry_on) and args.device == "cuda":
+        import torch
+        if torch.cuda.is_available():
+            # The memory record and the sampler read the allocator's
+            # peak: this run's, not one an earlier caller in this process
+            # reached (reset before the sampler's first tick).
+            torch.cuda.reset_peak_memory_stats()
+    if telemetry_on:
+        from dmlp_tpu_torch.obs import telemetry
+        session = telemetry.start(path=args.telemetry,
+                                  port=args.telemetry_port,
+                                  device=args.device)
+    if root and args.trace:
+        from dmlp_tpu_torch.obs import trace as obs_trace
+        tracer = obs_trace.install(
+            obs_trace.Tracer(annotate=bool(args.profile)))
+    if args.metrics or args.counters:
+        from dmlp_tpu_torch.obs import counters as obs_counters
+        probe = obs_counters.install()
     schedule = rs_inject.install_from_env(args.faults)
     try:
-        if args.engine == "torch" and args.mode in ("sharded", "ring"):
-            return _run_mesh_cli(args, argv, stdin, stdout, stderr)
-        return _run_cli(args, stdin, stdout, stderr)
+        if mesh:
+            return _run_mesh_cli(args, argv, stdin, stdout, stderr, probe)
+        return _run_cli(args, stdin, stdout, stderr, probe, tracer)
+    except Exception:
+        # The flight recorder's reason to exist: the last spans, events
+        # and metric deltas survive the crash as FLIGHT_*.json. A usage
+        # error's SystemExit is not a crash.
+        if session is not None:
+            from dmlp_tpu_torch.obs import telemetry
+            telemetry.dump_on_crash("crash")
+        raise
     finally:
         if schedule is not None:
             rs_inject.write_log_if_requested()
             rs_inject.uninstall()
+        if tracer is not None:
+            from dmlp_tpu_torch.obs import trace as obs_trace
+            obs_trace.uninstall()
+        if probe is not None:
+            from dmlp_tpu_torch.obs import counters as obs_counters
+            obs_counters.uninstall()
+        if session is not None:
+            session.close()
 
 
 def _config(args) -> EngineConfig:
@@ -180,7 +266,36 @@ def _config(args) -> EngineConfig:
                         device=args.device)
 
 
-def _run_cli(args, stdin, stdout, stderr) -> int:
+def _profiled(args, out: dict):
+    """``--profile DIR``: a torch.profiler capture of the timed solve
+    (the card's kernels and copies with it on CUDA), written as
+    DIR/profile.json; ``out`` receives the device's busy time and idle
+    share over the window (obs.counters.profile_block)."""
+    if not args.profile:
+        return contextlib.nullcontext()
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlp_tpu_torch.obs.counters import profile_block
+
+    @contextlib.contextmanager
+    def capture():
+        acts = [ProfilerActivity.CPU]
+        if args.device == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            yield
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, "profile.json")
+        prof.export_chrome_trace(path)
+        out.update(profile_block(prof, wall_ms), trace=path)
+    return capture()
+
+
+def _run_cli(args, stdin, stdout, stderr, probe, tracer) -> int:
     config = _config(args)
     engine = None
     if args.engine == "torch":
@@ -188,7 +303,8 @@ def _run_cli(args, stdin, stdout, stderr) -> int:
         engine = make_engine(config)
 
     timer = EngineTimer()
-    with timer.phase("parse"):
+    prof = {}    # --profile's device busy time and idle share
+    with timer.phase("parse"), obs_span("cli.parse"):
         inp = parse_input(stdin)
 
     # Only the solve is timed, matching the reference's timed region
@@ -196,15 +312,22 @@ def _run_cli(args, stdin, stdout, stderr) -> int:
     if engine is None:
         timer.start()
         from dmlp_tpu_torch.golden.reference import knn_golden
-        results = knn_golden(inp)
+        with obs_span("cli.solve", engine="golden"):
+            results = knn_golden(inp)
     else:
         solve = engine.run_device_full if args.device_full else engine.run
         if args.warmup:
-            with timer.phase("warmup"):
+            with timer.phase("warmup"), obs_span("cli.warmup_compile"):
                 solve(inp)
-        timer.start()
-        results = solve(inp)
-    with timer.phase("format"):
+            if probe is not None:
+                # The warm-up recorded the launches the timed solve is
+                # about to make; counters cover the timed solve only.
+                probe.reset()
+        with _profiled(args, prof):
+            timer.start()
+            with obs_span("cli.solve", mode=args.mode, engine="torch"):
+                results = solve(inp)
+    with timer.phase("format"), obs_span("cli.format_results"):
         text = format_results(results, debug=config.debug)
     timer.stop()
 
@@ -221,10 +344,119 @@ def _run_cli(args, stdin, stdout, stderr) -> int:
             stderr.write(f"repairs: {engine.last_repairs}\n")
             stderr.write(f"rung: {engine.last_degrade_rung}\n")
             stderr.write(f"prune: {json.dumps(engine.last_prune)}\n")
+    # -- the observability epilogue (after the contract lines) -------------
+    if probe is not None or tracer is not None:
+        counters = None
+        if probe is not None:
+            with obs_span("cli.collect_counters"):
+                counters = probe.collect()
+        _epilogue(args, inp, timer, engine, counters, stderr, prof=prof)
+        if tracer is not None:
+            tracer.write(args.trace)
     return 0
 
 
-def _run_mesh_cli(args, argv, stdin, stdout, stderr) -> int:
+def _epilogue(args, inp, timer, engine, counters, stderr, comms=None,
+              prof=None) -> None:
+    """The metrics record and the ``--counters`` lines of one run (rank 0
+    on the mesh), outside the timed region."""
+    phase_ms = dict(timer.phase_ms)
+    if engine is not None:
+        phase_ms.update(getattr(engine, "last_phase_ms", {}))
+    if comms is None and engine is not None and engine.last_comms:
+        from dmlp_tpu_torch.obs.comms import summarize
+        comms = summarize(engine.last_comms)
+    kernel_ms = sum(p.get("device_ms", 0.0) for p in (counters or {}).get(
+        "per_kernel", {}).values())
+    if kernel_ms and timer.elapsed_ms:
+        # The timed region as the kernels' events see it: any other
+        # device work (copies, PyTorch's own kernels) counts as idle, so
+        # this idle share is an upper bound (--profile measures it).
+        counters["kernels_device_ms"] = kernel_ms
+        counters["kernels_idle_share"] = 1.0 - kernel_ms / timer.elapsed_ms
+    mem = None
+    if args.metrics and engine is not None:
+        # The memory model against the sampler's tracked peak when a
+        # session ran, else the allocator's peak (the explicit marker
+        # on the CPU).
+        from dmlp_tpu_torch.obs import memwatch, telemetry
+        try:
+            model = memwatch.model_for_engine(engine, inp)
+            sess = telemetry.session()
+            measured = (sess.sampler.measured_peak() if sess
+                        else memwatch.peak_watermark(engine.device))
+            mem = memwatch.reconcile(model, measured)
+        except Exception:  # obs never fails a run: counted, not raised
+            telemetry.registry().counter("obs.errors").inc(label="mem")
+    if args.metrics:
+        _emit_metrics(args, inp, timer, phase_ms, counters, comms, engine,
+                      mem, prof)
+    if args.counters:
+        _emit_counters_stderr(counters, timer.elapsed_ms, stderr,
+                              engine.device if engine is not None
+                              else None)
+
+
+def _emit_metrics(args, inp, timer, phase_ms, counters, comms, engine,
+                  mem, prof) -> None:
+    """Append per-phase records and one run summary to the metrics JSONL.
+    The summary always carries a ``counters`` block: the cost counters or
+    the explicit ``counters_unavailable`` marker, never silence."""
+    from dmlp_tpu_torch.obs.run import SCHEMA_VERSION
+    from dmlp_tpu_torch.resilience import inject as rs_inject
+    from dmlp_tpu_torch.resilience import stats as rs_stats
+    from dmlp_tpu_torch.utils.metrics_log import MetricsLogger
+
+    with MetricsLogger(path=args.metrics) as mlog:
+        for name, ms in phase_ms.items():
+            mlog.log(event="phase", name=name, ms=round(ms, 3))
+        summary = {
+            "event": "summary", "schema": SCHEMA_VERSION,
+            "mode": args.mode, "engine": args.engine,
+            "exact": not args.fast,
+            "elapsed_ms": round(timer.elapsed_ms, 3),
+            "num_data": inp.params.num_data,
+            "num_queries": inp.params.num_queries,
+            "num_attrs": inp.params.num_attrs,
+            "counters": counters if counters is not None
+            else {"counters_unavailable": True},
+        }
+        extras = {"comms": comms, "profile": prof or None,
+                  "extract_impl": getattr(engine, "last_extract_impl",
+                                          None),
+                  "mem": mem, "prune": getattr(engine, "last_prune", None),
+                  "precision": getattr(engine, "last_precision", None)}
+        summary.update({k: v for k, v in extras.items() if v is not None})
+        # Recovery is never silent: with any resilience activity, or a
+        # fault schedule installed, the summary carries the counters.
+        if rs_stats.any_activity() or rs_inject.active() is not None:
+            summary["resilience"] = rs_stats.snapshot()
+        mlog.log(**summary)
+
+
+def _emit_counters_stderr(counters, elapsed_ms: float, stderr,
+                          device) -> None:
+    """The ``--counters`` summary, after the contract line."""
+    if not counters or counters.get("counters_unavailable"):
+        stderr.write("counters: unavailable (no recorded launches)\n")
+        return
+    from dmlp_tpu_torch.obs.counters import roofline
+    stderr.write(f"counters: flops={counters['flops']:.4e} "
+                 f"hbm_bytes={counters['bytes_accessed']:.4e} "
+                 f"dispatches={counters['dispatches_recorded']}\n")
+    rl = roofline(counters["flops"], counters["bytes_accessed"],
+                  elapsed_ms / 1e3, device=device)
+    if "achieved_flops_per_s" in rl:
+        line = f"roofline: {rl['achieved_flops_per_s']:.4e} FLOP/s achieved"
+        if "utilization_vs_peak" in rl:
+            line += (f", {rl['utilization_vs_peak'] * 100:.3f}% of "
+                     f"{rl['peak_flops_per_chip']:.3g} peak")
+        if "arithmetic_intensity" in rl:
+            line += f", {rl['arithmetic_intensity']:.2f} FLOP/B"
+        stderr.write(line + "\n")
+
+
+def _run_mesh_cli(args, argv, stdin, stdout, stderr, probe) -> int:
     """The mesh engines: join the cluster torchrun started, or start one
     of R * C ranks on this host with this process as rank 0."""
     from dmlp_tpu_torch.parallel import distributed as pd
@@ -251,31 +483,44 @@ def _run_mesh_cli(args, argv, stdin, stdout, stderr) -> int:
                 backend=args.backend)
     config = dataclasses.replace(config, mesh_shape=tuple(shape))
     with group:
-        return _solve_on_mesh(args, config, stdin, stdout, stderr)
+        return _solve_on_mesh(args, config, stdin, stdout, stderr, probe)
 
 
-def _solve_on_mesh(args, config, stdin, stdout, stderr) -> int:
+def _solve_on_mesh(args, config, stdin, stdout, stderr, probe) -> int:
     """Every rank: the same solves in step; rank 0 parses, times, prints."""
     from dmlp_tpu_torch import kernels
     from dmlp_tpu_torch.parallel.collectives import gather_objects
 
     engine = make_engine(config)
     timer = EngineTimer()
+    prof = {}
     inp = None
     if engine.root:
-        with timer.phase("parse"):
+        with timer.phase("parse"), obs_span("cli.parse"):
             inp = parse_input(stdin)
     solve = engine.run_device_full if args.device_full else engine.run
     if args.warmup:
-        with timer.phase("warmup"):
+        with timer.phase("warmup"), obs_span("cli.warmup_compile"):
             solve(inp)
-    timer.start()
-    results = solve(inp)
+        if probe is not None:
+            probe.reset()
+    with _profiled(args, prof) if engine.root \
+            else contextlib.nullcontext():
+        timer.start()
+        with obs_span("cli.solve", mode=args.mode, engine="torch"):
+            results = solve(inp)
     text = None
     if engine.root:
-        with timer.phase("format"):
+        with timer.phase("format"), obs_span("cli.format_results"):
             text = format_results(results, debug=config.debug)
         timer.stop()
+    # Every rank's counters and traffic record, gathered to rank 0 (the
+    # same flags on every rank, so every rank takes part).
+    obs_ranks = gather_objects({
+        "rank": engine.rank,
+        "counters": probe.collect(),
+        "comms": [t.to_dict() for t in engine.last_comms]}) \
+        if probe is not None else None
     ranks = gather_objects({
         "rank": engine.rank, "coords": list(engine.coords),
         "device": str(engine.device), "phases_ms": engine.last_phase_ms,
@@ -296,6 +541,20 @@ def _solve_on_mesh(args, config, stdin, stdout, stderr) -> int:
         stderr.write("mesh: " + json.dumps({
             "mode": config.mode, "shape": list(config.mesh_shape),
             "backend": engine.backend, "ranks": ranks}) + "\n")
+    if obs_ranks is not None:
+        from dmlp_tpu_torch.obs.comms import summarize
+        from dmlp_tpu_torch.obs.counters import merge_collected
+        comms = summarize(engine.last_comms)
+        # Every rank models the whole mesh's traffic from the one plan.
+        comms["ranks_agree"] = all(r["comms"] == obs_ranks[0]["comms"]
+                                   for r in obs_ranks)
+        _epilogue(args, inp, timer, engine,
+                  merge_collected([r["counters"] for r in obs_ranks]),
+                  stderr, comms=comms, prof=prof)
+    from dmlp_tpu_torch.obs import trace as obs_trace
+    tracer = obs_trace.active()
+    if tracer is not None:
+        tracer.write(args.trace)
     return 0
 
 

@@ -21,6 +21,13 @@ processes of this entry on this host under heartbeat and deadline
 supervision (``resilience.supervise``); a dead or hung rank kills and
 relaunches the cluster (``--max-launches``), and then the solve degrades
 to one in-process rank with the same checksums.
+
+``--trace DIR`` writes one ``DIR/trace-rank<NN>.json`` per rank
+(``obs.dist_trace``: the rank is the Perfetto pid, with a clock-sync
+marker stamped right after the contract barrier; merge the files with
+``tools/merge_traces.py``). ``--telemetry FILE`` runs each rank's live
+telemetry session (``FILE.rank<NN>`` when there is more than one rank),
+with the crash flight recorder beside it.
 """
 
 from __future__ import annotations
@@ -65,6 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="deterministic fault-injection schedule (JSON; "
                         "dmlp_tpu_torch.resilience.inject); "
                         "$DMLP_TPU_FAULTS sets it too")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="per-rank span traces: DIR/trace-rank<NN>.json "
+                        "with clock-sync markers (obs.dist_trace)")
+    p.add_argument("--telemetry", metavar="FILE", default=None,
+                   help="per-rank live telemetry (obs.telemetry): an "
+                        "OpenMetrics snapshot of FILE (.rankNN-suffixed "
+                        "with more than one rank) and the crash flight "
+                        "recorder")
     p.add_argument("--supervise", type=int, default=None, metavar="N",
                    help="launcher mode: start N rank processes of this "
                         "entry under heartbeat and deadline supervision")
@@ -98,8 +113,24 @@ def _contract_run(args, mesh_shape, out, err) -> None:
 
     shape = mesh_shape or balanced_dims(dist.get_world_size())
     engine = make_engine(_config(args, tuple(shape)))
-    distributed_contract_run(args.input, engine, out=out, err=err,
-                             warmup=args.warmup)
+    tracer = None
+    if args.trace:
+        from dmlp_tpu_torch.obs import dist_trace
+        tracer = dist_trace.install(args.trace, dist.get_rank(),
+                                    dist.get_world_size())
+        tracer.record_mesh(engine.mesh)
+    try:
+        distributed_contract_run(args.input, engine, out=out, err=err,
+                                 warmup=args.warmup)
+    finally:
+        if tracer is not None:
+            # The rank file is filesystem-only: the contract channels
+            # stay byte-identical with tracing on.
+            from dmlp_tpu_torch.obs import trace as obs_trace
+            try:
+                tracer.write_rank_file(args.trace)
+            finally:
+                obs_trace.uninstall()
     if args.phase_times:
         import json
 
@@ -135,13 +166,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     schedule = rs_inject.install_from_env(args.faults)
 
     from dmlp_tpu_torch.parallel.distributed import process_group
+    session = None
+    if args.telemetry:
+        # One file per rank (the ranks share the argv), the fault log's
+        # suffix convention.
+        from dmlp_tpu_torch.obs import telemetry
+        tpath = args.telemetry
+        if (args.processes or 1) > 1:
+            tpath += f".rank{args.process_id or 0:02d}"
+        session = telemetry.start(path=tpath, device=args.device)
     try:
         with process_group(device=args.device, backend=args.backend,
                            coordinator=args.coordinator,
                            num_processes=args.processes,
                            process_id=args.process_id, auto=args.auto):
             _contract_run(args, mesh_shape, sys.stdout, sys.stderr)
+    except Exception:
+        if session is not None:
+            # The dying rank's own post-mortem: the supervisor sees only
+            # the failed launch.
+            from dmlp_tpu_torch.obs import telemetry
+            telemetry.dump_on_crash("crash")
+        raise
     finally:
+        if session is not None:
+            session.close()
         if schedule is not None:
             # One injection log per rank: the ranks share the environment.
             import os
@@ -187,6 +236,10 @@ def _run_supervisor(args) -> int:
             base.append(flag)
     if args.faults:
         base += ["--faults", args.faults]
+    if args.trace:
+        base += ["--trace", args.trace]
+    if args.telemetry:
+        base += ["--telemetry", args.telemetry]
 
     def make_cluster(attempt: int):
         port = free_port()

@@ -31,8 +31,17 @@ Rank 0's ``last_phase_ms`` splits the solve: ``prune`` (scoring),
 shards), ``fold`` (its own shard's launches, to the device's end),
 ``merge``, ``gather``, ``fetch`` and ``finalize``. The mesh engines have
 no degradation ladder, as in the reference. Not ported (ROADMAP.md): the
-reference's compiler-scheduled "gspmd" merge (A10/A11) and its comms,
-memory and telemetry hooks (A13).
+reference's compiler-scheduled "gspmd" merge (A10, A12).
+
+Observability (``dmlp_tpu_torch.obs``): the reference's spans by the
+reference's names (``sharded.prune_score``, ``sharded.stage_enqueue``,
+``sharded.enqueue_chunked``, ``sharded.merge``, ``sharded.solve_merge``,
+``sharded.solve_local_shards``, ``sharded.fetch``, ``sharded.finalize``,
+``sharded.device_full``) plus ``sharded.gather``; ``last_comms``, the
+analytic traffic of the solve's collectives (``obs.comms``: the root's
+scatters, the data-axis merge, the query-axis gather), the same on every
+rank; the memory model on rank 0; and with a cost probe installed each
+rank's K1/K2 ``iters``, read back once after the solve.
 """
 
 from __future__ import annotations
@@ -49,12 +58,16 @@ from dmlp_tpu_torch.engine.finalize import (boundary_overflow, finalize_host,
                                             lowp_eps,
                                             repair_boundary_overflow,
                                             staging_eps)
-from dmlp_tpu_torch.engine.single import (ChunkThrottle, _device_epilogue,
-                                          fit_blocks, hetk_split,
+from dmlp_tpu_torch.engine.single import (ChunkThrottle, MeasuredIters,
+                                          _device_epilogue, fit_blocks,
+                                          flush_measured_iters, hetk_split,
                                           plan_chunks, resilient_get,
                                           resolve_kcap, round_up)
 from dmlp_tpu_torch.io.grammar import KNNInput, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
+from dmlp_tpu_torch.obs import comms as obs_comms
+from dmlp_tpu_torch.obs import memwatch, telemetry
+from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
                                           prune_enabled, prune_mask)
 from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
@@ -140,6 +153,9 @@ class ShardedEngine:
         self.last_prune = None
         self.last_precision = None
         self.last_repairs = 0
+        self.last_comms: list = []
+        self.last_mem_model = None
+        self._pending_iters: list = []
 
     @property
     def root(self) -> bool:
@@ -223,9 +239,11 @@ class ShardedEngine:
                 lo = rr * shard_rows + t * chunk_rows
                 hi = min(lo + chunk_rows, (rr + 1) * shard_rows, n)
                 ranges.append((lo, max(hi, lo)))
-        summ = build_summaries(inp.data_attrs, ranges)
-        keep, stats = prune_mask(inp.query_attrs, inp.ks, summ,
-                                 staging=self._staging, precision=precision)
+        with obs_span("sharded.prune_score", blocks=len(ranges)):
+            summ = build_summaries(inp.data_attrs, ranges)
+            keep, stats = prune_mask(inp.query_attrs, inp.ks, summ,
+                                     staging=self._staging,
+                                     precision=precision)
         return keep.reshape(r, nchunks), stats
 
     def _plan_chunked(self, inp: KNNInput, routed: bool, allow_prune: bool,
@@ -343,6 +361,9 @@ class ShardedEngine:
         self.last_phase_ms = {}
         self.last_extract_impl = None
         self.last_prune = None
+        self._pending_iters = []
+        if inp is not None:
+            memwatch.note_engine_model(self, inp)
         prec = self.config.resolve_precision()
         self.last_precision = {"active": prec, "configured": prec}
         plan = split = stats = None
@@ -362,11 +383,30 @@ class ShardedEngine:
             else plan["select"]
         if plan["impl"] is not None:
             self.last_extract_impl = plan["impl"]
+        self.last_comms = self._plan_comms(plan)
         if plan["path"] == "chunked":
             if split is not None:
                 self.last_hetk = (int(split[0].size), int(split[1].size))
             return self._solve_chunked(inp, plan, split, stats)
         return self._solve_merged(inp, plan)
+
+    def _plan_comms(self, plan: dict) -> list:
+        """The analytic traffic of the plan's collectives (obs.comms), in
+        the order the solve issues them: the root's scatters of the row
+        shards and the query shards, the data-axis merge of each segment,
+        row 0's query-axis gather of each segment."""
+        shape = tuple(self.mesh.shape)
+        outl = plan.get("outliers")
+        segs = [(plan["qloc"], plan["k"])] + (
+            [(outl["qloc"], outl["k"])] if outl else [])
+        out = obs_comms.scatter_comms(shape, plan["shard_rows"], plan["na"],
+                                      [q for q, _ in segs],
+                                      with_ids=plan["path"] == "merged")
+        for q, k in segs:
+            out += obs_comms.engine_comms(self._merge_strategy, shape, q, k)
+        for q, k in segs:
+            out += obs_comms.gather_comms(shape, q, k)
+        return out
 
     def _phase(self, name: str, t0: float) -> float:
         now = time.perf_counter()
@@ -398,28 +438,31 @@ class ShardedEngine:
         dev = self.device
         t0 = time.perf_counter()
 
-        attrs = labels = None
-        if self.root:
-            attrs = np.zeros((r * shard_rows, na), np.float32)
-            attrs[:n] = inp.data_attrs
-            labels = np.full(r * shard_rows, -1, np.int32)
-            labels[:n] = inp.labels
-        a_sh = self._scatter_rows(attrs, shard_rows, (na,), torch.float32)
-        l_sh = self._scatter_rows(labels, shard_rows, (), torch.int32)
-        del attrs, labels
-        q_all = None if not self.root else (
-            inp.query_attrs if split is None else inp.query_attrs[split[0]])
-        q_dev = self._scatter_queries(q_all, qloc, na)
-        if outl is not None:
-            qo_dev = self._scatter_queries(
-                inp.query_attrs[split[1]] if self.root else None,
-                outl["qloc"], na)
-        rows = nchunks * ck
-        host = self._staged(a_sh, rows)
-        lab_pad = torch.full((rows,), -1, dtype=torch.int32,
-                             device=l_sh.device)
-        lab_pad[:shard_rows] = l_sh
-        labels_dev = lab_pad.to(dev)
+        with obs_span("sharded.stage_enqueue", mesh=[r, c], path="chunked"):
+            attrs = labels = None
+            if self.root:
+                attrs = np.zeros((r * shard_rows, na), np.float32)
+                attrs[:n] = inp.data_attrs
+                labels = np.full(r * shard_rows, -1, np.int32)
+                labels[:n] = inp.labels
+            a_sh = self._scatter_rows(attrs, shard_rows, (na,),
+                                      torch.float32)
+            l_sh = self._scatter_rows(labels, shard_rows, (), torch.int32)
+            del attrs, labels
+            q_all = None if not self.root else (
+                inp.query_attrs if split is None
+                else inp.query_attrs[split[0]])
+            q_dev = self._scatter_queries(q_all, qloc, na)
+            if outl is not None:
+                qo_dev = self._scatter_queries(
+                    inp.query_attrs[split[1]] if self.root else None,
+                    outl["qloc"], na)
+            rows = nchunks * ck
+            host = self._staged(a_sh, rows)
+            lab_pad = torch.full((rows,), -1, dtype=torch.int32,
+                                 device=l_sh.device)
+            lab_pad[:shard_rows] = l_sh
+            labels_dev = lab_pad.to(dev)
         t0 = self._phase("stage_enqueue", t0)
 
         kern = _kernel(plan["impl"])
@@ -429,38 +472,46 @@ class ShardedEngine:
                                     self.config.use_pallas)
             carry_o = init_topk(outl["qloc"], outl["k"], dev)
         throttle = ChunkThrottle(dev)
-        for t in range(nchunks):
-            if keep is not None and not keep[rr][t]:
-                continue
-            toff = t * ck
-            id_base, n_real = _chunk_span(n, rr, shard_rows, toff, ck)
-            if n_real == 0:
-                continue
-            da = host[toff:toff + ck].to(dev, non_blocking=True)
-            od, oi, _iters = kern(q_dev, da, od, oi, n_real=n_real,
-                                  id_base=id_base, kc=k, precision=prec)
-            if outl is not None:
-                iota = torch.arange(ck, dtype=torch.int32, device=dev)
-                bids = torch.where(iota < n_real, id_base + iota, -1)
-                carry_o = ostep(carry_o, qo_dev, da,
-                                labels_dev[toff:toff + ck], bids)
-            throttle.tick()
-        if od is None:     # every piece of this shard pruned or empty
-            empty = init_topk(qloc, k, dev)
-            od, oi = empty.dists, empty.ids
-        base = rr * shard_rows
-        top = TopK(od, _labels_for_ids(oi, labels_dev, base), oi)
-        self._sync()
+        mi = MeasuredIters(self, plan["impl"], (qloc, ck, na, k))
+        with obs_span("sharded.enqueue_chunked", chunks=nchunks, kc=k,
+                      impl=plan["impl"]):
+            for t in range(nchunks):
+                if keep is not None and not keep[rr][t]:
+                    continue
+                toff = t * ck
+                id_base, n_real = _chunk_span(n, rr, shard_rows, toff, ck)
+                if n_real == 0:
+                    continue
+                da = host[toff:toff + ck].to(dev, non_blocking=True)
+                od, oi, iters = kern(q_dev, da, od, oi, n_real=n_real,
+                                     id_base=id_base, kc=k, precision=prec)
+                mi.add(iters)
+                if outl is not None:
+                    iota = torch.arange(ck, dtype=torch.int32, device=dev)
+                    bids = torch.where(iota < n_real, id_base + iota, -1)
+                    carry_o = ostep(carry_o, qo_dev, da,
+                                    labels_dev[toff:toff + ck], bids)
+                throttle.tick()
+                telemetry.sample_memory_now()
+            mi.done()
+            if od is None:     # every piece of this shard pruned or empty
+                empty = init_topk(qloc, k, dev)
+                od, oi = empty.dists, empty.ids
+            base = rr * shard_rows
+            top = TopK(od, _labels_for_ids(oi, labels_dev, base), oi)
+            self._sync()
         t0 = self._phase("fold", t0)
 
         if self.root:
             self._note_chunked_scan(inp, plan, stats)
-        merged = self._merge(top, k)
-        merged_o = self._merge(carry_o, outl["k"]) if outl else None
-        self._sync()
+        with obs_span("sharded.merge", mesh=[r, c], kc=k):
+            merged = self._merge(top, k)
+            merged_o = self._merge(carry_o, outl["k"]) if outl else None
+            self._sync()
         t0 = self._phase("merge", t0)
-        top_b = self._gather(merged)
-        top_o = self._gather(merged_o) if outl else None
+        with obs_span("sharded.gather", mesh=[r, c]):
+            top_b = self._gather(merged)
+            top_o = self._gather(merged_o) if outl else None
         self._phase("gather", t0)
         qpad = c * qloc
         if outl is None:
@@ -500,9 +551,13 @@ class ShardedEngine:
         both merges and the per-shard rescore re-select or sort them."""
         k = plan["k"]
         if plan["select"] == "extract":
-            od, oi, _iters = _kernel(plan["impl"])(
+            mi = MeasuredIters(self, plan["impl"], (q.shape[0], d.shape[0],
+                                                    q.shape[1], k))
+            od, oi, iters = _kernel(plan["impl"])(
                 q, d, n_real=n_real, id_base=id_base, kc=k,
                 precision=plan["precision"])
+            mi.add(iters)
+            mi.done()
             return TopK(od, _labels_for_ids(oi, labels, id_base), oi)
         return streaming_topk(q, d, labels, ids, k, plan["data_block"],
                               plan["select"], self.config.use_pallas)
@@ -515,21 +570,23 @@ class ShardedEngine:
         r, c = self.mesh.shape
         dev = self.device
         t0 = time.perf_counter()
-        attrs = labels = ids = None
-        if self.root:
-            attrs = np.zeros((r * shard_rows, na), np.float32)
-            attrs[:n] = inp.data_attrs
-            labels = np.full(r * shard_rows, -1, np.int32)
-            labels[:n] = inp.labels
-            ids = np.full(r * shard_rows, -1, np.int32)
-            ids[:n] = np.arange(n, dtype=np.int32)
-        a_sh = self._scatter_rows(attrs, shard_rows, (na,), torch.float32)
-        l_sh = self._scatter_rows(labels, shard_rows, (), torch.int32)
-        i_sh = self._scatter_rows(ids, shard_rows, (), torch.int32)
-        q_dev = self._scatter_queries(
-            inp.query_attrs if self.root else None, qloc, na)
-        d = a_sh.to(self._staging_dtype()).to(dev)
-        lab, ids_dev = l_sh.to(dev), i_sh.to(dev)
+        with obs_span("sharded.stage_enqueue", mesh=[r, c], path="merged"):
+            attrs = labels = ids = None
+            if self.root:
+                attrs = np.zeros((r * shard_rows, na), np.float32)
+                attrs[:n] = inp.data_attrs
+                labels = np.full(r * shard_rows, -1, np.int32)
+                labels[:n] = inp.labels
+                ids = np.full(r * shard_rows, -1, np.int32)
+                ids[:n] = np.arange(n, dtype=np.int32)
+            a_sh = self._scatter_rows(attrs, shard_rows, (na,),
+                                      torch.float32)
+            l_sh = self._scatter_rows(labels, shard_rows, (), torch.int32)
+            i_sh = self._scatter_rows(ids, shard_rows, (), torch.int32)
+            q_dev = self._scatter_queries(
+                inp.query_attrs if self.root else None, qloc, na)
+            d = a_sh.to(self._staging_dtype()).to(dev)
+            lab, ids_dev = l_sh.to(dev), i_sh.to(dev)
         if self.root:
             dense = n * na * self._itemsize()
             note_scan(self, scanned_bytes=dense, dense_bytes=dense,
@@ -547,13 +604,17 @@ class ShardedEngine:
             return self._solve_shard(plan, q_dev, d, lab, ids_dev, id_base,
                                      n_real)
 
-        top = rs_retry.call_with_retry(_op, "sharded.solve")
-        self._sync()
+        with obs_span("sharded.solve_merge", select=plan["select"],
+                      mesh=[r, c], kcap=k):
+            top = rs_retry.call_with_retry(_op, "sharded.solve")
+            self._sync()
         t0 = self._phase("fold", t0)
-        merged = self._merge(top, k)
-        self._sync()
+        with obs_span("sharded.merge", mesh=[r, c], kc=k):
+            merged = self._merge(top, k)
+            self._sync()
         t0 = self._phase("merge", t0)
-        out = self._gather(merged)
+        with obs_span("sharded.gather", mesh=[r, c]):
+            out = self._gather(merged)
         self._phase("gather", t0)
         return [(out, c * qloc, None, plan["select"])]
 
@@ -564,6 +625,7 @@ class ShardedEngine:
         dists, labels, ids); the others None."""
         (top, _qpad, _idx, _select), = self._solve_segments(
             inp, routed=False, allow_prune=False)
+        flush_measured_iters(self)
         if not self.root:
             return None
         nq = inp.params.num_queries
@@ -598,9 +660,16 @@ class ShardedEngine:
                                   plan["k"])
             return top
 
-        top = rs_retry.call_with_retry(_op, "sharded.solve")
-        return resilient_get([top.dists, top.labels, top.ids],
-                             site="sharded.fetch")
+        self._pending_iters = []
+        self.last_comms = []
+        with obs_span("sharded.solve_local_shards", select=plan["select"],
+                      kcap=plan["k"]) as sp:
+            top = rs_retry.call_with_retry(_op, "sharded.solve")
+            sp.fence(top.dists)
+        out = resilient_get([top.dists, top.labels, top.ids],
+                            site="sharded.fetch")
+        flush_measured_iters(self)
+        return out
 
     def _plan_shard(self, shard_rows: int, qloc: int, na: int,
                     kmax: int) -> dict:
@@ -641,7 +710,9 @@ class ShardedEngine:
         n = inp.params.num_data if self.root else 0
         segments = self._solve_segments(inp)
         self.last_repairs = 0
+        telemetry.sample_memory_now()
         if not self.root:
+            flush_measured_iters(self)
             return None
         merged: List[QueryResult] = [None] * inp.params.num_queries
         dn_max = None
@@ -650,35 +721,40 @@ class ShardedEngine:
             sub = inp if idx is None else subset_queries(inp, idx)
             nq = sub.params.num_queries
             t0 = time.perf_counter()
-            od, ol, oi = resilient_get([top.dists, top.labels, top.ids],
-                                       site="sharded.fetch")
+            with obs_span("sharded.fetch", select=select):
+                od, ol, oi = resilient_get([top.dists, top.labels, top.ids],
+                                           site="sharded.fetch")
             dists = od.astype(np.float64)[:nq]
             labels, ids = ol[:nq], oi[:nq]
             fetch_ms += (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
-            results = finalize_host(dists, labels, ids, sub.ks,
-                                    sub.query_attrs, sub.data_attrs,
-                                    exact=self.config.exact, query_ids=idx)
-            if dists.shape[1] < n:
-                # A point dropped by shard s has a device distance above
-                # that shard's horizon, and the merged k-th is at most any
-                # shard's k-th, so the same eps-widened boundary test
-                # covers the merge. A width of n or more holds every real
-                # point: nothing was truncated.
-                if dn_max is None:
-                    dn_max = float(np.einsum("na,na->n", inp.data_attrs,
-                                             inp.data_attrs).max())
-                qn = np.einsum("qa,qa->q", sub.query_attrs, sub.query_attrs)
-                eps = staging_eps(dists[:, -1], qn, dn_max, self._staging,
-                                  inp.params.num_attrs)
-                if self.last_precision["active"] == "bf16" \
-                        and select == "extract":
-                    eps = eps + lowp_eps("bf16", qn, dn_max)
-                suspects = np.nonzero(boundary_overflow(dists, sub.ks,
-                                                        eps))[0]
-                if suspects.size:
-                    repair_boundary_overflow(results, suspects, sub)
-                    self.last_repairs += int(suspects.size)
+            with obs_span("sharded.finalize", exact=self.config.exact) as sp:
+                results = finalize_host(dists, labels, ids, sub.ks,
+                                        sub.query_attrs, sub.data_attrs,
+                                        exact=self.config.exact,
+                                        query_ids=idx)
+                if dists.shape[1] < n:
+                    # A point dropped by shard s has a device distance
+                    # above that shard's horizon, and the merged k-th is
+                    # at most any shard's k-th, so the same eps-widened
+                    # boundary test covers the merge. A width of n or more
+                    # holds every real point: nothing was truncated.
+                    if dn_max is None:
+                        dn_max = float(np.einsum("na,na->n", inp.data_attrs,
+                                                 inp.data_attrs).max())
+                    qn = np.einsum("qa,qa->q", sub.query_attrs,
+                                   sub.query_attrs)
+                    eps = staging_eps(dists[:, -1], qn, dn_max,
+                                      self._staging, inp.params.num_attrs)
+                    if self.last_precision["active"] == "bf16" \
+                            and select == "extract":
+                        eps = eps + lowp_eps("bf16", qn, dn_max)
+                    suspects = np.nonzero(boundary_overflow(dists, sub.ks,
+                                                            eps))[0]
+                    if suspects.size:
+                        repair_boundary_overflow(results, suspects, sub)
+                        self.last_repairs += int(suspects.size)
+                        sp.set(repairs=int(suspects.size))
             if idx is None:
                 merged = results
             else:
@@ -687,6 +763,7 @@ class ShardedEngine:
             final_ms += (time.perf_counter() - t0) * 1e3
         self.last_phase_ms["fetch"] = fetch_ms
         self.last_phase_ms["finalize"] = final_ms
+        flush_measured_iters(self)
         return merged
 
     def run_device_full(self, inp: Optional[KNNInput]
@@ -697,10 +774,13 @@ class ShardedEngine:
         in f32 over the gathered lists (``engine.single._device_epilogue``);
         only the (Q, K) predictions, report ids and f32 distances are
         fetched, and they are the result."""
-        segments = self._solve_segments(inp, allow_prune=False)
+        with obs_span("sharded.device_full", mesh=list(self.mesh.shape)):
+            segments = self._solve_segments(inp, allow_prune=False)
         self.last_repairs = 0
         self.last_prune = None
+        telemetry.sample_memory_now()
         if not self.root:
+            flush_measured_iters(self)
             return None
         n = inp.params.num_data
         num_labels = int(inp.labels.max()) + 1 if n else 1
@@ -721,6 +801,7 @@ class ShardedEngine:
                 merged[int(gids[qi])] = QueryResult(
                     int(gids[qi]), k, int(pred[qi]),
                     rids[qi, :k].astype(np.int64), rd[qi, :k])
+        flush_measured_iters(self)
         return merged
 
 

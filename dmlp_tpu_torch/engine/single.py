@@ -35,7 +35,16 @@ The kernels' launch knobs (S of K1/K2, G of K3) and the prune scoring's
 block chunk resolve through the tune cache (``tune.cache``) where it
 holds a measured winner, else through their heuristics. On the CPU every
 kernel runs its plain PyTorch version. The mesh engines are
-``engine.sharded``; observability (A13) is not ported yet (ROADMAP.md).
+``engine.sharded``.
+
+Observability (``dmlp_tpu_torch.obs``), each hook one module-global read
+when it is off: the reference's spans (``single.prune_score``,
+``single.solve_scan``, ``single.enqueue_pipelined``,
+``single.enqueue_extract``, ``single.fetch``, ``single.finalize``), the
+memory model and sampler ticks at peak residency, ``last_comms`` (empty:
+one device runs no collective), and with a cost probe installed the K1/K2
+``iters`` summed on the device per launch shape (:class:`MeasuredIters`)
+and read back once, after the solve's fetch.
 """
 
 from __future__ import annotations
@@ -56,6 +65,10 @@ from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
                                             staging_eps)
 from dmlp_tpu_torch.io.grammar import KNNInput, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
+from dmlp_tpu_torch.obs import counters as obs_counters
+from dmlp_tpu_torch.obs import memwatch, telemetry
+from dmlp_tpu_torch.obs import trace as obs_trace
+from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
                                           prune_enabled, prune_mask,
                                           resolve_score_variant)
@@ -101,6 +114,40 @@ class ChunkThrottle:
         self._pending.append(ev)
         if len(self._pending) > self._window:
             self._pending.pop(0).synchronize()
+
+
+class MeasuredIters:
+    """Per launch shape, the sum of K1/K2's ``iters`` outputs on the
+    device while a cost probe is installed (one tiny reduction per launch,
+    none without a probe); ``done()`` queues it on the engine for
+    :func:`flush_measured_iters` after the solve's fetch."""
+
+    def __init__(self, engine, impl: str, shape: Tuple[int, int, int, int]):
+        self._on = obs_counters.active() is not None
+        self._engine = engine
+        self._kernel = "fused_topk" if impl == "fused" else "extract_topk"
+        self._shape = tuple(int(v) for v in shape)
+        self._sum = None
+
+    def add(self, iters: torch.Tensor) -> None:
+        if self._on:
+            s = iters.sum()
+            self._sum = s if self._sum is None else self._sum + s
+
+    def done(self) -> None:
+        if self._sum is not None:
+            self._engine._pending_iters.append(
+                (self._kernel, self._sum, self._shape))
+
+
+def flush_measured_iters(engine) -> None:
+    """Read back the engine's queued ``iters`` sums (the solve's results
+    are fetched already, so this waits on nothing) and hand them to the
+    installed probe: the measured extraction term of obs.kernel_cost."""
+    pend = getattr(engine, "_pending_iters", [])
+    engine._pending_iters = []
+    for kernel, total, shape in pend:
+        obs_counters.record_measured_iters(kernel, int(total), shape)
 
 
 def round_up(x: int, m: int) -> int:
@@ -393,6 +440,14 @@ class SingleChipEngine:
         # Scan accounting of the last chunked solve (ops.summaries.
         # note_scan): blocks_total/blocks_pruned/scanned_bytes/dense_bytes.
         self.last_prune = None
+        # The first pass's precision record (run()), the collectives of
+        # the last solve (obs.comms: none on one device), the memory model
+        # (obs.memwatch, with a telemetry session) and the queued iters
+        # sums of a probed solve.
+        self.last_precision = None
+        self.last_comms: list = []
+        self.last_mem_model = None
+        self._pending_iters: list = []
 
     def _staging_itemsize(self) -> int:
         return 2 if self._staging == "bfloat16" else 4
@@ -414,14 +469,15 @@ class SingleChipEngine:
                 and self.config.exact and prune_enabled()):
             ranges = [(c * chunk_rows, min((c + 1) * chunk_rows, n))
                       for c in range(nchunks)]
-            summ = build_summaries(inp.data_attrs, ranges)
-            chunk = resolve_score_variant(
-                nchunks, inp.params.num_attrs, inp.params.num_queries,
-                self.device)["tile_q"]
-            keep, stats = prune_mask(inp.query_attrs, inp.ks, summ,
-                                     staging=self._staging,
-                                     precision=active_precision(self),
-                                     block_chunk=chunk)
+            with obs_span("single.prune_score", blocks=nchunks):
+                summ = build_summaries(inp.data_attrs, ranges)
+                chunk = resolve_score_variant(
+                    nchunks, inp.params.num_attrs, inp.params.num_queries,
+                    self.device)["tile_q"]
+                keep, stats = prune_mask(inp.query_attrs, inp.ks, summ,
+                                         staging=self._staging,
+                                         precision=active_precision(self),
+                                         block_chunk=chunk)
             # An empty chunk never survives and counts as no prune.
             schedule = [c for c in schedule if keep[c]]
             pruned = stats["blocks_pruned"]
@@ -481,9 +537,12 @@ class SingleChipEngine:
         qb = min(cfg.query_block, round_up(max(nq, 1), 8))
         qpad = round_up(max(nq, 1), qb)
         q_dev = self._stage_queries(inp.query_attrs, qpad)
-        outs = [streaming_topk(q_dev[i:i + qb], d_attrs, d_labels, d_ids,
-                               k, data_block, select, cfg.use_pallas)
-                for i in range(0, qpad, qb)]
+        with obs_span("single.solve_scan", select=select, qpad=qpad) as sp:
+            outs = [streaming_topk(q_dev[i:i + qb], d_attrs, d_labels,
+                                   d_ids, k, data_block, select,
+                                   cfg.use_pallas)
+                    for i in range(0, qpad, qb)]
+            sp.fence(outs[-1].dists)
         dense = n * inp.params.num_attrs * self._staging_itemsize()
         note_scan(self, scanned_bytes=dense, dense_bytes=dense,
                   blocks_total=1, blocks_pruned=0)
@@ -519,15 +578,21 @@ class SingleChipEngine:
         carries = [init_topk(qsb, k, dev) for _ in range(nqb)]
         throttle = ChunkThrottle(dev)
         scanned = 0
-        for c in schedule:
-            lo, hi = c * chunk_rows, (c + 1) * chunk_rows
-            da = stage(host[lo:hi], dev)
-            scanned += max(min(hi, n) - lo, 0) * na \
-                * self._staging_itemsize()
-            for b in range(nqb):
-                carries[b] = step(carries[b], q_dev[b], da,
-                                  d_labels[lo:hi], d_ids[lo:hi])
-            throttle.tick()
+        with obs_span("single.enqueue_pipelined", select=select,
+                      chunks=nchunks, scheduled=len(schedule), qblocks=nqb,
+                      k=k):
+            for c in schedule:
+                lo, hi = c * chunk_rows, (c + 1) * chunk_rows
+                da = stage(host[lo:hi], dev)
+                scanned += max(min(hi, n) - lo, 0) * na \
+                    * self._staging_itemsize()
+                for b in range(nqb):
+                    carries[b] = step(carries[b], q_dev[b], da,
+                                      d_labels[lo:hi], d_ids[lo:hi])
+                throttle.tick()
+                # A watermark tick while the chunk is referenced (no-op
+                # without a telemetry session).
+                telemetry.sample_memory_now()
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
                   blocks_total=nchunks,
@@ -575,14 +640,20 @@ class SingleChipEngine:
         od = oi = None   # the first survivor starts the lists fresh
         scanned = 0
         throttle = ChunkThrottle(dev)
-        for c in live:
-            lo = c * chunk_rows
-            hi = min(lo + chunk_rows, n)
-            da = stage(host[lo:lo + chunk_rows], dev)
-            scanned += (hi - lo) * na * self._staging_itemsize()
-            od, oi, _iters = kern(q_dev, da, od, oi, n_real=hi - lo,
-                                  id_base=lo, kc=k, precision=prec)
-            throttle.tick()
+        mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, k))
+        with obs_span("single.enqueue_extract", chunks=nchunks, kc=k,
+                      impl=impl, scheduled=len(live)):
+            for c in live:
+                lo = c * chunk_rows
+                hi = min(lo + chunk_rows, n)
+                da = stage(host[lo:lo + chunk_rows], dev)
+                scanned += (hi - lo) * na * self._staging_itemsize()
+                od, oi, iters = kern(q_dev, da, od, oi, n_real=hi - lo,
+                                     id_base=lo, kc=k, precision=prec)
+                mi.add(iters)
+                throttle.tick()
+                telemetry.sample_memory_now()   # staging window live
+        mi.done()
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
                   blocks_total=min(nchunks, -(-n // chunk_rows)),
@@ -669,13 +740,16 @@ class SingleChipEngine:
         chunks: List[torch.Tensor] = []
         od = oi = None
         throttle = ChunkThrottle(dev)
+        mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, kc))
         for c in range(n_staged):
             lo = c * chunk_rows
             hi = min(lo + chunk_rows, n)
             chunks.append(stage(host[lo:lo + chunk_rows], dev))
-            od, oi, _iters = kern(q_dev, chunks[-1], od, oi, n_real=hi - lo,
-                                  id_base=lo, kc=kc, precision=prec)
+            od, oi, iters = kern(q_dev, chunks[-1], od, oi, n_real=hi - lo,
+                                 id_base=lo, kc=kc, precision=prec)
+            mi.add(iters)
             throttle.tick()
+        mi.done()
         ods, ois = [od], [oi]
 
         qn_host = np.zeros(qpad, np.float64)
@@ -689,24 +763,30 @@ class SingleChipEngine:
         # list goes once the concatenation is queued, so the dataset is
         # not resident twice for the sweep.
         d_full = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        telemetry.sample_memory_now()  # the dataset twice: the concat peak
         del chunks
         fds = []
+        mir = MeasuredIters(self, impl, (qpad, full_rows, na, kc))
         for _ in range(1, npasses):
             floor, fd = _mp_floor(ods[-1], qn_dev, dn_dev,
                                   staging=self._staging, na=na,
                                   precision=prec)
             fds.append(fd)
-            od, oi, _iters = kern_full(q_dev, d_full, n_real=n, id_base=0,
-                                       kc=kc, floor=floor, precision=prec)
+            od, oi, iters = kern_full(q_dev, d_full, n_real=n, id_base=0,
+                                      kc=kc, floor=floor, precision=prec)
+            mir.add(iters)
             throttle.tick()
             ods.append(od)
             ois.append(oi)
+        mir.done()
         # The last pass's fd too: a plateau pinning the last boundary
         # flags as well.
         fds.append(_mp_floor(ods[-1], qn_dev, dn_dev, staging=self._staging,
                              na=na, precision=prec)[1])
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
         self.last_mp_passes = len(ods)
+        obs_trace.instant("single.multipass_sweep", passes=len(ods),
+                          kcap=kcap, chunks=n_staged)
         dense = n * na * self._staging_itemsize()
         note_scan(self, scanned_bytes=dense, dense_bytes=dense,
                   blocks_total=n_staged, blocks_pruned=0)
@@ -790,17 +870,21 @@ class SingleChipEngine:
         od = oi = None
         scanned = 0
         throttle = ChunkThrottle(dev)
+        mi = MeasuredIters(self, impl, (qpad_b, chunk_rows, na, kb))
         for c in live:
             lo = c * chunk_rows
             hi = min(lo + chunk_rows, n)
             da = stage(host[lo:lo + chunk_rows], dev)
             scanned += (hi - lo) * na * self._staging_itemsize()
-            od, oi, _iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
-                                  id_base=lo, kc=kb, precision=prec)
+            od, oi, iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
+                                 id_base=lo, kc=kb, precision=prec)
+            mi.add(iters)
             carry_o = _outlier_fold(carry_o, qo_dev, da, labels_dev, lo, n,
                                     k=ko, select=select_out,
                                     use_pallas=cfg.use_pallas)
             throttle.tick()
+            telemetry.sample_memory_now()
+        mi.done()
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
                   blocks_total=min(nchunks, -(-n // chunk_rows)),
@@ -849,9 +933,13 @@ class SingleChipEngine:
     def candidates(self, inp: KNNInput
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Device pass: (Q, K) selection-ordered candidate lists."""
+        memwatch.note_engine_model(self, inp)
+        self._pending_iters = []
         out, _ = self._solve(inp)
+        telemetry.sample_memory_now()
         nq = inp.params.num_queries
         od, ol, oi = resilient_get([out.dists, out.labels, out.ids])
+        flush_measured_iters(self)
         return od.astype(np.float64)[:nq], ol[:nq], oi[:nq]
 
     def run(self, inp: KNNInput) -> List[QueryResult]:
@@ -872,8 +960,23 @@ class SingleChipEngine:
         which are then the result. The fetch is the solve's fence."""
         cfg = self.config
         n = inp.params.num_data
+        memwatch.note_engine_model(self, inp)
+        self._pending_iters = []
         segments = self._solve_segments(inp)
+        # A watermark tick at peak residency: the solve is enqueued,
+        # nothing fetched yet (no-op without a telemetry session).
+        telemetry.sample_memory_now()
         prec = active_precision(self)
+        # What the first pass ran at, and the window slots the bound
+        # inflation bought the rescore (kcap minus an f32 plan's).
+        kcap0 = int(segments[0][0].dists.shape[1])
+        kmax0 = int(inp.ks.max()) if inp.params.num_queries else 0
+        self.last_precision = {
+            "active": prec, "configured": cfg.resolve_precision(),
+            "kcap": kcap0,
+            "kcap_inflation": kcap0 - resolve_kcap(
+                cfg, kmax0, self._last_select, kcap0,
+                staging=self._staging, precision="f32")}
         self.last_repairs = 0
         merged: List[QueryResult] = [None] * inp.params.num_queries
         dn_max = None
@@ -890,9 +993,10 @@ class SingleChipEngine:
                 ks_pad[:nq] = sub.ks
                 cols_dev = boundary_cols(
                     top.dists, torch.from_numpy(ks_pad).to(self.device))
-            fetched = resilient_get(
-                ([] if cfg.exact else [top.dists]) + [top.ids]
-                + ([cols_dev] if cols_dev is not None else []))
+            with obs_span("single.fetch", select=select, kcap=kcap):
+                fetched = resilient_get(
+                    ([] if cfg.exact else [top.dists]) + [top.ids]
+                    + ([cols_dev] if cols_dev is not None else []))
             dists = None if cfg.exact \
                 else fetched.pop(0).astype(np.float64)[:nq]
             ids = fetched.pop(0)[:nq]
@@ -920,14 +1024,16 @@ class SingleChipEngine:
             fetch_ms += (time.perf_counter() - t0) * 1e3
 
             t0 = time.perf_counter()
-            results = finalize_host(dists, labels, ids, sub.ks,
-                                    sub.query_attrs, sub.data_attrs,
-                                    exact=cfg.exact, query_ids=idx)
-            if flags is not None:
-                suspects = np.nonzero(flags)[0]
-                if suspects.size:
-                    repair_boundary_overflow(results, suspects, sub)
-                    self.last_repairs += int(suspects.size)
+            with obs_span("single.finalize", exact=cfg.exact) as sp:
+                results = finalize_host(dists, labels, ids, sub.ks,
+                                        sub.query_attrs, sub.data_attrs,
+                                        exact=cfg.exact, query_ids=idx)
+                if flags is not None:
+                    suspects = np.nonzero(flags)[0]
+                    if suspects.size:
+                        repair_boundary_overflow(results, suspects, sub)
+                        self.last_repairs += int(suspects.size)
+                        sp.set(repairs=int(suspects.size))
             if idx is None:
                 merged = results
             else:
@@ -936,6 +1042,7 @@ class SingleChipEngine:
             final_ms += (time.perf_counter() - t0) * 1e3
         self.last_phase_ms["fetch"] = fetch_ms
         self.last_phase_ms["finalize"] = final_ms
+        flush_measured_iters(self)
         return merged
 
     def run_device_full(self, inp: KNNInput) -> List[QueryResult]:
@@ -954,7 +1061,10 @@ class SingleChipEngine:
         n = inp.params.num_data
         num_labels = int(inp.labels.max()) + 1 if n else 1
         merged: List[QueryResult] = [None] * inp.params.num_queries
+        memwatch.note_engine_model(self, inp)
+        self._pending_iters = []
         segments = self._solve_segments(inp, allow_multipass=False)
+        telemetry.sample_memory_now()
         fetch_ms = final_ms = 0.0
         for top, qpad, idx, _select in segments:
             sub = inp if idx is None else subset_queries(inp, idx)
@@ -980,4 +1090,5 @@ class SingleChipEngine:
         self.last_repairs = 0
         self.last_prune = None
         self.last_degrade_rung = self._degrade_rung
+        flush_measured_iters(self)
         return merged

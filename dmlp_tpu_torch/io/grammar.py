@@ -162,8 +162,11 @@ def parse_input(stream: Union[IO[str], IO[bytes]]) -> KNNInput:
         try:
             _parse_payload(rs_inject.corrupt_bytes(data))
         except ParseError:
+            from dmlp_tpu_torch.obs import trace as obs_trace
             from dmlp_tpu_torch.resilience import stats as rs_stats
             rs_stats.record_retry("io.parse")
+            obs_trace.instant("resilience.retry", site="io.parse",
+                              attempt=1, error="ParseError")
         # The pristine payload is authoritative either way: a corrupted
         # payload's parse result is never returned.
     return _parse_payload(data)

@@ -30,6 +30,7 @@ import torch
 
 from dmlp_tpu_torch.kernels import (KernelBuildError, KernelLaunchError,
                                     note_launch)
+from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.ops.distance import masked_pairwise_sq_l2
 from dmlp_tpu_torch.tune.cache import dtype_key, lookup_variant
 
@@ -176,7 +177,7 @@ def _fused_dist_segmin_cuda(q_attrs, d_attrs, data_ids, precision):
     dist = torch.empty((qb, b), dtype=torch.float32, device=dev)
     segmin = torch.empty((qb, b // SEG), dtype=torch.float32, device=dev)
     _launch(*launch_operands(q_attrs, d_attrs, data_ids, precision), dist,
-            segmin, group)
+            segmin, group, precision)
     return dist, segmin
 
 
@@ -190,22 +191,37 @@ def launch_operands(q_attrs, d_attrs, data_ids, precision: str = "f32"):
     return (*prepare_operands(q_attrs, d_attrs, precision), ids)
 
 
-def _launch(qT, dT, qn, dn, ids, dist, segmin, group: int) -> None:
+def _launch_shape(qb: int, b: int, na: int, precision: str,
+                  group) -> dict:
+    """One K3 launch's shape as obs.counters records it."""
+    return {"qb": qb, "b": b, "a": na, "precision": precision,
+            "group": group}
+
+
+def _launch(qT, dT, qn, dn, ids, dist, segmin, group: int,
+            precision: str = "f32") -> None:
     """One kernel launch on operands as :func:`prepare_operands` makes
     them (ids int32, 16-byte aligned) into preallocated outputs, with
     each CTA walking ``group`` segments (1 <= group <= B/SEG); raises when
-    the launch fails, counts it when it succeeds."""
+    the launch fails, counts it when it succeeds. ``precision`` is what
+    the operands were prepared at (for the cost record only)."""
     lib = _kernel_lib()
     dev = dist.device
     # Asynchronous on the current stream; the temporaries freed on return
     # go back to the caching allocator for that stream (see ops.extract).
     with torch.cuda.device(dev):
+        rec = obs_counters.record_dispatch(
+            "fused_dist_segmin", _launch_shape(
+                dist.shape[0], dist.shape[1], qT.shape[0],
+                precision, group), dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dmlp_dist_segmin(
             qT.data_ptr(), dT.data_ptr(), qn.data_ptr(), dn.data_ptr(),
             ids.data_ptr(), dist.data_ptr(), segmin.data_ptr(),
             dist.shape[0], qT.shape[1], dist.shape[1], qT.shape[0], group,
             stream)
+        if rec is not None:
+            rec.done()
     if rc != 0:
         raise KernelLaunchError(f"dist_segmin kernel launch failed "
                                 f"(cudaError {rc})")
@@ -231,7 +247,9 @@ def fused_dist_segmin(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
     if q_attrs.device.type != "cpu":
         raise ValueError(f"fused_dist_segmin runs on cuda or cpu, not "
                          f"{q_attrs.device}")
-    return fused_dist_segmin_plain(
-        q_attrs, d_attrs, data_ids, precision,
-        resolve_group(qb, b, a, device=q_attrs.device, precision=precision,
-                      dtype=dtype_key(d_attrs)))
+    group = resolve_group(qb, b, a, device=q_attrs.device,
+                          precision=precision, dtype=dtype_key(d_attrs))
+    obs_counters.record_dispatch("fused_dist_segmin",
+                                 _launch_shape(qb, b, a, precision, group))
+    return fused_dist_segmin_plain(q_attrs, d_attrs, data_ids, precision,
+                                   group)

@@ -46,6 +46,7 @@ from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_F32,
                                             LOWP_COEF)
 from dmlp_tpu_torch.kernels import (LAUNCHES, KernelBuildError,
                                     KernelLaunchError, note_launch)
+from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.ops.distance import require_ieee_f32
 from dmlp_tpu_torch.tune import cache as tune_cache
 
@@ -380,15 +381,25 @@ def _carry_on(carry_d, carry_i, qb: int, kc: int):
     return carry_d.float().contiguous(), carry_i.to(torch.int32).contiguous()
 
 
+def _merge_shape(qb: int, kc: int, nsplit: int, carried: bool) -> dict:
+    """The merge's launch shape as obs.counters records it."""
+    return {"qb": qb, "kc": kc, "splits": nsplit, "carried": carried}
+
+
 def _merge_cuda(lib, cd, ci, part_d, part_i):
     """Launch the merge kernel on the current stream; returns (od, oi)."""
     nsplit, qb, kc = part_d.shape
     od = torch.empty((qb, kc), dtype=torch.float32, device=part_d.device)
     oi = torch.empty((qb, kc), dtype=torch.int32, device=part_d.device)
     with torch.cuda.device(part_d.device):
+        rec = obs_counters.record_dispatch(
+            "extract_merge", _merge_shape(qb, kc, nsplit, cd is not None),
+            part_d.device)
         rc = lib.dmlp_extract_merge(
             _ptr(cd), _ptr(ci), _ptr(part_d), _ptr(part_i), _ptr(od),
             _ptr(oi), qb, kc, nsplit, _stream(part_d.device))
+        if rec is not None:
+            rec.done()
     if rc != 0:
         raise KernelLaunchError(f"extract_merge kernel launch failed "
                                 f"(cudaError {rc})")
@@ -409,10 +420,20 @@ def merge_partials(carry_d: Optional[torch.Tensor],
         raise ValueError(f"(1+S)*kc = {(1 + nsplit) * kc} exceeds the "
                          f"merge's {MERGE_MAX} entries")
     if not part_d.is_cuda:
+        obs_counters.record_dispatch("extract_merge", _merge_shape(
+            qb, kc, nsplit, carry_d is not None))
         return merge_partials_plain(carry_d, carry_i, part_d, part_i)
     cd, ci = _carry_on(carry_d, carry_i, qb, kc)
     return _merge_cuda(_kernel_lib(), cd, ci, part_d.float().contiguous(),
                        part_i.to(torch.int32).contiguous())
+
+
+def _launch_shape(qb: int, b: int, na: int, kc: int, carried: bool,
+                  splits: int, precision: str, floor) -> dict:
+    """One K1/K2 launch's shape as obs.counters records it."""
+    return {"qb": qb, "b": b, "a": na, "kc": kc, "carried": carried,
+            "splits": splits, "precision": precision,
+            "floor": floor is not None}
 
 
 def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
@@ -441,21 +462,26 @@ def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
     iters = torch.empty((-(-qb // QUERY_TILE), b // BLOCK_ROWS),
                         dtype=torch.int32, device=dev)
     lib = _kernel_lib()
+    kname = "fused_topk" if mxu_gate else "extract_topk"
     # The launches are asynchronous on the current stream. Temporaries
     # freed when this function returns (q, d, qn, dn, the partial lists)
     # go back to PyTorch's caching allocator for that stream, so only work
     # queued after these kernels can reuse their memory.
     with torch.cuda.device(dev):
+        rec = obs_counters.record_dispatch(kname, _launch_shape(
+            qb, b, na, kc, cd is not None, splits, precision, fl), dev)
         rc = lib.dmlp_extract_topk(
             _ptr(q), _ptr(d), _ptr(qn), _ptr(dn), _ptr(fl), _ptr(cd),
             _ptr(ci), _ptr(od), _ptr(oi), _ptr(iters), qb, b, na, kc,
             int(n_real), int(id_base), splits, int(mxu_gate),
             int(block_skip), int(precision == "bf16"), EPS_REL_F32,
             _gate_coef(na, precision), _stream(dev))
+        if rec is not None:
+            rec.done()
     if rc != 0:
         raise KernelLaunchError(f"extract_topk kernel launch failed "
                                 f"(cudaError {rc})")
-    note_launch("fused_topk" if mxu_gate else "extract_topk", splits)
+    note_launch(kname, splits)
     if splits == 1:
         return od[0], oi[0], iters
     return (*_merge_cuda(lib, cd, ci, od, oi), iters)
@@ -500,6 +526,14 @@ def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                              f"({QUERY_TILE}, {BLOCK_ROWS})")
         return _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i,
                                   splits=splits, **kw)
+    qb, na = q_attrs.shape
+    obs_counters.record_dispatch(
+        "fused_topk" if mxu_gate else "extract_topk", _launch_shape(
+            qb, d_attrs.shape[0], na, kc, carry_d is not None, splits,
+            precision, floor))
+    if splits > 1:
+        obs_counters.record_dispatch("extract_merge", _merge_shape(
+            qb, kc, splits, carry_d is not None))
     return extract_topk_plain(q_attrs, d_attrs, carry_d, carry_i,
                               tile_q=tile_q or QUERY_TILE,
                               tile_n=tile_n or BLOCK_ROWS, splits=splits,

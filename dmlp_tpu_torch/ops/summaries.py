@@ -31,8 +31,7 @@ The resident serving engine (``serve.engine``) keeps one summary block per
 resident extraction chunk, rebuilds exactly the blocks an ingest touches
 (:func:`update_block`), and scores them per micro-batch on the device
 (:func:`stage_summaries`, :func:`score_blocks`: plain torch in f32 with
-the same bound, threshold and eps structure as :func:`prune_mask`). The
-telemetry counters of the reference's ``note_scan`` come with ROADMAP A13.
+the same bound, threshold and eps structure as :func:`prune_mask`).
 """
 
 from __future__ import annotations
@@ -437,15 +436,25 @@ def score_blocks(q, qvalid, ks, counts, nmin, nmax, lo, hi, dn_max,
     bucket's padding queries out of the union; ``eps_rel`` and
     ``eps_cancel`` are the staging-eps constants, prescaled on the host
     (rel, and EPS_CANCEL_COEF * (na + 2) plus the plan's LOWP_COEF)."""
-    return score_terms(q, qvalid, ks, counts, nmin, nmax, lo, hi, dn_max,
+    from dmlp_tpu_torch.obs import counters as obs_counters
+    rec = obs_counters.record_dispatch("summaries_score", {
+        "qb": q.shape[0], "nblocks": counts.shape[0], "a": q.shape[1]},
+        q.device)
+    keep = score_terms(q, qvalid, ks, counts, nmin, nmax, lo, hi, dn_max,
                        eps_rel, eps_cancel)[3]
+    if rec is not None:
+        rec.done()
+    return keep
 
 
 def note_scan(engine, *, scanned_bytes: int, dense_bytes: int,
               blocks_total: int, blocks_pruned: int) -> None:
-    """Fold one solve's scan accounting into ``engine.last_prune``. Dense
-    solves record too (blocks_pruned 0). ``scanned_bytes`` counts the
-    corpus rows staged to the device: a pruned chunk is never copied."""
+    """Fold one solve's scan accounting into ``engine.last_prune`` and the
+    telemetry registry (``scan.bytes_streamed``, ``prune.blocks_total``,
+    ``prune.blocks_pruned``, ``prune.gated_fraction``, the reference's
+    metric names). Dense solves record too (blocks_pruned 0).
+    ``scanned_bytes`` counts the corpus rows staged to the device: a
+    pruned chunk is never copied."""
     rec = engine.last_prune if isinstance(
         getattr(engine, "last_prune", None), dict) else {}
     rec.update(blocks_total=int(blocks_total),
@@ -455,3 +464,9 @@ def note_scan(engine, *, scanned_bytes: int, dense_bytes: int,
     rec["pruned_fraction"] = (round(blocks_pruned / blocks_total, 6)
                               if blocks_total else 0.0)
     engine.last_prune = rec
+    from dmlp_tpu_torch.obs import telemetry
+    reg = telemetry.registry()
+    reg.counter("scan.bytes_streamed").inc(int(scanned_bytes))
+    reg.counter("prune.blocks_total").inc(int(blocks_total))
+    reg.counter("prune.blocks_pruned").inc(int(blocks_pruned))
+    reg.gauge("prune.gated_fraction").set(rec["pruned_fraction"])

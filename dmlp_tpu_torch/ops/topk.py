@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.ops.distance import masked_pairwise_sq_l2
 
 
@@ -73,12 +74,24 @@ def init_topk(qb: int, k: int, device) -> TopK:
                 torch.full((qb, k), -1, dtype=torch.int32, device=device))
 
 
+def _tile(q, battrs, bids) -> torch.Tensor:
+    """The masked distance tile of the "sort"/"topk" steps (and "seg"
+    without the hand-written kernels): a plain ``torch.matmul`` product,
+    recorded into an installed cost probe as ``distance_product``."""
+    rec = obs_counters.record_dispatch("distance_product", {
+        "qb": q.shape[0], "b": battrs.shape[0], "a": q.shape[1]}, q.device)
+    tile = masked_pairwise_sq_l2(q, battrs, bids)
+    if rec is not None:
+        rec.done()
+    return tile
+
+
 def make_block_step(select: str, k: int, use_pallas: bool = False):
     """One running-top-k fold step: (carry, queries, block attrs, block
     labels, block ids) -> carry."""
 
     def step_sort(carry: TopK, q, battrs, blabels, bids) -> TopK:
-        tile = masked_pairwise_sq_l2(q, battrs, bids)
+        tile = _tile(q, battrs, bids)
         return merge_topk(carry, TopK(tile, blabels.expand_as(tile),
                                       bids.expand_as(tile)), k)
 
@@ -103,8 +116,7 @@ def make_block_step(select: str, k: int, use_pallas: bool = False):
                           bids.expand_as(tile))
 
     def step_topk(carry: TopK, q, battrs, blabels, bids) -> TopK:
-        return step_full(carry, masked_pairwise_sq_l2(q, battrs, bids),
-                         blabels, bids)
+        return step_full(carry, _tile(q, battrs, bids), blabels, bids)
 
     def step_seg(carry: TopK, q, battrs, blabels, bids) -> TopK:
         """Segment-min threshold selection: the exact tile top-k from the
@@ -117,7 +129,7 @@ def make_block_step(select: str, k: int, use_pallas: bool = False):
         if use_pallas:
             tile, segmin = fused_dist_segmin(q, battrs, bids)
         else:
-            tile = masked_pairwise_sq_l2(q, battrs, bids)
+            tile = _tile(q, battrs, bids)
             segmin = tile.view(tile.shape[0], -1, SEG).min(-1).values
         qb, bcols = tile.shape
         nseg = bcols // SEG

@@ -407,6 +407,8 @@ def distributed_contract_run(path: str, engine, out=None, err=None,
     from dmlp_tpu_torch.engine.finalize import finalize_host
     from dmlp_tpu_torch.engine.single import hetk_split, round_up
     from dmlp_tpu_torch.io.report import format_results
+    from dmlp_tpu_torch.obs import dist_trace
+    from dmlp_tpu_torch.obs.trace import span as obs_span
     from dmlp_tpu_torch.ops.extract import QUERY_TILE
     from dmlp_tpu_torch.parallel.collectives import all_gather_arrays
 
@@ -416,7 +418,8 @@ def distributed_contract_run(path: str, engine, out=None, err=None,
     r, c = engine.mesh.shape
     rr, cc = mesh_coords(engine.mesh)
     # Parsing stays outside the timed region, as in the reference.
-    local = read_local_inputs(path, engine)
+    with obs_span("dist.read_local_inputs"):
+        local = read_local_inputs(path, engine)
     params, ks = local["params"], local["ks"]
     n, nq = params.num_data, params.num_queries
     _, shard_rows, _ = plan_shapes(engine, n, nq)
@@ -442,24 +445,36 @@ def distributed_contract_run(path: str, engine, out=None, err=None,
             return engine.solve_local_shards(p_attrs, p_labels, p_ids,
                                              q_local, kmax)
 
-        top = rs_retry.call_with_retry(_solve_op, "dist.rank_solve")
-        cell, repaired = rescore_local_shards(
-            top, dict(local, query_attrs=q64), ks_seg, cc * qloc,
-            staging=engine._staging)
+        with obs_span("dist.solve_local_shards", nq=nqs, kmax=kmax):
+            top = rs_retry.call_with_retry(_solve_op, "dist.rank_solve")
+        with obs_span("dist.rescore_local_shards", nq=nqs):
+            cell, repaired = rescore_local_shards(
+                top, dict(local, query_attrs=q64), ks_seg, cc * qloc,
+                staging=engine._staging)
         engine.last_repairs += repaired
 
         def _gather_op():
             rs_inject.fire("dist.allgather", rank=rank)
             return all_gather_arrays(cell)
 
-        cells = rs_retry.call_with_retry(_gather_op, "dist.allgather")
+        # nbytes is the real payload; the shape args let
+        # tools/merge_traces.py recompute the analytic expectation
+        # (obs.comms.host_allgather_candidates_traffic) per rank.
+        with obs_span("dist.allgather_candidates",
+                      nbytes=int(sum(a.nbytes for a in cell)),
+                      ranks=int(r * c), r_shards=1,
+                      qpad=int(cell[0].shape[0]),
+                      kcap=int(cell[0].shape[1]),
+                      itemsizes=[int(a.dtype.itemsize) for a in cell]):
+            cells = rs_retry.call_with_retry(_gather_op, "dist.allgather")
         # [rank] -> (qpad, R * K): per query column, every data shard's
         # candidates in shard order (rank = r * C + c).
         cols = [[np.concatenate([cells[i * c + j][a] for i in range(r)], 1)
                  for j in range(c)] for a in range(3)]
         d, lab, ids = (np.concatenate(col, 0)[:nqs] for col in cols)
-        return finalize_host(d, lab, ids, ks_seg, q64, None, exact=False,
-                             query_ids=idx)
+        with obs_span("dist.finalize", nq=nqs):
+            return finalize_host(d, lab, ids, ks_seg, q64, None,
+                                 exact=False, query_ids=idx)
 
     def solve():
         engine.last_repairs = 0
@@ -476,10 +491,15 @@ def distributed_contract_run(path: str, engine, out=None, err=None,
         return merged
 
     if warmup:
-        solve()
+        with obs_span("dist.warmup"):
+            solve()
     dist.barrier()
+    # The barrier releases every rank within a round trip of one instant:
+    # the clock-sync stamp tools/merge_traces.py aligns the rank files on.
+    dist_trace.clock_sync()
     t0 = time.perf_counter()
-    results = solve()
+    with obs_span("dist.solve", rank=rank, nq=nq, n=n):
+        results = solve()
     elapsed_ms = (time.perf_counter() - t0) * 1e3
     if rank == 0:
         out.write(format_results(results, debug=engine.config.debug))

@@ -51,6 +51,11 @@ def _rung_context(engine, rung: str):
     tune cache's lookups for the duration."""
     prev = getattr(engine, "_degrade_rung", "fused")
     engine._degrade_rung = rung
+    # The live rung gauge: the ladder position (0 = lowp ... 6 = host),
+    # so a scrape mid-incident sees where the solve sits.
+    from dmlp_tpu_torch.obs import telemetry
+    telemetry.registry().gauge("resilience.degrade_rung").set(
+        RUNGS.index(rung))
     try:
         if rung == "heuristic":
             from dmlp_tpu_torch.tune import cache as tune_cache
@@ -65,7 +70,10 @@ def _rung_context(engine, rung: str):
 def _host_fallback(inp) -> List:
     """The last rung: the float64 host oracle, exact by construction."""
     from dmlp_tpu_torch.golden.fast import knn_golden_fast
-    return knn_golden_fast(inp)
+    from dmlp_tpu_torch.obs.trace import span as obs_span
+    with obs_span("resilience.host_fallback",
+                  nq=inp.params.num_queries, n=inp.params.num_data):
+        return knn_golden_fast(inp)
 
 
 def run_ladder(engine, inp, solve: Callable):
@@ -96,4 +104,9 @@ def run_ladder(engine, inp, solve: Callable):
                         and engine.device.type != "cpu")):
                 raise
             stats.record_degradation(rung, RUNGS[i + 1])
+            # The instant also lands in the flight recorder while a
+            # telemetry session is active.
+            from dmlp_tpu_torch.obs import trace as obs_trace
+            obs_trace.instant("resilience.degrade", frm=rung,
+                              to=RUNGS[i + 1], error=str(e)[:200])
     raise AssertionError("unreachable: the host rung returns or raises")

@@ -216,6 +216,8 @@ class FaultSchedule:
                     del self.log[idx]
             e.fired += 1
             stats.record_fault(site, e.kind)
+            from dmlp_tpu_torch.obs import trace as obs_trace
+            obs_trace.instant("resilience.fault", site=site, kind=e.kind)
             detail = f" ({e.message})" if e.message else ""
             if e.kind == "delay":
                 _sleep(e.ms / 1e3)

@@ -12,8 +12,9 @@ everything else is ``fatal``. A kernel that failed to build or to launch
 is always fatal: the ladder must never walk past it.
 
 ``$DMLP_TPU_RESILIENCE=0`` turns the layer off (the wrappers become direct
-calls). The reference's flight-recorder dump on a fatal fault comes with
-observability (ROADMAP A13).
+calls). A fault that ends the retries (fatal, or transient past the
+attempts) dumps the telemetry session's flight recorder
+(``obs.telemetry.flight_fault``) before it propagates.
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ def call_with_retry(op: Callable, site: str,
                     sleep: Callable = time.sleep):
     """Run ``op()`` with bounded transient retries; fatal and oom errors
     propagate at once (oom belongs to the degradation ladder). Every
-    retry bumps the stats counters."""
+    retry bumps the stats counters and records a ``resilience.retry``
+    span; a fault that ends the retries goes to the flight recorder."""
     if not resilience_enabled():
         return op()
     policy = policy or DEFAULT_POLICY
@@ -104,12 +106,29 @@ def call_with_retry(op: Callable, site: str,
         try:
             return op()
         except Exception as e:
-            if classify_fn(e) != "transient" \
-                    or attempt + 1 >= policy.attempts:
+            clc = classify_fn(e)
+            if clc != "transient" or attempt + 1 >= policy.attempts:
+                # Post-mortem evidence before the raise unwinds: a fatal
+                # (or retries-exhausted) fault dumps the flight recorder
+                # while the last events are still in its ring (no-op
+                # without a telemetry session); an oom goes to the
+                # ladder, which is recovery: an event, no dump.
+                from dmlp_tpu_torch.obs import telemetry
+                telemetry.flight_fault(
+                    site=site, classification=clc,
+                    error=type(e).__name__,
+                    dump=clc == "fatal" or (clc == "transient"
+                                            and attempt + 1
+                                            >= policy.attempts))
                 raise
             delay = backoff_ms(policy, site, attempt)
             stats.record_retry(site)
-            sleep(delay / 1e3)
+            from dmlp_tpu_torch.obs.trace import span as obs_span
+            with obs_span("resilience.retry", site=site,
+                          attempt=attempt + 1,
+                          backoff_ms=round(delay, 2),
+                          error=type(e).__name__):
+                sleep(delay / 1e3)
             attempt += 1
 
 

@@ -1,81 +1,83 @@
 """Process-wide resilience accounting — port of
 ``dmlp_tpu/resilience/stats.py``.
 
-The same record hooks and the same :func:`snapshot` shape as the
-reference, on plain counters under one lock (the reference keeps them in
-its telemetry registry, which comes with ROADMAP A13). The ordered
-degradation list is what the ladder's tests assert step by step.
+The counters live in the one process-wide metrics registry
+(:data:`dmlp_tpu_torch.obs.telemetry.REGISTRY`), as the reference's do:
+the live scrape (``--telemetry``), the flight recorder and the end-of-run
+``resilience`` block read the same numbers. The ordered degradation list
+is what the ladder's tests assert step by step; :func:`snapshot` keeps the
+reference's shape.
 """
 
 from __future__ import annotations
 
 import threading
-from collections import Counter
-from typing import Dict, List
+from typing import List
+
+from dmlp_tpu_torch.obs.telemetry import REGISTRY
 
 _lock = threading.Lock()
+_degradations: List[str] = []   # ordered transitions (counts mirror the
+#                                 resilience.degradations counter labels)
 _NAMES = ("retries", "rollbacks", "restarts", "timeouts", "faults_injected",
           "degradations")
-# name -> label -> count ("" is the unlabelled count)
-_counts: Dict[str, Counter] = {name: Counter() for name in _NAMES}
-_degradations: List[str] = []
 
 
-def _inc(name: str, label: str = "") -> None:
-    with _lock:
-        _counts[name][label] += 1
+def _counters() -> dict:
+    """The resilience counter set, registered once per name."""
+    return {name: REGISTRY.counter(f"resilience.{name}") for name in _NAMES}
 
 
 def reset() -> None:
     with _lock:
         _degradations.clear()
-        for c in _counts.values():
-            c.clear()
+    REGISTRY.reset(prefix="resilience")
 
 
 def record_retry(site: str) -> None:
-    _inc("retries", site)
+    REGISTRY.counter("resilience.retries").inc(label=site)
 
 
 def record_degradation(frm: str, to: str) -> None:
     with _lock:
         _degradations.append(f"{frm}->{to}")
-        _counts["degradations"][f"{frm}->{to}"] += 1
+    REGISTRY.counter("resilience.degradations").inc(label=f"{frm}->{to}")
 
 
 def record_fault(site: str, kind: str) -> None:
-    _inc("faults_injected", kind)
+    REGISTRY.counter("resilience.faults_injected").inc(label=kind)
 
 
 def record_rollback() -> None:
-    _inc("rollbacks")
+    REGISTRY.counter("resilience.rollbacks").inc()
 
 
 def record_restart() -> None:
-    _inc("restarts")
+    REGISTRY.counter("resilience.restarts").inc()
 
 
 def record_timeout(site: str) -> None:
-    _inc("timeouts", site)
+    REGISTRY.counter("resilience.timeouts").inc(label=site)
 
 
 def any_activity() -> bool:
-    with _lock:
-        return any(sum(c.values()) for c in _counts.values())
+    c = _counters()
+    return any(c[name].total() for name in _NAMES)
 
 
 def snapshot() -> dict:
     """A JSON-ready copy of the counters, every field present (zeros
-    included), in the reference's shape."""
+    included), in the reference's shape, read from the registry."""
+    c = _counters()
     with _lock:
-        totals = {name: int(sum(c.values())) for name, c in _counts.items()}
-        return {
-            "retries": totals["retries"],
-            "rollbacks": totals["rollbacks"],
-            "restarts": totals["restarts"],
-            "timeouts": totals["timeouts"],
-            "faults_injected": totals["faults_injected"],
-            "degradations": list(_degradations),
-            "retry_sites": {k: int(v)
-                            for k, v in _counts["retries"].items()},
-        }
+        degr = list(_degradations)
+    return {
+        "retries": int(c["retries"].total()),
+        "rollbacks": int(c["rollbacks"].total()),
+        "restarts": int(c["restarts"].total()),
+        "timeouts": int(c["timeouts"].total()),
+        "faults_injected": int(c["faults_injected"].total()),
+        "degradations": degr,
+        "retry_sites": {k: int(v)
+                        for k, v in c["retries"].by_label().items()},
+    }

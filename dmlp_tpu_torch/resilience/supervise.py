@@ -159,6 +159,12 @@ def run_supervised(make_cluster: Callable[[int], List[List[str]]],
         report["launches"].append({"attempt": attempt, "ok": failure == "",
                                    **({"failure": failure} if failure
                                       else {})})
+        if failure:
+            # Flight-recorder evidence (no-op without a telemetry
+            # session): which launch died and why.
+            from dmlp_tpu_torch.obs import telemetry
+            telemetry.flight_event("supervise.launch_failed",
+                                   attempt=attempt, reason=failure)
         if failure == "":
             with open(os.path.join(workdir, f"rank0.a{attempt}.out"),
                       "rb") as f:
@@ -169,10 +175,15 @@ def run_supervised(make_cluster: Callable[[int], List[List[str]]],
             return out_b, err_b, report
         if attempt + 1 < max_launches:
             stats.record_restart()
+            from dmlp_tpu_torch.obs import trace as obs_trace
+            obs_trace.instant("resilience.restart", attempt=attempt,
+                              reason=failure)
 
     if fallback is None:
         raise ClusterFailure(report)
     stats.record_degradation("cluster", "single-process")
+    from dmlp_tpu_torch.obs import trace as obs_trace
+    obs_trace.instant("resilience.fallback", to="single-process")
     report["fallback"] = True
     out_b, err_b = fallback()
     return out_b, err_b, report

@@ -9,6 +9,8 @@ Usage::
         [--select auto|...] [--dtype auto|float32|bfloat16]
         [--precision auto|f32|bf16] [--data-block N]
         [--warm-buckets NQxK,NQxK,...] [--ready-file PATH] [--faults FILE]
+        [--telemetry FILE] [--telemetry-port PORT] [--trace FILE]
+        [--slo SPEC ...] [--record FILE]
 
 The corpus file is the standard input grammar: its data section becomes
 the resident corpus, its query section seeds the warm-up buckets. The
@@ -17,10 +19,15 @@ daemon prints ``dmlp_tpu_torch.serve: ready port=P`` on stderr (and writes
 SIGTERM or an in-band ``drain`` op, which finishes the queued micro-batches
 and exits 0. ``--device cuda`` (the default) raises without a card.
 
+``--telemetry`` / ``--telemetry-port`` run the telemetry session (the
+OpenMetrics snapshot and the ``GET /metrics`` endpoint, whose port the
+snapshot carries as ``telemetry_http_port``), ``--trace`` writes the
+rid-tagged request-phase spans at drain, ``--slo`` declares objectives
+(repeatable) and ``--record`` appends the serving RunRecord at drain.
+
 The reference's ``--mesh`` and ``--mesh-merge`` (ROADMAP A12),
-``--telemetry``, ``--telemetry-port``, ``--trace`` and ``--slo`` (A13),
-``--record`` and ``--snapshot-every-s`` (A15), and ``--compile-cache`` (no
-compiled program to cache) are not flags here.
+``--snapshot-every-s`` (A15), and ``--compile-cache`` (no compiled program
+to cache) are not flags here.
 """
 
 from __future__ import annotations
@@ -96,6 +103,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="fault-injection schedule "
                         "(dmlp_tpu_torch.resilience.inject; the "
                         "serve.admit oom fault is the memory squeeze)")
+    p.add_argument("--telemetry", metavar="FILE", default=None,
+                   help="OpenMetrics snapshot file of the live telemetry "
+                        "session (flight recorder beside it)")
+    p.add_argument("--telemetry-port", type=int, default=None,
+                   metavar="PORT",
+                   help="serve the OpenMetrics text on "
+                        "localhost:PORT/metrics (0 = ephemeral)")
+    p.add_argument("--trace", metavar="FILE", default=None,
+                   help="write a Chrome-trace JSON of the rid-tagged "
+                        "request-phase spans here at drain")
+    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                   help="declare an SLO objective (repeatable), e.g. "
+                        "'serve.request_latency_ms p99 < 50 over 1m' or "
+                        "'serve.requests_completed/serve.admitted "
+                        "availability > 0.999 over 5m' (obs.slo); the "
+                        "stats op carries its state")
+    p.add_argument("--record", metavar="FILE", default=None,
+                   help="append the serving RunRecord here at drain")
     args = p.parse_args(argv)
 
     from dmlp_tpu_torch.config import EngineConfig
@@ -117,13 +142,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                           data_block=args.data_block,
                           precision=args.precision, device=args.device)
     schedule = rs_inject.install_from_env(args.faults)
+    daemon = None
     try:
         daemon = ServeDaemon(
             corpus, config, port=args.port, capacity=args.capacity,
             gate_carry=args.gate_carry == "on", budget_bytes=budget,
             max_batch_queries=args.max_batch_queries,
             max_queue_queries=args.max_queue_queries, max_k=args.max_k,
-            tick_s=args.tick_ms / 1e3, warm_buckets=warm)
+            tick_s=args.tick_ms / 1e3, warm_buckets=warm,
+            telemetry_path=args.telemetry,
+            telemetry_port=args.telemetry_port, record_path=args.record,
+            trace_path=args.trace, objectives=args.slo)
         daemon.start()
         sys.stderr.write(f"dmlp_tpu_torch.serve: ready port={daemon.port} "
                          f"cold_start_compile_ms="
@@ -134,6 +163,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         daemon.run_until_drained()
         sys.stderr.write("dmlp_tpu_torch.serve: drained clean\n")
         return 0
+    except Exception:
+        if daemon is not None and daemon.session is not None:
+            from dmlp_tpu_torch.obs import telemetry
+            telemetry.dump_on_crash("serve_crash")
+        raise
     finally:
         if schedule is not None:
             rs_inject.write_log_if_requested()

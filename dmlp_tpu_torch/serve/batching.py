@@ -10,8 +10,14 @@ bytes of the request's solo solve.
 One consumer thread: the engine, its ingest path and every device launch
 and readback run on the batcher thread alone, so the resident buffer never
 races a solve. Requests complete through a per-request event; connection
-handlers block on it and write the response. The reference's request-phase
-spans are ROADMAP item A13.
+handlers block on it and write the response.
+
+While a trace sink is active (``obs.trace.sinks_active``) every request's
+phases are rid-tagged spans, the reference's: ``serve.phase.admission``
+(the handler thread's admission decision, concurrent with the queue wait),
+then ``serve.phase.queue`` -> ``coalesce`` -> ``solve`` -> ``finalize``
+(the daemon adds ``write``), and ``serve.micro_batch`` around each batch
+solve. With no sink none of the clock reads happen.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from dmlp_tpu_torch.obs import telemetry
+from dmlp_tpu_torch.obs import trace as obs_trace
+from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.resilience import inject as rs_inject
 from dmlp_tpu_torch.serve.admission import ACCEPT, AdmissionController
 
@@ -42,6 +50,7 @@ class Request:
     kind: str
     req_id: str = ""
     rid: str = ""                                 # request id, echoed back
+    #                                               and tagging the spans
     query_attrs: Optional[np.ndarray] = None      # (nq, na) float64
     ks: Optional[np.ndarray] = None               # (nq,) int32
     labels: Optional[np.ndarray] = None           # ingest: (m,) int32
@@ -51,6 +60,10 @@ class Request:
     count: Optional[int] = None                   # corpus read length
     debug: bool = False                           # echo neighbors/dists
     t_enqueue: float = dataclasses.field(default_factory=time.monotonic)
+    # The same instant in the tracer's clock domain: request phases are
+    # cross-thread intervals recorded through trace.complete_at.
+    t_enqueue_pc: float = dataclasses.field(
+        default_factory=time.perf_counter)
     done: threading.Event = dataclasses.field(
         default_factory=threading.Event)
     results: Optional[List] = None                # QueryResults (local ids)
@@ -87,6 +100,10 @@ class MicroBatcher:
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         self.batches = 0
+        # perf_counter at which the consumer woke for the current collect
+        # cycle: the queue / coalesce boundary of the phase spans. Read
+        # and written on the batcher thread only.
+        self._wake_pc = 0.0
 
     # -- producer side ---------------------------------------------------------
 
@@ -101,6 +118,7 @@ class MicroBatcher:
         without a blocking call under the lock."""
         if req.kind == "query":
             kmax = int(req.ks.max()) if req.nq else 0
+            a0 = time.perf_counter() if obs_trace.sinks_active() else 0.0
             pre = self.admission.precheck(req.nq, kmax)
             with self._cond:
                 decision = self.admission.decide_queued(
@@ -113,6 +131,12 @@ class MicroBatcher:
                     telemetry.registry().gauge("serve.queue_depth").set(
                         self._queued_queries)
                     self._cond.notify()
+            if a0:
+                # On the handler thread, concurrent with the queue wait:
+                # reported, and left out of a request's phase sum.
+                self._phase("serve.phase.admission", a0,
+                            time.perf_counter(), req.rid,
+                            verdict=decision["verdict"])
             if decision["verdict"] != ACCEPT:
                 req.complete(error=f"rejected: {decision['reason']}")
             return decision
@@ -168,6 +192,7 @@ class MicroBatcher:
                 self._cond.wait(timeout=0.1)
             if not self._queue:
                 return []
+            self._wake_pc = time.perf_counter()
             if not self._stop and self.tick_s > 0 \
                     and self._queued_queries < self.max_batch_queries:
                 self._cond.wait(timeout=self.tick_s)
@@ -207,7 +232,22 @@ class MicroBatcher:
             else:
                 self._execute_batch(batch)
 
+    def _phase(self, name: str, t0: float, t1: float, rid: str,
+               **args) -> None:
+        """One request-phase span through the complete_at seam (tracer
+        and telemetry observer), rid-tagged when the request carried one.
+        Callers gate on sinks_active()."""
+        if rid:
+            args["rid"] = rid
+        obs_trace.complete_at(name, t0, max(t0, t1), **args)
+
     def _execute_ingest(self, req: Request) -> None:
+        e0 = 0.0
+        if obs_trace.sinks_active():
+            e0 = time.perf_counter()
+            self._phase("serve.phase.queue", req.t_enqueue_pc,
+                        max(req.t_enqueue_pc, self._wake_pc), req.rid,
+                        kind="ingest")
         try:
             # A transient fault here fails this ingest before any state
             # is touched.
@@ -219,10 +259,19 @@ class MicroBatcher:
             req.complete(corpus_rows=rows)
         except Exception as e:  # surfaced to the client
             req.complete(error=f"{type(e).__name__}: {e}")
+        if e0:
+            self._phase("serve.phase.ingest", e0, time.perf_counter(),
+                        req.rid, ok=req.error is None)
 
     def _execute_corpus(self, req: Request) -> None:
         """One ``corpus`` read on the batcher thread: the rows and the
         signature are one snapshot (no ingest can interleave)."""
+        e0 = 0.0
+        if obs_trace.sinks_active():
+            e0 = time.perf_counter()
+            self._phase("serve.phase.queue", req.t_enqueue_pc,
+                        max(req.t_enqueue_pc, self._wake_pc), req.rid,
+                        kind="corpus")
         try:
             state = self.engine.corpus_state()
             labels, attrs = self.engine.corpus_slice(req.start or 0,
@@ -238,6 +287,9 @@ class MicroBatcher:
             req.complete()
         except Exception as e:  # surfaced to the client
             req.complete(error=f"{type(e).__name__}: {e}")
+        if e0:
+            self._phase("serve.phase.corpus", e0, time.perf_counter(),
+                        req.rid, ok=req.error is None)
 
     def _execute_batch(self, batch: List[Request]) -> None:
         reg = telemetry.registry()
@@ -246,20 +298,34 @@ class MicroBatcher:
         ks = np.concatenate([r.ks for r in batch])
         qpad, _ = self.engine.bucket_shape(
             total, int(ks.max()) if total else 1)
+        tracing = obs_trace.sinks_active()
+        rids = ",".join(r.rid for r in batch if r.rid) if tracing else ""
         t0 = time.perf_counter()
         try:
             # A delay fault here slows this batch; a transient one fails
             # the whole batch visibly (serve.batch_errors).
             rs_inject.fire("serve.solve", requests=len(batch),
                            queries=total)
-            results = self.engine.solve_batch(q, ks)
+            with obs_span("serve.micro_batch", requests=len(batch),
+                          queries=total, qpad=qpad,
+                          **({"rids": rids} if rids else {})):
+                if rids:
+                    # One batcher thread: the engine reads this inside
+                    # solve_batch to rid-tag its own spans.
+                    self.engine.trace_rids = rids
+                try:
+                    results = self.engine.solve_batch(q, ks)
+                finally:
+                    if rids:
+                        self.engine.trace_rids = None
         except Exception as e:  # the batch fails visibly, the daemon lives
             reg.counter("serve.batch_errors").inc()
             msg = f"{type(e).__name__}: {e}"
             for r in batch:
                 r.complete(error=msg)
             return
-        ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        ms = (t1 - t0) * 1e3
         with self._cond:
             # Handler threads read `batches` through daemon.stats().
             self.batches += 1
@@ -279,4 +345,21 @@ class MicroBatcher:
             reg.counter("serve.requests_completed").inc()
             reg.counter("serve.queries_completed").inc(r.nq)
             reg.histogram("serve.request_latency_ms", unit="ms").observe(
-                (time.monotonic() - r.t_enqueue) * 1e3)
+                (time.monotonic() - r.t_enqueue) * 1e3,
+                exemplar=r.rid or None)
+            if tracing:
+                # Per-request phases: queue ends when the consumer woke
+                # (a request that arrived during the coalesce tick waited
+                # none), coalesce runs to the solve's start, and the whole
+                # batch solve is attributed to every coalesced request
+                # (one rid's phases tile its wall time; they do not sum
+                # across rids).
+                q1 = min(max(self._wake_pc, r.t_enqueue_pc), t0)
+                self._phase("serve.phase.queue", r.t_enqueue_pc, q1,
+                            r.rid)
+                self._phase("serve.phase.coalesce", q1, t0, r.rid,
+                            requests=len(batch))
+                self._phase("serve.phase.solve", t0, t1, r.rid,
+                            queries=total, qpad=qpad)
+                self._phase("serve.phase.finalize", t1,
+                            time.perf_counter(), r.rid)

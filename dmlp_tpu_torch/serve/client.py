@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from dmlp_tpu_torch.io.grammar import KNNInput, Params
+from dmlp_tpu_torch.obs import trace as obs_trace
 
 TRACE_SCHEMA = 1
 
@@ -240,7 +241,8 @@ def replay_open_loop(port: int, header: Dict[str, Any],
                      requests: List[Dict[str, Any]], speed: float = 1.0,
                      host: str = "127.0.0.1",
                      timeout_s: float = 600.0,
-                     rid_prefix: Optional[str] = None
+                     rid_prefix: Optional[str] = None,
+                     level: Optional[float] = None
                      ) -> List[Dict[str, Any]]:
     """Paced OPEN-LOOP replay: every request fires AT its trace
     ``t_ms`` offset (divided by ``speed`` — ``speed=2`` offers 2× the
@@ -261,8 +263,10 @@ def replay_open_loop(port: int, header: Dict[str, Any],
     ``rid_prefix`` stamps every payload with ``rid = f"{rid_prefix}{i}"``
     and a ``trace`` context taken at fire time (the pre-encoded body is
     held open, so the fire loop appends the stamped tail without
-    re-encoding the query rows); the daemon echoes the rid. The
-    reference's ``client.request`` span is ROADMAP item A13."""
+    re-encoding the query rows); the daemon echoes the rid. While a trace
+    sink is active, each response also records a ``client.request`` span
+    (scheduled fire -> response parsed, i.e. exactly ``client_ms``),
+    rid-tagged, with ``level`` attached when given."""
     traced = bool(rid_prefix)
     payloads = []
     for i, req in enumerate(requests):
@@ -305,6 +309,17 @@ def replay_open_loop(port: int, header: Dict[str, Any],
             resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
         resp["client_ms"] = round((time.monotonic() - sched) * 1e3, 3)
         resp["lag_ms"] = round(lag_ms, 3)
+        if traced and obs_trace.sinks_active():
+            # The scheduled fire instant in the tracer's perf_counter
+            # domain: the span is client_ms, queue lag included.
+            t1p = time.perf_counter()
+            t0p = t1p - (time.monotonic() - sched)
+            args = {"rid": f"{rid_prefix}{i}", "lag_ms": round(lag_ms, 3),
+                    "ok": bool(resp.get("ok")),
+                    "hops": int(resp.get("hops", 1))}
+            if level is not None:
+                args["level"] = level
+            obs_trace.complete_at("client.request", t0p, t1p, **args)
         out[i] = resp
 
     threads = [threading.Thread(target=worker, args=(i,), daemon=True)

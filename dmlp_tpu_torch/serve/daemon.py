@@ -9,13 +9,22 @@ serves the line-JSON protocol (:mod:`dmlp_tpu_torch.serve.protocol`) on a
 localhost TCP port. Request latencies land in the registry's histograms
 (``obs.telemetry``) and ``stats`` reports them.
 
+Observability, each opt-in: ``telemetry_path`` / ``telemetry_port`` start
+the telemetry session (OpenMetrics snapshot and scrape endpoint, the
+device-memory sampler, the flight recorder) and install a cost probe, so
+every micro-batch's kernel launches are recorded, timed on the card and
+logged beside its launch counts (``batch_log``); ``trace_path`` installs a
+tracer for the rid-tagged request-phase spans, written at drain;
+``objectives`` are SLO specs (``obs.slo``) evaluated while the daemon
+runs, reported by ``stats`` and the ``slo_*`` metrics; ``record_path``
+appends the serving state as a RunRecord at drain.
+
 Shutdown: SIGTERM, or an in-band ``drain`` op, stops admission
 ("draining" rejections), lets the batcher finish every queued micro-batch,
 waits for the handlers to write their responses, and exits 0.
 
-Not here yet, each with its ROADMAP item: the mesh-resident replica
-(``mesh_shape``, A12); the telemetry session, SLO objectives and the trace
-sink (A13); ``snapshot_record`` and ``--record`` (A15).
+Not here yet, with its ROADMAP item: the mesh-resident replica
+(``mesh_shape``, A12); periodic records (``--snapshot-every-s``, A15).
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.io.grammar import KNNInput
+from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.obs import telemetry
+from dmlp_tpu_torch.obs import trace as obs_trace
 from dmlp_tpu_torch.serve import protocol
 from dmlp_tpu_torch.serve.admission import AdmissionController
 from dmlp_tpu_torch.serve.batching import MicroBatcher, Request
@@ -87,8 +98,15 @@ class _Handler(socketserver.StreamRequestHandler):
                     # request; solve failures come back per request
                     resp = {"ok": False,
                             "error": f"{type(e).__name__}: {e}"}
+                w0 = (time.perf_counter()
+                      if obs_trace.sinks_active() else 0.0)
                 self.wfile.write(protocol.encode(resp))
                 self.wfile.flush()
+                if w0:
+                    rid = resp.get("rid", "")
+                    obs_trace.complete_at(
+                        "serve.phase.write", w0, time.perf_counter(),
+                        **({"rid": rid} if rid else {}))
             finally:
                 daemon._track_inflight(-1)
             if resp.get("draining"):
@@ -112,14 +130,38 @@ class ServeDaemon:
                  max_queue_queries: int = 4096,
                  max_k: Optional[int] = None,
                  tick_s: float = 0.002,
-                 warm_buckets: Optional[List[Tuple[int, int]]] = None):
+                 warm_buckets: Optional[List[Tuple[int, int]]] = None,
+                 telemetry_path: Optional[str] = None,
+                 telemetry_port: Optional[int] = None,
+                 record_path: Optional[str] = None,
+                 trace_path: Optional[str] = None,
+                 objectives: Optional[List[Any]] = None):
         self.corpus = corpus
+        self.record_path = record_path
+        config = config or EngineConfig()
+        # Request tracing: a process-wide tracer and the clock-sync marker
+        # a merge of several processes' traces aligns on; written at
+        # drain or close.
+        self.trace_path = trace_path
+        self._tracer = None
+        if trace_path:
+            self._tracer = obs_trace.install(obs_trace.Tracer())
+            self._tracer.sync_instant("fleet.clock_sync")
+        self.session = None
+        self._probe = None
+        if telemetry_path or telemetry_port is not None:
+            # The session owns the SIGTERM handler; the daemon registers
+            # its drain hook below, so an orderly SIGTERM drains instead
+            # of dumping a flight artifact.
+            self.session = telemetry.start(path=telemetry_path,
+                                           port=telemetry_port,
+                                           device=config.device)
+            self._probe = obs_counters.install()
         # The registry is process-wide, but stats() divides by this
         # daemon's uptime: a second daemon in one process must not
         # inherit the first one's serve.* counts.
         telemetry.registry().reset(prefix="serve")
-        self.engine = ResidentEngine(corpus, config or EngineConfig(),
-                                     capacity=capacity,
+        self.engine = ResidentEngine(corpus, config, capacity=capacity,
                                      gate_carry=gate_carry)
         self.admission = AdmissionController(
             self.engine, budget_bytes=budget_bytes,
@@ -129,6 +171,15 @@ class ServeDaemon:
         self.batcher = MicroBatcher(self.engine, self.admission,
                                     max_batch_queries=max_batch_queries,
                                     tick_s=tick_s)
+        # SLO objectives (spec strings or obs.slo.Objective): bound after
+        # the serve.* reset above, so the windowed histograms are the
+        # ones this daemon observes into; ticked by run_until_drained().
+        self.slo = None
+        if objectives:
+            from dmlp_tpu_torch.obs import slo as obs_slo
+            self.slo = obs_slo.SLOEvaluator(
+                [obs_slo.parse_objective(o) if isinstance(o, str) else o
+                 for o in objectives], telemetry.registry())
         self._warm = (warm_buckets if warm_buckets is not None
                       else default_warm_buckets(corpus))
         self._drain_event = threading.Event()
@@ -142,6 +193,9 @@ class ServeDaemon:
         self.warmup_ms: Dict[str, float] = {}
         self._sigterm_prev = None
         self._sigterm_handler = None
+        if self.session is not None:
+            self.session.set_sigterm_drain(self._drain_event.set)
+            return
         # The handler holds the drain event weakly: a strong closure in
         # the signal module would pin this daemon's engine (its resident
         # device buffer included) for the life of the process.
@@ -179,6 +233,8 @@ class ServeDaemon:
             "kernel_loads": stats["kernel_loads"],
             "buckets": stats["buckets"],
             "paths": stats["paths"],
+            "telemetry_port": self.session.http_port
+            if self.session is not None else None,
             "hlo_schedule": stats["hlo_schedule"],
             "warmup_ms": self.warmup_ms,
         }
@@ -258,7 +314,63 @@ class ServeDaemon:
                 "p99": round(h.quantile(0.99), 3),
                 "count": h.count,
             }
+        if self.slo is not None:
+            try:
+                out["slo"] = self.slo.snapshot()
+            except Exception:  # stats never fail on the SLO block
+                telemetry.registry().counter("obs.errors").inc(label="slo")
         return out
+
+    # -- run records -----------------------------------------------------------
+
+    def snapshot_record(self):
+        """The serving state as a RunRecord (kind "serve"): cold start,
+        buckets, request rates and latency quantiles, the gate's share."""
+        from dmlp_tpu_torch.obs.run import RunRecord, current_device
+        reg = telemetry.registry()
+        eng = self.engine
+        elapsed = (time.monotonic() - self._t_ready) \
+            if self._t_ready else 0.0
+        done = reg.counter("serve.requests_completed").total()
+        stats = eng.bucket_stats()
+        metrics: Dict[str, Any] = {
+            "cold_start_compile_ms": eng.cold_start_compile_ms,
+            "compile_count": eng.compile_count,
+            "warm_buckets": len(stats["buckets"]),
+            "admitted_total": reg.counter("serve.admitted").total(),
+            "rejected_total": reg.counter("serve.rejected").total(),
+            "batches_total": reg.counter("serve.batches").total(),
+        }
+        if elapsed and done:
+            metrics["requests_per_sec"] = round(done / elapsed, 3)
+            metrics["queries_per_sec"] = round(
+                reg.counter("serve.queries_completed").total() / elapsed,
+                3)
+        h = reg.get("serve.request_latency_ms")
+        if h is not None and h.count:
+            metrics["request_latency_p50_ms"] = round(h.quantile(0.5), 3)
+            metrics["request_latency_p95_ms"] = round(h.quantile(0.95), 3)
+            metrics["request_latency_p99_ms"] = round(h.quantile(0.99), 3)
+            metrics["request_count"] = h.count
+        if eng.last_gated_fraction is not None:
+            metrics["gate_gated_fraction"] = round(
+                eng.last_gated_fraction, 6)
+        return RunRecord(
+            kind="serve", tool="dmlp_tpu_torch.serve",
+            config={"corpus_rows": eng.n_real,
+                    "capacity_rows": eng.capacity_rows,
+                    "num_attrs": eng.num_attrs,
+                    "gate_carry": eng.gate_carry, "mode": "resident",
+                    "buckets": stats["buckets"]},
+            metrics=metrics, device=current_device(eng.device))
+
+    def _append_record(self) -> None:
+        if self.record_path:
+            try:
+                self.snapshot_record().append_jsonl(self.record_path)
+            except Exception:  # a record never kills the drain: counted
+                telemetry.registry().counter("obs.errors").inc(
+                    label="record")
 
     # -- run / drain -----------------------------------------------------------
 
@@ -266,7 +378,13 @@ class ServeDaemon:
         """Block until a drain is requested (SIGTERM or the in-band op),
         then drain and shut down."""
         while not self._drain_event.wait(timeout=0.2):
-            pass
+            if self.slo is not None:
+                try:
+                    self.slo.tick()
+                except Exception:  # evaluation never takes the serve
+                    # loop down: counted, and the next tick re-reads all
+                    telemetry.registry().counter("obs.errors").inc(
+                        label="slo")
         self.drain()
 
     def _restore_sigterm(self) -> None:
@@ -290,8 +408,33 @@ class ServeDaemon:
         self._server.shutdown()
         self.batcher.stop(drain=True)
         self._wait_inflight_drained()
+        self._append_record()
+        self._close_obs()
         self._restore_sigterm()
         self._server.server_close()
+
+    def _close_obs(self) -> None:
+        """Write the trace and close the telemetry session (its final
+        snapshot) and the cost probe, each only while it is this
+        daemon's."""
+        if self._tracer is not None:
+            try:
+                self._tracer.write(self.trace_path,
+                                   process_name=f"serve:{self.port}")
+            except Exception:  # a trace never kills the drain: counted
+                telemetry.registry().counter("obs.errors").inc(
+                    label="trace")
+            if obs_trace.active() is self._tracer:
+                obs_trace.uninstall()
+            self._tracer = None
+        if self._probe is not None:
+            if obs_counters.active() is self._probe:
+                obs_counters.uninstall()
+            self._probe = None
+        if self.session is not None:
+            self.session.set_sigterm_drain(None)
+            self.session.close()     # writes the final snapshot
+            self.session = None
 
     def close(self) -> None:
         """Abrupt teardown (no drain semantics)."""
@@ -299,5 +442,6 @@ class ServeDaemon:
         self.admission.draining = True
         self._server.shutdown()
         self.batcher.stop(drain=False)
+        self._close_obs()
         self._restore_sigterm()
         self._server.server_close()

@@ -46,15 +46,22 @@ oracle) is inherited unchanged.
 Every device launch and readback runs on the caller's thread: in the
 daemon, the batcher's. The methods a request handler thread calls
 (:meth:`bucket_stats`, :meth:`corpus_state`, the memory-model hooks) read
-host state only. Spans, the telemetry sampler and the persistent compile
-cache of the reference are ROADMAP item A13.
+host state only. The reference's spans ride the resident paths
+(``serve.warmup_bucket``, ``serve.stage_resident``, ``serve.summary_build``,
+``serve.ingest``, ``serve.fold_schedule``, ``serve.prune_score``,
+``serve.solve_extract``, ``serve.solve_multipass``, ``serve.solve_stream``,
+rid-tagged while the batcher traces; there is no ``serve.stage_chunks``:
+the chunks are row views), and with a cost probe installed (the daemon's
+telemetry session) each batch's recorded launches and their device ms
+join its ``batch_log`` entry. The reference's persistent compile cache
+has nothing to cache here.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,7 +80,9 @@ from dmlp_tpu_torch.engine.single import (_BF16_AUTO_K_CAP, ChunkThrottle,
 from dmlp_tpu_torch.fleet import consistency as ccs
 from dmlp_tpu_torch.io.grammar import KNNInput, Params
 from dmlp_tpu_torch.io.report import QueryResult
+from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.obs import memwatch, telemetry
+from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.ops import fused
 from dmlp_tpu_torch.ops import summaries as osum
 from dmlp_tpu_torch.ops.topk import TopK, streaming_topk
@@ -135,6 +144,15 @@ class ResidentServingCore:
     implements :meth:`mem_model`, :meth:`batch_model_bytes` and
     :meth:`resident_state_key`."""
 
+    #: the current micro-batch's request ids, set by the batcher while it
+    #: traces (one batcher thread), riding the engine's spans
+    trace_rids: Optional[str] = None
+
+    def _rid_args(self) -> Dict[str, Any]:
+        """Span args carrying the current batch's rids; empty untraced."""
+        t = self.trace_rids
+        return {"rids": t} if t else {}
+
     def _bucket_entry(self, nq: int, kmax: int):
         """The bucket for (nq, kmax), built (and counted) on first use;
         the warm-up drives this so steady-state serving takes the dict
@@ -177,7 +195,8 @@ class ResidentServingCore:
             idx = np.arange(nq) % self.n_real
             q = self._host_attrs[:self.n_real][idx]
             ks = np.full(nq, k, np.int32)
-            self.solve_batch(q, ks)
+            with obs_span("serve.warmup_bucket", qpad=key[0], kb=key[1]):
+                self.solve_batch(q, ks)
             per[f"q{key[0]}k{key[1]}"] = round(
                 (time.perf_counter() - tb) * 1e3, 3)
         self.cold_start_compile_ms = round(
@@ -327,10 +346,12 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         ids = np.full(rows, -1, np.int32)
         ids[:n] = np.arange(n, dtype=np.int32)
         dev = self.device
-        self._buf = host_staging(self._host_attrs, dev,
-                                 self._staging).to(dev)
-        self._d_labels = torch.from_numpy(self._host_labels.copy()).to(dev)
-        self._d_ids = torch.from_numpy(ids).to(dev)
+        with obs_span("serve.stage_resident", rows=rows, na=na):
+            self._buf = host_staging(self._host_attrs, dev,
+                                     self._staging).to(dev)
+            self._d_labels = torch.from_numpy(
+                self._host_labels.copy()).to(dev)
+            self._d_ids = torch.from_numpy(ids).to(dev)
 
         # -- bucket registry and build bookkeeping --------------------------
         self._buckets: Dict[Tuple[int, int], _Bucket] = {}
@@ -444,10 +465,11 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         if not self._extract_ok or self._ex_nchunks <= 1 \
                 or not osum.prune_enabled():
             return
-        self._summ = osum.build_summaries(
-            self._host_attrs,
-            [self._chunk_span(c) for c in range(self._ex_nchunks)])
-        self._stage_summaries()
+        with obs_span("serve.summary_build", blocks=self._ex_nchunks):
+            self._summ = osum.build_summaries(
+                self._host_attrs,
+                [self._chunk_span(c) for c in range(self._ex_nchunks)])
+            self._stage_summaries()
         telemetry.registry().gauge("prune.summary_blocks").set(
             self._ex_nchunks)
 
@@ -513,15 +535,17 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
             raise CapacityError(
                 f"ingest of {m} rows at {at} exceeds capacity "
                 f"{self.capacity_rows} (resident: {self.n_real})")
-        self._host_attrs[at:end] = attrs
-        self._host_labels[at:end] = labels
-        self.n_real = new_n
-        dev = self.device
-        self._buf[at:end].copy_(
-            host_staging(self._host_attrs[at:end], dev, self._staging),
-            non_blocking=True)
-        self._d_labels[at:end].copy_(torch.from_numpy(labels))
-        self._d_ids[at:end].copy_(torch.arange(at, end, dtype=torch.int32))
+        with obs_span("serve.ingest", rows=m, corpus_rows=new_n):
+            self._host_attrs[at:end] = attrs
+            self._host_labels[at:end] = labels
+            self.n_real = new_n
+            dev = self.device
+            self._buf[at:end].copy_(
+                host_staging(self._host_attrs[at:end], dev, self._staging),
+                non_blocking=True)
+            self._d_labels[at:end].copy_(torch.from_numpy(labels))
+            self._d_ids[at:end].copy_(torch.arange(at, end,
+                                                   dtype=torch.int32))
         if self._chunks_ready:
             cr = self._ex_chunk_rows
             # The summaries of exactly the touched blocks rebuild with the
@@ -570,10 +594,13 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         d, lab, ids = (self._buf[:rows], self._d_labels[:rows],
                        self._d_ids[:rows])
         qb = entry.qb
-        outs = [streaming_topk(q_dev[b * qb:(b + 1) * qb], d, lab, ids,
-                               entry.kcap, self._data_block,
-                               self._stream_select, self.config.use_pallas)
-                for b in range(entry.nqb)]
+        with obs_span("serve.solve_stream", qpad=entry.qpad,
+                      kcap=entry.kcap, **self._rid_args()):
+            outs = [streaming_topk(q_dev[b * qb:(b + 1) * qb], d, lab,
+                                   ids, entry.kcap, self._data_block,
+                                   self._stream_select,
+                                   self.config.use_pallas)
+                    for b in range(entry.nqb)]
         # The streaming fold scans the whole resident buffer: a dense
         # scan, recorded as such.
         dense = self.n_real * self.num_attrs * self._staging_itemsize()
@@ -599,14 +626,16 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         qvalid[:nq] = True
         sd = self._summ_dev
         dev = self.device
-        mask = osum.score_blocks(
-            q_dev, torch.from_numpy(qvalid).to(dev),
-            torch.from_numpy(ks).to(dev), sd["counts"], sd["nmin"],
-            sd["nmax"], sd["lo"], sd["hi"], sd["dn_max"], sd["eps_rel"],
-            sd["eps_cancel"])
-        # The mask decides which chunks the folds launch over, so the host
-        # reads it (O(blocks) bytes) before launching them.
-        keep = mask.cpu().numpy()
+        with obs_span("serve.prune_score", blocks=self._ex_nchunks,
+                      qpad=entry.qpad, **self._rid_args()):
+            mask = osum.score_blocks(
+                q_dev, torch.from_numpy(qvalid).to(dev),
+                torch.from_numpy(ks).to(dev), sd["counts"], sd["nmin"],
+                sd["nmax"], sd["lo"], sd["hi"], sd["dn_max"],
+                sd["eps_rel"], sd["eps_cancel"])
+            # The mask decides which chunks the folds launch over, so the
+            # host reads it (O(blocks) bytes) before launching them.
+            keep = mask.cpu().numpy()
         self.last_phase_ms["prune"] = (time.perf_counter() - t0) * 1e3
         total = int(np.count_nonzero(
             self._summ.counts[:self._ex_nchunks] > 0))
@@ -640,19 +669,23 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         throttle = ChunkThrottle(self.device)
         self._last_select = "extract"
         self.last_extract_impl = impl
-        for c in order:
-            lo = c * cr
-            nr = min(self.n_real - lo, cr)
-            if nr <= 0:
-                continue
-            od, oi, iters = kern(q_dev, self._chunk(c), od, oi, n_real=nr,
-                                 id_base=lo, kc=entry.kcap, precision=prec)
-            scanned += nr * na * item
-            # Gate statistics stay on the device until the batch ends.
-            z = (iters == 0).sum()
-            gz = z if gz is None else gz + z
-            ntiles += iters.numel()
-            throttle.tick()
+        with obs_span("serve.solve_extract", qpad=entry.qpad,
+                      kcap=entry.kcap, impl=impl, carry=self.gate_carry,
+                      scheduled=len(order), **self._rid_args()):
+            for c in order:
+                lo = c * cr
+                nr = min(self.n_real - lo, cr)
+                if nr <= 0:
+                    continue
+                od, oi, iters = kern(q_dev, self._chunk(c), od, oi,
+                                     n_real=nr, id_base=lo, kc=entry.kcap,
+                                     precision=prec)
+                scanned += nr * na * item
+                # Gate statistics stay on the device until the batch ends.
+                z = (iters == 0).sum()
+                gz = z if gz is None else gz + z
+                ntiles += iters.numel()
+                throttle.tick()
         if od is None:
             # Every scheduled chunk was empty (a sound mask cannot do
             # that; the belt above): the dense streaming fold instead.
@@ -703,39 +736,42 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         self.last_extract_impl = impl
         od = oi = None
         throttle = ChunkThrottle(self.device)
-        for c in range(self._ex_nchunks):
-            lo = c * cr
-            nr = min(n - lo, cr)
-            if nr <= 0:
-                continue
-            od, oi, _its = kern(q_dev, self._chunk(c), od, oi, n_real=nr,
-                                id_base=lo, kc=kc, precision=prec)
-            throttle.tick()
-        if od is None:
-            return None
-        ods, ois = [od], [oi]
-        qn_host = np.zeros(entry.qpad, np.float64)
-        qn_host[:nq] = np.einsum("qa,qa->q", inp.query_attrs,
-                                 inp.query_attrs)
-        dev = self.device
-        qn_dev = torch.from_numpy(qn_host.astype(np.float32)).to(dev)
-        dn_dev = torch.tensor(np.float32(self._dn_max()), device=dev)
-        d_full = self._buf[:self._ex_rows]
-        fds = []
-        for _p in range(1, npasses):
-            floor, fd = _mp_floor(ods[-1], qn_dev, dn_dev,
-                                  staging=self._staging, na=na,
-                                  precision=prec)
-            fds.append(fd)
-            od, oi, _its = kern_full(q_dev, d_full, n_real=n, id_base=0,
-                                     kc=kc, floor=floor, precision=prec)
-            throttle.tick()
-            ods.append(od)
-            ois.append(oi)
-        fds.append(_mp_floor(ods[-1], qn_dev, dn_dev, staging=self._staging,
-                             na=na, precision=prec)[1])
-        top, valid = _mp_merge(torch.cat(ods, 1), torch.cat(ois, 1),
-                               self._d_labels, kcap=kcap)
+        with obs_span("serve.solve_multipass", qpad=entry.qpad, kcap=kcap,
+                      passes=npasses, impl=impl, **self._rid_args()):
+            for c in range(self._ex_nchunks):
+                lo = c * cr
+                nr = min(n - lo, cr)
+                if nr <= 0:
+                    continue
+                od, oi, _its = kern(q_dev, self._chunk(c), od, oi, n_real=nr,
+                                    id_base=lo, kc=kc, precision=prec)
+                throttle.tick()
+            if od is None:
+                return None
+            ods, ois = [od], [oi]
+            qn_host = np.zeros(entry.qpad, np.float64)
+            qn_host[:nq] = np.einsum("qa,qa->q", inp.query_attrs,
+                                     inp.query_attrs)
+            dev = self.device
+            qn_dev = torch.from_numpy(qn_host.astype(np.float32)).to(dev)
+            dn_dev = torch.tensor(np.float32(self._dn_max()), device=dev)
+            d_full = self._buf[:self._ex_rows]
+            fds = []
+            for _p in range(1, npasses):
+                floor, fd = _mp_floor(ods[-1], qn_dev, dn_dev,
+                                      staging=self._staging, na=na,
+                                      precision=prec)
+                fds.append(fd)
+                od, oi, _its = kern_full(q_dev, d_full, n_real=n, id_base=0,
+                                         kc=kc, floor=floor, precision=prec)
+                throttle.tick()
+                ods.append(od)
+                ois.append(oi)
+            fds.append(_mp_floor(ods[-1], qn_dev, dn_dev,
+                                 staging=self._staging, na=na,
+                                 precision=prec)[1])
+            top, valid = _mp_merge(torch.cat(ods, 1), torch.cat(ois, 1),
+                                   self._d_labels, kcap=kcap)
         self.last_mp_passes = len(ods)
         # The multi-pass plan sweeps the whole resident corpus: a dense
         # scan by design.
@@ -758,11 +794,13 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         """Fold order over the resident chunks: hottest (most past
         winners) first with gate carry on, natural otherwise; a stable
         sort keeps cold chunks in their natural order."""
-        idx = range(self._ex_nchunks)
-        if not self.gate_carry:
-            return list(idx)
-        return [int(c) for c in np.argsort(
-            -self._block_hits[:self._ex_nchunks], kind="stable")]
+        with obs_span("serve.fold_schedule", chunks=self._ex_nchunks,
+                      carry=self.gate_carry, **self._rid_args()):
+            idx = range(self._ex_nchunks)
+            if not self.gate_carry:
+                return list(idx)
+            return [int(c) for c in np.argsort(
+                -self._block_hits[:self._ex_nchunks], kind="stable")]
 
     # -- SingleChipEngine seam overrides --------------------------------------
 
@@ -778,14 +816,6 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         nq = inp.params.num_queries
         kmax = int(inp.ks.max()) if nq else 1
         entry = self._bucket_entry(nq, kmax)
-        cfg = self.config
-        self.last_precision = {
-            "active": active_precision(self),
-            "configured": cfg.resolve_precision(),
-            "kcap": entry.kcap,
-            "kcap_inflation": entry.kcap - resolve_kcap(
-                cfg, entry.kb, self._stream_select, self.capacity_rows,
-                staging=self._staging, precision="f32")}
         out = None
         if self._degrade_rung != "streaming":
             if entry.path == "extract":
@@ -824,10 +854,31 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         self._pending_gate = None
         launches = dict(kernels.LAUNCHES)
         variants = {k: dict(v) for k, v in kernels.LAUNCH_VARIANTS.items()}
+        probe = obs_counters.active()
+        recorded = probe.dispatch_counts() if probe is not None else None
         results = self.run(inp)
         self._after_batch(results)
         self._log_batch(inp, launches, variants)
+        if probe is not None:
+            self._log_dispatches(probe, recorded)
         return results
+
+    def _log_dispatches(self, probe, before: Dict[str, int]) -> None:
+        """With a cost probe installed (the daemon's telemetry session):
+        the batch's recorded launches per kernel and their CUDA-event
+        device ms (the results are fetched, so the events have finished)
+        into the batch's log entry and the registry's
+        ``serve.kernel_dispatches`` / ``serve.kernel_device_ms``."""
+        now = probe.dispatch_counts()
+        delta = {k: n - before.get(k, 0) for k, n in now.items()
+                 if n - before.get(k, 0)}
+        ms = probe.drain_events()
+        reg = telemetry.registry()
+        for k, n in delta.items():
+            reg.counter("serve.kernel_dispatches").inc(n, label=k)
+        for k, v in ms.items():
+            reg.counter("serve.kernel_device_ms").inc(v, label=k)
+        self.batch_log[-1].update(dispatches=delta, device_ms=ms)
 
     def _log_batch(self, inp: KNNInput, launches, variants) -> None:
         nq = inp.params.num_queries

@@ -36,7 +36,7 @@ connection stays usable.
 Request ids: every request may carry ``"rid"`` (an opaque string the
 client stamps) and ``"trace"`` (client-side context). A non-empty ``rid``
 is echoed back in the response; responses without one keep the exact
-key set. The rid-tagged spans of the reference are ROADMAP item A13.
+key set. While the daemon traces, the rid tags its request-phase spans.
 
 The wire format is the reference's, byte for byte: the same request line
 gives the same response object through both packages, ``latency_ms``

@@ -27,7 +27,7 @@ variants.json``), keeping other keys. ``--kernel``:
 versions, timed by the host's clock): it proves measure, pick, persist and
 reload. ``--validate PATH`` checks a cache file and exits. The reference's
 ``--compile-cache`` (an XLA cache: tooling, ROADMAP A15) and ``--record``
-(a RunRecord: observability, A13) are not ported.
+(a RunRecord of the sweep: tooling, A15) are not ported.
 """
 
 from __future__ import annotations
