@@ -191,12 +191,50 @@ final result line. Standard output:
    error, time and the shape it is from, plain time, the bound
    (``obs.kernel_cost``'s bytes over 3.35 TB/s or its operations over the
    peak for their type, whichever is larger, from ``obs.counters``' H100
-   row) and the library time (none: no single PyTorch call computes
-   these functions); K1's row also has its time at S = 1 and at the
-   chosen S at each main-path shape and its times, plain time and bound
-   at each mesh shape, K3's its times, bound shares and ``sgemm_ms`` at
-   each main-path shape and the mesh's outlier fold;
+   row) and the library time (the merge's: one stable ``torch.sort`` of
+   the carry and the partial lists side by side and the first kc columns
+   gathered, equal to the kernel's lists bit for bit, timed at every
+   merge case, a yardstick the port never calls; no single PyTorch call
+   computes K1/K2's or K3's function); K1's row also has its time at
+   S = 1 and at the chosen S at each main-path shape and its times,
+   plain time and bound at each mesh shape, K3's its times, bound shares
+   and ``sgemm_ms`` at each main-path shape and the mesh's outlier fold;
 4. ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+The ``fleet`` phase (after ``serve``; ``--phases
+build,kernels,segmin,fleet`` runs it with the shapes it needs held, and
+the segmin phase also holds K3 at the mesh replica's stream blocks,
+qpad x 65,536 x 64 for every qpad 32..1,024): config 4's corpus at
+capacity 262,144 in (1) a plain replica (``--pallas``) and a
+mesh-resident replica (``--mesh 2x1 --backend gloo --pallas``: 2 ranks on
+cuda:0, 3 chunks of 43,776 rows each), started together and every bucket
+warmed, behind ``python -m dmlp_tpu_torch.fleet`` (each one's cold start
+and time to ready printed); (2) the serve trace replayed through the
+router closed-loop over 4 connections, 1,000 seeded queries against the
+oracle, both replicas serving, every micro-batch's launches the plan's
+(on the mesh replica every rank's: K1 per non-empty piece of its shard
+the live mask kept and a merge per launch at S > 1, or K3 per block and
+query block on the stream path) at held shapes, builds and kernel loads
+flat after ready; (3) the same trace paced at 50 ms a request, replayed
+open-loop at x1 and x2 (``fleet.loadgen`` RunRecords: p50/p95/p99,
+requests/s), then 16 paced requests with rids under a client tracer; (4)
+24,000 rows ingested through the router, both replicas' corpus
+signatures equal to the fold of the grown corpus, a replay against the
+grown oracle; (5) the router's ``GET /metrics`` valid, its request
+latency count the replicas' summed served requests, its latency buckets
+the bucket-wise merge of the replicas' scrapes; (8) one in-band drain:
+every process exits 0, no flight dump; (6) ``tools/merge_traces.py
+--fleet`` and ``tools/check_trace.py --fleet`` (subprocesses) pass on the
+router's, replicas' and client's traces with the median residual within
+the tool's 75 ms; (7) a supervised fleet of 2 plain replicas, one
+SIGKILLed during a 30-request wave (every response the oracle's, a crash
+and a relaunch counted, the revived fleet golden, the drain exit 0), a
+static fleet whose second replica drops an ingest under a seeded
+``serve.ingest`` fault (reported to the client, repaired by the prober,
+signatures equal, golden, drain exit 0) and a mesh replica whose worker
+rank is SIGKILLed (its daemon exits non-zero within the 30 s group
+timeout), all three started together. The capacity re-split is left to
+the CPU tests (it would replay about 224,000 rows over the wire).
 
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
 build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
@@ -213,8 +251,10 @@ import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 # The H100's row of the port's peak table (dmlp_tpu_torch.obs.counters:
@@ -376,6 +416,10 @@ SERVE_WIDE_NQ = (32, 64, 128, 256)
 SERVE_QPADS = (32, 64, 128, 256, 512, 1024)
 SERVE_KBS = (1, 2, 4, 8, 16, 32, 1024)
 SERVE_GOLDEN_QUERIES = 1000
+# The fleet phase's mesh replica: (data, query) shape, 2 ranks on cuda:0,
+# and the flags of every replica it starts.
+FLEET_MESH = (2, 1)
+FLEET_FLAGS = ("--pallas",)
 # (qb, b, na, kc) of every K1/K2 case and (qb, b, na) of every K3 case held
 # against its plain version in this run.
 HELD = {"k1": set(), "k3": set()}
@@ -383,7 +427,7 @@ HELD = {"k1": set(), "k3": set()}
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
 PHASES = ("build", "kernels", "segmin", "tune", "main", "obs", "mesh",
-          "serve", "real_oom", "profile")
+          "serve", "fleet", "real_oom", "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
 OUTPUTS: dict = {}
@@ -730,6 +774,30 @@ def serve_geometry():
                      for kb in SERVE_KBS}}
 
 
+def fleet_mesh_geometry():
+    """The mesh replica's per-rank layout for config 4's corpus at the
+    default capacity over R = 2 data shards, from the engine's own
+    planning functions: each shard's extraction chunks and its stream
+    path's blocks."""
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine import single
+    from dmlp_tpu_torch.tune.cache import shape_bucket
+    cfg = EngineConfig(use_pallas=True)
+    per_shard = -(-shape_bucket(CONFIG4["num_data"]) // FLEET_MESH[0])
+    shard_rows, nchunks, chunk_rows = single.plan_chunks(
+        per_shard, cfg.resolve_granule("extract"), None)
+    select = cfg.resolve_streaming_select(single.round_up(shard_rows, 8))
+    block = single.fit_blocks(shard_rows, cfg.resolve_data_block(select),
+                              granule=cfg.resolve_granule(select))
+    return {"shard_rows": shard_rows, "nchunks": nchunks,
+            "chunk_rows": chunk_rows, "data_block": block,
+            "stream_rows": single.round_up(shard_rows, block),
+            "query_block": cfg.query_block,
+            "kcap": {kb: single.resolve_kcap(cfg, kb, "extract",
+                                             FLEET_MESH[0] * shard_rows)
+                     for kb in SERVE_KBS}}
+
+
 def serve_kernel_cases(run_case, uniform, reps):
     """K1/K2 at the serving engine's resident shapes: every chunk shape at
     every warmed (qpad, kcap) and the multi-pass first pass and resident
@@ -850,24 +918,51 @@ def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
                            reps)
     plain_ms, (pd, pi) = time_ms(
         lambda: ex.merge_partials_plain(cd, ci, part_d, part_i), reps)
+    library_ms, (ld, li) = time_ms(
+        lambda: merge_library(cd, ci, part_d, part_i), reps)
     torch.cuda.synchronize()
     same = torch.equal(od, pd) and torch.equal(oi, pi)
+    library_same = torch.equal(od, ld) and torch.equal(oi, li)
     from dmlp_tpu_torch.obs import counters, kernel_cost
     nsplit, qb, kc = part_d.shape
     rec = {"phase": "kernel_case", "case": name, "kernel": "extract_merge",
            "shape": [qb, nsplit, kc], "carry": cd is not None, "ms": ms,
            "plain_ms": plain_ms, "identical": bool(same),
+           "library_ms": library_ms, "library_identical": bool(library_same),
            "max_abs_err": float((od.double() - pd.double()).abs().nan_to_num(
                0.0).max()),
            **kernel_cost.bound_ms(kernel_cost.extract_merge_cost(
                qb, kc, nsplit, cd is not None), counters.PEAKS[H100])}
     emit(rec)
     check(same, f"{name}: the merge kernel differs from its plain version")
+    check(library_same, f"{name}: the torch.sort yardstick differs from "
+                        "the merge kernel")
     s = summary.setdefault("extract_merge", {"max_abs_err": 0.0})
     s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
+    s.setdefault("library_ms_by_case", {})[name] = {
+        "shape": rec["shape"], "carry": rec["carry"], "ms": ms,
+        "library_ms": library_ms, "bound_ms": rec["bound_ms"]}
     if main or "ms" not in s:
-        s.update(ms=ms, plain_ms=plain_ms, bound=rec,
+        s.update(ms=ms, plain_ms=plain_ms, bound=rec, library_ms=library_ms,
                  shape=f"{name} {rec['shape']}")
+
+
+def merge_library(cd, ci, part_d, part_i):
+    """The merge as one library call, a yardstick the port never runs:
+    one stable ``torch.sort`` of the carry and the S partial lists side
+    by side (the carry first, the splits in order, so ties keep the
+    merge's rule: carry slots first, then ids ascending), then the first
+    kc columns and their ids gathered; -0.0 folds to +0.0 as the kernel's
+    keys fold it."""
+    import torch
+    nsplit, qb, kc = part_d.shape
+    ds_ = list(part_d.unbind(0))
+    is_ = list(part_i.unbind(0))
+    if cd is not None:
+        ds_.insert(0, cd)
+        is_.insert(0, ci.to(torch.int32))
+    vals, idx = torch.sort(torch.cat(ds_, 1) + 0.0, dim=1, stable=True)
+    return vals[:, :kc], torch.gather(torch.cat(is_, 1), 1, idx[:, :kc])
 
 
 def segmin_cases(summary, reps):
@@ -993,6 +1088,19 @@ def segmin_cases(summary, reps):
          uniform((blk, na), 29),
          torch.where(rows < c4["num_data"], rows, -1),
          main="serve stream bucket")
+    # The mesh replica's stream path (its wide-k buckets, kcap > 512): one
+    # query block of every warmed qpad against a rank's last block, shard
+    # 1's rows to 200,000 real and sentinels past them.
+    mgeo = fleet_mesh_geometry()
+    mblk = mgeo["data_block"]
+    lo = 2 * mgeo["shard_rows"] - mblk
+    mrows = torch.arange(lo, lo + mblk, dtype=torch.int32, device=dev)
+    dm = uniform((mblk, na), 30)
+    qm = uniform((max(SERVE_QPADS), na), 31)
+    for qb in SERVE_QPADS:
+        case(f"fleet_mesh_stream_q{qb}", qm[:qb].contiguous(), dm,
+             torch.where(mrows < c4["num_data"], mrows, -1))
+    del dm, qm
     case("ragged", uniform((13, na), 15), uniform((1024, na), 16),
          ragged_ids, groups=(1, 3, 8))
     case("na5", uniform((256, 5), 17), uniform((4096, 5), 18),
@@ -2284,6 +2392,551 @@ def serve_scrape(ready, stats):
     return {"lines": len(text.splitlines()), "request_count": count[0]}
 
 
+def _children(pid):
+    """Process ids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def fleet_mesh_batch_plan(mgeo, b):
+    """The launches each rank of the mesh replica must have made for one
+    logged micro-batch: on the extract path K1 once per non-empty piece of
+    its shard the live mask kept, and a merge per launch at S > 1; on the
+    stream path K3 once per block of its shard and query block."""
+    r, c = FLEET_MESH
+    sr, cr = mgeo["shard_rows"], mgeo["chunk_rows"]
+    plans = []
+    for rank in range(r * c):
+        rr = rank // c
+        want = {k: 0 for k in KERNELS}
+        if b["path"] == "extract":
+            for t in range(mgeo["nchunks"]):
+                lo = rr * sr + t * cr
+                hi = min(lo + cr, (rr + 1) * sr, b["n_real"])
+                if hi > lo and (b["live"] is None or b["live"][rr][t]):
+                    want["fused_topk"] += 1
+            want["extract_merge"] = sum(
+                n for s, n in b["launch_variants_by_rank"][rank].get(
+                    "fused_topk", {}).items() if int(s) > 1)
+        else:
+            qb = min(1 << max(min(mgeo["query_block"], b["qloc"])
+                              .bit_length() - 1, 3), b["qloc"])
+            want["fused_dist_segmin"] = (
+                mgeo["stream_rows"] // mgeo["data_block"]) * (b["qloc"] // qb)
+        plans.append(want)
+    return plans
+
+
+def fleet_check_mesh_batches(label, mgeo, stats, seen, launches):
+    """Hold every micro-batch the mesh replica logged since ``seen``
+    against each rank's launch plan and its shapes against the ones the
+    kernels and segmin phases held; add the launches (summed over ranks)
+    to ``launches``. Returns the last sequence number."""
+    log = stats["engine"]["batch_log"]
+    new = [b for b in log if b["seq"] > seen]
+    check(not new or new[0]["seq"] == seen + 1,
+          f"{label}: the batch log lost batches after {seen}")
+    for b in new:
+        want = fleet_mesh_batch_plan(mgeo, b)
+        check(b["launches_by_rank"] == want,
+              f"{label}: batch {b['seq']} ({b['bucket']}, {b['path']}) "
+              f"launched {b['launches_by_rank']} by rank, its plan {want}")
+        if b["path"] == "extract":
+            shape = (b["qloc"], mgeo["chunk_rows"], 64, b["kcap"])
+            check(shape in HELD["k1"], f"{label}: batch {b['seq']} "
+                  f"launched K1 at {shape}, not held by the kernels phase")
+        else:
+            qb = min(1 << max(min(mgeo["query_block"], b["qloc"])
+                              .bit_length() - 1, 3), b["qloc"])
+            shape = (qb, mgeo["data_block"], 64)
+            check(shape in HELD["k3"], f"{label}: batch {b['seq']} "
+                  f"launched K3 at {shape}, not held by the segmin phase")
+        for k, v in b["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return new[-1]["seq"] if new else seen
+
+
+def _replica_stats(fp):
+    from dmlp_tpu_torch.serve import client as sc
+    cli = sc.ServeClient(fp.ready["port"])
+    try:
+        return cli.stats()["stats"]
+    finally:
+        cli.close()
+
+
+def _signature(port):
+    from dmlp_tpu_torch.serve import client as sc
+    cli = sc.ServeClient(port)
+    try:
+        doc = cli.call({"op": "corpus", "start": 0, "count": 0})
+    finally:
+        cli.close()
+    return doc["corpus_rows"], doc["checksum"]
+
+
+def _await_stats(port, pred, what, timeout_s):
+    """Poll a router's stats until ``pred`` holds (fails after the
+    timeout)."""
+    from dmlp_tpu_torch.serve import client as sc
+    deadline = time.monotonic() + timeout_s
+    while True:
+        cli = sc.ServeClient(port)
+        try:
+            st = cli.stats()["stats"]
+        finally:
+            cli.close()
+        if pred(st):
+            return st
+        check(time.monotonic() < deadline, f"fleet: {what} did not happen "
+              f"within {timeout_s} s: {json.dumps(st)[:2000]}")
+        time.sleep(0.25)
+
+
+def _scrape(port):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        return r.read().decode()
+
+
+def _flight_dumps(directory):
+    return sorted(p for p in os.listdir(directory)
+                  if p.startswith("FLIGHT_"))
+
+
+def _mesh_phase_ms(log, path):
+    """Median per-batch phase times of the mesh replica's batches on
+    ``path`` (rank 0's view: plan, broadcast, stage, fold, merge, gather,
+    fetch, finalize) and each rank's fold."""
+    import numpy as np
+    bs = [b for b in log if b["path"] == path]
+    if not bs:
+        return None
+    keys = sorted({k for b in bs for k in b["phase_ms"]})
+    out = {k: float(np.median([b["phase_ms"].get(k, 0.0) for b in bs]))
+           for k in keys}
+    out["fold_by_rank"] = [float(np.median([b["phase_ms_by_rank"][r].get(
+        "fold", 0.0) for b in bs])) for r in range(len(bs[0][
+            "phase_ms_by_rank"]))]
+    out["batches"] = len(bs)
+    return out
+
+
+def fleet_phase(tmp_dir):
+    """The serving fleet on the card over config 4's corpus: a plain and
+    a mesh-resident replica behind the router (checks 1-6 and 8 of the
+    module docstring), then the self-healing campaigns on a supervised
+    fleet, a fault-injected static fleet and a mesh replica whose worker
+    rank dies (check 7). Returns the replicas' replay launches."""
+    import numpy as np
+    from dmlp_tpu_torch.fleet import consistency as ccs
+    from dmlp_tpu_torch.fleet import harness as fh
+    from dmlp_tpu_torch.fleet import loadgen
+    from dmlp_tpu_torch.fleet import scrape as fscrape
+    from dmlp_tpu_torch.io.grammar import KNNInput, Params
+    from dmlp_tpu_torch.obs import trace as obs_trace
+    from dmlp_tpu_torch.obs.telemetry import validate_openmetrics
+    from dmlp_tpu_torch.serve import client as sc
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp_dir, "fleet")
+    traces = os.path.join(out, "traces")
+    os.makedirs(traces)
+    corpus_path = os.path.join(out, "corpus.txt")
+    with open(corpus_path, "w") as f:
+        f.write(config_text("config4"))
+    corpus = config_input("config4")
+    geo, mgeo = serve_geometry(), fleet_mesh_geometry()
+    header, reqs = serve_trace()
+    second = reqs[:14]
+    spec = ",".join(f"{nq}x{k}" for nq, k in
+                    sc.warm_buckets_for_trace(reqs, 1024))
+    # No tune cache: every launch knob takes its heuristic, as the kernels
+    # phase held it.
+    env = {"DMLP_TPU_TUNE_CACHE": os.path.join(tmp_dir, "absent.json")}
+    mesh_flags = ["--mesh", f"{FLEET_MESH[0]}x{FLEET_MESH[1]}",
+                  "--backend", "gloo"]
+    launches = {"fleet_plain_replica": {k: 0 for k in KERNELS},
+                "fleet_mesh_replica": {k: 0 for k in KERNELS}}
+    rec = {"phase": "fleet", "corpus_rows": CONFIG4["num_data"],
+           "capacity_rows": geo["capacity_rows"], "mesh": list(FLEET_MESH),
+           "mesh_chunks": [mgeo["nchunks"], mgeo["chunk_rows"]],
+           "resplit_on_card": "not run: held by the CPU tests "
+                              "(tests/test_torch_fleet_selfheal.py)"}
+
+    # -- 1. the fleet comes up: both replicas started together -------------
+    t0 = time.perf_counter()
+    reps = [fh.spawn_replica(
+        corpus_path, out, f"replica{i:02d}", spec, batch_cap=1024,
+        flags=[*FLEET_FLAGS, "--trace",
+               os.path.join(traces, f"trace-replica{i:02d}.json"), *extra],
+        env_extra=env) for i, extra in enumerate(([], mesh_flags))]
+    plain, mesh = reps
+    procs = list(reps)
+    try:
+        ready_ms = {}
+        for fp in reps:
+            fh.await_replica(fp, timeout_s=600)
+            ready_ms[fp.name] = (time.perf_counter() - t0) * 1e3
+        router = fh.spawn_router(out, reps, flags=[
+            "--trace", os.path.join(traces, "trace-router.json"),
+            "--health-interval-s", "0.5"])
+        procs.append(router)
+        rport = router.ready["port"]
+        check(mesh.ready.get("mesh") == list(FLEET_MESH)
+              and mesh.ready.get("backend") == "gloo",
+              f"fleet: the mesh replica's ready file {mesh.ready}")
+        rec["replicas"] = {fp.name: {
+            "cold_start_ms": fp.ready["cold_start_compile_ms"],
+            "ready_wall_ms": ready_ms[fp.name],
+            "buckets": len(fp.ready["buckets"]),
+            "compile_count": fp.ready["compile_count"],
+            "kernel_loads": fp.ready["kernel_loads"]} for fp in reps}
+        emit({"phase": "fleet_up", **rec["replicas"]})
+        sp, sm = _replica_stats(plain), _replica_stats(mesh)
+        pseq = serve_check_batches("fleet plain warm-up", geo, sp, 0, {})
+        mseq = fleet_check_mesh_batches("fleet mesh warm-up", mgeo, sm, 0,
+                                        {})
+        mesh_loads = sm["engine"]["batch_log"][-1]["kernel_loads_by_rank"]
+
+        # -- 2. routed byte identity, closed loop ---------------------------
+        t0 = time.perf_counter()
+        res = sc.replay(rport, header, reqs, connections=4)
+        rec["replay_s"] = time.perf_counter() - t0
+        check(all(r["ok"] for r in res), f"fleet replay: a request failed "
+              f"{[r for r in res if not r['ok']][:1]}")
+        serve_golden("fleet_replay", corpus, header, reqs, res)
+        rst = _await_stats(rport, lambda s: True, "stats", 30)
+        served = {r["replica"]: r["requests"] for r in rst["replicas"]}
+        check(len(served) == 2 and all(v > 0 for v in served.values()),
+              f"fleet replay: not every replica served traffic {served}")
+        rec["served_by_replica"] = served
+        rec["client_ms"] = sorted(r["client_ms"] for r in res)
+        sp, sm = _replica_stats(plain), _replica_stats(mesh)
+        pseq = serve_check_batches("fleet plain replay", geo, sp, pseq,
+                                   launches["fleet_plain_replica"])
+        mseq = fleet_check_mesh_batches("fleet mesh replay", mgeo, sm,
+                                        mseq,
+                                        launches["fleet_mesh_replica"])
+        for fp, st in ((plain, sp), (mesh, sm)):
+            eng = st["engine"]
+            check(eng["compile_count"] == fp.ready["compile_count"]
+                  and eng["kernel_loads"] == fp.ready["kernel_loads"]
+                  and eng["buckets"] == fp.ready["buckets"],
+                  f"fleet replay: {fp.name} built {eng['compile_count']} / "
+                  f"loaded {eng['kernel_loads']} after a warmed replay, "
+                  f"{fp.ready['compile_count']} / {fp.ready['kernel_loads']}"
+                  " at ready")
+        check(sm["engine"]["batch_log"][-1]["kernel_loads_by_rank"]
+              == mesh_loads, "fleet replay: a mesh rank loaded a kernel "
+              "library after ready")
+        rec["mesh_phase_ms"] = {
+            p: _mesh_phase_ms([b for b in sm["engine"]["batch_log"]
+                               if b["seq"] > len(mesh.ready["buckets"])], p)
+            for p in ("extract", "stream")}
+
+        # -- 3. the open-loop curve -----------------------------------------
+        paced = [dict(r, t_ms=50 * i) for i, r in enumerate(reqs)]
+        levels = loadgen.run_levels(rport, header, paced, speeds=[1.0, 2.0],
+                                    reps=1, replicas=2, trace="serve_trace",
+                                    tool="chip_smoke")
+        rec["open_loop"] = []
+        for lv in levels:
+            m = lv.metrics
+            rec["open_loop"].append({"level": lv.config["level"], **{
+                k: m.get(k) for k in ("offered_qps", "achieved_qps",
+                                      "p50_ms", "p95_ms", "p99_ms",
+                                      "max_ms", "lag_p95_ms", "errors",
+                                      "rejected", "requests")},
+                # achieved_qps counts queries over the level's span
+                # (first scheduled fire to last completion).
+                "requests_per_s": m["requests"] * m["achieved_qps"]
+                / sum(r["nq"] for r in paced)})
+            check(m["errors"] == 0 and m["rejected"] == 0,
+                  f"fleet open loop {lv.config['level']}: {m}")
+        emit({"phase": "fleet_open_loop", "levels": rec["open_loop"]})
+
+        # The traced replay (check 6's client side): rids and client spans.
+        tracer = obs_trace.install(obs_trace.Tracer())
+        tracer.sync_instant("fleet.clock_sync")
+        try:
+            tres = sc.replay_open_loop(rport, header, paced[:16],
+                                       rid_prefix="fleet-", level=1.0)
+            tracer.write(os.path.join(traces, "trace-client.json"),
+                         process_name="client")
+        finally:
+            obs_trace.uninstall()
+        check(all(r.get("ok") for r in tres), "fleet traced replay: a "
+              "request failed")
+        serve_golden("fleet_traced", corpus, header, paced[:16], tres)
+
+        # -- 4. ingest fan-out ----------------------------------------------
+        rng = np.random.default_rng(12)
+        rows = rng.uniform(0.0, 100.0, (24000, CONFIG4["num_attrs"]))
+        labels = rng.integers(0, CONFIG4["num_labels"], 24000)
+        cli = sc.ServeClient(rport)
+        for part in (slice(0, 12000), slice(12000, 24000)):
+            r = cli.ingest(labels[part], rows[part])
+            check(r["ok"], f"fleet ingest: {r}")
+        cli.close()
+        grown = KNNInput(Params(CONFIG4["num_data"] + 24000, 0,
+                                CONFIG4["num_attrs"]),
+                         np.concatenate([corpus.labels,
+                                         labels.astype(np.int32)]),
+                         np.vstack([corpus.data_attrs, rows]),
+                         np.zeros(0, np.int32),
+                         np.zeros((0, CONFIG4["num_attrs"])))
+        sigs = [_signature(fp.ready["port"]) for fp in reps]
+        want_sig = (grown.params.num_data,
+                    ccs.corpus_fold(grown.labels, grown.data_attrs))
+        check(sigs[0] == sigs[1] == want_sig,
+              f"fleet ingest: signatures {sigs}, want {want_sig}")
+        res2 = sc.replay(rport, header, second, connections=4)
+        check(all(r["ok"] for r in res2), "fleet replay 2: a request failed")
+        serve_golden("fleet_replay_grown", grown, header, second, res2)
+        sp, sm = _replica_stats(plain), _replica_stats(mesh)
+        serve_check_batches("fleet plain replay 2", geo, sp, pseq,
+                            launches["fleet_plain_replica"])
+        fleet_check_mesh_batches("fleet mesh replay 2", mgeo, sm, mseq,
+                                 launches["fleet_mesh_replica"])
+
+        # -- 5. the aggregated scrape -----------------------------------------
+        text = _scrape(router.scrape_port)
+        check(not validate_openmetrics(text),
+              f"fleet: GET /metrics: {validate_openmetrics(text)[:3]}")
+        served_total = sum(_replica_stats(fp)["requests_completed"]
+                           for fp in reps)
+        count = [int(float(ln.split()[1])) for ln in text.splitlines()
+                 if ln.startswith("serve_request_latency_ms_count ")]
+        check(count == [served_total], f"fleet scrape: latency count "
+              f"{count}, served {served_total}")
+        own, _ = fscrape.merge_expositions(
+            [_scrape(fp.scrape_port) for fp in reps])
+
+        def buckets(t):
+            return [ln for ln in t.splitlines()
+                    if ln.startswith("serve_request_latency_ms_bucket")]
+        check(buckets(text) == buckets(own) and buckets(text),
+              "fleet scrape: the router's latency buckets are not the "
+              "bucket-wise merge of the replicas'")
+        rec["scrape"] = {"lines": len(text.splitlines()),
+                         "request_count": count[0],
+                         "bucket_lines": len(buckets(text))}
+        rec["router_stats"] = {k: rst.get(k) for k in (
+            "requests", "retries", "rejected", "request_latency_ms")}
+
+        # -- 8. drain: every process exits 0, no flight dump ----------------
+        fh.drain_fleet(router, reps, timeout_s=120)
+        check(not _flight_dumps(out),
+              f"fleet drain left flight dumps {_flight_dumps(out)}")
+    finally:
+        fh.kill_all(procs)
+
+    # -- 6. the fleet trace through the reference's tools ---------------------
+    merged = os.path.join(out, "trace-fleet-merged.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    m = subprocess.run([sys.executable, "tools/merge_traces.py", "--fleet",
+                        traces, "-o", merged], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    check(m.returncode == 0, f"merge_traces --fleet: {m.stderr[-2000:]}")
+    c = subprocess.run([sys.executable, "tools/check_trace.py", "--fleet",
+                        merged], cwd=root, capture_output=True, text=True,
+                       timeout=300)
+    check(c.returncode == 0, f"check_trace --fleet: "
+          f"{(c.stdout + c.stderr)[-2000:]}")
+    with open(merged) as f:
+        recon = json.load(f)["fleet"]["reconcile"]
+    check(recon.get("reconcile_residual_ms", 1e9) <= recon["tol_abs_ms"],
+          f"fleet trace: median residual beyond {recon['tol_abs_ms']} ms "
+          f"{recon}")
+    rec["trace"] = {k: recon.get(k) for k in (
+        "n_requests", "n_reconciled", "fraction", "reconcile_residual_ms",
+        "residual_budget_ms", "tol_abs_ms")}
+    emit({"phase": "fleet_trace", **rec["trace"]})
+
+    # -- 7. self-healing ------------------------------------------------------
+    rec["selfheal"] = fleet_selfheal(out, corpus_path, corpus, header, reqs,
+                                     env)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return launches
+
+
+def fleet_selfheal(out, corpus_path, corpus, header, reqs, env):
+    """Check 7: a supervised fleet (two plain replicas) with one replica
+    SIGKILLed during a replay wave, a static fleet whose second replica
+    drops an ingest under a seeded fault, and a mesh replica whose worker
+    rank is killed, all started together."""
+    import numpy as np
+    from dmlp_tpu_torch.fleet import harness as fh
+    from dmlp_tpu_torch.fleet.mesh_engine import GROUP_TIMEOUT_S
+    from dmlp_tpu_torch.io.grammar import KNNInput, Params
+    from dmlp_tpu_torch.serve import client as sc
+
+    res: dict = {}
+    small = [r for r in reqs if r["nq"] <= 33 and r.get("k", 0) <= 32][:10]
+    warm = ",".join(f"{nq}x{k}" for nq, k in
+                    sc.warm_buckets_for_trace(small, 1024))
+    sup_dir = os.path.join(out, "supervised")
+    div_dir = os.path.join(out, "divergence")
+    kill_dir = os.path.join(out, "mesh_kill")
+    for d in (sup_dir, div_dir, kill_dir):
+        os.makedirs(d)
+    sched = os.path.join(div_dir, "faults.json")
+    with open(sched, "w") as f:
+        json.dump({"schema": 1, "seed": 7, "faults": [
+            {"site": "serve.ingest", "kind": "transient", "times": 1,
+             "message": "seeded dropped ingest"}]}, f)
+    sup_ready = os.path.join(sup_dir, "router_ready.json")
+    sup_err = os.path.join(sup_dir, "router.err")
+    t0 = time.perf_counter()
+    with open(sup_err, "w") as ef:
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "dmlp_tpu_torch.fleet", "--spawn-corpus",
+             corpus_path, "--spawn-replicas", "2", "--max-replicas", "2",
+             "--out-dir", sup_dir, "--spawn-warm", warm,
+             "--spawn-batch-cap", "1024",
+             "--spawn-flags=" + " ".join(FLEET_FLAGS),
+             "--relaunch-budget", "2", "--reshard-threshold", "0",
+             "--poll-s", "0.25", "--health-interval-s", "0.25",
+             "--port", "0", "--ready-file", sup_ready,
+             "--telemetry-port", "0"], stdout=subprocess.DEVNULL,
+            stderr=ef, env=fh._repo_env(env), cwd=sup_dir)
+    div = [fh.spawn_replica(corpus_path, div_dir, f"replica{i:02d}", warm,
+                            batch_cap=1024, flags=list(FLEET_FLAGS),
+                            env_extra=dict(env, **(
+                                {"DMLP_TPU_FAULTS": sched} if i else {})))
+           for i in range(2)]
+    timeout_s = GROUP_TIMEOUT_S
+    killp = fh.spawn_replica(corpus_path, kill_dir, "replica_mesh", "32x8",
+                             flags=[*FLEET_FLAGS, "--mesh", "2x1",
+                                    "--backend", "gloo"], env_extra=env)
+    procs = div + [killp]
+    sup_fp = fh.FleetProc("supervised_router", sup, sup_ready, sup_err)
+    try:
+        sup_fp.ready = sc.await_ready(sup, sup_ready, timeout_s=600,
+                                      errlog=sup_err)
+        procs.append(sup_fp)
+        sport = sup_fp.ready["port"]
+        res["supervised_ready_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        fh.await_all(div + [killp], timeout_s=600)
+
+        # Crash and relaunch: one managed replica SIGKILLed mid-wave.
+        st = _await_stats(sport, lambda s: s["healthy_replicas"] == 2,
+                          "two healthy supervised replicas", 60)
+        victim = st["supervisor"]["managed"][0]
+        wave = small * 3
+        out_wave: dict = {}
+
+        def run_wave():
+            out_wave["res"] = sc.replay(sport, header, wave, connections=2)
+
+        th = threading.Thread(target=run_wave)
+        t_kill = time.perf_counter()
+        th.start()
+        time.sleep(0.3)
+        os.kill(victim["pid"], signal.SIGKILL)
+        th.join(timeout=300)
+        check("res" in out_wave, "fleet crash: the replay wave hung")
+        wres = out_wave["res"]
+        check(all(r["ok"] for r in wres), f"fleet crash: a request of the "
+              f"wave failed {[r for r in wres if not r['ok']][:1]}")
+        serve_golden("fleet_crash_wave", corpus, header, wave, wres)
+        st = _await_stats(
+            sport, lambda s: (s["scale"]["crashes"] >= 1
+                              and s["scale"]["relaunches"] >= 1
+                              and s["healthy_replicas"] == 2),
+            "the crash's detection and relaunch", 300)
+        res["crash"] = {"victim": victim["name"],
+                        "relaunch_s": time.perf_counter() - t_kill,
+                        "scale": st["scale"], "wave": len(wres),
+                        "hops": sum(1 for r in wres if r.get("hops"))}
+        rev = sc.replay(sport, header, small, connections=2)
+        check(all(r["ok"] for r in rev), "fleet revived: a request failed")
+        serve_golden("fleet_revived", corpus, header, small, rev)
+        cli = sc.ServeClient(sport)
+        cli.drain()
+        cli.close()
+        check(sup.wait(timeout=180) == 0, f"fleet: the supervised router "
+              f"exited non-zero; see {sup_err}")
+
+        # Divergence and repair: the faulted replica drops the ingest.
+        rports = [fp.ready["port"] for fp in div]
+        router = fh.spawn_router(div_dir, div, flags=[
+            "--repair", "on", "--revive-probes", "2",
+            "--health-interval-s", "0.2"])
+        procs.append(router)
+        rng = np.random.default_rng(11)
+        newl = rng.integers(0, CONFIG4["num_labels"], 6)
+        newa = rng.uniform(0.0, 100.0, (6, CONFIG4["num_attrs"]))
+        cli = sc.ServeClient(router.ready["port"])
+        r = cli.ingest(newl, newa)
+        cli.close()
+        check(not r.get("ok") and "diverged" in str(r.get("error", "")),
+              f"fleet divergence: the dropped ingest was not reported {r}")
+        t_rep = time.perf_counter()
+        st = _await_stats(
+            router.ready["port"],
+            lambda s: (s["consistency"]["divergences"] >= 1
+                       and s["consistency"]["repairs"] >= 1),
+            "the divergence's detection and repair", 120)
+        sigs = [_signature(p) for p in rports]
+        check(sigs[0] == sigs[1] and sigs[0][0] == CONFIG4["num_data"] + 6,
+              f"fleet divergence: signatures after the repair {sigs}")
+        grown = KNNInput(Params(CONFIG4["num_data"] + 6, 0,
+                                CONFIG4["num_attrs"]),
+                         np.concatenate([corpus.labels,
+                                         newl.astype(np.int32)]),
+                         np.vstack([corpus.data_attrs, newa]),
+                         np.zeros(0, np.int32),
+                         np.zeros((0, CONFIG4["num_attrs"])))
+        rep = sc.replay(router.ready["port"], header, small, connections=2)
+        check(all(x["ok"] for x in rep), "fleet repaired: a request failed")
+        serve_golden("fleet_repaired", grown, header, small, rep)
+        res["divergence"] = {"repair_ms": (time.perf_counter() - t_rep)
+                             * 1e3, "consistency": st["consistency"]}
+        fh.drain_fleet(router, div, timeout_s=120)
+        check(not _flight_dumps(div_dir), f"fleet divergence drain left "
+              f"flight dumps {_flight_dumps(div_dir)}")
+
+        # A mesh replica's worker rank dies: its daemon exits non-zero
+        # within the group's timeout.
+        kids = _children(killp.proc.pid)
+        check(len(kids) == 1, f"fleet mesh kill: worker ranks {kids}")
+        t_k = time.perf_counter()
+        os.kill(kids[0], signal.SIGKILL)
+        try:
+            rc = killp.proc.wait(timeout=timeout_s + 30)
+        except subprocess.TimeoutExpired:
+            rc = None
+        exit_s = time.perf_counter() - t_k
+        check(rc not in (None, 0) and exit_s <= timeout_s,
+              f"fleet mesh kill: daemon rc {rc} after {exit_s:.1f} s "
+              f"(group timeout {timeout_s} s)")
+        res["mesh_worker_kill"] = {"rc": rc, "exit_s": exit_s,
+                                   "timeout_s": timeout_s}
+    finally:
+        fh.kill_all(procs)
+        for pid in _children(sup.pid) if sup.poll() is None else ():
+            os.kill(pid, signal.SIGKILL)
+        if sup.poll() is None:
+            sup.kill()
+            sup.wait(timeout=60)
+    emit({"phase": "fleet_selfheal", **res})
+    return res
+
+
 def real_oom():
     """An allocation of four times the card's memory, outside the engine:
     what it raises must classify as "oom", the class on which the
@@ -2433,6 +3086,8 @@ def main(argv=None) -> int:
         launches.update(mesh_phase(tmp.name))
     if "serve" in phases:
         launches.update(serve_phase(tmp.name))
+    if "fleet" in phases:
+        launches.update(fleet_phase(tmp.name))
     if "real_oom" in phases:
         real_oom()
     if "profile" in phases:
@@ -2453,9 +3108,11 @@ def main(argv=None) -> int:
                          "plain_ms": s["plain_ms"],
                          "bound_ms": s["bound"]["bound_ms"],
                          "bound_by": s["bound"]["bound_by"],
-                         "library_ms": None,
+                         "library_ms": s.get("library_ms"),
                          **{k: s[k] for k in ("ms_by_shape",
-                                              "ms_by_mesh_shape") if k in s}})
+                                              "ms_by_mesh_shape",
+                                              "library_ms_by_case")
+                            if k in s}})
         print(json.dumps({"kernels": rows}), flush=True)
     tmp.cleanup()
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -23,8 +23,10 @@ port of ``dmlp_tpu/obs/memwatch.py``.
   explicit ``mem_stats_unavailable`` marker where the device reports
   nothing, never a silent pass.
 
-The train-step and fleet models come with the train extension (A14) and
-the fleet (A12).
+- :func:`fleet_engine_model` is the mesh-resident serving engine's, per
+  rank.
+
+The train-step model comes with the train extension (A14).
 """
 
 from __future__ import annotations
@@ -247,15 +249,47 @@ def serve_engine_model(resident_rows: int, na: int,
                    staging=staging)
 
 
+def fleet_engine_model(mesh_shape, shard_rows: int, na: int,
+                       staging: str = "float32", resident_rows: int = 0,
+                       qloc: int = 0, kcap: int = 0,
+                       merge: str = "allgather") -> Dict[str, Any]:
+    """Peak resident device bytes per rank of the mesh-resident serving
+    engine (``fleet.mesh_engine.MeshResidentEngine``): the rank's one
+    resident shard buffer of ``resident_rows`` rows (default
+    ``shard_rows``; its chunks and the stream path's layout are views of
+    it) with its label and id vectors, and, when a micro-batch bucket
+    (qloc, kcap) is given, that batch's terms: the query shard, the local
+    candidate lists and the merge buffer (all R shards' lists for the
+    all-gather merge, the O(k) accumulator for the ring). The block
+    summaries live on rank 0's host and cost the card nothing."""
+    item = _staging_itemsize(staging)
+    r, c = mesh_shape
+    rows = resident_rows or shard_rows
+    terms: Dict[str, int] = {
+        "resident_shard": rows * na * item,
+        "labels_ids_shard": rows * 8,
+    }
+    if qloc:
+        terms["query_shard"] = qloc * na * item
+        terms["local_topk"] = qloc * kcap * _TOPK_ITEMSIZE
+        terms["merge_buffer"] = (2 if merge == "ring" else r) \
+            * qloc * kcap * _TOPK_ITEMSIZE
+    return _finish(terms, kind="fleet", mesh=[r, c],
+                   shard_rows=shard_rows, staging=staging,
+                   per_device=True, n_devices=r * c)
+
+
 def resident_bytes_model(kind: str, **params) -> Dict[str, Any]:
     """Dispatch on workload kind: "single" | "sharded" | "ring" |
-    "serve"."""
+    "serve" | "fleet"."""
     if kind == "single":
         return single_engine_model(**params)
     if kind in ("sharded", "ring"):
         return mesh_engine_model(mode=kind, **params)
     if kind == "serve":
         return serve_engine_model(**params)
+    if kind == "fleet":
+        return fleet_engine_model(**params)
     raise ValueError(f"unknown workload kind {kind!r}")
 
 

@@ -11,6 +11,7 @@ Usage::
         [--warm-buckets NQxK,NQxK,...] [--ready-file PATH] [--faults FILE]
         [--telemetry FILE] [--telemetry-port PORT] [--trace FILE]
         [--slo SPEC ...] [--record FILE]
+        [--mesh RxC [--mesh-merge allgather|ring] [--backend nccl|gloo]]
 
 The corpus file is the standard input grammar: its data section becomes
 the resident corpus, its query section seeds the warm-up buckets. The
@@ -25,14 +26,26 @@ snapshot carries as ``telemetry_http_port``), ``--trace`` writes the
 rid-tagged request-phase spans at drain, ``--slo`` declares objectives
 (repeatable) and ``--record`` appends the serving RunRecord at drain.
 
-The reference's ``--mesh`` and ``--mesh-merge`` (ROADMAP A12),
-``--snapshot-every-s`` (A15), and ``--compile-cache`` (no compiled program
-to cache) are not flags here.
+``--mesh RxC`` serves mesh-resident (``fleet.mesh_engine``): this process
+is rank 0 of an R·C-rank process group and starts the other ranks itself
+(``parallel.distributed.local_cluster``: ``python -m dmlp_tpu_torch.serve``
+with the same arguments and torchrun's environment), each holding one
+shard's resident chunks and running the command loop. The group's
+timeout is ``fleet.mesh_engine.GROUP_TIMEOUT_S``: a dead or hung rank
+makes the daemon exit non-zero within it. NCCL takes one card per rank,
+so more ranks than cards need ``--backend gloo``, given explicitly;
+without it the daemon refuses to start. ``--mesh-merge auto`` (the reference's
+compiler-scheduled merge) waits for ROADMAP A10 and raises.
+
+The reference's ``--snapshot-every-s`` (A15) and ``--compile-cache`` (no
+compiled program to cache) are not flags here.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 from typing import List, Optional, Sequence, Tuple
 
@@ -50,6 +63,48 @@ def _parse_warm_buckets(spec: str) -> List[Tuple[int, int]]:
             raise SystemExit(
                 f"--warm-buckets entries are NQxK, got {part!r}")
     return out
+
+
+def _parse_mesh(spec: Optional[str]) -> Optional[Tuple[int, int]]:
+    if not spec:
+        return None
+    try:
+        r, c = spec.lower().split("x")
+        shape = (int(r), int(c))
+    except ValueError:
+        raise SystemExit(f"--mesh is RxC, got {spec!r}")
+    if min(shape) < 1:
+        raise SystemExit(f"--mesh axes must be positive, got {spec!r}")
+    return shape
+
+
+def _die_with_parent() -> None:
+    """A worker rank dies with the daemon that started it (Linux's
+    parent-death signal), so a killed replica leaves no rank behind."""
+    try:
+        import ctypes
+        import signal
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+    except (OSError, AttributeError):
+        pass     # elsewhere the group's timeout ends the worker
+
+
+def _serve_worker(args, config, mesh_shape) -> int:
+    """A worker rank of a mesh replica: join the group, build the engine
+    in step with rank 0, and run rank 0's commands until it closes."""
+    from dmlp_tpu_torch.fleet.mesh_engine import (GROUP_TIMEOUT_S,
+                                                  MeshResidentEngine)
+    from dmlp_tpu_torch.parallel import distributed as pd
+    from dmlp_tpu_torch.parallel.mesh import make_mesh
+    _die_with_parent()
+    pd.initialize(device=args.device, backend=args.backend, auto=True,
+                  timeout_s=GROUP_TIMEOUT_S)
+    engine = MeshResidentEngine(
+        None, config, mesh=make_mesh(mesh_shape), capacity=args.capacity,
+        merge=args.mesh_merge, gate_carry=args.gate_carry == "on")
+    engine.serve_worker()
+    pd.shutdown()
+    return 0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -121,13 +176,38 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "stats op carries its state")
     p.add_argument("--record", metavar="FILE", default=None,
                    help="append the serving RunRecord here at drain")
+    p.add_argument("--mesh", default=None, metavar="RxC",
+                   help="serve mesh-resident over an RxC (data x query) "
+                        "mesh of ranks, this process rank 0 "
+                        "(dmlp_tpu_torch.fleet.mesh_engine)")
+    p.add_argument("--mesh-merge", default="allgather",
+                   help="candidate merge over the data axis for --mesh: "
+                        "allgather or ring")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="collective backend of --mesh (default: nccl on "
+                        "the card, gloo on the CPU; more ranks than cards "
+                        "need gloo, given explicitly)")
     args = p.parse_args(argv)
+    mesh_shape = _parse_mesh(args.mesh)
 
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.io.grammar import parse_input
     from dmlp_tpu_torch.resilience import inject as rs_inject
-    from dmlp_tpu_torch.serve.daemon import ServeDaemon, default_warm_buckets
+    from dmlp_tpu_torch.serve.daemon import default_warm_buckets
 
+    config = EngineConfig(dtype=args.dtype, select=args.select,
+                          use_pallas=args.pallas,
+                          data_block=args.data_block,
+                          precision=args.precision, device=args.device)
+    if mesh_shape is not None:
+        # The engine's own refusal, before any rank is started.
+        from dmlp_tpu_torch.fleet.mesh_engine import check_merge
+        try:
+            check_merge(args.mesh_merge)
+        except ValueError as e:
+            raise SystemExit(f"dmlp_tpu_torch.serve: {e}") from None
+    if mesh_shape is not None and os.environ.get("RANK", "0") != "0":
+        return _serve_worker(args, config, mesh_shape)
     budget = None
     if args.hbm_budget != "auto":
         budget = int(args.hbm_budget)
@@ -137,11 +217,36 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.warm_buckets:
         warm = default_warm_buckets(corpus) \
             + _parse_warm_buckets(args.warm_buckets)
-    config = EngineConfig(dtype=args.dtype, select=args.select,
-                          use_pallas=args.pallas,
-                          data_block=args.data_block,
-                          precision=args.precision, device=args.device)
     schedule = rs_inject.install_from_env(args.faults)
+    try:
+        with _mesh_group(args, mesh_shape, argv):
+            return _serve(args, corpus, config, budget, warm, mesh_shape)
+    finally:
+        if schedule is not None:
+            rs_inject.write_log_if_requested()
+            rs_inject.uninstall()
+
+
+def _mesh_group(args, mesh_shape, argv):
+    """The process group of a mesh replica (this process its rank 0, the
+    others started here), or nothing without ``--mesh``."""
+    if mesh_shape is None:
+        return contextlib.nullcontext()
+    from dmlp_tpu_torch.fleet.mesh_engine import GROUP_TIMEOUT_S
+    from dmlp_tpu_torch.parallel import distributed as pd
+    world = mesh_shape[0] * mesh_shape[1]
+    if world == 1:
+        return pd.process_group(device=args.device, backend=args.backend,
+                                timeout_s=GROUP_TIMEOUT_S)
+    rest = list(argv) if argv is not None else sys.argv[1:]
+    return pd.local_cluster(world, ["-m", "dmlp_tpu_torch.serve", *rest],
+                            device=args.device, backend=args.backend,
+                            timeout_s=GROUP_TIMEOUT_S)
+
+
+def _serve(args, corpus, config, budget, warm, mesh_shape) -> int:
+    """Rank 0 (or the only process): the daemon from start to drain."""
+    from dmlp_tpu_torch.serve.daemon import ServeDaemon
     daemon = None
     try:
         daemon = ServeDaemon(
@@ -152,7 +257,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             tick_s=args.tick_ms / 1e3, warm_buckets=warm,
             telemetry_path=args.telemetry,
             telemetry_port=args.telemetry_port, record_path=args.record,
-            trace_path=args.trace, objectives=args.slo)
+            trace_path=args.trace, objectives=args.slo,
+            mesh_shape=mesh_shape, mesh_merge=args.mesh_merge)
         daemon.start()
         sys.stderr.write(f"dmlp_tpu_torch.serve: ready port={daemon.port} "
                          f"cold_start_compile_ms="
@@ -168,10 +274,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             from dmlp_tpu_torch.obs import telemetry
             telemetry.dump_on_crash("serve_crash")
         raise
-    finally:
-        if schedule is not None:
-            rs_inject.write_log_if_requested()
-            rs_inject.uninstall()
 
 
 if __name__ == "__main__":

@@ -7,10 +7,14 @@ drains the admission queue each tick into one micro-batch: variable
 power-of-two buckets, and per-request results slice back out with the
 bytes of the request's solo solve.
 
-One consumer thread: the engine, its ingest path and every device launch
-and readback run on the batcher thread alone, so the resident buffer never
-races a solve. Requests complete through a per-request event; connection
-handlers block on it and write the response.
+One consumer thread: the engine, its ingest path, its warm-up
+(:meth:`MicroBatcher.call`) and every device launch and readback run on
+the batcher thread alone, so the resident buffer never races a solve and
+a mesh engine's collectives come from one thread in one order. While the
+queue is empty the thread calls the engine's ``idle`` hook, if it has one
+(the mesh engine's heartbeat), and on stop its ``close`` hook, if it has
+one, after the last queued batch. Requests complete through a per-request
+event; connection handlers block on it and write the response.
 
 While a trace sink is active (``obs.trace.sinks_active``) every request's
 phases are rid-tagged spans, the reference's: ``serve.phase.admission``
@@ -26,7 +30,7 @@ import dataclasses
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -43,9 +47,9 @@ TICK_S = 0.002
 @dataclasses.dataclass
 class Request:
     """One admitted unit of work. ``kind`` is "query" | "ingest" |
-    "corpus"; the non-query kinds execute alone between micro-batches (the
-    one batcher thread orders them against solves, so a ``corpus`` read
-    never sees a torn ingest)."""
+    "corpus" | "call"; the non-query kinds execute alone between
+    micro-batches (the one batcher thread orders them against solves, so a
+    ``corpus`` read never sees a torn ingest)."""
 
     kind: str
     req_id: str = ""
@@ -71,6 +75,9 @@ class Request:
     latency_ms: Optional[float] = None
     corpus_rows: Optional[int] = None             # ingest outcome
     payload: Optional[Dict[str, Any]] = None      # corpus outcome
+    fn: Optional[Callable[[], Any]] = None        # call: the work
+    value: Any = None                             # call: its result
+    exc: Optional[BaseException] = None           # call: its exception
 
     @property
     def nq(self) -> int:
@@ -165,10 +172,24 @@ class MicroBatcher:
                 target=self._run_loop, name="serve-batcher", daemon=True)
             t.start()
 
+    def call(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` on the batcher thread, ordered against the queued
+        work, and return its result (or raise its exception). Not subject
+        to admission: the daemon's own work (the warm-up)."""
+        req = Request(kind="call", fn=fn)
+        with self._cond:
+            self._queue.append(req)
+            self._cond.notify()
+        req.done.wait()
+        if req.exc is not None:
+            raise req.exc
+        return req.value
+
     def stop(self, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop the batcher thread. ``drain=True`` finishes everything
         already queued first (the SIGTERM path); ``drain=False`` fails
-        queued requests with a shutdown error."""
+        queued requests with a shutdown error. The engine's ``close`` hook
+        runs on the batcher thread after the last queued work."""
         with self._cond:
             self._stop = True
             if not drain:
@@ -185,10 +206,12 @@ class MicroBatcher:
             t.join(timeout=timeout)
 
     def _collect(self) -> List[Request]:
-        """Block for work, then drain the queue up to the batch cap. A
-        lone request waits one tick for company."""
+        """Wait (at most 0.1 s) for work, then drain the queue up to the
+        batch cap. A lone request waits one tick for company."""
         with self._cond:
-            while not self._queue and not self._stop:
+            # One bounded wait: an empty return lets the loop run the
+            # engine's idle hook.
+            if not self._queue and not self._stop:
                 self._cond.wait(timeout=0.1)
             if not self._queue:
                 return []
@@ -222,15 +245,40 @@ class MicroBatcher:
             batch = self._collect()
             if not batch:
                 with self._cond:
-                    if self._stop and not self._queue:
-                        return
+                    done = self._stop and not self._queue
+                if done:
+                    close = getattr(self.engine, "close", None)
+                    if close is not None:
+                        self._run_hook(close, "close")
+                    return
+                idle = getattr(self.engine, "idle", None)
+                if idle is not None:
+                    self._run_hook(idle, "idle")
                 continue
-            if batch[0].kind == "ingest":
+            if batch[0].kind == "call":
+                req = batch[0]
+                try:
+                    req.value = req.fn()
+                except BaseException as e:  # raised on the caller's thread
+                    req.exc = e
+                req.complete()
+            elif batch[0].kind == "ingest":
                 self._execute_ingest(batch[0])
             elif batch[0].kind == "corpus":
                 self._execute_corpus(batch[0])
             else:
                 self._execute_batch(batch)
+
+    @staticmethod
+    def _run_hook(fn: Callable[[], Any], label: str) -> None:
+        """An engine hook on the batcher thread; a failure is counted (the
+        engine records what it means: a mesh engine marks itself broken,
+        and the daemon exits)."""
+        try:
+            fn()
+        except Exception:  # counted; the daemon reads the engine's state
+            telemetry.registry().counter("serve.hook_errors").inc(
+                label=label)
 
     def _phase(self, name: str, t0: float, t1: float, rid: str,
                **args) -> None:

@@ -19,12 +19,22 @@ tracer for the rid-tagged request-phase spans, written at drain;
 runs, reported by ``stats`` and the ``slo_*`` metrics; ``record_path``
 appends the serving state as a RunRecord at drain.
 
-Shutdown: SIGTERM, or an in-band ``drain`` op, stops admission
-("draining" rejections), lets the batcher finish every queued micro-batch,
-waits for the handlers to write their responses, and exits 0.
+Mesh-resident replica: with ``mesh_shape`` the engine is
+:class:`~dmlp_tpu_torch.fleet.mesh_engine.MeshResidentEngine` over the
+initialized process group, this process its rank 0; the warm-up, every
+solve and ingest, the idle heartbeats and the workers' release all run on
+the batcher thread. When a collective fails (a worker rank died, or the
+group's timeout passed) the engine marks itself broken and
+:meth:`ServeDaemon.run_until_drained` raises, so the process exits
+non-zero: the fleet supervisor's crash signal.
 
-Not here yet, with its ROADMAP item: the mesh-resident replica
-(``mesh_shape``, A12); periodic records (``--snapshot-every-s``, A15).
+Shutdown: SIGTERM, or an in-band ``drain`` op, stops admission
+("draining" rejections), lets the batcher finish every queued micro-batch
+(and release a mesh's workers), waits for the handlers to write their
+responses, and exits 0.
+
+Not here yet, with its ROADMAP item: periodic records
+(``--snapshot-every-s``, A15).
 """
 
 from __future__ import annotations
@@ -135,7 +145,9 @@ class ServeDaemon:
                  telemetry_port: Optional[int] = None,
                  record_path: Optional[str] = None,
                  trace_path: Optional[str] = None,
-                 objectives: Optional[List[Any]] = None):
+                 objectives: Optional[List[Any]] = None,
+                 mesh_shape: Optional[Tuple[int, int]] = None,
+                 mesh_merge: str = "allgather"):
         self.corpus = corpus
         self.record_path = record_path
         config = config or EngineConfig()
@@ -161,8 +173,18 @@ class ServeDaemon:
         # daemon's uptime: a second daemon in one process must not
         # inherit the first one's serve.* counts.
         telemetry.registry().reset(prefix="serve")
-        self.engine = ResidentEngine(corpus, config, capacity=capacity,
-                                     gate_carry=gate_carry)
+        if mesh_shape is not None:
+            # The process group is up (the CLI's local_cluster): every
+            # rank builds its engine in step; the others then serve the
+            # command loop.
+            from dmlp_tpu_torch.fleet.mesh_engine import MeshResidentEngine
+            from dmlp_tpu_torch.parallel.mesh import make_mesh
+            self.engine = MeshResidentEngine(
+                corpus, config, mesh=make_mesh(tuple(mesh_shape)),
+                capacity=capacity, merge=mesh_merge, gate_carry=gate_carry)
+        else:
+            self.engine = ResidentEngine(corpus, config, capacity=capacity,
+                                         gate_carry=gate_carry)
         self.admission = AdmissionController(
             self.engine, budget_bytes=budget_bytes,
             max_queue_queries=max_queue_queries,
@@ -214,9 +236,15 @@ class ServeDaemon:
     # -- startup ---------------------------------------------------------------
 
     def start(self) -> None:
-        """Warm the buckets, then open for traffic."""
-        self.warmup_ms = self.engine.warmup(self._warm)
+        """Warm the buckets on the batcher thread, then open for
+        traffic."""
         self.batcher.start()
+        try:
+            self.warmup_ms = self.batcher.call(
+                lambda: self.engine.warmup(self._warm))
+        except BaseException:
+            self.batcher.stop(drain=False)
+            raise
         self._server_thread = threading.Thread(
             target=self._server.serve_forever, name="serve-accept",
             daemon=True)
@@ -238,6 +266,10 @@ class ServeDaemon:
             "hlo_schedule": stats["hlo_schedule"],
             "warmup_ms": self.warmup_ms,
         }
+        if "mesh" in stats:
+            doc.update(mesh=stats["mesh"], merge=stats["merge"],
+                       backend=stats["backend"],
+                       shard_rows=stats["shard_rows"])
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
@@ -360,7 +392,9 @@ class ServeDaemon:
             config={"corpus_rows": eng.n_real,
                     "capacity_rows": eng.capacity_rows,
                     "num_attrs": eng.num_attrs,
-                    "gate_carry": eng.gate_carry, "mode": "resident",
+                    "gate_carry": eng.gate_carry,
+                    "mode": "mesh_resident" if hasattr(eng, "mesh")
+                    else "resident",
                     "buckets": stats["buckets"]},
             metrics=metrics, device=current_device(eng.device))
 
@@ -376,8 +410,14 @@ class ServeDaemon:
 
     def run_until_drained(self) -> None:
         """Block until a drain is requested (SIGTERM or the in-band op),
-        then drain and shut down."""
+        then drain and shut down. A broken mesh engine closes the daemon
+        and raises instead."""
         while not self._drain_event.wait(timeout=0.2):
+            broken = getattr(self.engine, "broken", None)
+            if broken is not None:
+                self.close()
+                raise RuntimeError(
+                    f"mesh replica lost a rank: {broken}") from broken
             if self.slo is not None:
                 try:
                     self.slo.tick()
