@@ -34,7 +34,12 @@ final result line. Standard output:
    blocks a CTA sweeps after its first and the waves of the grid) and
    ``tile_block_us`` (K2 at S = 1 from a carry of zeros, which no distance
    passes: the tile and its ballots without a merge); the merge of the
-   split lists (bit for bit against its plain version);
+   split lists (bit for bit against its plain version, with ``ms``
+   through the wrapper and ``kernel_ms``, the kernel alone launched back
+   to back), and at four main-path cases (``MERGE_VARIANTS``) also with
+   the carry and the first partial list out of order, which the kernel
+   sorts itself, and with one partial list fewer where that makes the
+   list count odd;
    ``kernel_case`` of the ``segmin`` phase: K3 (``dist`` and ``segmin``
    under ``ops.extract.list_tolerance``, +inf exactly where ids < 0,
    ``segmin`` bit for bit against the kernel's own tile) at its two
@@ -193,8 +198,11 @@ final result line. Standard output:
    peak for their type, whichever is larger, from ``obs.counters``' H100
    row) and the library time (the merge's: one stable ``torch.sort`` of
    the carry and the partial lists side by side and the first kc columns
-   gathered, equal to the kernel's lists bit for bit, timed at every
-   merge case, a yardstick the port never calls; no single PyTorch call
+   gathered, equal to the kernel's lists bit for bit on lists in the
+   merge's key order and in distances on lists out of order, where it
+   breaks ties by position; timed at every merge case, with each case's
+   ``ms_over_library_ms`` in ``library_ms_by_case``; a yardstick the port
+   never calls; no single PyTorch call
    computes K1/K2's or K3's function); K1's row also has its time at
    S = 1 and at the chosen S at each main-path shape and its times,
    plain time and bound at each mesh shape, K3's its times, bound shares
@@ -256,6 +264,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 # The H100's row of the port's peak table (dmlp_tpu_torch.obs.counters:
 # the published SXM data-sheet rates, dense): every bound below is this
@@ -399,6 +408,10 @@ MAIN_SHAPES = {"multipass_floor": "multi-pass resident pass",
                "widek_bulk_carried": "wide-k bulk, carried",
                "config4_fresh_f32": "config-4 chunk, fresh",
                "config4_carried_f32": "config-4 chunk, carried"}
+# Main-path merge cases also held with lists out of order and, where
+# their list count is even, with one partial list fewer (merge_variants).
+MERGE_VARIANTS = ("config4_carried_f32", "widek_bulk_carried",
+                  "multipass_first_carried", "serve_carry_above")
 # K1's and K3's per-rank shapes on the mesh path: kernel case -> the label
 # of its row in PERF.md. The mesh phase checks that every mesh run launches
 # at a shape the kernels and segmin phases held.
@@ -578,6 +591,8 @@ def kernel_cases(reps: int):
                 if gate and parts is not None:
                     merge_case(summary, name, cd, ci, *parts, reps,
                                main=name == "multipass_floor")
+                    if name in MERGE_VARIANTS:
+                        merge_variants(summary, name, cd, ci, *parts, reps)
             ms, plain_ms, (od, oi, it), cmp = res[chosen]
             ms1, plain_ms1, (od1, oi1, it1), cmp1 = res[1]
             same = all(torch.equal(a, b) for a, b in zip(
@@ -909,9 +924,16 @@ def serve_kernel_cases(run_case, uniform, reps):
     del d, dfull, qmax
 
 
-def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
+def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False,
+               in_order=True):
     """Hold the merge kernel against its plain version on the plain
-    version's partial lists: both are exact, so bit for bit."""
+    version's partial lists: both are exact, so bit for bit. The yardstick
+    (one stable ``torch.sort``) is the same function where every list is
+    in the merge's key order, as the split kernel writes them, and is then
+    held bit for bit too; on lists out of order (``in_order=False``) it
+    breaks ties by position and the merge by id, so only its distances
+    are held. Beside the wrapper's ``ms``, ``kernel_ms`` is the kernel
+    alone (outputs allocated once, launches back to back)."""
     import torch
     from dmlp_tpu_torch.ops import extract as ex
     ms, (od, oi) = time_ms(lambda: ex.merge_partials(cd, ci, part_d, part_i),
@@ -921,14 +943,27 @@ def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
     library_ms, (ld, li) = time_ms(
         lambda: merge_library(cd, ci, part_d, part_i), reps)
     torch.cuda.synchronize()
-    same = torch.equal(od, pd) and torch.equal(oi, pi)
-    library_same = torch.equal(od, ld) and torch.equal(oi, li)
+    same = torch.equal(od.view(torch.int32), pd.view(torch.int32)) \
+        and torch.equal(oi, pi)
+    library_same = torch.equal(od, ld) and (
+        torch.equal(oi, li) or not in_order)
     from dmlp_tpu_torch.obs import counters, kernel_cost
     nsplit, qb, kc = part_d.shape
+    lib = ex._kernel_lib()
+    kd, ki = torch.empty_like(od), torch.empty_like(oi)
+    args = (ex._ptr(cd), ex._ptr(ci), part_d.data_ptr(), part_i.data_ptr(),
+            kd.data_ptr(), ki.data_ptr(), qb, kc, nsplit,
+            ex._stream(part_d.device))
+    kernel_ms = back_to_back_ms(lambda: lib.dmlp_extract_merge(*args))
+    torch.cuda.synchronize()
+    same = same and torch.equal(kd, od) and torch.equal(ki, oi)
     rec = {"phase": "kernel_case", "case": name, "kernel": "extract_merge",
-           "shape": [qb, nsplit, kc], "carry": cd is not None, "ms": ms,
+           "shape": [qb, nsplit, kc], "carry": cd is not None,
+           "lists_in_order": in_order, "ms": ms, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "identical": bool(same),
            "library_ms": library_ms, "library_identical": bool(library_same),
+           "library_ids_identical": bool(torch.equal(oi, li)),
+           "ms_over_library_ms": ms / library_ms,
            "max_abs_err": float((od.double() - pd.double()).abs().nan_to_num(
                0.0).max()),
            **kernel_cost.bound_ms(kernel_cost.extract_merge_cost(
@@ -940,11 +975,38 @@ def merge_case(summary, name, cd, ci, part_d, part_i, reps, main=False):
     s = summary.setdefault("extract_merge", {"max_abs_err": 0.0})
     s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
     s.setdefault("library_ms_by_case", {})[name] = {
-        "shape": rec["shape"], "carry": rec["carry"], "ms": ms,
-        "library_ms": library_ms, "bound_ms": rec["bound_ms"]}
+        "shape": rec["shape"], "carry": rec["carry"],
+        "lists_in_order": in_order, "ms": ms, "kernel_ms": kernel_ms,
+        "library_ms": library_ms, "ms_over_library_ms": ms / library_ms,
+        "bound_ms": rec["bound_ms"]}
     if main or "ms" not in s:
         s.update(ms=ms, plain_ms=plain_ms, bound=rec, library_ms=library_ms,
                  shape=f"{name} {rec['shape']}")
+
+
+def merge_variants(summary, name, cd, ci, part_d, part_i, reps):
+    """The merge's own sort path and an odd list count on a main-path
+    partial set: ``_out_of_order`` permutes each row of the carry (if any)
+    and of the first partial list, which the kernel must sort; ``_odd``
+    drops the last partial list where 1 + S (or S without a carry) is
+    even."""
+    import torch
+    nsplit, qb, kc = part_d.shape
+    gen = torch.Generator(device=part_d.device)
+    gen.manual_seed(zlib.crc32(name.encode()))
+    perm = torch.argsort(torch.rand((qb, kc), generator=gen,
+                                    device=part_d.device), 1)
+    pd, pi = part_d.clone(), part_i.clone()
+    pd[0], pi[0] = torch.gather(pd[0], 1, perm), torch.gather(pi[0], 1, perm)
+    cdp = cip = None
+    if cd is not None:
+        cdp, cip = torch.gather(cd, 1, perm), torch.gather(ci, 1, perm)
+    merge_case(summary, f"{name}_out_of_order", cdp, cip, pd, pi, reps,
+               in_order=False)
+    del pd, pi, cdp, cip
+    if ((cd is not None) + nsplit) % 2 == 0 and nsplit > 1:
+        merge_case(summary, f"{name}_odd", cd, ci,
+                   part_d[:-1].contiguous(), part_i[:-1].contiguous(), reps)
 
 
 def merge_library(cd, ci, part_d, part_i):

@@ -81,18 +81,39 @@
 // tiles (1,024 queries make 32 CTAs) the split of the data axis is what
 // fills the 132 SMs.
 //
-// The merge (extract_merge_kernel): one CTA per row packs carry ++ partials
-// into 64-bit keys (distance bits, then a carry/block flag, then the slot
-// for a carry entry and id + 1 for a partial one), bitonic-sorts them in
-// shared memory and writes the first kc, sorted, reading a carry entry's
-// id back from its slot. Carry entries keep the order S = 1 gives them
-// (sorted by (distance, slot)), not the order of their ids: a carry folded
-// from a later chunk than the block, as the serving engine's hot-chunks-
-// first order folds, holds tie groups whose ids do not ascend in slot
-// order, and ordering them by id would evict other members of a tie group
-// at the boundary than S = 1 does.
-// Non-negative floats and +inf order as unsigned integers; -0.0 is folded
-// to +0.0 first. It moves (1+S)*Qb*kc*8 bytes and is bound by them.
+// The merge (extract_merge_kernel) takes the exact top-kc of carry ++
+// partials. Each entry is a 64-bit key: the distance as an order-keeping
+// unsigned (-0.0 folded to +0.0), then a carry/block flag, then the slot
+// for a carry entry and id + 1 for a partial one. The keys order totally
+// (only seeds and (+inf, -1) padding repeat, and equal keys write equal
+// outputs), so any pairing of the lists gives the stable sort's first kc.
+// Carry entries keep the order S = 1 gives them (sorted by (distance,
+// slot)), not the order of their ids: a carry folded from a later chunk
+// than the block, as the serving engine's hot-chunks-first order folds,
+// holds tie groups whose ids do not ascend in slot order, and ordering
+// them by id would evict other members of a tie group at the boundary than
+// S = 1 does. The split kernel's partial lists are its sorted shared-memory
+// lists, already in key order: distance ascending, seeds ahead of real
+// entries at their distance (list entries win ties, and a seed's key has
+// low = 0), earlier blocks and positions (lower ids) first. So the merge
+// does not sort: a CTA loads R rows' 1 + S lists into shared memory once
+// (16-byte loads where kc % 4 == 0) and checks each list's order in
+// registers as it loads it (adjacent compares, the next group's first key
+// from the next lane; one __syncthreads_or). Only where a list is out of
+// order (a carry a caller hands in unsorted) does it flag the lists in
+// shared memory and sort them in place (a bitonic network, log2(kc) *
+// (log2(kc) + 1) / 2 barriers). Then it merges pairs of lists in
+// ceil(log2(1 + S)) rounds, one barrier each, keeping the first kc of each
+// pair (an odd list passes through). In a round each thread owns a run of
+// output positions of one pair: it finds the run's start by a merge-path
+// binary search on the diagonal and merges sequentially, both taking the
+// first list's key on equal keys. The last round writes the distance from
+// the key and the id (id + 1 less one, or ci[row, slot]). R rows share a
+// CTA where (1 + S) * kc is small, so that every CTA holds about
+// MERGE_KEYS keys; the index divisions are multiplications by reciprocals.
+// It moves (1+S)*Qb*kc*8 bytes (carry, partials and outputs) and is bound
+// by them in principle; on the card its time is the rounds' shared-memory
+// work and, through the wrapper, the host's launch work (PERF.md, §6).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -115,8 +136,11 @@ static_assert(TQ * TN == NT * RT * CT, "the micro-tiles cover the tile");
 constexpr int VPL = TN / 32;    // tile columns each lane holds during extraction
 constexpr int KC_MAX = 512;     // the widest list
 constexpr int KPL = KC_MAX / 32;  // list entries a lane moves in one merge
-constexpr int MT = 256;         // threads per merge CTA
 constexpr int MERGE_MAX = 8192; // entries one merge row may hold ((1+S)*kc)
+constexpr int MERGE_KEYS = 2048;  // keys a merge CTA holds where rows are small
+constexpr int MERGE_NT_MAX = 1024;  // threads of the widest merge CTA
+constexpr int MERGE_KEYS_PER_THREAD = 8;  // keys a merge thread loads
+constexpr int MERGE_LOADS = 2;  // 16-byte loads a merge thread has in flight
 constexpr unsigned FULL = 0xffffffffu;
 // The seeding sort borrows the distance tile as NW x KC_MAX keys.
 static_assert(sizeof(float) * TQ * TN >= sizeof(u64) * NW * KC_MAX,
@@ -616,62 +640,250 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
   }
 }
 
-// One CTA per row: the exact top-kc of carry ++ partial_0 ++ ... ++
-// partial_{S-1} by (distance asc, carry before block, then carry slot asc
-// for carry entries and id asc for partial ones), sorted.
-// npad is the entry count rounded up to a power of two; the padding keys
-// are all ones and sort last.
-__global__ void __launch_bounds__(MT)
+// The order-keeping float of a float_key.
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ u64 merge_key(float v, unsigned flag,
+                                         unsigned low) {
+  return ((u64)float_key(v) << 32) | ((u64)flag << 31) | (u64)low;
+}
+
+// Output o of a merge round: into the next round's list D, or, in the last
+// round, the distance and the id (id + 1 less one, or ci[row, slot]) of
+// the row whose outputs start at orow.
+__device__ __forceinline__ void merge_put(bool last, u64* D, int o, u64 x,
+                                          float* od, int* oi, const int* ci,
+                                          size_t orow) {
+  if (!last) {
+    D[o] = x;
+    return;
+  }
+  const unsigned low = (unsigned)(x & 0x7fffffffull);
+  od[orow + o] = key_float((unsigned)(x >> 32));
+  oi[orow + o] = (x >> 31) & 1ull ? (int)low - 1 : ci[orow + low];
+}
+
+// x / d for the d that m = merge_magic(d) stands for, exact while x * d <
+// 2^32 (the merge's indices stay under 2^14 and its divisors under 2^14).
+__host__ __device__ __forceinline__ u64 merge_magic(unsigned d) {
+  return ((1ull << 32) + d - 1) / d;
+}
+
+__device__ __forceinline__ int merge_div(int x, u64 m) {
+  return (int)(((u64)(unsigned)x * m) >> 32);
+}
+
+// Rows [row0, row0 + nrows) of the merge, rows_per_cta rows a CTA, each
+// with nl = carry + splits lists of kc entries: the exact top-kc of carry
+// ++ partial_0 ++ ... ++ partial_{S-1} by (distance asc, carry before
+// block, then carry slot asc for carry entries and id asc for partial
+// ones), sorted. Shared memory: the rows' nl lists of keys, the first
+// round's ceil(nl / 2) lists, and a flag per list; the rounds keep each
+// buffer's lists packed (list p of row r at r * lists + p). VEC: kc % 4 ==
+// 0 and 16-byte aligned inputs. mn and mkc are merge_magic(nl * kc) and
+// merge_magic(kc).
+template <bool VEC>
+__global__ void __launch_bounds__(MERGE_NT_MAX, 1)
 extract_merge_kernel(const float* __restrict__ cd, const int* __restrict__ ci,
                      const float* __restrict__ pd, const int* __restrict__ pi,
                      float* __restrict__ od, int* __restrict__ oi, int qb,
-                     int kc, int splits, int npad) {
-  extern __shared__ unsigned long long keys[];
-  const int row = blockIdx.x, tid = threadIdx.x;
-  const int nc = cd != nullptr ? kc : 0;
-  const int n = nc + splits * kc;
-  for (int e = tid; e < npad; e += MT) {
-    unsigned long long key = ~0ull;
-    if (e < n) {
-      float v;
-      unsigned low;
-      unsigned long long flag;
-      if (e < nc) {
-        v = cd[(size_t)row * kc + e];
-        low = (unsigned)e;
-        flag = 0;
-      } else {
-        const int p = e - nc, s = p / kc, c = p - s * kc;
-        const size_t at = ((size_t)s * qb + row) * kc + c;
-        v = pd[at];
-        low = (unsigned)(pi[at] + 1);
-        flag = 1;
-      }
-      key = ((unsigned long long)__float_as_uint(v + 0.0f) << 32) |
-            (flag << 31) | (unsigned long long)low;
-    }
-    keys[e] = key;
+                     int kc, int splits, int rows_per_cta, u64 mn, u64 mkc) {
+  extern __shared__ __align__(16) unsigned char merge_smem[];
+  __shared__ u64 round_magic[16];  // merge_magic of each round's list count
+  const int nc = cd != nullptr ? 1 : 0;
+  const int nl = nc + splits;  // lists a row
+  const int n = nl * kc;       // keys a row
+  const int row0 = blockIdx.x * rows_per_cta;
+  const int nrows = min(rows_per_cta, qb - row0);
+  const int total = nrows * n;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  u64* src = reinterpret_cast<u64*>(merge_smem);
+  u64* dst = src + (size_t)rows_per_cta * n;
+  int* unsorted = reinterpret_cast<int*>(
+      dst + (size_t)rows_per_cta * ((nl + 1) >> 1) * kc);
+
+  if (tid < 16) {
+    int outl = nl;
+    for (int i = 0; i <= tid; ++i) outl = (outl + 1) >> 1;
+    round_magic[tid] = merge_magic(outl);
   }
-  __syncthreads();
-  for (int size = 2; size <= npad; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < npad / 2; t += MT) {
-        const int lo = 2 * t - (t & (stride - 1)), hi = lo + stride;
-        const unsigned long long a = keys[lo], c = keys[hi];
-        if ((a > c) == ((lo & size) == 0)) {
-          keys[lo] = c;
-          keys[hi] = a;
+  // Key e of the CTA is row e / n, list (e % n) / kc, entry e % kc. With
+  // VEC a thread issues the loads of MERGE_LOADS groups of 4 keys before
+  // it stores any, so that they are in flight together, and checks the
+  // order of its keys in registers: within a group, and against the next
+  // group's first key (the next lane's, or for lane 31 one more load).
+  // Without VEC every list is checked in shared memory below.
+  int found = !VEC;
+  if (VEC) {
+    // The lanes of a warp take the loop together (the shuffle needs them
+    // all): it runs while the warp's first group is in range.
+    const int ng = total / 4;
+    for (int g0 = tid; g0 - lane < ng; g0 += MERGE_LOADS * nth) {
+      float4 v[MERGE_LOADS];
+      int4 low[MERGE_LOADS];
+      float nv[MERGE_LOADS];  // lane 31: the next group's first entry
+      int nlow[MERGE_LOADS];
+      bool part[MERGE_LOADS], more[MERGE_LOADS];
+#pragma unroll
+      for (int u = 0; u < MERGE_LOADS; ++u) {
+        const int e = 4 * (g0 + u * nth), r = merge_div(e, mn);
+        const int l = merge_div(e - r * n, mkc), c = e - r * n - l * kc;
+        part[u] = l >= nc;
+        more[u] = e < total && c + 4 < kc;  // the next group is this list's
+        if (e >= total) continue;
+        if (!part[u]) {
+          const float* at = cd + (size_t)(row0 + r) * kc + c;
+          v[u] = *reinterpret_cast<const float4*>(at);
+          low[u] = make_int4(c, c + 1, c + 2, c + 3);
+          if (lane == 31 && more[u]) {
+            nv[u] = at[4];
+            nlow[u] = c + 4;
+          }
+        } else {
+          const size_t at = ((size_t)(l - nc) * qb + row0 + r) * kc + c;
+          v[u] = *reinterpret_cast<const float4*>(pd + at);
+          const int4 id = *reinterpret_cast<const int4*>(pi + at);
+          low[u] = make_int4(id.x + 1, id.y + 1, id.z + 1, id.w + 1);
+          if (lane == 31 && more[u]) {
+            nv[u] = pd[at + 4];
+            nlow[u] = pi[at + 4] + 1;
+          }
         }
       }
-      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < MERGE_LOADS; ++u) {
+        const int e = 4 * (g0 + u * nth);
+        const bool ok = e < total;
+        const unsigned f = part[u] ? 1u : 0u;
+        u64 k[4] = {0, 0, 0, 0};
+        if (ok) {
+          k[0] = merge_key(v[u].x, f, (unsigned)low[u].x);
+          k[1] = merge_key(v[u].y, f, (unsigned)low[u].y);
+          k[2] = merge_key(v[u].z, f, (unsigned)low[u].z);
+          k[3] = merge_key(v[u].w, f, (unsigned)low[u].w);
+        }
+        u64 next = __shfl_down_sync(FULL, k[0], 1);
+        if (!ok) continue;
+        if (lane == 31 && more[u]) next = merge_key(nv[u], f, (unsigned)nlow[u]);
+        found |= k[0] > k[1] || k[1] > k[2] || k[2] > k[3] ||
+                 (more[u] && k[3] > next);
+        ulonglong2* s2 = reinterpret_cast<ulonglong2*>(src + e);
+        s2[0] = make_ulonglong2(k[0], k[1]);
+        s2[1] = make_ulonglong2(k[2], k[3]);
+      }
+    }
+  } else {
+    for (int e = tid; e < total; e += nth) {
+      const int r = merge_div(e, mn), l = merge_div(e - r * n, mkc);
+      const int c = e - r * n - l * kc;
+      if (l < nc) {
+        src[e] = merge_key(cd[(size_t)(row0 + r) * kc + c], 0, c);
+      } else {
+        const size_t at = ((size_t)(l - nc) * qb + row0 + r) * kc + c;
+        src[e] = merge_key(pd[at], 1, (unsigned)(pi[at] + 1));
+      }
     }
   }
-  for (int c = tid; c < kc; c += MT) {
-    const unsigned long long key = keys[c];
-    const int low = (int)(key & 0x7fffffffull);
-    od[(size_t)row * kc + c] = __uint_as_float((unsigned)(key >> 32));
-    oi[(size_t)row * kc + c] =
-        (key >> 31) & 1ull ? low - 1 : ci[(size_t)row * kc + low];
+
+  if (__syncthreads_or(found)) {
+    // Flag each list out of order (a warp a list, a ballot per 32
+    // entries), then sort the flagged lists in place: a bitonic network
+    // whose first step at each size pairs mirrored entries, so that every
+    // comparator puts the smaller key low; positions kc .. npad - 1 then
+    // act as +inf padding that no comparator moves, and are never stored.
+    int any = 0;
+    for (int list = warp; list < nrows * nl; list += nwarps) {
+      const u64* L = src + (size_t)list * kc;
+      int bad = 0;
+      for (int c = lane; c + 1 < kc; c += 32) bad |= L[c] > L[c + 1];
+      bad = __any_sync(FULL, bad);
+      if (lane == 0) unsorted[list] = bad;
+      any |= bad;
+    }
+    if (__syncthreads_or(any)) {
+      int lgh = 0;
+      while ((2 << lgh) < kc) ++lgh;
+      const int half = 1 << lgh;
+      for (int size = 2; size <= 2 * half; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          for (int t = tid; t < nrows * nl * half; t += nth) {
+            const int list = t >> lgh, i = t & (half - 1);
+            if (!unsorted[list]) continue;
+            int lo, hi;
+            if (stride == size >> 1) {
+              const int blk = i / stride, j = i - blk * stride;
+              lo = blk * size + j;
+              hi = blk * size + size - 1 - j;
+            } else {
+              lo = 2 * i - (i & (stride - 1));
+              hi = lo + stride;
+            }
+            if (hi < kc) {
+              u64* L = src + (size_t)list * kc;
+              const u64 x = L[lo], y = L[hi];
+              if (x > y) {
+                L[lo] = y;
+                L[hi] = x;
+              }
+            }
+          }
+          __syncthreads();
+        }
+      }
+    }
+  }
+
+  // The truncated merge tree: per round, list p of a row is the first kc
+  // of lists 2p and 2p + 1 (list 2p alone when it has no partner).
+  for (int lists = nl, round = 0;; ++round) {
+    const int outl = (lists + 1) >> 1, odd = lists & 1;
+    const bool last = outl == 1;
+    // Each output list is cut into `runs` (a power of two) runs of `run`
+    // positions, one a thread.
+    int lg = 0;
+    while ((2 << lg) <= kc && (nrows * outl) << (lg + 1) <= nth) ++lg;
+    const int run = (kc + (1 << lg) - 1) >> lg;
+    for (int t = tid; t < (nrows * outl) << lg; t += nth) {
+      const int rp = t >> lg;  // = r * outl + p
+      const int o0 = (t & ((1 << lg) - 1)) * run, cnt = min(run, kc - o0);
+      if (cnt <= 0) continue;
+      const int r = nrows == 1 ? 0 : merge_div(rp, round_magic[round]);
+      const int p = rp - r * outl;
+      const u64* A = src + (size_t)(2 * rp - r * odd) * kc;
+      u64* D = dst + (size_t)rp * kc;
+      const size_t orow = (size_t)(row0 + r) * kc;
+      if (odd && p == outl - 1) {
+        for (int k = 0; k < cnt; ++k)
+          merge_put(last, D, o0 + k, A[o0 + k], od, oi, ci, orow);
+        continue;
+      }
+      const u64* B = A + kc;
+      // Merge path: a = #(A's keys among the first o0 outputs), A first
+      // on equal keys. Every a, b below stays under kc: a + b < kc.
+      int lo = 0, hi = o0;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (A[mid] <= B[o0 - 1 - mid]) lo = mid + 1; else hi = mid;
+      }
+      int a = lo, b = o0 - lo;
+      u64 va = A[a], vb = B[b];
+      for (int k = 0; k < cnt; ++k) {
+        const bool ta = va <= vb;
+        merge_put(last, D, o0 + k, ta ? va : vb, od, oi, ci, orow);
+        if (k + 1 < cnt) {
+          if (ta) va = A[++a]; else vb = B[++b];
+        }
+      }
+    }
+    if (last) break;
+    u64* t = src;
+    src = dst;
+    dst = t;
+    lists = outl;
+    __syncthreads();
   }
 }
 
@@ -750,16 +962,43 @@ int dmlp_extract_merge(const float* cd, const int* ci, const float* pd,
                        int splits, void* stream) {
   if (qb <= 0 || kc <= 0 || splits < 1 || (1 + splits) * kc > MERGE_MAX)
     return (int)cudaErrorInvalidValue;
-  const int n = (cd != nullptr ? kc : 0) + splits * kc;
-  int npad = 2;
-  while (npad < n) npad <<= 1;
-  const size_t smem = sizeof(unsigned long long) * (size_t)npad;
-  cudaError_t e = cudaFuncSetAttribute(
-      extract_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(unsigned long long) * MERGE_MAX));
+  const int nl = (cd != nullptr ? 1 : 0) + splits;
+  const int rows = max(1, min(MERGE_KEYS / (nl * kc), qb));
+  const int keys = rows * nl * kc;
+  const int nt = min(MERGE_NT_MAX,
+                     max(128, (keys / MERGE_KEYS_PER_THREAD + 31) / 32 * 32));
+  const size_t smem = sizeof(u64) * ((size_t)keys +
+                                     (size_t)rows * ((nl + 1) / 2) * kc) +
+                      sizeof(int) * (size_t)rows * nl;
+  // The most any launch takes (rows * nl * kc <= MERGE_MAX), set once per
+  // device.
+  static bool attr_set[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  extract_merge_kernel<<<qb, MT, smem, static_cast<cudaStream_t>(stream)>>>(
-      cd, ci, pd, pi, od, oi, qb, kc, splits, npad);
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    const int most = (int)((2 * sizeof(u64) + sizeof(int)) * MERGE_MAX);
+    e = cudaFuncSetAttribute(extract_merge_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(extract_merge_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (e != cudaSuccess) return (int)e;
+    attr_set[dev] = true;
+  }
+  const bool vec = kc % 4 == 0 &&
+                   (((uintptr_t)pd | (uintptr_t)pi | (uintptr_t)cd) & 15) == 0;
+  const dim3 grid((qb + rows - 1) / rows);
+  const u64 mn = merge_magic(nl * kc), mkc = merge_magic(kc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    extract_merge_kernel<true><<<grid, nt, smem, s>>>(
+        cd, ci, pd, pi, od, oi, qb, kc, splits, rows, mn, mkc);
+  else
+    extract_merge_kernel<false><<<grid, nt, smem, s>>>(
+        cd, ci, pd, pi, od, oi, qb, kc, splits, rows, mn, mkc);
   return (int)cudaGetLastError();
 }
 

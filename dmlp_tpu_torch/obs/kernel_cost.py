@@ -160,16 +160,22 @@ def extract_merge_cost(qb: int, kc: int, splits: int,
                        carried: bool = False) -> Dict[str, float]:
     """Cost of one launch of the split merge (``extract_merge_kernel``),
     which has no counterpart kernel in the reference: there the merge is
-    the sequential grid axis of one ``pallas_call``. One CTA per row
-    bitonic-sorts the (S + carry) * kc entries, padded to a power of two
-    P, in P/2 * log2(P) * (log2(P) + 1) / 2 compare-exchanges, and writes
-    the first kc. It moves (S + carry + 1) * qb * kc * 8 bytes and is
-    bound by them."""
-    m = (int(splits) + (1 if carried else 0)) * kc
-    p = 1 << max(math.ceil(math.log2(max(m, 2))), 1)
-    lg = math.log2(p)
+    the sequential grid axis of one ``pallas_call``. Its operations are
+    key comparisons, per row: the order check of each of the L = S +
+    carry lists (kc - 1 each), then a truncated merge tree of
+    ceil(log2(L)) rounds in which each pair of lists yields kc outputs at
+    one comparison each (a list without a partner passes through). The
+    merge-path searches that place each thread's run (about log2(kc) per
+    run) and the sort of a list handed in out of order are left out:
+    both depend on the launch or the data, not on the shape. It moves
+    (S + carry + 1) * qb * kc * 8 bytes and is bound by them."""
+    lists = int(splits) + (1 if carried else 0)
+    comps = lists * (kc - 1)
+    while lists > 1:
+        comps += (lists // 2) * kc
+        lists = (lists + 1) // 2
     nbytes = 8.0 * qb * kc * (int(splits) + (1 if carried else 0) + 1)
-    return {"flops": qb * (p / 2) * lg * (lg + 1) / 2,
+    return {"flops": float(qb * comps),
             "bytes_min": nbytes, "bytes_accessed": nbytes,
             "bound_ops": 0.0, "precision": "f32"}
 

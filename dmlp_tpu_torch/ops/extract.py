@@ -33,10 +33,22 @@ for any carry: S = 1 sorts the carry stably by (distance, slot) and keeps
 that order on ties, and so does the merge. (Ordering carry entries by id
 instead broke this where the carry's ids lie above the chunk's, as in the
 serving engine's hot-chunks-first fold.)
+
+The merge does not sort. Every partial list the split kernel writes is
+its sorted shared-memory list, already in the merge's key order: distance
+ascending, the seeds (id -1) ahead of real entries at their distance,
+lower ids first (list entries win ties, and blocks and positions ascend
+within a split); :func:`split_partials_plain`'s lists are ordered the
+same way. The kernel loads a row's 1 + S lists once, checks each list's
+order and sorts a list that is out of order in place (a carry a caller
+hands in unsorted), then merges pairs of lists in ceil(log2(1 + S)) rounds,
+keeping the first kc of each pair; each thread finds its run of outputs
+by a merge-path search. Rows with few keys share a CTA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -369,8 +381,33 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# PyTorch's C accessor of the current stream's raw handle, where the build
+# has one: a few microseconds a launch cheaper than a Stream object.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(dev: torch.device) -> int:
+    if _RAW_STREAM is not None and dev.index is not None:
+        return _RAW_STREAM(dev.index)
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_device(dev: torch.device):
+    """``torch.cuda.device(dev)``, or nothing where ``dev`` is already the
+    current device (the common case, and a few microseconds a launch)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 and t.is_contiguous() \
+        else t.float().contiguous()
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.int32 and t.is_contiguous() \
+        else t.to(torch.int32).contiguous()
 
 
 def _carry_on(carry_d, carry_i, qb: int, kc: int):
@@ -378,7 +415,7 @@ def _carry_on(carry_d, carry_i, qb: int, kc: int):
         return None, None
     if carry_d.shape != (qb, kc) or carry_i.shape != (qb, kc):
         raise ValueError("carry must be (Qb, kc)")
-    return carry_d.float().contiguous(), carry_i.to(torch.int32).contiguous()
+    return _f32(carry_d), _i32(carry_i)
 
 
 def _merge_shape(qb: int, kc: int, nsplit: int, carried: bool) -> dict:
@@ -389,9 +426,10 @@ def _merge_shape(qb: int, kc: int, nsplit: int, carried: bool) -> dict:
 def _merge_cuda(lib, cd, ci, part_d, part_i):
     """Launch the merge kernel on the current stream; returns (od, oi)."""
     nsplit, qb, kc = part_d.shape
-    od = torch.empty((qb, kc), dtype=torch.float32, device=part_d.device)
-    oi = torch.empty((qb, kc), dtype=torch.int32, device=part_d.device)
-    with torch.cuda.device(part_d.device):
+    # One allocation for both outputs (a few microseconds a launch).
+    out = torch.empty((2, qb, kc), dtype=torch.int32, device=part_d.device)
+    od, oi = out[0].view(torch.float32), out[1]
+    with _on_device(part_d.device):
         rec = obs_counters.record_dispatch(
             "extract_merge", _merge_shape(qb, kc, nsplit, cd is not None),
             part_d.device)
@@ -424,8 +462,7 @@ def merge_partials(carry_d: Optional[torch.Tensor],
             qb, kc, nsplit, carry_d is not None))
         return merge_partials_plain(carry_d, carry_i, part_d, part_i)
     cd, ci = _carry_on(carry_d, carry_i, qb, kc)
-    return _merge_cuda(_kernel_lib(), cd, ci, part_d.float().contiguous(),
-                       part_i.to(torch.int32).contiguous())
+    return _merge_cuda(_kernel_lib(), cd, ci, _f32(part_d), _i32(part_i))
 
 
 def _launch_shape(qb: int, b: int, na: int, kc: int, carried: bool,
@@ -467,7 +504,7 @@ def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
     # freed when this function returns (q, d, qn, dn, the partial lists)
     # go back to PyTorch's caching allocator for that stream, so only work
     # queued after these kernels can reuse their memory.
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         rec = obs_counters.record_dispatch(kname, _launch_shape(
             qb, b, na, kc, cd is not None, splits, precision, fl), dev)
         rc = lib.dmlp_extract_topk(
