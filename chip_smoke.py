@@ -206,7 +206,9 @@ final result line. Standard output:
    computes K1/K2's or K3's function); K1's row also has its time at
    S = 1 and at the chosen S at each main-path shape and its times,
    plain time and bound at each mesh shape, K3's its times, bound shares
-   and ``sgemm_ms`` at each main-path shape and the mesh's outlier fold;
+   and ``sgemm_ms`` at each main-path shape, the mesh's outlier fold and
+   the auto engine's folds (the auto phase's runs are among
+   ``launches_by_path``);
 4. ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 The ``fleet`` phase (after ``serve``; ``--phases
@@ -243,6 +245,27 @@ signatures equal, golden, drain exit 0) and a mesh replica whose worker
 rank is SIGKILLed (its daemon exits non-zero within the 30 s group
 timeout), all three started together. The capacity re-split is left to
 the CPU tests (it would replay about 224,000 rows over the wire).
+
+The ``auto`` phase (after ``fleet``; ``--phases build,kernels,segmin,auto``
+runs it with the shapes it needs held, and the segmin phase also holds K3
+at the auto engine's folds, 2,504 x 25,600 x 64 and 10,000 x 50,176 x 64):
+the compiler-sharded engine (``--mode auto``: the shards placed as
+DTensors, each rank's fold through the "seg" select, K3, and the merge a
+DTensor redistribution) on bench config 3 at (4, 2) (8 gloo ranks on
+cuda:0) and bench config 4 at (1, 1) on NCCL, each with ``--warmup``,
+stdout equal to the single-device solve's and to the mesh phase's sharded
+run and the oracle's on a subset, every rank's K3 launches the plan's
+(``engine.auto.plan_auto``: 1 a rank at config 3, 4 at config 4, twice
+with the warm-up) at a held shape; ``--hlo-report`` on config 3 at (4, 2)
+for sharded and ring (one solve each) and auto (its solve above): the
+record of the collectives every rank issued (``obs.hlo``) within the
+reconcile's bounds of ``obs.comms``, the merge's kind at ratio 1, the auto
+engine's all-gather bytes, all on the data axis, equal to the all-gather
+model's of its plan; then ``python -m dmlp_tpu_torch.serve --mesh 2x1
+--mesh-merge auto --backend gloo --pallas`` over config 4's corpus (the
+fleet phase's capacity and layout), its warmed buckets and the serve
+trace's first 15 requests each rank's launches the plan's at held shapes,
+every response the oracle's (1,000 seeded queries), drained with exit 0.
 
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
 build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
@@ -415,6 +438,12 @@ MERGE_VARIANTS = ("config4_carried_f32", "widek_bulk_carried",
 # K1's and K3's per-rank shapes on the mesh path: kernel case -> the label
 # of its row in PERF.md. The mesh phase checks that every mesh run launches
 # at a shape the kernels and segmin phases held.
+# K3's per-rank shapes on the auto engine's path (engine.auto.plan_auto):
+# kernel case -> the label of its row in PERF.md. The auto phase checks
+# that every auto run launches K3 at a shape the segmin phase held.
+AUTO_SHAPES = {"auto_config3_rank": "auto, config 3 at (4, 2), a rank's "
+                                    "block",
+               "auto_config4_block": "auto, config 4 at (1, 1), a block"}
 MESH_SHAPES = {"mesh_config3_fresh": "config 3, a rank's shard",
                "mesh_config3_carried": "config 3, carried",
                "mesh_widek_bulk": "wide-k bulk on the (4, 2) mesh",
@@ -440,7 +469,7 @@ HELD = {"k1": set(), "k3": set()}
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
 PHASES = ("build", "kernels", "segmin", "tune", "main", "obs", "mesh",
-          "serve", "fleet", "real_oom", "profile")
+          "serve", "fleet", "auto", "real_oom", "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
 OUTPUTS: dict = {}
@@ -1139,6 +1168,24 @@ def segmin_cases(summary, reps):
     case("mesh_outlier_f32", qom, uniform((25088, na), 27),
          torch.where(iota < 25000, 25000 + iota, -1),
          main=MESH_SHAPES["mesh_outlier_f32"])
+    # The auto engine's folds (engine.auto.plan_auto): config 3 at (4, 2),
+    # rank 1's 2,504-query shard (2,500 real) against its one block of
+    # 25,600 rows (ids from 25,000, 600 sentinels); config 4 at (1, 1),
+    # 10,000 queries against the last of its four 50,176-row blocks (ids
+    # from 150,528, sentinels past 200,000).
+    qa = uniform((2504, na), 32)
+    qa[2500:] = 0.0
+    iota = torch.arange(25600, dtype=torch.int32, device=dev)
+    case("auto_config3_rank", qa, uniform((25600, na), 33),
+         torch.where(iota < 25000, 25000 + iota, -1),
+         main=AUTO_SHAPES["auto_config3_rank"])
+    del qa
+    rows4 = torch.arange(3 * 50176, 4 * 50176, dtype=torch.int32,
+                         device=dev)
+    case("auto_config4_block", uniform((10000, na), 34),
+         uniform((50176, na), 35),
+         torch.where(rows4 < c4["num_data"], rows4, -1),
+         main=AUTO_SHAPES["auto_config4_block"])
     # The serving engine's stream fold (the "streaming" rung of a resident
     # batch): a 32-query bucket against the last 65,536-row block of the
     # resident buffer, real rows to 200,000 and sentinels past them.
@@ -2037,6 +2084,7 @@ def mesh_phase(tmp_dir):
               f"{label}: last_hetk {recs['hetk']}, routed {routed}")
         check(text == OUTPUTS[same_as],
               f"{label}: stdout differs from {same_as}'s")
+        OUTPUTS[label] = text
         golden_subset(label, name, text.splitlines(), 1000)
         if metrics:
             mesh_comms_check(label, name, (r, cc), metrics)
@@ -2999,6 +3047,243 @@ def fleet_selfheal(out, corpus_path, corpus, header, reqs, env):
     return res
 
 
+# The auto phase's solves: (run, config, CLI flags, ranks, backend, the
+# single-device run and the sharded run whose stdout it must print, and
+# whether it also writes --hlo-report). Bench config 3 is config 2's data
+# on a (4, 2) mesh: each rank folds one 25,600-row block of its shard
+# through K3 for its 2,504-query shard; config 4 on (1, 1) folds four
+# 50,176-row blocks for its 10,000 queries.
+AUTO_RUNS = (
+    ("auto_4x2_config3", "config2",
+     ["--mode", "auto", "--mesh", "4,2", "--pallas", "--backend", "gloo"],
+     8, "gloo", "config2_seg", "mesh_4x2_config3", True),
+    ("auto_1x1_config4", "config4",
+     ["--mode", "auto", "--mesh", "1,1", "--pallas"], 1, "nccl",
+     "config4_K1", "mesh_1x1_config4", False),
+)
+# --hlo-report runs of the hand-rolled merges on config 3 at (4, 2):
+# (run, mode, the merge's collective kind)
+AUTO_HLO_RUNS = (("hlo_4x2_config3_sharded", "sharded", "all-gather"),
+                 ("hlo_4x2_config3_ring", "ring", "collective-permute"))
+# Requests of the serve trace the --mesh-merge auto daemon replays.
+AUTO_DAEMON_REQUESTS = 15
+
+
+def _mesh_cli(label, name, flags, tmp_dir, warmup=True, hlo=False):
+    """One mesh solve through ``cli.main`` (this process rank 0, the launch
+    counts set to 0 just before it): its stdout, Time taken, phases, the
+    ``--phase-times`` records, wall time and the ``--hlo-report`` record
+    (None without it)."""
+    import torch
+    from dmlp_tpu_torch import cli, kernels
+    path = os.path.join(tmp_dir, f"{label}.hlo.jsonl")
+    argv = (flags + ["--phase-times"] + (["--warmup"] if warmup else [])
+            + (["--hlo-report", path] if hlo else []))
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv, stdin=io.StringIO(config_text(name)), stdout=out,
+                  stderr=err)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check(rc == 0, f"{label}: cli.main returned {rc}")
+    taken, phases, recs = _phase_lines(err.getvalue())
+    rec = None
+    if hlo:
+        with open(path) as f:
+            lines = f.read().splitlines()
+        check(len(lines) == 1, f"{label}: {len(lines)} hlo records")
+        rec = json.loads(lines[0])
+    return out.getvalue(), taken, phases, recs, rec, wall_ms
+
+
+def hlo_check(label, rec, merge, twin_bytes=None):
+    """A ``--hlo-report`` record: the comms reconcile within bounds, the
+    merge's kind at ratio 1 against its model, and (the auto engine) its
+    all-gather bytes, all on the data axis, equal to the all-gather
+    model's of the same plan."""
+    doc = rec["comms"]
+    leg = doc["reconcile"]["comms_model"]
+    emit({"phase": "hlo", "run": label, "mode": rec["config"]["mode"],
+          "device": rec.get("device"),
+          "bytes_by_kind_axis": doc["bytes_by_kind_axis"],
+          "collective_totals": doc["collective_totals"],
+          "kinds": leg["kinds"], "unmodelled": leg["unmodelled"],
+          "memory": doc["reconcile"]["memory"],
+          "fingerprint": doc["executables"][0]["fingerprint"],
+          "allgather_model_bytes": twin_bytes})
+    check(leg["within_bounds"], f"{label}: the record is out of the "
+                                f"models' bounds: {leg}")
+    check(leg["kinds"].get(merge, {}).get("ratio") == 1.0,
+          f"{label}: {merge} does not reconcile exactly: {leg}")
+    if twin_bytes is not None:
+        check(doc["bytes_by_kind_axis"].get("all-gather")
+              == {"data": twin_bytes},
+              f"{label}: all-gather {doc['bytes_by_kind_axis']} != the "
+              f"all-gather model's {twin_bytes} B on the data axis")
+
+
+def auto_phase(tmp_dir):
+    """The compiler-sharded engine (``--mode auto``: DTensor placements,
+    K3 in every rank's fold, the merge a DTensor redistribution) on the
+    card: config 3 at (4, 2) (8 gloo ranks on cuda:0) and config 4 at
+    (1, 1) on NCCL, each with ``--warmup``, stdout equal to the
+    single-device solve's and the sharded engine's and golden on a
+    subset, every rank's K3 launches the plan's (``engine.auto.
+    plan_auto``) at a shape the segmin phase held; ``--hlo-report`` on
+    config 3 at (4, 2) for sharded, ring and auto, reconciled; then a
+    ``--mesh 2x1 --mesh-merge auto`` daemon over config 4's corpus
+    replaying the serve trace's first requests, golden, every rank's
+    launches the plan's, drained with exit code 0. Returns the launches
+    per run (summed over ranks)."""
+    from dmlp_tpu_torch import cli
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.auto import plan_auto
+    from dmlp_tpu_torch.fleet import harness as fh
+    from dmlp_tpu_torch.obs import comms
+    from dmlp_tpu_torch.serve import client as sc
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for label in ("config4_K1", "config2_seg"):
+        if label not in OUTPUTS:
+            name, flags = MESH_SINGLE[label]
+            out = io.StringIO()
+            check(cli.main(flags, stdin=io.StringIO(config_text(name)),
+                           stdout=out, stderr=io.StringIO()) == 0,
+                  f"{label}: cli.main failed")
+            OUTPUTS[label] = out.getvalue()
+    for label, name, flags, world, backend, same_as, sharded, hlo in \
+            AUTO_RUNS:
+        c = CONFIGS[name]
+        r, cc = (int(x) for x in flags[flags.index("--mesh") + 1].split(","))
+        plan = plan_auto(EngineConfig(use_pallas=True), c["num_data"],
+                         c["num_queries"], int(config_input(name).ks.max()),
+                         (r, cc))
+        k3 = (plan["qloc"], plan["data_block"], c["num_attrs"])
+        check(plan["select"] == "seg", f"{label}: plan {plan}")
+        check(not HELD["k3"] or k3 in HELD["k3"],
+              f"{label}: K3 at {k3}: no segmin case")
+        # Per rank, for the warm-up solve and the timed one.
+        want_rank = dict({k: 0 for k in KERNELS},
+                         fused_dist_segmin=2 * plan["nblocks"])
+        text, taken, phases, recs, hrec, wall_ms = _mesh_cli(
+            label, name, flags, tmp_dir, hlo=hlo)
+        mesh = recs["mesh"]
+        ranks = mesh["ranks"]
+        launches[label] = {k: sum(rk["launches"][k] for rk in ranks)
+                           for k in KERNELS}
+        emit({"phase": "auto", "run": label, "flags": flags,
+              "time_taken_ms": taken, "phases_ms": phases,
+              "wall_ms": wall_ms, "backend": mesh["backend"],
+              "shape": mesh["shape"], "plan": plan,
+              "rank_devices": {rk["rank"]: rk["device"] for rk in ranks},
+              "launches_by_rank": {rk["rank"]: rk["launches"]
+                                   for rk in ranks},
+              "launches_per_rank_expected": want_rank, "k3_shape": k3,
+              "rank_phases_ms": {rk["rank"]: rk["phases_ms"]
+                                 for rk in ranks},
+              "last_prune": recs["prune"], "repairs": recs["repairs"],
+              "same_as": [same_as, sharded], "sharded_in_run":
+              sharded in OUTPUTS, "stdout_lines": text.count("\n")})
+        check(mesh["mode"] == "auto" and mesh["backend"] == backend
+              and len(ranks) == world
+              and all(rk["device"] == "cuda:0" for rk in ranks),
+              f"{label}: mesh {mesh['mode']}, {mesh['backend']}, {ranks}")
+        for rk in ranks:
+            check(rk["launches"] == want_rank,
+                  f"{label}: rank {rk['rank']} launched {rk['launches']}, "
+                  f"want {want_rank}")
+        check(recs["repairs"] <= MAX_REPAIR_SHARE * c["num_queries"],
+              f"{label}: {recs['repairs']} of {c['num_queries']} queries "
+              "repaired on the host")
+        check(text == OUTPUTS[same_as],
+              f"{label}: stdout differs from {same_as}'s")
+        check(sharded not in OUTPUTS or text == OUTPUTS[sharded],
+              f"{label}: stdout differs from {sharded}'s")
+        golden_subset(label, name, text.splitlines(), 1000)
+        if hrec is not None:
+            check(hrec["config"]["plan"]["qloc"] == plan["qloc"]
+                  and hrec["config"]["plan"]["k"] == plan["k"],
+                  f"{label}: recorded plan {hrec['config']['plan']}")
+            hlo_check(label, hrec, "all-gather", sum(
+                t.bytes_total for t in comms.engine_comms(
+                    "allgather", (r, cc), plan["qloc"], plan["k"])))
+    for label, mode, merge in AUTO_HLO_RUNS:
+        flags = ["--mode", mode, "--mesh", "4,2", "--pallas", "--backend",
+                 "gloo"]
+        text, taken, phases, recs, hrec, wall_ms = _mesh_cli(
+            label, "config2", flags, tmp_dir, warmup=False, hlo=True)
+        launches[label] = {k: sum(rk["launches"][k]
+                                  for rk in recs["mesh"]["ranks"])
+                           for k in KERNELS}
+        emit({"phase": "auto_hlo_run", "run": label, "flags": flags,
+              "time_taken_ms": taken, "wall_ms": wall_ms,
+              "launches": launches[label]})
+        check(text == OUTPUTS["config2_seg"],
+              f"{label}: stdout differs from config2_seg's")
+        hlo_check(label, hrec, merge)
+
+    # The --mesh-merge auto daemon over config 4's corpus.
+    out = os.path.join(tmp_dir, "auto_daemon")
+    os.makedirs(out)
+    corpus_path = os.path.join(out, "corpus.txt")
+    with open(corpus_path, "w") as f:
+        f.write(config_text("config4"))
+    header, reqs = serve_trace()
+    reqs = reqs[:AUTO_DAEMON_REQUESTS]
+    spec = ",".join(f"{nq}x{k}" for nq, k in
+                    sc.warm_buckets_for_trace(reqs, 1024))
+    mgeo = fleet_mesh_geometry()
+    dl = {k: 0 for k in KERNELS}
+    t0 = time.perf_counter()
+    fp = fh.spawn_replica(
+        corpus_path, out, "auto_replica", spec, batch_cap=1024,
+        flags=[*FLEET_FLAGS, "--mesh", f"{FLEET_MESH[0]}x{FLEET_MESH[1]}",
+               "--backend", "gloo", "--mesh-merge", "auto"],
+        env_extra={"DMLP_TPU_TUNE_CACHE": os.path.join(tmp_dir,
+                                                       "absent.json")})
+    try:
+        ready = fh.await_replica(fp, timeout_s=600)
+        ready_ms = (time.perf_counter() - t0) * 1e3
+        check(ready.get("merge") == "gspmd"
+              and ready.get("mesh") == list(FLEET_MESH),
+              f"auto daemon: ready file {ready}")
+        seq = fleet_check_mesh_batches("auto daemon warm-up", mgeo,
+                                       _replica_stats(fp), 0, {})
+        t0 = time.perf_counter()
+        res = sc.replay(ready["port"], header, reqs, connections=4)
+        replay_s = time.perf_counter() - t0
+        check(all(r["ok"] for r in res), f"auto daemon: a request failed "
+              f"{[r for r in res if not r['ok']][:1]}")
+        serve_golden("auto_daemon_replay", config_input("config4"), header,
+                     reqs, res)
+        st = _replica_stats(fp)
+        fleet_check_mesh_batches("auto daemon replay", mgeo, st, seq, dl)
+        emit({"phase": "auto_daemon", "merge": ready["merge"],
+              "requests": len(reqs), "queries": sum(r["nq"] for r in reqs),
+              "ready_wall_ms": ready_ms,
+              "cold_start_ms": ready["cold_start_compile_ms"],
+              "buckets": len(ready["buckets"]), "replay_s": replay_s,
+              "client_ms": sorted(r["client_ms"] for r in res),
+              "mesh_phase_ms": {p: _mesh_phase_ms(
+                  [b for b in st["engine"]["batch_log"]
+                   if b["seq"] > len(ready["buckets"])], p)
+                  for p in ("extract", "stream")},
+              "launches": dl})
+        cli_ = sc.ServeClient(ready["port"])
+        cli_.drain()
+        cli_.close()
+        check(fp.proc.wait(timeout=120) == 0,
+              "auto daemon: the drain did not exit 0")
+    finally:
+        fh.kill_all([fp])
+    launches["auto_mesh_daemon"] = dl
+    emit({"phase": "auto_done",
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def real_oom():
     """An allocation of four times the card's memory, outside the engine:
     what it raises must classify as "oom", the class on which the
@@ -3150,6 +3435,8 @@ def main(argv=None) -> int:
         launches.update(serve_phase(tmp.name))
     if "fleet" in phases:
         launches.update(fleet_phase(tmp.name))
+    if "auto" in phases:
+        launches.update(auto_phase(tmp.name))
     if "real_oom" in phases:
         real_oom()
     if "profile" in phases:

@@ -8,17 +8,21 @@ excluded), ended by the fetch of the results from the device.
 
 Usage::
 
-    python -m dmlp_tpu_torch [--device cuda|cpu] [--engine torch|golden]
-                             [--mode single|sharded|ring] [--mesh R,C]
+    python -m dmlp_tpu_torch [--device cuda|cpu]
+                             [--engine torch|golden|auto]
+                             [--mode single|sharded|ring|auto] [--mesh R,C]
                              [--backend nccl|gloo]
                              [--pallas] [--debug] [--fast] [--device-full]
-                             [--faults FILE] < input.in
+                             [--faults FILE] [--hlo-report FILE] < input.in
 
 ``--device-full`` solves with ``engine.run_device_full`` (warm-up
 included): the vote and the report order on the device, in f32.
 
-``--mode sharded|ring`` runs the mesh engines (``engine.sharded``) on an
-(R, C) ("data", "query") mesh of R * C ranks, one process each: this
+``--mode sharded|ring|auto`` runs the mesh engines (``engine.sharded``;
+``auto``, the compiler-sharded engine, is ``engine.auto``: DTensor
+placements and a DTensor redistribution as the merge; ``--engine auto``
+is its shorthand) on an (R, C) ("data", "query") mesh of R * C ranks,
+one process each: this
 process is rank 0 (it alone reads stdin and prints) and starts the other
 ranks on this host before the timer starts, the ``mpirun -np`` analog
 (``parallel.distributed.local_cluster``); under torchrun (``RANK`` and
@@ -44,7 +48,12 @@ session (OpenMetrics snapshot and scrape endpoint, device-memory sampler,
 crash flight recorder, ``FLIGHT_*.json`` beside FILE); ``--profile DIR``
 writes a ``torch.profiler`` Chrome trace of the timed solve, and the
 summary's ``profile`` block the device's busy time and idle share over
-it. On the mesh
+it. ``--hlo-report FILE`` records the collectives every rank issues in
+the timed solve (``obs.hlo``: a dispatch mode, entered only with this
+flag) and appends one ``kind="hlo"`` RunRecord: the record's bytes per
+kind and mesh axis, held against ``obs.comms``' models (the auto engine's
+against the all-gather engine's model of its plan) and the allocator's
+peak against the memory model. On the mesh
 rank 0 writes every artifact, and the ranks' counters are gathered into
 its record.
 """
@@ -74,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mode", default="single",
                         choices=["single", "sharded", "ring", "auto"],
                         help="engine: one device, or the mesh engines "
-                             "(all-gather or ring merge); 'auto' (the "
-                             "compiler-sharded engine) is not ported")
+                             "(all-gather or ring merge, or 'auto': the "
+                             "compiler-sharded engine, its merge a "
+                             "DTensor redistribution)")
     parser.add_argument("--mesh", default=None, metavar="R,C",
                         help="mesh shape (data x query axes) of the mesh "
                              "engines: R * C ranks; default balanced_dims "
@@ -86,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "nccl on cuda, gloo on cpu); gloo on cuda "
                              "runs several ranks per card")
     parser.add_argument("--engine", default="torch",
-                        choices=["torch", "golden"],
-                        help="'golden' runs the NumPy oracle")
+                        choices=["torch", "golden", "auto"],
+                        help="'golden' runs the NumPy oracle; 'auto' is "
+                             "--mode auto")
     parser.add_argument("--debug", action="store_true",
                         help="human-readable output (the -DDEBUG build)")
     parser.add_argument("--fast", action="store_true",
@@ -132,6 +143,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--counters", action="store_true",
                         help="print the cost counters and the roofline on "
                              "stderr after the contract line")
+    parser.add_argument("--hlo-report", metavar="FILE", default=None,
+                        help="append one kind='hlo' RunRecord to FILE: the "
+                             "collectives every rank issued in the timed "
+                             "solve (obs.hlo), reconciled against the "
+                             "obs.comms models and the memory model. "
+                             "Contract channels stay byte-identical")
     parser.add_argument("--telemetry", metavar="FILE", default=None,
                         help="live telemetry (obs.telemetry): rewrite FILE "
                              "as an OpenMetrics snapshot, sample the "
@@ -183,9 +200,10 @@ def make_engine(config: EngineConfig):
     if config.mode == "ring":
         from dmlp_tpu_torch.engine.ring import RingEngine
         return RingEngine(config)
-    raise NotImplementedError(
-        f"mode {config.mode!r}: the compiler-sharded engine is ROADMAP.md "
-        "item A10 — not ported yet")
+    if config.mode == "auto":
+        from dmlp_tpu_torch.engine.auto import AutoShardedEngine
+        return AutoShardedEngine(config)
+    raise ValueError(f"unknown mode {config.mode!r}")
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -196,13 +214,17 @@ def main(argv: Optional[Sequence[str]] = None,
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
     args.mesh_shape = parse_mesh_arg(parser, args.mesh)
+    if args.engine == "auto":
+        # --engine auto == the torch engine in the compiler-sharded mode.
+        args.engine, args.mode = "torch", "auto"
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
     stderr = stderr or sys.stderr
 
     from dmlp_tpu_torch.resilience import inject as rs_inject
     from dmlp_tpu_torch.resilience import stats as rs_stats
-    mesh = args.engine == "torch" and args.mode in ("sharded", "ring")
+    mesh = args.engine == "torch" and args.mode in ("sharded", "ring",
+                                                    "auto")
     # A mesh rank started by local_cluster or torchrun carries RANK: only
     # rank 0 writes the trace, the telemetry file and the metrics; every
     # rank counts its own launches for rank 0's record.
@@ -345,6 +367,9 @@ def _run_cli(args, stdin, stdout, stderr, probe, tracer) -> int:
             stderr.write(f"rung: {engine.last_degrade_rung}\n")
             stderr.write(f"prune: {json.dumps(engine.last_prune)}\n")
     # -- the observability epilogue (after the contract lines) -------------
+    if args.hlo_report:
+        # A one-device solve issues no collective: nothing is recorded.
+        _emit_hlo_report(args, inp, engine, None)
     if probe is not None or tracer is not None:
         counters = None
         if probe is not None:
@@ -434,6 +459,41 @@ def _emit_metrics(args, inp, timer, phase_ms, counters, comms, engine,
         mlog.log(**summary)
 
 
+def _emit_hlo_report(args, inp, engine, report) -> None:
+    """Append the ``kind="hlo"`` RunRecord of the timed solve's record
+    (``obs.hlo``), outside the timed region: the comms leg holds it
+    against ``obs.comms``' models — the engine's ``last_comms``, or for
+    the auto engine the all-gather engine's model of its plan, since its
+    own ``last_comms`` is derived from the record — and the memory leg
+    the allocator's peak against the memory model."""
+    from dmlp_tpu_torch.obs import hlo as obs_hlo
+    from dmlp_tpu_torch.obs import memwatch
+    from dmlp_tpu_torch.obs.run import (RunRecord, current_device,
+                                        round_from_name)
+    reports = [] if report is None else [(report, 1, "cli.solve")]
+    traffics = engine.allgather_twin_comms() \
+        if hasattr(engine, "allgather_twin_comms") \
+        else getattr(engine, "last_comms", None)
+    mem = None
+    if engine is not None and inp is not None:
+        mem = {"model_bytes": memwatch.model_for_engine(engine, inp)[
+            "total_bytes"]}
+    doc = obs_hlo.build_report_doc(reports, traffics=traffics,
+                                   mem_block=mem)
+    mesh = getattr(engine, "mesh", None)
+    RunRecord(
+        kind="hlo", tool="dmlp_tpu_torch.cli",
+        config={"mode": args.mode, "engine": args.engine,
+                "exact": not args.fast,
+                **({"mesh": list(mesh.shape)} if mesh is not None else {}),
+                **({"plan": engine.last_plan}
+                   if getattr(engine, "last_plan", None) else {})},
+        metrics=obs_hlo.flat_metrics(doc), comms=doc,
+        device=current_device(getattr(engine, "device", None)),
+        round=round_from_name(args.hlo_report)).append_jsonl(
+            args.hlo_report)
+
+
 def _emit_counters_stderr(counters, elapsed_ms: float, stderr,
                           device) -> None:
     """The ``--counters`` summary, after the contract line."""
@@ -504,11 +564,20 @@ def _solve_on_mesh(args, config, stdin, stdout, stderr, probe) -> int:
             solve(inp)
         if probe is not None:
             probe.reset()
+    record = contextlib.nullcontext()
+    if args.hlo_report:
+        from dmlp_tpu_torch.obs import hlo as obs_hlo
+        record = obs_hlo.recording(engine, label="cli.solve")
     with _profiled(args, prof) if engine.root \
             else contextlib.nullcontext():
         timer.start()
-        with obs_span("cli.solve", mode=args.mode, engine="torch"):
+        with record as recorder, obs_span("cli.solve", mode=args.mode,
+                                          engine="torch"):
             results = solve(inp)
+    if args.hlo_report and hasattr(engine, "comms_from_hlo"):
+        # The auto engine's last_comms from what it issued, before the
+        # metrics summarize them.
+        engine.comms_from_hlo()
     text = None
     if engine.root:
         with timer.phase("format"), obs_span("cli.format_results"):
@@ -529,6 +598,8 @@ def _solve_on_mesh(args, config, stdin, stdout, stderr, probe) -> int:
         return 0
     stdout.write(text)
     stderr.write(timer.stderr_line())
+    if args.hlo_report:
+        _emit_hlo_report(args, inp, engine, recorder.report)
     if args.phase_times:
         phases = dict(timer.phase_ms)
         phases.update({f"engine.{k}": v

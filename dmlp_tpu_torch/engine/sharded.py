@@ -21,7 +21,10 @@ the parsed input, the others with None.
    chunks; or, where the extraction kernel does not apply, through the
    streaming select on the whole shard.
 4. The lists merge across the data axis: ``ShardedEngine`` by all-gather,
-   ``RingEngine`` by a ring all-reduce (``parallel.collectives``).
+   ``RingEngine`` by a ring all-reduce, and the "gspmd" strategy (the
+   compiler-sharded engine, ``engine.auto``, and the fleet's
+   ``merge="auto"``) by a DTensor redistribution (``parallel.
+   collectives``).
 5. Row 0 gathers the merged lists over the query axis to rank 0, which
    finalizes in float64 and repairs the boundary hazards with the full
    input (``engine.finalize``), as the single-device engine does.
@@ -30,8 +33,7 @@ Rank 0's ``last_phase_ms`` splits the solve: ``prune`` (scoring),
 ``stage_enqueue`` (plan broadcast, scatter and staging of the query
 shards), ``fold`` (its own shard's launches, to the device's end),
 ``merge``, ``gather``, ``fetch`` and ``finalize``. The mesh engines have
-no degradation ladder, as in the reference. Not ported (ROADMAP.md): the
-reference's compiler-scheduled "gspmd" merge (A10, A12).
+no degradation ladder, as in the reference.
 
 Observability (``dmlp_tpu_torch.obs``): the reference's spans by the
 reference's names (``sharded.prune_score``, ``sharded.stage_enqueue``,
@@ -76,6 +78,7 @@ from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
 from dmlp_tpu_torch.parallel.collectives import (allgather_merge_topk,
                                                  broadcast_object,
                                                  gather_topk,
+                                                 gspmd_merge_topk,
                                                  ring_allreduce_topk,
                                                  scatter_from_root)
 from dmlp_tpu_torch.parallel.distributed import rank_device
@@ -130,6 +133,7 @@ class ShardedEngine:
     rank, all ranks calling the same methods in step."""
 
     _merge_strategy = "allgather"
+    _fetch_site = "sharded.fetch"
 
     def __init__(self, config: EngineConfig = EngineConfig(mode="sharded"),
                  mesh=None):
@@ -172,6 +176,8 @@ class ShardedEngine:
         """The cross-shard merge of this engine (data axis)."""
         if self._merge_strategy == "allgather":
             return allgather_merge_topk(top, k, self._data_group)
+        if self._merge_strategy == "gspmd":
+            return gspmd_merge_topk(top, k, self.mesh)
         return ring_allreduce_topk(top, k, self._data_group)
 
     def _gather(self, top: TopK) -> Optional[TopK]:
@@ -630,7 +636,7 @@ class ShardedEngine:
             return None
         nq = inp.params.num_queries
         od, ol, oi = resilient_get([top.dists, top.labels, top.ids],
-                                   site="sharded.fetch")
+                                   site=self._fetch_site)
         return od.astype(np.float64)[:nq], ol[:nq], oi[:nq]
 
     def solve_local_shards(self, d_attrs: np.ndarray, d_labels: np.ndarray,
@@ -667,7 +673,7 @@ class ShardedEngine:
             top = rs_retry.call_with_retry(_op, "sharded.solve")
             sp.fence(top.dists)
         out = resilient_get([top.dists, top.labels, top.ids],
-                            site="sharded.fetch")
+                            site=self._fetch_site)
         flush_measured_iters(self)
         return out
 
@@ -723,7 +729,7 @@ class ShardedEngine:
             t0 = time.perf_counter()
             with obs_span("sharded.fetch", select=select):
                 od, ol, oi = resilient_get([top.dists, top.labels, top.ids],
-                                           site="sharded.fetch")
+                                           site=self._fetch_site)
             dists = od.astype(np.float64)[:nq]
             labels, ids = ol[:nq], oi[:nq]
             fetch_ms += (time.perf_counter() - t0) * 1e3
@@ -793,7 +799,7 @@ class ShardedEngine:
             top = TopK(*(t.to(self.device) for t in top))
             pred, rids, rd = resilient_get(list(_device_epilogue(
                 top, torch.from_numpy(ks_pad).to(self.device),
-                num_labels=num_labels)), site="sharded.fetch")
+                num_labels=num_labels)), site=self._fetch_site)
             rd = rd.astype(np.float64)
             gids = np.arange(nq) if idx is None else idx
             for qi in range(nq):

@@ -29,8 +29,9 @@ idle heartbeats and the closing command all run on it.
   chunks first under the gate-carry histogram, as the single-device
   resident engine orders them). Every rank folds its live pieces with K1
   (``ops.fused.fused_topk``) into running lists for its query shard; the
-  lists merge over the data axis (``allgather_merge_topk`` or
-  ``ring_allreduce_topk``), row 0 gathers them over the query axis, and
+  lists merge over the data axis (``allgather_merge_topk``,
+  ``ring_allreduce_topk`` or, for ``merge="auto"``, the "gspmd"
+  ``gspmd_merge_topk``), row 0 gathers them over the query axis, and
   rank 0 finalizes in float64 with the boundary repair, so every response
   carries the golden oracle's checksums. Each rank's launches of the
   batch, its phase times and its gated tiles come back to rank 0 with one
@@ -48,9 +49,12 @@ idle heartbeats and the closing command all run on it.
   fleet_engine_model`` (per rank); ``last_comms`` is ``obs.comms``' model
   of the batch's merge and gather.
 
-The reference's ``merge="auto"`` hands the merge to the GSPMD partitioner
-(its "gspmd" strategy); that strategy is not ported yet (ROADMAP A10), and
-asking for it raises.
+``merge="auto"`` is the reference's compiler-scheduled merge, the
+engine-internal "gspmd" strategy: K1 still folds the resident chunks and
+only the merge changes, to a DTensor redistribution of the lists from
+data-sharded to query-sharded (``engine.sharded.ShardedEngine._merge``).
+Its ``last_comms`` carries no merge record (``obs.comms.engine_comms``),
+and its memory model prices the all-gather's buffer, the worst case.
 """
 
 from __future__ import annotations
@@ -88,8 +92,9 @@ from dmlp_tpu_torch.serve.engine import (CapacityError, ResidentServingCore,
                                          k_bucket, query_bucket)
 from dmlp_tpu_torch.tune.cache import shape_bucket
 
-#: merge strategies of the mesh-resident engine
-MERGES = ("allgather", "ring")
+#: merge strategies of the mesh-resident engine ("auto" is taken as the
+#: engine-internal "gspmd")
+MERGES = ("allgather", "ring", "gspmd")
 
 #: a mesh replica's process-group timeout: a dead or hung rank ends the
 #: replica within it, so the fleet supervisor sees the crash and relaunches
@@ -102,15 +107,14 @@ GROUP_TIMEOUT_S = 60.0
 HEARTBEAT_S = GROUP_TIMEOUT_S / 4
 
 
-def check_merge(merge: str) -> None:
-    """Refuse a merge strategy the port does not have."""
+def check_merge(merge: str) -> str:
+    """The engine-internal merge strategy of ``merge`` ("auto" is
+    "gspmd"); refuses a strategy the engine does not have."""
     if merge == "auto":
-        raise ValueError(
-            "--mesh-merge auto (the reference's compiler-scheduled "
-            "'gspmd' merge) is not ported yet: ROADMAP A10; use "
-            "allgather or ring")
+        merge = "gspmd"
     if merge not in MERGES:
         raise ValueError(f"unknown merge strategy {merge!r}")
+    return merge
 
 
 class _MeshBucket:
@@ -150,7 +154,7 @@ class MeshResidentEngine(ResidentServingCore, ShardedEngine):
                  config: EngineConfig = None, mesh=None,
                  capacity: Optional[int] = None, merge: str = "allgather",
                  gate_carry: bool = True):
-        check_merge(merge)
+        merge = check_merge(merge)
         cfg = config or EngineConfig(mode="sharded")
         ShardedEngine.__init__(self, cfg, mesh)
         self._merge_strategy = merge

@@ -143,9 +143,13 @@ def engine_comms(merge_strategy: str, mesh_shape, q_local: int,
                  k: int) -> List[CollectiveTraffic]:
     """The data-axis merge of one mesh solve: one merge per query-axis
     column over groups of r ranks, each holding a (q_local, k) list
-    triple. One rank on the axis merges nothing: an empty list."""
+    triple. One rank on the axis merges nothing: an empty list. The
+    "gspmd" strategy (``engine.auto``, the fleet's ``merge="auto"``) is an
+    explicit empty list too, as in the reference: DTensor chooses its
+    collective, so no analytic model claims it; ``obs.hlo`` records what
+    it issued."""
     r, c = mesh_shape
-    if r <= 1:
+    if r <= 1 or merge_strategy == "gspmd":
         return []
     fn = ring_topk_traffic if merge_strategy == "ring" \
         else allgather_topk_traffic

@@ -178,12 +178,17 @@ def mesh_engine_model(n: int, nq: int, na: int, kmax: int, mesh_shape,
     chunked extraction path its window of staged chunks of its row shard,
     its shard's labels, its query shard, its (qloc, kc) lists with the
     split's partials; on the merged path the whole row shard with labels
-    and ids. The merge buffer differs by strategy: the all-gather holds
-    all R cells' (qloc, kc) triples, the ring two (its accumulator and
-    the incoming one)."""
+    and ids and the streaming fold's (qloc, block) distance tile (and
+    K3's segment minima under "seg"). The merge buffer differs by
+    strategy: the all-gather holds all R cells' (qloc, kc) triples, the
+    ring two (its accumulator and the incoming one). ``mode="auto"``
+    (``engine.auto``) always takes the merged path (its fold streams) and
+    prices the all-gather's buffer, the worst case of a schedule DTensor
+    chooses."""
     from dmlp_tpu_torch.config import EngineConfig
-    from dmlp_tpu_torch.engine.single import (_CHUNK_WINDOW, plan_chunks,
-                                              resolve_kcap, round_up)
+    from dmlp_tpu_torch.engine.single import (_CHUNK_WINDOW, fit_blocks,
+                                              plan_chunks, resolve_kcap,
+                                              round_up)
     from dmlp_tpu_torch.ops.extract import KC_MAX, QUERY_TILE
 
     cfg = config or EngineConfig(mode=mode)
@@ -192,7 +197,8 @@ def mesh_engine_model(n: int, nq: int, na: int, kmax: int, mesh_shape,
     r, c = mesh_shape
     n, nq = max(n, 1), max(nq, 1)
     rows = max(-(-n // r), 1)
-    chunked = cfg.resolve_select(round_up(rows, 8)) == "extract"
+    chunked = mode != "auto" \
+        and cfg.resolve_select(round_up(rows, 8)) == "extract"
     if chunked:
         shard_rows, nchunks, chunk_rows = plan_chunks(
             rows, cfg.resolve_granule("extract"), cfg.data_block)
@@ -206,14 +212,23 @@ def mesh_engine_model(n: int, nq: int, na: int, kmax: int, mesh_shape,
                                na, kc, item, splits)
         terms["labels_shard"] = nchunks * chunk_rows * 4
     else:
-        shard_rows = round_up(rows, 8)
+        select = cfg.resolve_streaming_select(round_up(rows, 8))
+        block = (min(cfg.data_block, round_up(rows, 8))
+                 if cfg.data_block is not None
+                 else fit_blocks(rows, cfg.resolve_data_block(select),
+                                 granule=cfg.resolve_granule(select)))
+        shard_rows = round_up(rows, block)
         qloc = round_up(max(-(-nq // c), 1), 8)
-        kc = resolve_kcap(cfg, kmax, cfg.resolve_streaming_select(
-            shard_rows), r * shard_rows, staging=staging)
+        kc = resolve_kcap(cfg, kmax, select, r * shard_rows,
+                          staging=staging)
         terms = {"corpus_shard": shard_rows * na * item,
                  "labels_ids_shard": shard_rows * 8,
                  "query_blocks": qloc * na * item,
-                 "local_topk": qloc * kc * _TOPK_ITEMSIZE}
+                 "local_topk": qloc * kc * _TOPK_ITEMSIZE,
+                 # the streaming fold's (qloc, block) distance tile
+                 "distance_tile": qloc * block * 4}
+        if select == "seg":
+            terms["segmin_tile"] = qloc * (block // 128) * 4
     terms["merge_buffer"] = (2 if mode == "ring" else r) * qloc * kc \
         * _TOPK_ITEMSIZE
     return _finish(terms, mode=mode, mesh=[r, c], kcap=kc,
@@ -260,8 +275,9 @@ def fleet_engine_model(mesh_shape, shard_rows: int, na: int,
     it) with its label and id vectors, and, when a micro-batch bucket
     (qloc, kcap) is given, that batch's terms: the query shard, the local
     candidate lists and the merge buffer (all R shards' lists for the
-    all-gather merge, the O(k) accumulator for the ring). The block
-    summaries live on rank 0's host and cost the card nothing."""
+    all-gather merge and the "gspmd" one, whose schedule DTensor
+    chooses, the O(k) accumulator for the ring). The block summaries live
+    on rank 0's host and cost the card nothing."""
     item = _staging_itemsize(staging)
     r, c = mesh_shape
     rows = resident_rows or shard_rows
@@ -280,11 +296,11 @@ def fleet_engine_model(mesh_shape, shard_rows: int, na: int,
 
 
 def resident_bytes_model(kind: str, **params) -> Dict[str, Any]:
-    """Dispatch on workload kind: "single" | "sharded" | "ring" |
-    "serve" | "fleet"."""
+    """Dispatch on workload kind: "single" | "sharded" | "ring" | "auto"
+    | "serve" | "fleet"."""
     if kind == "single":
         return single_engine_model(**params)
-    if kind in ("sharded", "ring"):
+    if kind in ("sharded", "ring", "auto"):
         return mesh_engine_model(mode=kind, **params)
     if kind == "serve":
         return serve_engine_model(**params)
@@ -327,7 +343,8 @@ def model_for_engine(engine, inp) -> Dict[str, Any]:
         return single_engine_model(p.num_data, p.num_queries, p.num_attrs,
                                    kmax, config=cfg,
                                    staging=engine._staging, splits=splits)
-    mode = "ring" if engine._merge_strategy == "ring" else "sharded"
+    mode = {"ring": "ring", "gspmd": "auto"}.get(engine._merge_strategy,
+                                                 "sharded")
     return mesh_engine_model(p.num_data, p.num_queries, p.num_attrs, kmax,
                              (r, c), mode=mode, config=cfg,
                              staging=engine._staging, splits=splits)

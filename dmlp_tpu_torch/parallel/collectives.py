@@ -8,7 +8,10 @@ order (``ops.topk``):
   analog of the reference's candidate gather and root merge, except that
   every rank of the axis gets the result;
 - :func:`ring_allreduce_topk` — a ring all-reduce with merge-top-k as the
-  combiner: R - 1 hops of the O(k) accumulator to rank (r + 1) mod R.
+  combiner: R - 1 hops of the O(k) accumulator to rank (r + 1) mod R;
+- :func:`gspmd_merge_topk` — the reference's compiler-scheduled merge
+  point: the lists placed as a ``DTensor`` on the mesh and redistributed
+  from data-sharded to query-sharded, DTensor choosing the collective.
 
 Besides them, the root's data movement of the mesh engines: the
 ``Scatterv`` of row and query shards (:func:`scatter_from_root`), the
@@ -96,6 +99,40 @@ def ring_allreduce_topk(local: TopK, k: int, group=None) -> TopK:
             req.wait()
         acc = merge_topk(_unpack(inc.to(dev)), local, k)
     return acc
+
+
+def gspmd_merge_topk(local: TopK, k: int, mesh) -> TopK:
+    """The "gspmd" merge: the reference's ``with_sharding_constraint``
+    merge point over a ``torch.distributed.tensor`` placement.
+
+    This rank's (Q, K) lists, packed as (3, Q, K) int32, are its block of
+    the logical (3, C * Q, R * K) candidate matrix placed ``[Shard(2),
+    Shard(1)]`` on the ("data", "query") mesh: the data axis shards the
+    candidate columns, the query axis the rows (the (C * Q, R * K)
+    matrix's ``[Shard(1), Shard(0)]`` with the packing axis in front).
+    ``redistribute`` to ``[Replicate(), Shard(1)]`` leaves every rank its
+    query shard's (Q, R * K) candidates, shard-major within each row — the
+    column order of :func:`allgather_merge_topk`, so the re-selected lists
+    equal its lists bit for bit — and DTensor picks the collective (one
+    all-gather over the data axis). Every rank's block has the same shape,
+    so DTensor never pads an uneven shard. A failed ``redistribute``
+    raises; nothing falls back to another merge. The lists cross in the
+    mesh's device type: through host memory on a "cpu" (gloo) mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    r = mesh.size(0)
+    dev = local.dists.device
+    wire = dev if mesh.device_type == dev.type else torch.device("cpu")
+    mine = _pack(local).to(wire)
+    placed = DTensor.from_local(mine, mesh, [Shard(2), Shard(1)],
+                                run_check=False)
+    got = placed.redistribute(mesh, [Replicate(), Shard(1)]).to_local()
+    three, q, kk = mine.shape
+    if tuple(got.shape) != (three, q, r * kk):
+        raise RuntimeError(f"gspmd merge: redistribute gave "
+                           f"{tuple(got.shape)}, want {(three, q, r * kk)}")
+    flat = _unpack(got.to(dev))
+    return select_topk(flat.dists, flat.labels, flat.ids, k)
 
 
 def gather_topk(top: TopK, group, dst: int = 0) -> Optional[TopK]:

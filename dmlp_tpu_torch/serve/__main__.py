@@ -11,7 +11,7 @@ Usage::
         [--warm-buckets NQxK,NQxK,...] [--ready-file PATH] [--faults FILE]
         [--telemetry FILE] [--telemetry-port PORT] [--trace FILE]
         [--slo SPEC ...] [--record FILE]
-        [--mesh RxC [--mesh-merge allgather|ring] [--backend nccl|gloo]]
+        [--mesh RxC [--mesh-merge allgather|ring|auto] [--backend nccl|gloo]]
 
 The corpus file is the standard input grammar: its data section becomes
 the resident corpus, its query section seeds the warm-up buckets. The
@@ -34,8 +34,10 @@ shard's resident chunks and running the command loop. The group's
 timeout is ``fleet.mesh_engine.GROUP_TIMEOUT_S``: a dead or hung rank
 makes the daemon exit non-zero within it. NCCL takes one card per rank,
 so more ranks than cards need ``--backend gloo``, given explicitly;
-without it the daemon refuses to start. ``--mesh-merge auto`` (the reference's
-compiler-scheduled merge) waits for ROADMAP A10 and raises.
+without it the daemon refuses to start. ``--mesh-merge auto`` is the
+reference's compiler-scheduled merge (the engine's "gspmd" strategy: K1
+folds the chunks as before, and the lists merge by a DTensor
+redistribution from data-sharded to query-sharded).
 
 The reference's ``--snapshot-every-s`` (A15) and ``--compile-cache`` (no
 compiled program to cache) are not flags here.
@@ -182,7 +184,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "(dmlp_tpu_torch.fleet.mesh_engine)")
     p.add_argument("--mesh-merge", default="allgather",
                    help="candidate merge over the data axis for --mesh: "
-                        "allgather or ring")
+                        "allgather, ring or auto (a DTensor "
+                        "redistribution, the reference's 'gspmd')")
     p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
                    help="collective backend of --mesh (default: nccl on "
                         "the card, gloo on the CPU; more ranks than cards "

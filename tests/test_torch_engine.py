@@ -224,10 +224,11 @@ def test_multipass_declines_and_streams():
 
 
 def test_not_ported_paths_raise():
-    """What the port once refused here (a kc above 512 with --pallas, and
-    select="seg") now equals the reference. The one-device engine refuses
-    a mesh mode and points to the mesh engines; the compiler-sharded
-    "auto" mode is not ported and raises naming its ROADMAP item."""
+    """What the port once refused here (a kc above 512 with --pallas,
+    select="seg", and the compiler-sharded "auto" mode) now runs. The
+    one-device engine refuses a mesh mode and points to the mesh engines;
+    ``--mode auto`` and ``--engine auto`` without ``--device cpu`` and
+    with no card raise before any rank starts (no CPU fallback)."""
     import io
 
     from dmlp_tpu_torch import cli
@@ -237,10 +238,11 @@ def test_not_ported_paths_raise():
     assert _against_reference(inp, select="seg")._last_select == "seg"
     with pytest.raises(ValueError, match="engine.sharded"):
         SingleChipEngine(EngineConfig(mode="sharded", device="cpu"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["--device", "cpu", "--mode", "auto"],
-                 stdin=io.StringIO("1 1 1\n0 1\nQ 1 1\n"),
-                 stdout=io.StringIO(), stderr=io.StringIO())
+    if not torch.cuda.is_available():
+        for flags in (["--mode", "auto"], ["--engine", "auto"]):
+            with pytest.raises(RuntimeError, match="card"):
+                cli.main(flags, stdin=io.StringIO("1 1 1\n0 1\nQ 1 1\n"),
+                         stdout=io.StringIO(), stderr=io.StringIO())
 
 
 def test_cuda_requested_without_a_card_raises():

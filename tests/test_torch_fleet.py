@@ -17,8 +17,9 @@
   and spread, a replica that crashes mid-request (bounded retry), a drain
   racing a query wave, an admission shed propagated unretried, the ingest
   fan-out; the open-loop replay and the load levels' RunRecords.
-- **Entry points**: ``--mesh-merge auto`` refused in a fresh
-  interpreter, and a mesh replica's spec carrying its rank count.
+- **Entry points**: a ``--mesh-merge auto`` replica (the "gspmd" merge)
+  serving golden's checksums from a fresh interpreter, and a mesh
+  replica's spec carrying its rank count.
 """
 
 from __future__ import annotations
@@ -788,13 +789,41 @@ def _env():
 
 
 def test_mesh_merge_auto_raises_and_names_its_item(tmp_path):
-    corpus, _ = _corpus_file(tmp_path, n=50)
+    """``--mesh-merge auto`` is ported (the "gspmd" merge): a mesh replica
+    started with it in a fresh interpreter (2 gloo ranks) reports the
+    engine-internal "gspmd", answers a request with golden's checksums and
+    drains with exit code 0; an unknown strategy still raises, naming
+    itself."""
+    from dmlp_tpu_torch.fleet import harness as fh
+    from dmlp_tpu_torch.fleet.mesh_engine import check_merge
+    from dmlp_tpu_torch.io.grammar import parse_input_text
+    assert check_merge("auto") == "gspmd"
+    corpus, text = _corpus_file(tmp_path, n=300, na=5)
     p = subprocess.run(
         [sys.executable, "-m", "dmlp_tpu_torch.serve", "--corpus",
          str(corpus), "--device", "cpu", "--mesh", "2x1", "--mesh-merge",
-         "auto"], cwd=ROOT, env=_env(), capture_output=True, text=True,
+         "bogus"], cwd=ROOT, env=_env(), capture_output=True, text=True,
         timeout=120)
-    assert p.returncode != 0 and "A10" in p.stderr
+    assert p.returncode != 0 and "bogus" in p.stderr
+    fp = fh.spawn_replica(str(corpus), str(tmp_path), "auto", "4x8",
+                          flags=["--device", "cpu", "--mesh", "2x1",
+                                 "--mesh-merge", "auto", "--backend",
+                                 "gloo"],
+                          env_extra={"OMP_NUM_THREADS": "1"})
+    try:
+        ready = fh.await_replica(fp, timeout_s=240)
+        assert ready["merge"] == "gspmd" and ready["mesh"] == [2, 1]
+        parsed = parse_input_text(text)
+        q, ks = batch(5, 4, 61, kmax=8)
+        r = _query(ready["port"], q, ks)
+        assert r["ok"] and r["checksums"] == golden(
+            parsed.labels, parsed.data_attrs, q, ks), r
+        cli = sc.ServeClient(ready["port"])
+        cli.drain()
+        cli.close()
+        assert fp.proc.wait(timeout=120) == 0
+    finally:
+        fh.kill_all([fp])
 
 
 def test_replica_spec_passes_the_mesh_to_the_daemon_and_no_xla_flags(
