@@ -267,6 +267,31 @@ fleet phase's capacity and layout), its warmed buckets and the serve
 trace's first 15 requests each rank's launches the plan's at held shapes,
 every response the oracle's (1,000 seeded queries), drained with exit 0.
 
+The ``train`` phase (after ``auto``; ``--phases build,train`` runs it
+alone, about 60 s after the build) drives the train extension
+(``dmlp_tpu_torch.train``), which launches no hand-written kernel (every
+run's launch counts are checked to stay 0): ``train.bench`` at the
+reference's benchmark width (1024, 8192, 8192, 1024; batch 8,192) in
+bf16 and f32, with its step time, samples/s, MFU against the bf16 peak
+and the allocator's peak against ``obs.memwatch.train_step_model``, the
+loss finite and falling; 3 steps at (64, 512, 512, 10), batch 4,096,
+on the card and on the CPU from the same parameters and batches, in f32
+(losses within rtol 1e-5: a TF32 product would fail) and in bf16 (losses
+within rtol 1e-5, each parameter's change within 1e-3 of its norm of the
+CPU run's: only the f32 accumulation order differs); the offload levels
+"params" and "all" at batch 32,768 beside the resident step, the
+parameters bit for bit after 3 steps, ``memory_allocated`` between steps
+lower by exactly the offloaded (pinned) bytes, each step's peak, the
+bench's step times and the host link's copy rates; the loop CLI
+(``train.loop.main``) for 200 steps, ``--resume`` for 50 (step 250), and
+a ``nan`` fault at step 5 under ``--nan-guard`` whose ``params_checksum``
+equals the fault-free run's; the loop on a (2, 2) mesh of 4 gloo ranks on
+cuda:0 in f32 and in bf16 (each rank's local bf16 products), its losses
+the (1, 1) run's within rtol 2e-5, the second step's time beside the
+(1, 1) run's, every rank's parameters on the card, the collective
+record's dp all-reduce bytes ``obs.comms``' model plus the replicated row
+biases (2,048 bytes), and the tp all-reduces listed as unmodelled.
+
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
 build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
 the single-device references itself; ``tune`` needs ``kernels`` and
@@ -469,7 +494,7 @@ HELD = {"k1": set(), "k3": set()}
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
 PHASES = ("build", "kernels", "segmin", "tune", "main", "obs", "mesh",
-          "serve", "fleet", "auto", "real_oom", "profile")
+          "serve", "fleet", "auto", "train", "real_oom", "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
 OUTPUTS: dict = {}
@@ -3284,6 +3309,368 @@ def auto_phase(tmp_dir):
     return launches
 
 
+# The train phase (dmlp_tpu_torch.train): the benchmark model at the
+# reference's width (train/bench.py), the small model of the loop's and
+# the card-against-CPU runs, and the mesh's.
+TRAIN_FULL = (1024, 8192, 8192, 1024)
+TRAIN_SMALL = (64, 512, 512, 10)
+TRAIN_MESH_DIMS = (64, 256, 256, 10)
+TRAIN_OFFLOAD_BATCH = 32768
+
+
+def _with_env(env, fn):
+    """``fn()`` with ``env`` set in this process's environment, then the
+    old values back."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _link_rates(nbytes: int = 1 << 28):
+    """Pinned host-to-card and card-to-host copy rates (bytes/s), CUDA
+    events over one copy of ``nbytes`` (median of 5 after a warm-up)."""
+    import torch
+    host = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    h2d, _ = time_ms(lambda: dev.copy_(host, non_blocking=True), 5)
+    d2h, _ = time_ms(lambda: host.copy_(dev, non_blocking=True), 5)
+    return nbytes / (h2d / 1e3), nbytes / (d2h / 1e3)
+
+
+def _loop_main(argv):
+    """``python -m dmlp_tpu_torch.train.loop argv`` in this process:
+    (exit code, its ``final:`` line)."""
+    import contextlib as _cl
+
+    from dmlp_tpu_torch.train import loop
+    out = io.StringIO()
+    with _cl.redirect_stdout(out):
+        rc = loop.main(argv)
+    final = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("final: ")]
+    return rc, final[-1] if final else None
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def train_phase(tmp_dir):
+    """The train extension on the card (``dmlp_tpu_torch.train``):
+    ``train.bench`` at the reference's full width in bf16 and f32 (step
+    time, samples/s, MFU against the bf16 peak, the allocator's peak
+    against ``obs.memwatch.train_step_model``, the loss finite and
+    falling); 3 steps of the same parameters and batches on the card and
+    through the port on the CPU, in f32 (losses within rtol 1e-5: a TF32
+    product would fail) and in bf16 (losses within rtol 1e-5, parameter
+    changes within 1e-3); the offload levels "params" and "all" at batch
+    32,768 beside the resident step (parameters bit for bit after 3
+    steps, ``memory_allocated`` between steps lower by the offloaded bytes
+    exactly, each step's peak, the bench's step times and the host link's
+    rates in the same run); the loop CLI for 200 steps, a resume for 50,
+    and a ``nan`` fault at step 5 under ``--nan-guard`` ending on the
+    fault-free run's ``params_checksum``; the loop on a (2, 2) mesh of 4
+    gloo ranks on cuda:0 in f32 and bf16 (its losses the (1, 1) run's
+    within rtol 2e-5, its second step's time beside theirs,
+    every rank's parameters on the card, the dp all-reduce bytes of the
+    collective record those of ``obs.comms`` plus the replicated row
+    biases, DTensor's tp collectives listed as unmodelled). No run
+    launches a hand-written kernel. Returns the launches per run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dmlp_tpu_torch import kernels
+    from dmlp_tpu_torch.obs import comms, memwatch
+    from dmlp_tpu_torch.train import bench, loop
+    from dmlp_tpu_torch.train import step as S
+    from dmlp_tpu_torch.train.data import teacher_batches
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counted(label, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        launches[label] = {k: kernels.LAUNCHES[k] for k in KERNELS}
+        check(not any(launches[label].values()),
+              f"{label}: the train path launched {launches[label]}")
+        return out
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    full = ",".join(map(str, TRAIN_FULL))
+    for dtype, label in (("bfloat16", "train_bench_bf16"),
+                         ("float32", "train_bench_f32")):
+        res = counted(label, lambda: _with_env(
+            {"TRAIN_DIMS": full, "TRAIN_BATCH": "8192", "TRAIN_STEPS": "30",
+             "TRAIN_DTYPE": dtype, "TRAIN_OFFLOAD": "none"},
+            bench.train_bench))
+        model = memwatch.train_step_model(
+            list(TRAIN_FULL), 8192, "sgd", None,
+            dtype if dtype == "bfloat16" else None)
+        mem = memwatch.reconcile(model, {"bytes": res["peak_memory_bytes"],
+                                         "basis": "max_memory_allocated"})
+        emit({"phase": "train", "run": label, **res, "mem_model": mem})
+        check(np.isfinite(res["first_loss"]) and np.isfinite(
+            res["final_loss"]) and res["final_loss"] < res["first_loss"],
+              f"{label}: loss {res['first_loss']} -> {res['final_loss']}")
+        free()
+
+    # The card against the CPU: 3 steps in f32 and in bf16, same
+    # parameters and batches.
+    opt = S.make_optimizer("sgd", 1e-2)
+    it = teacher_batches(TRAIN_SMALL[0], TRAIN_SMALL[-1], 4096, seed=1)
+    small = [next(it) for _ in range(3)]
+    for cdtype, label in ((None, "train_card_vs_cpu"),
+                          (torch.bfloat16, "train_card_vs_cpu_bf16")):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            def run(dev=dev):
+                st = loop.build_sharded_state(None, TRAIN_SMALL, opt,
+                                              seed=0, device=dev)
+                init = [p.detach().cpu().clone() for p in
+                        st["params"].parameters()]
+                fn = S.make_train_step(opt, cdtype)
+                losses = []
+                for x, y in small:
+                    st, m = fn(st, torch.from_numpy(x).to(dev),
+                               torch.from_numpy(y).to(dev))
+                    losses.append(S.global_metrics(m)["loss"])
+                return losses, init, [p.detach().cpu() for p in
+                                      st["params"].parameters()]
+            got[dev] = counted(f"{label}_{dev}", run)
+        (lc, _, pc), (lh, p0, ph) = got["cuda"], got["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        # The parameter change's distance from the CPU run's, relative to
+        # its norm, per leaf.
+        change = [float((a - b).norm() / (b - c).norm())
+                  for a, b, c in zip(pc, ph, p0)]
+        emit({"phase": "train", "run": label, "dims": list(TRAIN_SMALL),
+              "batch": 4096, "compute_dtype": str(cdtype),
+              "losses_cuda": lc, "losses_cpu": lh, "max_loss_rel_err": rel,
+              "max_param_abs_err": max(float((a - b).abs().max())
+                                       for a, b in zip(pc, ph)),
+              "param_change_rel_err": change,
+              "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+        # f32: IEEE products on both sides (a TF32 product would fail).
+        # bf16: the same exact bf16 products, accumulated in f32 in
+        # another order, whose flipped bf16 roundings move the parameter
+        # change by about 2e-4 of its norm (measured on the CPU against
+        # float64 accumulation); a gradient rounded to bf16 before its
+        # products or weight gradients left unrounded move it by 1.3e-3
+        # or more.
+        check(np.allclose(lc, lh, rtol=1e-5, atol=0)
+              and (cdtype is None or max(change) < 1e-3),
+              f"{label}: losses {lc} against {lh}, parameter change "
+              f"errors {change}")
+
+    # The offload levels beside the resident step, at batch 32,768.
+    it = teacher_batches(TRAIN_FULL[0], TRAIN_FULL[-1], TRAIN_OFFLOAD_BATCH,
+                         seed=1)
+    big = [tuple(torch.from_numpy(a).cuda() for a in next(it))
+           for _ in range(3)]
+    resident, rows = None, {}
+    for level in ("none", "params", "all"):
+        def run(level=level):
+            st = loop.build_sharded_state(None, TRAIN_FULL, opt, seed=0,
+                                          offload=level, device="cuda")
+            fn = S.make_train_step(opt, torch.bfloat16) if level == "none" \
+                else S.make_offload_train_step(opt, torch.bfloat16)
+            between, peaks = [], []
+            for x, y in big:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                st, m = fn(st, x, y)
+                S.settle(st)
+                torch.cuda.synchronize()
+                between.append(torch.cuda.memory_allocated())
+                peaks.append(torch.cuda.max_memory_allocated())
+            host = [t for t in list(st["params"].parameters())
+                    + [v for ms in st["opt"].values() for v in ms.values()]
+                    if t.device.type == "cpu"]
+            row = {"between_steps_bytes": between, "step_peak_bytes": peaks,
+                   "host_bytes": sum(t.numel() * t.element_size()
+                                     for t in host),
+                   "host_pinned": all(t.is_pinned() for t in host),
+                   "loss": S.global_metrics(m)["loss"]}
+            return row, [p.detach().cpu() for p in st["params"].parameters()]
+        row, params = counted(f"train_offload_{level}_steps", run)
+        if level == "none":
+            resident = params
+        else:
+            row["params_equal_resident"] = all(
+                torch.equal(a, b) for a, b in zip(params, resident))
+        rows[level] = row
+        del params
+        free()
+    del big
+    free()
+    h2d, d2h = _link_rates()
+    pbytes = sum(a * b + b
+                 for a, b in zip(TRAIN_FULL[:-1], TRAIN_FULL[1:])) * 4
+    for level in ("none", "params", "all"):
+        res = counted(f"train_offload_{level}", lambda level=level: _with_env(
+            {"TRAIN_DIMS": full, "TRAIN_BATCH": str(TRAIN_OFFLOAD_BATCH),
+             "TRAIN_STEPS": "10", "TRAIN_DTYPE": "bfloat16",
+             "TRAIN_OFFLOAD": level}, bench.train_bench))
+        rows[level]["bench"] = res
+        free()
+    for level in ("params", "all"):
+        row = rows[level]
+        stream = pbytes * (2 if level == "all" else 1)   # each way
+        row["offloaded_bytes"] = stream
+        row["stream_ms_at_link"] = (stream / h2d + stream / d2h) * 1e3
+        row["resident_step_ms"] = rows["none"]["bench"]["step_time_ms"]
+        row["resident_between_steps_bytes"] = \
+            rows["none"]["between_steps_bytes"]
+        row["resident_step_peak_bytes"] = rows["none"]["step_peak_bytes"]
+        emit({"phase": "train", "run": f"train_offload_{level}",
+              "batch": TRAIN_OFFLOAD_BATCH, "h2d_bytes_per_s": h2d,
+              "d2h_bytes_per_s": d2h, **row})
+        check(row["params_equal_resident"],
+              f"train_offload_{level}: parameters differ from the "
+              "resident step's after 3 steps")
+        check(row["host_bytes"] == stream and row["host_pinned"],
+              f"train_offload_{level}: {row['host_bytes']} bytes on the "
+              f"host (pinned: {row['host_pinned']}), want {stream}")
+        lower = [a - b for a, b in zip(rows["none"]["between_steps_bytes"],
+                                       row["between_steps_bytes"])]
+        check(all(d == stream for d in lower),
+              f"train_offload_{level}: memory_allocated lower by {lower} "
+              f"between steps, want {stream}")
+
+    # The loop CLI: 200 steps, a resume for 50, a nan fault at step 5.
+    common = ["--dims", ",".join(map(str, TRAIN_SMALL)), "--batch", "4096",
+              "--log-every", "50", "--ckpt-every", "100", "--nan-guard"]
+    sched = os.path.join(tmp_dir, "train_nan.json")
+    with open(sched, "w") as f:
+        json.dump({"schema": 1, "seed": 0, "faults": [
+            {"site": "train.step", "kind": "nan", "when": {"step": 5}}]}, f)
+    recs, finals, walls = {}, {}, {}
+    for label, extra in (
+            ("train_loop", ["--steps", "200"]),
+            ("train_loop_resume", ["--steps", "50", "--resume"]),
+            ("train_loop_nan", ["--steps", "200", "--faults", sched,
+                                "--trace", os.path.join(tmp_dir,
+                                                        "train_trace.json")])):
+        ck = os.path.join(tmp_dir, "train_ck_nan" if label.endswith("nan")
+                          else "train_ck")
+        rec = os.path.join(tmp_dir, f"{label}.json")
+        mfile = os.path.join(tmp_dir, f"{label}.jsonl")
+        t0 = time.perf_counter()
+        rc, final = counted(label, lambda extra=extra, ck=ck, rec=rec,
+                            mfile=mfile: _loop_main(
+            common + extra + ["--checkpoint-dir", ck, "--record", rec,
+                              "--metrics-file", mfile]))
+        walls[label] = time.perf_counter() - t0
+        check(rc == 0 and final is not None, f"{label}: exit {rc}")
+        with open(rec) as f:
+            recs[label] = json.load(f)["metrics"]
+        finals[label] = final
+        windows = [r for r in _jsonl(mfile) if "step" in r]
+        emit({"phase": "train", "run": label, "wall_s": walls[label],
+              "final": final, "windows": [
+                  {k: r[k] for k in ("step", "loss", "accuracy",
+                                     "step_time_ms", "mfu")}
+                  for r in windows],
+              "params_checksum": recs[label]["params_checksum"],
+              "resilience": recs[label].get("resilience"),
+              "ranks": recs[label]["ranks"]})
+        check(all(np.isfinite(r["loss"]) for r in windows),
+              f"{label}: a non-finite loss")
+    a, b, c = (recs[k] for k in ("train_loop", "train_loop_resume",
+                                 "train_loop_nan"))
+    check(a["step"] == 200 and b["step"] == 250 and c["step"] == 200,
+          f"train_loop: steps {a['step']}, {b['step']}, {c['step']}")
+    check(c["params_checksum"] == a["params_checksum"]
+          and c["resilience"]["rollbacks"] == 1,
+          f"train_loop_nan: checksum {c['params_checksum']} against "
+          f"{a['params_checksum']}, resilience {c.get('resilience')}")
+    check(a["ranks"][0]["device"] == "cuda:0",
+          f"train_loop: parameters on {a['ranks']}")
+
+    # The loop on a (2, 2) mesh: 4 gloo ranks on cuda:0, against (1, 1),
+    # in f32 and in bf16 (each rank's local bf16 products).
+    mesh_common = ["--dims", ",".join(map(str, TRAIN_MESH_DIMS)), "--batch",
+                   "1024", "--steps", "2", "--log-every", "1"]
+    out = {}
+    for label, extra in (
+            ("train_mesh_1x1", []),
+            ("train_mesh_2x2", ["--mesh", "2,2", "--backend", "gloo"]),
+            ("train_mesh_1x1_bf16", ["--compute-dtype", "bfloat16"]),
+            ("train_mesh_2x2_bf16", ["--mesh", "2,2", "--backend", "gloo",
+                                     "--compute-dtype", "bfloat16"])):
+        rec = os.path.join(tmp_dir, f"{label}.json")
+        mfile = os.path.join(tmp_dir, f"{label}.jsonl")
+        t0 = time.perf_counter()
+        rc, _final = counted(label, lambda extra=extra, rec=rec,
+                             mfile=mfile: _loop_main(
+            mesh_common + extra + ["--record", rec, "--metrics-file",
+                                   mfile]))
+        check(rc == 0, f"{label}: exit {rc}")
+        lines = _jsonl(mfile)
+        windows = [r for r in lines if "step" in r]
+        with open(rec) as f:
+            out[label] = {"wall_s": time.perf_counter() - t0,
+                          "losses": [r["loss"] for r in windows],
+                          # the second step's: the first holds the set-up
+                          "step_time_ms": windows[-1]["step_time_ms"],
+                          "comms": [r for r in lines
+                                    if r.get("event") == "comms"],
+                          "hlo": [r for r in lines
+                                  if r.get("event") == "hlo"][0],
+                          "ranks": json.load(f)["metrics"]["ranks"]}
+    pbytes = sum(a * b + b for a, b in zip(TRAIN_MESH_DIMS[:-1],
+                                            TRAIN_MESH_DIMS[1:])) * 4
+    (psum,) = comms.train_step_comms(pbytes, (2, 2), steps=1)
+    row_bias = sum(TRAIN_MESH_DIMS[i + 1]
+                   for i in range(1, len(TRAIN_MESH_DIMS) - 1, 2)) * 4
+    excess = 4 * round(2 * (2 - 1) * (row_bias - row_bias // 2) / 2)
+    for suffix in ("", "_bf16"):
+        one = out["train_mesh_1x1" + suffix]
+        mesh = out["train_mesh_2x2" + suffix]
+        label = "train_mesh_2x2" + suffix
+        by_axis = mesh["hlo"]["by_axis"]
+        emit({"phase": "train", "run": label, "backend": "gloo",
+              "dims": list(TRAIN_MESH_DIMS), "batch": 1024,
+              "compute_dtype": "bfloat16" if suffix else "float32",
+              "losses": mesh["losses"], "losses_1x1": one["losses"],
+              "step_time_ms": mesh["step_time_ms"],
+              "step_time_ms_1x1": one["step_time_ms"],
+              "wall_s": mesh["wall_s"], "ranks": mesh["ranks"],
+              "dp_allreduce_bytes": by_axis.get("all-reduce@dp"),
+              "dp_model_bytes": psum.bytes_total,
+              "replicated_row_bias_excess_bytes": excess,
+              "unmodelled": {k: v for k, v in by_axis.items()
+                             if not k.endswith("@dp")},
+              "comms_event": mesh["comms"], "hlo_event": mesh["hlo"]})
+        check(len(mesh["losses"]) == 2 and np.allclose(
+            mesh["losses"], one["losses"], rtol=2e-5, atol=0),
+              f"{label}: losses {mesh['losses']} against "
+              f"{one['losses']}")
+        check(len(mesh["ranks"]) == 4 and all(
+            r["device"] == "cuda:0" for r in mesh["ranks"]),
+              f"{label}: parameters on {mesh['ranks']}")
+        check(by_axis.get("all-reduce@dp") == psum.bytes_total + excess,
+              f"{label}: dp all-reduce {by_axis.get('all-reduce@dp')} "
+              f"bytes, want {psum.bytes_total} + {excess}")
+    emit({"phase": "train_done", "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def real_oom():
     """An allocation of four times the card's memory, outside the engine:
     what it raises must classify as "oom", the class on which the
@@ -3437,6 +3824,8 @@ def main(argv=None) -> int:
         launches.update(fleet_phase(tmp.name))
     if "auto" in phases:
         launches.update(auto_phase(tmp.name))
+    if "train" in phases:
+        launches.update(train_phase(tmp.name))
     if "real_oom" in phases:
         real_oom()
     if "profile" in phases:

@@ -20,15 +20,23 @@ shape parameters the solve uses, so tests can hold the engines' records
 
 The lists travel packed as (3, Q, K) int32 — the distances' float32 bits,
 labels, ids: 12 bytes a candidate, the reference's TopK triple. The plan
-broadcast (a small pickled dict) is not counted. The train extension's
-collectives (gradient psum, MoE all-to-all, tensor-parallel psum, pipeline
-hand-off) come with it (A14).
+broadcast (a small pickled dict) is not counted.
+
+The train extension's models are the reference's, whole (pure arithmetic
+over the run's shapes): the dp gradient all-reduce (:func:`psum_traffic`,
+the one the dp x tp step issues), the MoE all-to-all and the ep combine,
+the tensor-parallel activation psum of the pipelined stages and the
+pipeline hand-off, folded per run by :func:`train_step_comms`. As in the
+reference, the dp x tp family's tensor-parallel collectives are not
+modelled, and the per-group gradient payload is the parameter bytes over
+the product of the non-dp axes (``obs.hlo``'s record of a tp > 1 step
+carries the replicated row-parallel biases above it).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 #: arrays in a TopK triple (dists, labels, ids) and their element sizes
 _TOPK_ITEMSIZES = (4, 4, 4)
@@ -120,6 +128,95 @@ def gather_topk_traffic(axis_size: int, q_local: int, k: int,
         note=f"{axis_size - 1} ranks x {payload} B to rank 0")
 
 
+def psum_traffic(nbytes: int, axis_size: int, axis: str = "dp",
+                 n_groups: int = 1, count: int = 1) -> CollectiveTraffic:
+    """The gradient all-reduce as a ring: reduce-scatter + all-gather
+    moves 2*(D-1)/D of the payload per rank (the ring bound)."""
+    per_dev = 0 if axis_size <= 1 else round(2 * (axis_size - 1)
+                                             * nbytes / axis_size)
+    return CollectiveTraffic("psum_grads", axis, axis_size, per_dev,
+                             per_dev, n_groups=n_groups, count=count,
+                             note=f"ring all-reduce of {nbytes} B grads")
+
+
+def moe_a2a_traffic(ep: int, capacity: int, hidden: int,
+                    itemsize: int = 4, n_groups: int = 1,
+                    count: int = 1) -> CollectiveTraffic:
+    """The capacity-based MoE dispatch: three all-to-alls per step (token
+    send buffer (ep, capacity, hidden), slot metadata (ep, capacity) int32,
+    and the token return), each keeping 1/ep of its buffer local and
+    moving (ep-1)/ep off the rank."""
+    send = ep * capacity * hidden * itemsize
+    meta = ep * capacity * 4
+    total_buf = 2 * send + meta  # tokens out + tokens back + metadata
+    frac = 0.0 if ep <= 0 else (ep - 1) / ep
+    per_dev = round(total_buf * frac)
+    return CollectiveTraffic("moe_all_to_all", "ep", ep, per_dev, per_dev,
+                             n_groups=n_groups, count=count,
+                             note=f"3 a2a/step: 2x{send} B tokens "
+                                  f"+ {meta} B meta, (ep-1)/ep off-device")
+
+
+def tp_psum_activation_traffic(tp: int, rows: int, hidden: int,
+                               n_pairs: int = 1, ticks: int = 1,
+                               itemsize: int = 4, n_groups: int = 1,
+                               count: int = 1) -> CollectiveTraffic:
+    """The pipelined stages' tensor-parallel activation psum: each col/row
+    layer pair ends in one all-reduce of the (rows, hidden) f32 block over
+    tp (the ring bound, 2*(tp-1)/tp of the block); ``n_pairs`` pairs per
+    schedule tick, ``ticks`` ticks per step; the backward's transposed
+    psums mirror the forward (fold them via ``count``)."""
+    nbytes = rows * hidden * itemsize
+    per = 0 if tp <= 1 else round(2 * (tp - 1) * nbytes / tp)
+    per_dev = per * n_pairs * ticks
+    return CollectiveTraffic("psum_tp_activations", "tp", tp, per_dev,
+                             per_dev, n_groups=n_groups, count=count,
+                             note=f"{ticks} ticks x {n_pairs} pairs x "
+                                  f"ring all-reduce of {nbytes} B "
+                                  f"activations")
+
+
+def ep_psum_combine_traffic(ep: int, tokens: int, hidden: int,
+                            itemsize: int = 4, n_groups: int = 1,
+                            count: int = 1) -> CollectiveTraffic:
+    """The dense (capacity-free) MoE combine: one all-reduce over ep of
+    the (tokens, hidden) expert-output partials per step (the ring
+    bound)."""
+    nbytes = tokens * hidden * itemsize
+    per_dev = 0 if ep <= 1 else round(2 * (ep - 1) * nbytes / ep)
+    return CollectiveTraffic("psum_ep_combine", "ep", ep, per_dev,
+                             per_dev, n_groups=n_groups, count=count,
+                             note=f"ring all-reduce of {nbytes} B "
+                                  f"expert-output partials")
+
+
+def pipeline_ppermute_traffic(pp: int, n_micro: int, micro_rows: int,
+                              hidden: int, schedule: str = "gpipe",
+                              n_virtual: int = 1, itemsize: int = 4,
+                              n_groups: int = 1, count: int = 1,
+                              ) -> CollectiveTraffic:
+    """The pipeline's activation hand-off: every schedule tick sends one
+    (micro_rows, hidden) activation block per sending link of the pp axis.
+    gpipe runs M + S - 1 ticks over an (S-1)-link chain; interleaved runs
+    M - 1 + V*S ticks over the S-link ring (none for one stage). Bubble
+    ticks move the block too, so ticks, not useful microbatches, is the
+    multiplier; the forward count is reported (``count`` absorbs the
+    mirrored backward)."""
+    if schedule == "gpipe":
+        ticks, links = n_micro + pp - 1, max(pp - 1, 0)
+    elif schedule == "interleaved":
+        ticks, links = n_micro - 1 + n_virtual * pp, pp if pp > 1 else 0
+    else:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    payload = micro_rows * hidden * itemsize
+    total = ticks * links * payload      # one dispatch, all links
+    per_dev = 0 if pp <= 0 else round(total / pp)
+    return CollectiveTraffic("ppermute_pipeline", "pp", pp, per_dev,
+                             per_dev, n_groups=n_groups, count=count,
+                             note=f"{schedule}: {ticks} ticks x {links} "
+                                  f"links x {payload} B activation")
+
+
 def host_allgather_candidates_traffic(num_ranks: int, r_shards: int,
                                       qpad: int, kcap: int,
                                       itemsizes=(8, 4, 4),
@@ -194,3 +291,56 @@ def summarize(traffics: List[CollectiveTraffic]) -> Dict[str, object]:
     return {"bytes_total": sum(t.bytes_total for t in traffics),
             "bytes_by_axis": per_axis,
             "collectives": [t.to_dict() for t in traffics]}
+
+
+def train_step_comms(param_bytes: int, mesh_shape, steps: int = 1,
+                     moe: Optional[dict] = None,
+                     pipeline: Optional[dict] = None,
+                     moe_dense: Optional[dict] = None,
+                     ) -> List[CollectiveTraffic]:
+    """Per-run traffic of the train loop's collective paths: the gradient
+    all-reduce over dp, plus the MoE all-to-all when the a2a dispatch runs
+    (``moe`` = {"ep", "capacity", "hidden"}), the dense MoE's ep combine
+    (``moe_dense`` = {"ep", "tokens", "hidden"}), and the pipeline's
+    activation hand-off (``pipeline`` = {"pp", "n_micro", "micro_rows",
+    "hidden"} [+ "schedule", "n_virtual", "tp", "n_pairs", "n_groups"]; a
+    "tp" > 1 adds the dp_pp3 stages' activation psum over tp; forward and
+    the mirrored backward, 2x per step).
+
+    ``param_bytes`` is the global parameter footprint; every non-dp axis
+    shards the parameters, so each dp group's payload is param_bytes over
+    the product of those axes."""
+    out: List[CollectiveTraffic] = []
+    dp = mesh_shape[0] if mesh_shape else 1
+    shard_groups = 1
+    if mesh_shape and len(mesh_shape) > 1:
+        for ax in mesh_shape[1:]:
+            shard_groups *= ax
+    if dp > 1:
+        out.append(psum_traffic(param_bytes // max(shard_groups, 1), dp,
+                                axis="dp", n_groups=shard_groups,
+                                count=steps))
+    if moe:
+        out.append(moe_a2a_traffic(moe["ep"], moe["capacity"],
+                                   moe["hidden"], n_groups=dp,
+                                   count=steps))
+    if moe_dense:
+        out.append(ep_psum_combine_traffic(
+            moe_dense["ep"], moe_dense["tokens"], moe_dense["hidden"],
+            n_groups=dp, count=steps))
+    if pipeline:
+        out.append(pipeline_ppermute_traffic(
+            pipeline["pp"], pipeline["n_micro"], pipeline["micro_rows"],
+            pipeline["hidden"], schedule=pipeline.get("schedule", "gpipe"),
+            n_virtual=pipeline.get("n_virtual", 1),
+            n_groups=pipeline.get("n_groups", dp),
+            count=2 * steps))  # forward + reverse-schedule backward
+        tp = pipeline.get("tp", 1)
+        if tp > 1:
+            pp, n_micro = pipeline["pp"], pipeline["n_micro"]
+            out.append(tp_psum_activation_traffic(
+                tp, pipeline["micro_rows"], pipeline["hidden"],
+                n_pairs=pipeline.get("n_pairs", 2),
+                ticks=n_micro + pp - 1,
+                n_groups=dp * pp, count=2 * steps))
+    return out

@@ -54,6 +54,7 @@ import json
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 #: bump on any backward-incompatible HloReport field change
@@ -223,6 +224,11 @@ class CollectiveRecorder(TorchDispatchMode):
             "bytes_moved": bytes_moved(kind, operand, gsize or 1, root)})
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # A mode runs before a tensor subclass: let DTensor lower the
+            # op first, so the collectives it issues come back through
+            # here on plain tensors (CommDebugMode does the same).
+            return NotImplemented
         if func.namespace in _NAMESPACES:
             self._note(func, tuple(args) + tuple((kwargs or {}).values()))
         return func(*args, **(kwargs or {}))

@@ -25,8 +25,8 @@ port of ``dmlp_tpu/obs/memwatch.py``.
 
 - :func:`fleet_engine_model` is the mesh-resident serving engine's, per
   rank.
-
-The train-step model comes with the train extension (A14).
+- :func:`train_step_model` is the reference's dp x tp train-step model,
+  term for term.
 """
 
 from __future__ import annotations
@@ -295,9 +295,38 @@ def fleet_engine_model(mesh_shape, shard_rows: int, na: int,
                    per_device=True, n_devices=r * c)
 
 
+def train_step_model(dims, batch: int, optimizer: str = "sgd",
+                     mesh_shape=None, compute_dtype: Optional[str] = None
+                     ) -> Dict[str, Any]:
+    """Peak resident bytes per rank of one dp x tp train step: params,
+    grads, optimizer moments (adam: 2x params), the local batch, and the
+    forward activations kept for the backward (one (batch_local, width)
+    block per layer boundary, bf16 under ``compute_dtype="bfloat16"``).
+    tp shards the widths, dp the batch."""
+    dims = list(dims)
+    dp, tp = (mesh_shape or (1, 1))[:2]
+    param_count = sum(dims[i] * dims[i + 1] + dims[i + 1]
+                      for i in range(len(dims) - 1))
+    pbytes = param_count * 4 // max(tp, 1)
+    moments = {"sgd": 0, "adam": 2}.get(optimizer, 0)
+    b_local = max(batch // max(dp, 1), 1)
+    act_item = 2 if compute_dtype == "bfloat16" else 4
+    acts = b_local * sum(dims[1:]) * act_item // max(tp, 1)
+    terms = {
+        "params": pbytes,
+        "grads": pbytes,
+        "opt_moments": moments * pbytes,
+        "batch": b_local * (dims[0] + 1) * 4,
+        "activations": acts,
+    }
+    return _finish(terms, kind="train", dims=dims, batch=batch,
+                   optimizer=optimizer, per_device=True,
+                   n_devices=max(dp, 1) * max(tp, 1))
+
+
 def resident_bytes_model(kind: str, **params) -> Dict[str, Any]:
     """Dispatch on workload kind: "single" | "sharded" | "ring" | "auto"
-    | "serve" | "fleet"."""
+    | "serve" | "fleet" | "train"."""
     if kind == "single":
         return single_engine_model(**params)
     if kind in ("sharded", "ring", "auto"):
@@ -306,6 +335,8 @@ def resident_bytes_model(kind: str, **params) -> Dict[str, Any]:
         return serve_engine_model(**params)
     if kind == "fleet":
         return fleet_engine_model(**params)
+    if kind == "train":
+        return train_step_model(**params)
     raise ValueError(f"unknown workload kind {kind!r}")
 
 
@@ -452,6 +483,7 @@ def reconcile(model: Dict[str, Any],
 __all__ = [
     "RATIO_BOUNDS", "device_memory_stats", "measured_watermark",
     "peak_watermark", "single_engine_model", "mesh_engine_model",
-    "serve_engine_model", "resident_bytes_model", "model_for_engine",
+    "serve_engine_model", "train_step_model", "resident_bytes_model",
+    "model_for_engine",
     "note_engine_model", "reconcile",
 ]

@@ -67,8 +67,9 @@ SITES: Dict[str, str] = {
                        "distributed_contract_run)",
     "dist.allgather": "host all-gather of the rescored candidate lists "
                       "(parallel.distributed.distributed_contract_run)",
-    "train.step": "one optimizer step (the train extension; not ported "
-                  "yet)",
+    "train.step": "one optimizer step (train.loop; nan faults poison "
+                  "the step's loss so the NaN guard's rollback path "
+                  "can be driven deterministically)",
     "serve.admit": "serving-daemon admission decision (serve.admission "
                    "precheck; an oom fault is the memory squeeze: the "
                    "request is shed, the ladder untouched)",
