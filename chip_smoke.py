@@ -292,6 +292,26 @@ the (1, 1) run's within rtol 2e-5, the second step's time beside the
 record's dp all-reduce bytes ``obs.comms``' model plus the replicated row
 biases (2,048 bytes), and the tp all-reduces listed as unmodelled.
 
+The ``train_parallel`` phase (after ``train``; ``--phases
+build,train_parallel`` runs it alone, about 190 s after the build) drives
+the pipeline and MoE families (``dmlp_tpu_torch.train.pipeline`` and
+``.experts``), which launch no hand-written kernel either: first a probe
+of gloo's send/recv and all-to-all on CUDA tensors between two ranks on
+cuda:0 (what raises, crashes or works; the port stages both through host
+memory under gloo regardless); then the loop CLI on 8 gloo ranks sharing
+cuda:0 at the reference's benchmark widths, 3 steps each: GPipe and
+interleaved (V = 2) dp_pp at (2, 4) and dp_pp3 at (2, 2, 2), dims 64,
+2048, 16, batch 512, M = 4; the dense and the a2a (cf 1.25) dp_ep at (2,
+4), dims 64, 512, 2048, 16, 8 experts, batch 4,096 — losses finite and
+falling, the later steps' ``step_time_ms``, ``schedule_ticks`` and
+``bubble_fraction``, every rank's parameters on cuda:0 with 0 launches,
+and the first step's collective record equal to ``obs.comms.
+train_step_comms`` for what it prices, the backward it leaves out stated
+beside it; then one 8-rank spawn running each family at a small width on
+the card and on the CPU from the same parameters and batches (losses
+within rtol 1e-5) and ``train.dryrun.dryrun_train`` on the card; then the
+weak-scaling sweep at 1, 2, 4 and 8 ranks.
+
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
 build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
 the single-device references itself; ``tune`` needs ``kernels`` and
@@ -494,7 +514,8 @@ HELD = {"k1": set(), "k3": set()}
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
 PHASES = ("build", "kernels", "segmin", "tune", "main", "obs", "mesh",
-          "serve", "fleet", "auto", "train", "real_oom", "profile")
+          "serve", "fleet", "auto", "train", "train_parallel", "real_oom",
+          "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
 OUTPUTS: dict = {}
@@ -3671,6 +3692,396 @@ def train_phase(tmp_dir):
     return launches
 
 
+# The train_parallel phase (dmlp_tpu_torch.train.pipeline / .experts): the
+# pipeline and MoE families at the reference's own benchmark widths
+# (PIPEBENCH_r05.json "hidden_2048", tools/pipebench.py:77-93;
+# TRAINBENCH_r05_moe.json, tools/trainbench_moe.py:34-41) through the loop
+# CLI on 8 gloo ranks sharing cuda:0, each beside the model of its
+# collectives.
+PAR_FLAGS = ("--backend", "gloo")
+PAR_DEVICE = "cuda"
+PAR_PP_DIMS = (64, 2048, 16)
+PAR_EP_DIMS = (64, 512, 2048, 16)
+# SGD with the loop's momentum 0.9: the 8-layer pipelines at lr 1e-3 (at
+# 1e-2 and 5e-2 their loss rises over the first steps), the MoE at the
+# loop's default 1e-2.
+PAR_RUNS = (
+    ("par_dp_pp_gpipe", ["--parallelism", "dp_pp", "--mesh", "2,4",
+                         "--batch", "512", "--microbatches", "4",
+                         "--lr", "0.001"]),
+    ("par_dp_pp_interleaved", ["--parallelism", "dp_pp", "--mesh", "2,4",
+                               "--batch", "512", "--microbatches", "4",
+                               "--pp-schedule", "interleaved",
+                               "--virtual-stages", "2", "--lr", "0.001"]),
+    ("par_dp_pp3", ["--parallelism", "dp_pp3", "--mesh", "2,2,2",
+                    "--batch", "512", "--microbatches", "4",
+                    "--lr", "0.001"]),
+    ("par_dp_ep_dense", ["--parallelism", "dp_ep", "--mesh", "2,4",
+                         "--batch", "4096", "--experts", "8"]),
+    ("par_dp_ep_a2a", ["--parallelism", "dp_ep", "--mesh", "2,4",
+                       "--batch", "4096", "--experts", "8",
+                       "--moe-dispatch", "a2a", "--capacity-factor",
+                       "1.25"]),
+)
+# the card against the CPU, each family at a small width on the same mesh
+PAR_SMALL_PP_DIMS = (64, 256, 10)
+PAR_SMALL_EP_DIMS = (64, 128, 256, 10)
+PAR_SMALL_BATCH = 256
+
+GLOO_PROBE = r"""
+import json, sys
+import torch, torch.distributed as dist
+rank, port, what = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+import datetime
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=30))
+x = torch.full((4, 8), float(rank + 1), device="cuda")
+try:
+    if what == "send_recv":
+        buf = torch.empty_like(x)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - rank),
+                dist.P2POp(dist.irecv, buf, 1 - rank)]):
+            req.wait()
+        ok = bool((buf == 2 - rank).all())
+    else:
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        want = torch.cat([torch.full((2, 8), 1.0), torch.full((2, 8), 2.0)])
+        ok = bool((out.cpu() == want).all())
+    print(json.dumps({"rank": rank, "result": "works" if ok
+                      else "wrong values"}), flush=True)
+except Exception as e:
+    print(json.dumps({"rank": rank, "result": "raises",
+                      "error": f"{type(e).__name__}: {e}"[:300]}),
+          flush=True)
+dist.destroy_process_group()
+"""
+
+
+def gloo_probe():
+    """Two gloo ranks on cuda:0, each collective of this phase that
+    PyTorch's backend table does not list for CUDA under gloo tried on
+    CUDA tensors: what raises, crashes, hangs or works. The port stages
+    both through host memory under gloo whatever this finds."""
+    from dmlp_tpu_torch.parallel.distributed import free_port
+    procs = {}
+    for what in ("send_recv", "all_to_all_single"):
+        port = free_port()
+        procs[what] = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_PROBE, str(r), str(port), what],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+    out = {}
+    for what, ps in procs.items():
+        rows = []
+        for p in ps:
+            try:
+                so, se = p.communicate(timeout=90)
+                hung = False
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+                hung = True
+            lines = [ln for ln in so.splitlines() if ln.startswith("{")]
+            rows.append({"rc": p.returncode, "hung": hung,
+                         **(json.loads(lines[-1]) if lines else
+                            {"result": "crashed" if p.returncode
+                             else "no output"}),
+                         "stderr_tail": se.strip().splitlines()[-1:]})
+        out[what] = rows
+    return out
+
+
+CARD_CPU_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from dmlp_tpu_torch import kernels
+from dmlp_tpu_torch.parallel.distributed import initialize, shutdown
+from dmlp_tpu_torch.train import dryrun, experts as ex, pipeline as pl
+from dmlp_tpu_torch.train import step as S
+from dmlp_tpu_torch.train.data import teacher_batches
+from dmlp_tpu_torch.train.sharding import batch_slice
+
+work, device = sys.argv[1], sys.argv[2]
+cfg = json.load(open(work + "/cfg.json"))
+initialize(auto=True, device=device, backend="gloo", timeout_s=120)
+rank = dist.get_rank()
+opt = S.make_optimizer("sgd", 1e-2)
+out = {}
+pp_dims, ep_dims, batch = cfg["pp_dims"], cfg["ep_dims"], cfg["batch"]
+for fam in ("gpipe", "interleaved", "pp3", "dense", "a2a"):
+    ep = fam in ("dense", "a2a")
+    dims = ep_dims if ep else pp_dims
+    it = teacher_batches(dims[0], dims[-1], batch, seed=1)
+    batches = [next(it) for _ in range(3)]
+    out[fam] = {}
+    for dev in ("cuda", "cpu") if device == "cuda" else ("cpu",):
+        if fam == "pp3":
+            mesh = pl.make_pp3_mesh(2, 2, 2, dev)
+            st = pl.build_pp3_state(mesh, opt, *dims, 2, device=dev)
+            fn = pl.make_pp3_train_step(mesh, opt, n_micro=4,
+                                        n_classes=dims[-1])
+        elif ep:
+            mesh = ex.make_ep_mesh(2, 4, dev)
+            st = ex.build_moe_state(mesh, opt, *dims, 8, device=dev)
+            fn = (ex.make_moe_a2a_train_step(
+                mesh, opt, n_experts=8, n_classes=dims[-1],
+                capacity=ex.a2a_capacity(batch, 2, 4, 1.25))
+                if fam == "a2a" else
+                ex.make_moe_train_step(mesh, opt, n_experts=8,
+                                       n_classes=dims[-1]))
+        else:
+            mesh = pl.make_pp_mesh(2, 4, dev)
+            if fam == "gpipe":
+                st = pl.build_pp_state(mesh, opt, *dims, 2, device=dev)
+                fn = pl.make_pp_train_step(mesh, opt, n_micro=4,
+                                           n_classes=dims[-1])
+            else:
+                st = pl.build_ppi_state(mesh, opt, *dims, 2, 1, device=dev)
+                fn = pl.make_ppi_train_step(mesh, opt, n_micro=4,
+                                            n_virtual=2, n_classes=dims[-1])
+        cut = ex.a2a_batch_slice if fam == "a2a" else batch_slice
+        losses = []
+        kernels.reset_launch_counts()
+        for x, y in batches:
+            xs, ys = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in cut(x, y, mesh))
+            st, m = fn(st, xs, ys)
+            losses.append(fn.global_metrics(m)["loss"])
+        out[fam][dev] = {"losses": losses,
+                         "param_device": str(st["params"].in_w.device),
+                         "launches": dict(kernels.LAUNCHES)}
+        dist.barrier()
+kernels.reset_launch_counts()
+out["dryrun"] = dryrun.dryrun_train(device=device)
+out["dryrun_launches"] = dict(kernels.LAUNCHES)
+with open(f"{work}/card_cpu{rank}.json", "w") as f:
+    json.dump(out, f)
+shutdown()
+"""
+
+
+def _par_model(label, argv, dims):
+    """The reference's terms of ``obs.comms.train_step_comms`` for one
+    step of ``argv``'s family: {record key: (model bytes, unpriced
+    bytes)}: what the model prices and what the step also moves beside
+    it (the mirrored backward it leaves out)."""
+    from dmlp_tpu_torch.obs import comms
+    from dmlp_tpu_torch.train import experts as ex
+
+    a = dict(zip(argv[::2], argv[1::2]))
+    shape = tuple(int(d) for d in a["--mesh"].split(","))
+    batch = int(a["--batch"])
+    if a["--parallelism"] == "dp_ep":
+        dp, ep = shape
+        if a.get("--moe-dispatch") == "a2a":
+            cap = ex.a2a_capacity(batch, dp, ep,
+                                  float(a["--capacity-factor"]))
+            (t,) = [t for t in comms.train_step_comms(
+                0, shape, moe={"ep": ep, "capacity": cap,
+                               "hidden": dims[1]})
+                if t.collective == "moe_all_to_all"]
+            back = dp * ep * round(2 * ep * cap * dims[1] * 4 * (ep - 1)
+                                   / ep)
+            return {"all-to-all@ep": (t.bytes_total, back)}
+        (t,) = [t for t in comms.train_step_comms(
+            0, shape, moe_dense={"ep": ep, "tokens": batch // dp,
+                                 "hidden": dims[1]})
+            if t.collective == "psum_ep_combine"]
+        return {"all-reduce@ep": (t.bytes_total, t.bytes_total)}
+    n_micro = int(a["--microbatches"])
+    sched = a.get("--pp-schedule", "gpipe")
+    dp, pp = shape[0], shape[-1]
+    pipe = {"pp": pp, "n_micro": n_micro,
+            "micro_rows": batch // dp // n_micro, "hidden": dims[1],
+            "schedule": sched,
+            "n_virtual": int(a.get("--virtual-stages", 1))
+            if sched == "interleaved" else 1,
+            "n_groups": int(shape[0] * (shape[1] if len(shape) == 3
+                                        else 1))}
+    if len(shape) == 3:
+        pipe.update(tp=shape[1], n_pairs=2)
+    got = {t.collective: t.bytes_total for t in comms.train_step_comms(
+        0, shape, pipeline=pipe)}
+    out = {"collective-permute@pp": (got["ppermute_pipeline"], 0)}
+    if len(shape) == 3:
+        out["all-reduce@tp"] = (got["psum_tp_activations"], 0)
+    return out
+
+
+def train_parallel_phase(tmp_dir):
+    """The pipeline and MoE train families on the card
+    (``dmlp_tpu_torch.train.pipeline`` / ``.experts``): first the gloo
+    probe (send/recv and all-to-all on CUDA tensors between two gloo ranks
+    on cuda:0); then each full-width row through the loop CLI on 8 gloo
+    ranks sharing cuda:0 (3 steps, each logged): GPipe and interleaved (V
+    = 2) dp_pp at (2, 4), dp_pp3 at (2, 2, 2), dims 64, 2048, 16, batch
+    512, M = 4; the dense and the a2a (cf 1.25, capacity 160) dp_ep at (2,
+    4), dims 64, 512, 2048, 16, 8 experts, batch 4,096 — the losses
+    finite and falling, the second and third steps' ``step_time_ms``, the
+    wall time, ``schedule_ticks`` and ``bubble_fraction``, every rank's
+    parameters on cuda:0 with 0 kernel launches, and the first step's
+    collective record against ``obs.comms.train_step_comms``: equal for
+    what the model prices, the backward it leaves out stated beside it;
+    then one spawn of 8 gloo ranks: each family at a small width on the
+    card and on the CPU from the same parameters and batches (losses
+    within rtol 1e-5: a TF32 product would fail), and ``dryrun_train`` on
+    the card; then the weak-scaling sweep at 1, 2, 4 and 8 ranks. No run
+    launches a hand-written kernel. Returns the launches per run."""
+    import numpy as np
+
+    from dmlp_tpu_torch import kernels
+    from dmlp_tpu_torch.parallel.distributed import free_port
+    from dmlp_tpu_torch.train import pipeline as pl
+    from dmlp_tpu_torch.train import sweep
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counted(label, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        launches[label] = {k: kernels.LAUNCHES[k] for k in KERNELS}
+        check(not any(launches[label].values()),
+              f"{label}: the train path launched {launches[label]}")
+        return out
+
+    probe = gloo_probe()
+    emit({"phase": "train_parallel", "run": "gloo_probe", **probe})
+
+    for label, argv in PAR_RUNS:
+        ep = "dp_ep" in argv
+        dims = PAR_EP_DIMS if ep else PAR_PP_DIMS
+        rec = os.path.join(tmp_dir, f"{label}.json")
+        mfile = os.path.join(tmp_dir, f"{label}.jsonl")
+        full = argv + ["--dims", ",".join(map(str, dims)), "--steps", "3",
+                       "--log-every", "1", "--device", PAR_DEVICE,
+                       *PAR_FLAGS, "--record", rec, "--metrics-file", mfile]
+        t0 = time.perf_counter()
+        rc, _final = counted(label, lambda full=full: _loop_main(full))
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{label}: exit {rc}")
+        lines = _jsonl(mfile)
+        windows = [r for r in lines if "step" in r]
+        hlo = [r for r in lines if r.get("event") == "hlo"][0]
+        with open(rec) as f:
+            ranks = json.load(f)["metrics"]["ranks"]
+        losses = [r["loss"] for r in windows]
+        row = {"phase": "train_parallel", "run": label,
+               "argv": full[:-4], "dims": list(dims), "wall_s": wall,
+               "losses": losses,
+               "step_time_ms": [r["step_time_ms"] for r in windows[1:]],
+               "samples_per_sec_per_chip": [
+                   r["samples_per_sec_per_chip"] for r in windows[1:]],
+               "ranks": [{k: r[k] for k in ("rank", "device",
+                                            "local_param_bytes")}
+                         for r in ranks],
+               "rank_kernel_launches": sum(sum(r["kernel_launches"].values())
+                                           for r in ranks),
+               "by_axis": hlo["by_axis"]}
+        if not ep:
+            a = dict(zip(argv[::2], argv[1::2]))
+            sched = a.get("--pp-schedule", "gpipe")
+            v = int(a.get("--virtual-stages", 1)) \
+                if sched == "interleaved" else 1
+            pp = int(a["--mesh"].split(",")[-1])
+            row["schedule_ticks"] = pl.schedule_ticks(sched, 4, pp, v)
+            row["bubble_fraction"] = pl.bubble_fraction(sched, 4, pp, v)
+        model = _par_model(label, argv, dims)
+        row["comms"] = {k: {"record_bytes": hlo["by_axis"].get(k, 0),
+                            "model_bytes": m, "unpriced_bytes": u}
+                        for k, (m, u) in model.items()}
+        emit(row)
+        check(len(losses) == 3 and np.isfinite(losses).all()
+              and losses[-1] < losses[0], f"{label}: losses {losses}")
+        check(len(ranks) == 8 and all(r["device"] == "cuda:0"
+                                      for r in ranks)
+              and row["rank_kernel_launches"] == 0,
+              f"{label}: ranks {ranks}")
+        for k, (m, u) in model.items():
+            check(hlo["by_axis"].get(k, 0) == m + u,
+                  f"{label}: {k} recorded {hlo['by_axis'].get(k)} bytes, "
+                  f"the model {m} + unpriced {u}")
+
+    # The card against the CPU, and the dry run: one spawn of 8 gloo ranks.
+    work = os.path.join(tmp_dir, "card_cpu")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "cfg.json"), "w") as f:
+        json.dump({"pp_dims": list(PAR_SMALL_PP_DIMS),
+                   "ep_dims": list(PAR_SMALL_EP_DIMS),
+                   "batch": PAR_SMALL_BATCH}, f)
+    port = free_port()
+    # The ranks' CPU halves share the host's cores: one thread a rank.
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE="8", LOCAL_WORLD_SIZE="8", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CARD_CPU_SCRIPT, work, PAR_DEVICE],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for r in range(8)]
+    errs = []
+    for p in procs:
+        try:
+            errs.append(p.communicate(timeout=300)[1])
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"card_cpu: exits {[p.returncode for p in procs]}: "
+          f"{[e[-1500:] for e in errs if e]}")
+    got = [json.load(open(os.path.join(work, f"card_cpu{r}.json")))
+           for r in range(8)]
+    wall = time.perf_counter() - t0
+    rows = {}
+    for fam in ("gpipe", "interleaved", "pp3", "dense", "a2a"):
+        runs = got[0][fam]
+        devs = list(runs)
+        lc = runs[devs[0]]["losses"]
+        lh = runs[devs[-1]]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        rows[fam] = {"losses_card": lc, "losses_cpu": lh,
+                     "max_loss_rel_err": rel,
+                     "param_devices": sorted({g[fam][d]["param_device"]
+                                              for g in got for d in devs})}
+        launched = sum(sum(g[fam][d]["launches"].values())
+                       for g in got for d in devs)
+        check(np.allclose(lc, lh, rtol=1e-5, atol=0) and launched == 0,
+              f"card_cpu {fam}: losses {lc} against {lh}, launches "
+              f"{launched}")
+    dry = got[0]["dryrun"]
+    check(all(g["dryrun"] == dry for g in got)
+          and not any(sum(g["dryrun_launches"].values()) for g in got),
+          f"dryrun: ranks disagree or launched: {[g['dryrun'] for g in got]}")
+    emit({"phase": "train_parallel", "run": "card_vs_cpu_and_dryrun",
+          "dims_pp": list(PAR_SMALL_PP_DIMS),
+          "dims_ep": list(PAR_SMALL_EP_DIMS), "batch": PAR_SMALL_BATCH,
+          "wall_s": wall, "families": rows, "dryrun": dry})
+
+    # The weak-scaling sweep on the first 1, 2, 4 and 8 ranks.
+    out = os.path.join(tmp_dir, "sweep.jsonl")
+    t0 = time.perf_counter()
+    rc = counted("par_sweep", lambda: sweep.main(
+        ["--mesh-sizes", "1,2,4,8", "--device", PAR_DEVICE, *PAR_FLAGS,
+         "--out", out]))
+    lines = _jsonl(out)
+    emit({"phase": "train_parallel", "run": "sweep",
+          "wall_s": time.perf_counter() - t0, "lines": lines})
+    check(rc == 0 and [p.get("n_chips") for p in lines[:4]] == [1, 2, 4, 8]
+          and "summary" in lines[4]
+          and all(p["samples_per_sec_per_chip"] > 0 for p in lines[:4]),
+          f"sweep: {lines}")
+    emit({"phase": "train_parallel_done",
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def real_oom():
     """An allocation of four times the card's memory, outside the engine:
     what it raises must classify as "oom", the class on which the
@@ -3826,6 +4237,8 @@ def main(argv=None) -> int:
         launches.update(auto_phase(tmp.name))
     if "train" in phases:
         launches.update(train_phase(tmp.name))
+    if "train_parallel" in phases:
+        launches.update(train_parallel_phase(tmp.name))
     if "real_oom" in phases:
         real_oom()
     if "profile" in phases:

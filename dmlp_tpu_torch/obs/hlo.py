@@ -338,11 +338,14 @@ def build_report(per_rank: List[List[Dict[str, Any]]],
 
 
 @contextlib.contextmanager
-def recording(engine=None, mesh=None, device=None, label: str = "solve"):
+def recording(engine=None, mesh=None, device=None, label: str = "solve",
+              axes: Optional[Dict[str, Any]] = None):
     """Every rank, around one solve: record this rank's collectives, then
     (outside the mode) all-gather the ranks' records into one
     :class:`HloReport`, set as ``recorder.report`` and, when an engine is
     given, as the engine's ``_last_record`` (``comms_from_hlo`` reads it).
+    ``axes`` names further groups (axis name -> group) beside the mesh's
+    dimensions, such as the train meshes' groups over several axes.
     """
     import torch.distributed as dist
     global _ACTIVE
@@ -353,7 +356,7 @@ def recording(engine=None, mesh=None, device=None, label: str = "solve"):
     if dev is not None and dev.type == "cuda":
         # The memory leg prices this solve: its peak, not the process's.
         torch.cuda.reset_peak_memory_stats(dev)
-    rec = CollectiveRecorder(mesh)
+    rec = CollectiveRecorder(mesh, axes)
     _ACTIVE = rec
     try:
         with rec:

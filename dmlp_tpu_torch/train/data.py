@@ -9,9 +9,10 @@ each seed (the generators and their call order are the same):
 - :func:`knn_input_batches` — shuffled epochs over a parsed KNN problem
   instance's labeled data points.
 
-:func:`prefetch_to_device` is the device feed: each rank's dp block of a
-batch's rows in pinned host memory, copied with ``non_blocking`` so that
-``depth`` batches are in flight while the step computes.
+:func:`prefetch_to_device` is the device feed: each rank's block of a
+batch's rows (its dp block, or the a2a MoE's block of the dp x ep split)
+in pinned host memory, copied with ``non_blocking`` so that ``depth``
+batches are in flight while the step computes.
 """
 
 from __future__ import annotations
@@ -36,19 +37,20 @@ def teacher_batches(num_attrs: int, num_classes: int, batch_size: int,
 
 
 def prefetch_to_device(it: Iterator[Tuple[np.ndarray, np.ndarray]],
-                       device, depth: int = 2, mesh=None,
+                       device, depth: int = 2, mesh=None, slicer=None,
                        ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
-    """(x, y) on ``device``: this rank's dp block of each batch
-    (``train.sharding.batch_slice``), pinned and copied ahead, ``depth``
-    batches in flight. Without it the loop would wait a full transfer
-    every step."""
+    """(x, y) on ``device``: this rank's block of each batch (``slicer(x,
+    y, mesh)``; by default its dp block, ``train.sharding.batch_slice``),
+    pinned and copied ahead, ``depth`` batches in flight. Without it the
+    loop would wait a full transfer every step."""
     from dmlp_tpu_torch.train.sharding import batch_slice
 
+    slicer = slicer or batch_slice
     device = torch.device(device)
     pin = device.type == "cuda"
     buf: collections.deque = collections.deque()
     for x, y in it:
-        xs, ys = batch_slice(x, y, mesh)
+        xs, ys = slicer(x, y, mesh)
         xt, yt = torch.from_numpy(np.ascontiguousarray(xs)), \
             torch.from_numpy(np.ascontiguousarray(ys))
         if pin:

@@ -1,9 +1,11 @@
-"""Training-loop CLI — port of ``dmlp_tpu/train/loop.py``, the dp x tp
-family.
+"""Training-loop CLI — port of ``dmlp_tpu/train/loop.py``.
 
-Runs the train step over a (dp, tp) mesh with JSON metrics (samples/s/chip
-and MFU), DCP checkpoints and resume, the NaN guard, spans, fault sites,
-telemetry and a RunRecord, under the reference's flag and event names::
+Runs a sharded train step with JSON metrics (samples/s/chip and MFU), DCP
+checkpoints and resume, the NaN guard, spans, fault sites, telemetry and a
+RunRecord, under the reference's flag and event names. ``--parallelism``
+picks the mesh family: the dp x tp MLP (default; offload levels and the
+compute dtype), the dp x pp / dp x tp x pp pipelined stack
+(``train.pipeline``), or the dp x ep MoE (``train.experts``)::
 
     python -m dmlp_tpu_torch.train.loop --steps 200 --batch 4096 \\
         --dims 64,512,512,10 [--mesh DP,TP] [--optimizer sgd|adam]
@@ -12,6 +14,13 @@ telemetry and a RunRecord, under the reference's flag and event names::
         [--metrics-file metrics.jsonl] [--record FILE] [--trace FILE]
         [--telemetry FILE] [--faults FILE] [--device cuda|cpu]
         [--backend nccl|gloo]
+    python -m dmlp_tpu_torch.train.loop --parallelism dp_pp --mesh 2,4 \\
+        --dims 64,256,10 --microbatches 8 [--pp-schedule interleaved]
+    python -m dmlp_tpu_torch.train.loop --parallelism dp_pp3 --mesh 1,2,4 \\
+        --dims 64,256,10
+    python -m dmlp_tpu_torch.train.loop --parallelism dp_ep --mesh 2,4 \\
+        --dims 64,256,512,10 --experts 8 \\
+        [--moe-dispatch dense|a2a] [--capacity-factor 1.0]
 
 With more than one rank, ``--mesh`` starts them on this host through
 ``parallel.distributed.local_cluster`` (this process is rank 0; under
@@ -22,9 +31,9 @@ takes one card per rank; ``--backend gloo`` runs several ranks on one
 card (gloo carries the CUDA tensors). The device is ``cuda`` unless
 ``--device cpu`` is given; without a card the run raises.
 
-The pipeline and MoE families (``--parallelism dp_pp|dp_pp3|dp_ep`` and
-their flags) are parsed as in the reference and raise, naming A14b;
-``--sanitize`` and ``--compile-cache`` raise naming A15.
+The pipeline and MoE families run in f32 without offload, as in the
+reference; their flags raise where they do not apply. ``--sanitize`` and
+``--compile-cache`` raise naming A15.
 """
 
 from __future__ import annotations
@@ -54,10 +63,6 @@ from dmlp_tpu_torch.train.step import (global_metrics, init_state,
                                        make_optimizer, make_train_step,
                                        settle)
 from dmlp_tpu_torch.utils.metrics_log import MetricsLogger
-
-#: the reference's families this slice leaves to the next (A14b)
-LATER_FAMILIES = ("dp_pp", "dp_pp3", "dp_ep")
-
 
 def resolve_offload_level(offload) -> str:
     """Normalize the offload policy: "none" | "params" | "all".
@@ -123,26 +128,38 @@ def build_sharded_state(mesh, dims, optimizer, seed: int = 0,
     return state
 
 
-def refuse_unported(parallelism: str = "dp_tp", sanitize: bool = False,
+def refuse_unported(sanitize: bool = False,
                     compile_cache: Optional[str] = None) -> None:
-    """Raise for what this package does not port yet: the pipeline and
-    MoE families (A14b), ``--sanitize`` and ``--compile-cache`` (A15)."""
+    """Raise for what this package does not port yet: ``--sanitize`` and
+    ``--compile-cache`` (A15)."""
     if compile_cache:
         raise ValueError("--compile-cache is not ported yet (A15)")
     if sanitize:
         raise ValueError("--sanitize is not ported yet (A15)")
-    if parallelism in LATER_FAMILIES:
-        raise ValueError(f"--parallelism {parallelism} is not ported yet "
-                         "(A14b: pipeline.py, experts.py)")
+
+
+def _ranks() -> int:
+    """The ranks of the initialized group (the reference's devices), or
+    1 without one."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _build_parallel(parallelism: str, mesh_shape_arg, dims, optimizer,
                     compute_dtype, offload, seed: int, device,
+                    n_micro: int = 4, n_experts: int = 8, batch: int = 0,
                     moe_dispatch: str = "dense",
                     capacity_factor: float = 1.0,
                     pp_schedule: str = "gpipe", n_virtual: int = 2):
-    """(mesh, state, step_fn, (d_in, n_classes)) of the dp x tp family,
-    after the reference's flag checks."""
+    """(mesh, state, step_fn, (d_in, n_classes), slicer) for the chosen
+    family, after the reference's flag checks. "dp_tp" is the full
+    featured default (offload levels, compute dtype); "dp_pp" / "dp_pp3" /
+    "dp_ep" run the pipeline and MoE steps: their mesh comes from
+    ``--mesh`` (DP,PP / DP,TP,PP / DP,EP; by default every rank on pp or
+    ep, (1, 2, ranks / 2) for dp_pp3), their dims are (in, hidden,
+    classes) for the pipelines (2 layers, or pairs, per stage) and (in,
+    hidden, ffn, classes) for the MoE. ``slicer`` cuts a rank's block out
+    of a global batch (None: its dp block)."""
     if moe_dispatch != "dense" and parallelism != "dp_ep":
         raise ValueError(f"--moe-dispatch applies to dp_ep only, "
                          f"not {parallelism}")
@@ -156,17 +173,93 @@ def _build_parallel(parallelism: str, mesh_shape_arg, dims, optimizer,
     if n_virtual != 2 and pp_schedule != "interleaved":
         raise ValueError("--virtual-stages applies to the interleaved "
                          "dp_pp schedule only")
-    if parallelism != "dp_tp":
-        raise ValueError(f"unknown parallelism {parallelism!r}")
-    mesh = make_train_mesh(mesh_shape_arg, device_type=device.type)
-    state = build_sharded_state(mesh, dims, optimizer, seed,
-                                offload=offload, device=device)
-    cdtype = _compute_dtype(compute_dtype)
+    if parallelism == "dp_tp":
+        mesh = make_train_mesh(mesh_shape_arg, device_type=device.type)
+        state = build_sharded_state(mesh, dims, optimizer, seed,
+                                    offload=offload, device=device)
+        cdtype = _compute_dtype(compute_dtype)
+        if resolve_offload_level(offload) != "none":
+            step_fn = make_offload_train_step(optimizer, cdtype,
+                                              dp_group(mesh))
+        else:
+            step_fn = make_train_step(optimizer, cdtype, dp_group(mesh))
+        return mesh, state, step_fn, (dims[0], dims[-1]), None
+
+    # The pipeline and MoE families run in f32 without host offload; a
+    # flag silently ignored would misattribute a benchmark's numbers.
+    if compute_dtype is not None:
+        raise ValueError(f"--compute-dtype applies to dp_tp only, "
+                         f"not {parallelism}")
     if resolve_offload_level(offload) != "none":
-        step_fn = make_offload_train_step(optimizer, cdtype, dp_group(mesh))
-    else:
-        step_fn = make_train_step(optimizer, cdtype, dp_group(mesh))
-    return mesh, state, step_fn, (dims[0], dims[-1])
+        raise ValueError(f"--offload applies to dp_tp only, "
+                         f"not {parallelism}")
+
+    if parallelism in ("dp_pp", "dp_pp3"):
+        from dmlp_tpu_torch.train import pipeline as pl
+        if len(dims) != 3:
+            raise ValueError(f"{parallelism} wants --dims in,hidden,classes")
+        d_in, hidden, n_classes = dims
+        if parallelism == "dp_pp":
+            dp, pp = mesh_shape_arg or (1, _ranks())
+            mesh = pl.make_pp_mesh(dp, pp, device.type)
+            if pp_schedule == "interleaved":
+                # The gpipe branch's model (2 layers a stage): V chunks of
+                # 2 / V layers; a V that does not divide 2 would change the
+                # depth and make a schedule A/B compare two models.
+                lps = 2
+                if lps % n_virtual:
+                    raise ValueError(
+                        f"--virtual-stages must divide the dp_pp model's "
+                        f"{lps} layers per stage (got {n_virtual}); deeper "
+                        "chunking is a library-API choice "
+                        "(pipeline.build_ppi_state)")
+                state = pl.build_ppi_state(mesh, optimizer, d_in, hidden,
+                                           n_classes, n_virtual=n_virtual,
+                                           layers_per_chunk=lps // n_virtual,
+                                           seed=seed, device=device)
+                step_fn = pl.make_ppi_train_step(mesh, optimizer,
+                                                 n_micro=n_micro,
+                                                 n_virtual=n_virtual,
+                                                 n_classes=n_classes)
+                return mesh, state, step_fn, (d_in, n_classes), None
+            state = pl.build_pp_state(mesh, optimizer, d_in, hidden,
+                                      n_classes, 2, seed=seed, device=device)
+            step_fn = pl.make_pp_train_step(mesh, optimizer, n_micro=n_micro,
+                                            n_classes=n_classes)
+        else:
+            dp, tp, pp = mesh_shape_arg or (1, 2, _ranks() // 2)
+            mesh = pl.make_pp3_mesh(dp, tp, pp, device.type)
+            state = pl.build_pp3_state(mesh, optimizer, d_in, hidden,
+                                       n_classes, 2, seed=seed, device=device)
+            step_fn = pl.make_pp3_train_step(mesh, optimizer,
+                                             n_micro=n_micro,
+                                             n_classes=n_classes)
+        return mesh, state, step_fn, (d_in, n_classes), None
+
+    if parallelism == "dp_ep":
+        from dmlp_tpu_torch.train import experts as ex
+        if len(dims) != 4:
+            raise ValueError("dp_ep wants --dims in,hidden,ffn,classes")
+        d_in, hidden, ffn, n_classes = dims
+        dp, ep = mesh_shape_arg or (1, _ranks())
+        mesh = ex.make_ep_mesh(dp, ep, device.type)
+        state = ex.build_moe_state(mesh, optimizer, d_in, hidden, ffn,
+                                   n_classes, n_experts, seed=seed,
+                                   device=device)
+        if moe_dispatch == "a2a":
+            capacity = ex.a2a_capacity(batch, dp, ep, capacity_factor)
+            step_fn = ex.make_moe_a2a_train_step(mesh, optimizer,
+                                                 n_experts=n_experts,
+                                                 n_classes=n_classes,
+                                                 capacity=capacity)
+            return mesh, state, step_fn, (d_in, n_classes), \
+                ex.a2a_batch_slice
+        step_fn = ex.make_moe_train_step(mesh, optimizer,
+                                         n_experts=n_experts,
+                                         n_classes=n_classes)
+        return mesh, state, step_fn, (d_in, n_classes), None
+
+    raise ValueError(f"unknown parallelism {parallelism!r}")
 
 
 def train(steps: int = 100, batch: int = 1024,
@@ -176,6 +269,7 @@ def train(steps: int = 100, batch: int = 1024,
           checkpoint_dir: Optional[str] = None, ckpt_every: int = 100,
           resume: bool = False, metrics: Optional[MetricsLogger] = None,
           log_every: int = 10, offload=False, parallelism: str = "dp_tp",
+          n_micro: int = 4, n_experts: int = 8,
           moe_dispatch: str = "dense", capacity_factor: float = 1.0,
           pp_schedule: str = "gpipe", n_virtual: int = 2,
           sanitize: bool = False, nan_guard: bool = False,
@@ -186,17 +280,24 @@ def train(steps: int = 100, batch: int = 1024,
     group every rank calls it with the same arguments; ``metrics`` given
     on every rank also records the first step's collectives (each rank
     takes part), and rank 0's logger is the one to read."""
-    refuse_unported(parallelism, sanitize)
+    refuse_unported(sanitize)
     device = resolve_device(device)
     optimizer = make_optimizer(optimizer_name, lr)
-    mesh, state, step_fn, (d_in, n_classes) = _build_parallel(
+    mesh, state, step_fn, (d_in, n_classes), slicer = _build_parallel(
         parallelism, mesh_shape, tuple(dims), optimizer, compute_dtype,
-        offload, seed, device, moe_dispatch=moe_dispatch,
+        offload, seed, device, n_micro=n_micro, n_experts=n_experts,
+        batch=batch, moe_dispatch=moe_dispatch,
         capacity_factor=capacity_factor, pp_schedule=pp_schedule,
         n_virtual=n_virtual)
     shape = mesh_dims(mesh)
-    n_chips = shape[0] * shape[1]
+    n_chips = int(np.prod(shape))
     dpg = dp_group(mesh)
+
+    def read_metrics(m):
+        """The step's global loss and accuracy (collective on a mesh)."""
+        if hasattr(step_fn, "global_metrics"):   # the pipeline/MoE steps
+            return step_fn.global_metrics(m)
+        return global_metrics(m, dpg)
     start_step = 0
     if resume and checkpoint_dir \
             and ckpt_lib.latest_step(checkpoint_dir) is not None:
@@ -210,13 +311,19 @@ def train(steps: int = 100, batch: int = 1024,
         it = teacher_batches(d_in, n_classes, batch, seed=seed + 1)
         for _ in range(skip):
             next(it)
-        return prefetch_to_device(it, device, mesh=mesh)
+        return prefetch_to_device(it, device, mesh=mesh, slicer=slicer)
 
     data = make_data(0)
 
     # LR backoff rebuilds the step with a decayed LR when the same step
-    # gives a non-finite loss twice; the moments carry over.
+    # gives a non-finite loss twice; the moments carry over. dp_tp only:
+    # the pipeline and MoE steps are not rebuilt (a rollback still works
+    # there; the escalation raises), as in the reference.
     def rebuild_step(new_lr: float):
+        if parallelism != "dp_tp":
+            raise RuntimeError(
+                f"step {i + 1} diverged twice and LR backoff is "
+                f"unsupported for parallelism={parallelism} (dp_tp only)")
         opt2 = make_optimizer(optimizer_name, new_lr)
         cdtype = _compute_dtype(compute_dtype)
         if resolve_offload_level(offload) != "none":
@@ -224,15 +331,23 @@ def train(steps: int = 100, batch: int = 1024,
         return make_train_step(opt2, cdtype, dpg)
 
     if metrics is not None:
-        comms = _train_comms(state, shape, steps)
+        comms = _train_comms(state, shape, steps, parallelism, dims, batch,
+                             moe_dispatch, capacity_factor, n_micro,
+                             pp_schedule, n_virtual)
         if comms is not None:
             metrics.log(event="comms", **comms)
 
     # Every step must be recoverable: seed the directory with the start
-    # state when the guard is on and it holds nothing.
-    if nan_guard and checkpoint_dir \
-            and ckpt_lib.latest_step(checkpoint_dir) is None:
-        ckpt_lib.save_checkpoint(checkpoint_dir, state, step=start_step)
+    # state when the guard is on and it holds nothing. Every rank looks
+    # before any rank writes (the save is collective: a rank that saw the
+    # first rank's files would skip it and deadlock the others).
+    if nan_guard and checkpoint_dir:
+        empty = ckpt_lib.latest_step(checkpoint_dir) is None
+        if _ranks() > 1:
+            import torch.distributed as dist
+            dist.barrier()
+        if empty:
+            ckpt_lib.save_checkpoint(checkpoint_dir, state, step=start_step)
 
     last = {}
     hlo_report = None   # the first step's record of its collectives
@@ -251,8 +366,10 @@ def train(steps: int = 100, batch: int = 1024,
             # c10d collectives the first step issues (its time lies in
             # the first log window, as the reference's compile does).
             from dmlp_tpu_torch.obs import hlo as obs_hlo
+            from dmlp_tpu_torch.train.pipeline import mesh_axes
             record = obs_hlo.recording(mesh=mesh, device=device,
-                                       label="train.step")
+                                       label="train.step",
+                                       axes=mesh_axes(mesh))
 
         def _step_op():
             # The fire rides inside the retried op: a transient fault is
@@ -273,7 +390,7 @@ def train(steps: int = 100, batch: int = 1024,
             # A per-step loss read; an injected "nan" poisons the
             # detector input (every rank runs the same schedule).
             loss_val = (float("nan") if "nan" in actions
-                        else global_metrics(m, dpg)["loss"])
+                        else read_metrics(m)["loss"])
             if not math.isfinite(loss_val):
                 if not checkpoint_dir:
                     raise RuntimeError(
@@ -318,7 +435,7 @@ def train(steps: int = 100, batch: int = 1024,
         window_steps += 1
         if (i + 1) % log_every == 0 or i + 1 == end:
             with obs_span("train.log_window", step=i + 1):
-                g = global_metrics(m, dpg)   # waits for the step
+                g = read_metrics(m)   # waits for the step
             dt = (time.perf_counter() - t_window) / window_steps
             t_window = time.perf_counter()
             window_steps = 0
@@ -367,21 +484,57 @@ def param_bytes(model) -> int:
     return int(sum(p.numel() * p.element_size() for p in model.parameters()))
 
 
-def _train_comms(state, shape, steps: int) -> Optional[dict]:
-    """``obs.comms`` summary of this run's dp gradient all-reduce from the
-    real mesh and parameter shapes; None when the run issues none."""
+def _train_comms(state, shape, steps: int, parallelism: str = "dp_tp",
+                 dims=(), batch: int = 0, moe_dispatch: str = "dense",
+                 capacity_factor: float = 1.0, n_micro: int = 4,
+                 pp_schedule: str = "gpipe", n_virtual: int = 1
+                 ) -> Optional[dict]:
+    """``obs.comms`` summary of this run's collective paths from the real
+    mesh and parameter shapes (the reference's terms): the dp gradient
+    all-reduce, the MoE all-to-all or the dense ep combine, the
+    pipeline's hand-off and the dp_pp3 stages' tp all-reduce; None when
+    the run issues none."""
     from dmlp_tpu_torch.obs import comms as obs_comms
+    moe = moe_dense = pipeline = None
+    if parallelism == "dp_ep" and moe_dispatch == "a2a":
+        from dmlp_tpu_torch.train.experts import a2a_capacity
+        dp, ep = shape
+        moe = {"ep": ep, "hidden": dims[1],
+               "capacity": a2a_capacity(batch, dp, ep, capacity_factor)}
+    elif parallelism == "dp_ep":
+        # The dense dispatch's combine: one ep all-reduce of the (dp-local
+        # tokens, hidden) partials a step.
+        dp, ep = shape
+        moe_dense = {"ep": ep, "hidden": dims[1],
+                     "tokens": max(batch // dp, 1)}
+    if parallelism in ("dp_pp", "dp_pp3"):
+        # The hand-off as the step issues it: each dp cell's (micro_rows,
+        # hidden) f32 blocks, independently per (dp[, tp]) cell group.
+        dp, pp = shape[0], shape[-1]
+        sched = pp_schedule if parallelism == "dp_pp" else "gpipe"
+        pipeline = {"pp": pp, "n_micro": n_micro,
+                    "micro_rows": max(batch // dp // max(n_micro, 1), 1),
+                    "hidden": dims[1], "schedule": sched,
+                    "n_virtual": n_virtual if sched == "interleaved" else 1,
+                    "n_groups": int(np.prod(shape[:-1]))}
+        if parallelism == "dp_pp3":
+            # One tp all-reduce per col/row pair, 2 pairs a stage.
+            pipeline["tp"] = shape[1]
+            pipeline["n_pairs"] = 2
     traffic = obs_comms.train_step_comms(param_bytes(state["params"]),
-                                         shape, steps=steps)
+                                         shape, steps=steps, moe=moe,
+                                         pipeline=pipeline,
+                                         moe_dense=moe_dense)
     return obs_comms.summarize(traffic) if traffic else None
 
 
 def _params_checksum(state) -> str:
-    """sha256 over the parameter leaves in the reference's order (sorted
-    layer names, then "b", "w"), each as its shape's ``str``, its numpy
-    dtype's ``str`` and its bytes, so the same parameters hash equal in
-    both packages. Collective for a tensor-parallel state (every rank
-    gathers each full leaf)."""
+    """sha256 over the parameter leaves in the reference's order (its
+    pytree's sorted keys: layer names, then "b", "w"; the stacked
+    families' names), each as its shape's ``str``, its numpy dtype's
+    ``str`` and its bytes, so the same parameters hash equal in both
+    packages. Collective for a sharded state (every rank gathers each
+    full leaf)."""
     import hashlib
 
     from dmlp_tpu_torch.train.sharding import full_tensor
@@ -389,16 +542,19 @@ def _params_checksum(state) -> str:
     settle(state)
     leaves = dict(state["params"].named_parameters())
     h = hashlib.sha256()
-    layers = sorted({name.split(".")[0] for name in leaves})
-    for layer in layers:
-        for leaf in ("b", "w"):
-            with torch.no_grad():
-                t = full_tensor(leaves[f"{layer}.{leaf}"].detach())
-            a = np.ascontiguousarray(t.cpu().numpy())
-            h.update(str(a.shape).encode())
-            h.update(str(a.dtype).encode())
-            h.update(a.tobytes())
+    for name in sorted(leaves, key=lambda n: tuple(n.split("."))):
+        with torch.no_grad():
+            t = full_tensor(leaves[name].detach())
+        a = np.ascontiguousarray(t.cpu().numpy())
+        h.update(str(a.shape).encode())
+        h.update(str(a.dtype).encode())
+        h.update(a.tobytes())
     return h.hexdigest()
+
+
+#: ``--mesh``'s form per family
+MESH_FORMS = {"dp_tp": "DP,TP", "dp_pp": "DP,PP", "dp_pp3": "DP,TP,PP",
+              "dp_ep": "DP,EP"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -407,26 +563,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=1024)
     p.add_argument("--dims", type=str, default="64,256,256,10",
-                   help="comma-separated layer dims: in,hidden...,classes")
+                   help="comma-separated layer dims: in,hidden...,classes "
+                        "(dp_pp/dp_pp3: in,hidden,classes; dp_ep: "
+                        "in,hidden,ffn,classes)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="DP,TP: ranks started on this host (dp_tp)")
+                   help="DP,TP (dp_tp) / DP,PP (dp_pp) / DP,TP,PP "
+                        "(dp_pp3) / DP,EP (dp_ep): the product of the "
+                        "dims is the ranks started on this host")
     p.add_argument("--parallelism", default="dp_tp",
                    choices=["dp_tp", "dp_pp", "dp_pp3", "dp_ep"],
-                   help="mesh-parallelism family; only dp_tp is ported "
-                        "(the others: A14b)")
+                   help="mesh-parallelism family: dp x tp MLP (default; "
+                        "full feature set), dp x pp / dp x tp x pp "
+                        "pipelined stack, dp x ep MoE")
     p.add_argument("--microbatches", type=int, default=4,
-                   help="pipeline microbatches per step (A14b)")
+                   help="pipeline microbatches per step (dp_pp/dp_pp3)")
     p.add_argument("--pp-schedule", default="gpipe",
                    choices=["gpipe", "interleaved"],
-                   help="dp_pp schedule (A14b)")
+                   help="dp_pp schedule: gpipe, or interleaved virtual "
+                        "stages (bubble / V, needs microbatches <= PP)")
     p.add_argument("--virtual-stages", type=int, default=2,
-                   help="interleaved schedule: stage chunks (A14b)")
+                   help="interleaved schedule: stage chunks per pp cell")
     p.add_argument("--experts", type=int, default=8,
-                   help="MoE expert count (A14b)")
+                   help="MoE expert count (dp_ep; divisible by EP)")
     p.add_argument("--moe-dispatch", default="dense",
-                   choices=["dense", "a2a"], help="dp_ep dispatch (A14b)")
+                   choices=["dense", "a2a"],
+                   help="dp_ep dispatch: dense one-hot (capacity-free, "
+                        "masked compute) or capacity + all-to-all (tokens "
+                        "routed to the expert-owning ranks, overflow to "
+                        "the residual path)")
     p.add_argument("--capacity-factor", type=float, default=1.0,
-                   help="a2a capacity factor (A14b)")
+                   help="a2a capacity factor: per-(source, destination) "
+                        "slots = ceil(cf * local_tokens / EP); cf >= EP "
+                        "guarantees zero drops")
     p.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--compute-dtype", default=None,
@@ -473,15 +641,17 @@ def main(argv=None) -> int:
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    refuse_unported(args.parallelism, args.sanitize, args.compile_cache)
+    refuse_unported(args.sanitize, args.compile_cache)
     mesh_shape_arg = None
     if args.mesh:
         mesh_shape_arg = tuple(int(d) for d in args.mesh.split(","))
-        if len(mesh_shape_arg) != 2:
-            raise ValueError(f"--mesh wants DP,TP, got {args.mesh!r}")
+        want = 3 if args.parallelism == "dp_pp3" else 2
+        if len(mesh_shape_arg) != want:
+            raise ValueError(
+                f"--mesh wants {MESH_FORMS[args.parallelism]} for "
+                f"{args.parallelism}, got {args.mesh!r}")
     from dmlp_tpu_torch.parallel import distributed as pd
-    world = 1 if mesh_shape_arg is None \
-        else mesh_shape_arg[0] * mesh_shape_arg[1]
+    world = 1 if mesh_shape_arg is None else int(np.prod(mesh_shape_arg))
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         group = pd.process_group(auto=True, device=args.device,
                                  backend=args.backend)
@@ -532,6 +702,7 @@ def _run(args, mesh_shape_arg) -> int:
                 ckpt_every=args.ckpt_every, resume=args.resume,
                 metrics=metrics, log_every=args.log_every,
                 offload=args.offload, parallelism=args.parallelism,
+                n_micro=args.microbatches, n_experts=args.experts,
                 moe_dispatch=args.moe_dispatch,
                 capacity_factor=args.capacity_factor,
                 pp_schedule=args.pp_schedule,
@@ -565,15 +736,18 @@ def _run(args, mesh_shape_arg) -> int:
 
 
 def _rank_report(state):
-    """Every rank's parameter device and local parameter bytes, gathered
-    to rank 0 (collective under a group)."""
+    """Every rank's parameter device, local parameter bytes and custom
+    kernel launches (this process's counts), gathered to rank 0
+    (collective under a group)."""
     import torch.distributed as dist
 
+    from dmlp_tpu_torch import kernels
     from dmlp_tpu_torch.parallel.collectives import gather_objects
     from dmlp_tpu_torch.train.sharding import local_param_bytes
     mine = {"rank": int(os.environ.get("RANK", "0")),
             "device": str(next(state["params"].parameters()).device),
-            "local_param_bytes": local_param_bytes(state["params"])}
+            "local_param_bytes": local_param_bytes(state["params"]),
+            "kernel_launches": dict(kernels.LAUNCHES)}
     return gather_objects(mine) if dist.is_initialized() else [mine]
 
 

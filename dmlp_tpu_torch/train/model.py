@@ -264,13 +264,16 @@ def num_matmul_params(params: Any) -> int:
     """Total weight-matrix elements (for the 6*N*B FLOP estimate).
 
     Takes an :class:`MLP` (the dp x tp family; a tensor-parallel one
-    counts its global shapes) or, as the reference's, a dict: the
-    dict-of-layers with "w", the pipeline families (stacked "pp_w" or
-    "wc"/"wr") and the MoE family ("up"/"down" expert stacks and the
-    router), whose count covers every expert."""
-    if isinstance(params, nn.Module):
+    counts its global shapes), a module of the reference's names (the
+    pipeline and MoE families' ``ParamTable``, global shapes) or, as the
+    reference's, a dict: the dict-of-layers with "w", the pipeline
+    families (stacked "pp_w" or "wc"/"wr") and the MoE family ("up"/"down"
+    expert stacks and the router), whose count covers every expert."""
+    if isinstance(params, MLP):
         return sum(_numel(p) for name, p in params.named_parameters()
                    if name.endswith(".w"))
+    if isinstance(params, nn.Module):   # the pipeline and MoE families
+        params = dict(params.named_parameters())
     if "pp_w" in params:
         return _numel(params["in_w"]) + _numel(params["pp_w"]) \
             + _numel(params["out_w"])
@@ -284,11 +287,20 @@ def num_matmul_params(params: Any) -> int:
     return sum(_numel(v["w"]) for v in params.values())
 
 
-def params_from_jax(np_params: Mapping[str, Mapping[str, Any]]
+def params_from_jax(np_params: Mapping[str, Any]
                     ) -> Dict[str, torch.Tensor]:
-    """The reference's params, ``{"layer0": {"w": array, "b": array},
-    ...}`` as numpy arrays, as an :class:`MLP` state dict
-    (``model.load_state_dict``)."""
-    return {f"{layer}.{leaf}": torch.from_numpy(np.array(arr, copy=True))
-            for layer, leaves in np_params.items()
-            for leaf, arr in leaves.items()}
+    """The reference's params as numpy arrays, as the port's: the MLP's
+    ``{"layer0": {"w": array, "b": array}, ...}`` as an :class:`MLP` state
+    dict (``model.load_state_dict``); the pipeline and MoE families'
+    stacked dicts (``pp_w`` (S, P, H, H), ``wc``/``bc``/``wr``/``br``,
+    ``up`` (E, H, F), ``down``, ``router``, ``in_*``, ``out_*``) under
+    their own names, whole, for their ``build_*_state(..., params=)``,
+    where each rank takes its stage's, tp shard's or experts' slice."""
+    out = {}
+    for name, v in np_params.items():
+        if isinstance(v, Mapping):
+            out.update({f"{name}.{leaf}": torch.from_numpy(
+                np.array(arr, copy=True)) for leaf, arr in v.items()})
+        else:
+            out[name] = torch.from_numpy(np.array(v, copy=True))
+    return out

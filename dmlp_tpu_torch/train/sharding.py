@@ -195,15 +195,17 @@ def gather_cols(local, group, total: int):
 
 
 def full_tensor(t):
-    """The whole of a (1-D mesh) DTensor, or ``t`` itself (collective over
-    the mesh for a sharded one)."""
+    """The whole of a DTensor, or ``t`` itself: gathered over each mesh
+    dimension that shards it, in turn (collective over those dimensions'
+    groups)."""
     if not isinstance(t, DTensor):
         return t
-    (placement,) = t.placements
-    if placement.is_replicate():
-        return t.to_local()
-    return gather_dim(t.to_local(), t.device_mesh.get_group(),
-                      t.shape[placement.dim], placement.dim)
+    out = t.to_local()
+    for i, placement in enumerate(t.placements):
+        if placement.is_shard():
+            out = gather_dim(out, t.device_mesh.get_group(i),
+                             t.shape[placement.dim], placement.dim)
+    return out
 
 
 def tp_plan(n_layers: int):

@@ -72,9 +72,14 @@ def test_offload_through_the_loop_equals_resident(level):
 
 
 def test_families_of_a14b_and_a15_flags_raise():
-    for fam in ("dp_pp", "dp_pp3", "dp_ep"):
-        with pytest.raises(ValueError, match="A14b"):
-            train(steps=1, batch=8, dims=(4, 8, 2), parallelism=fam,
+    """The pipeline and MoE families (A14b) run, under the reference's
+    flag rules: each raises where its dims or default mesh do not fit;
+    the flags left to A15 raise naming it."""
+    for fam, dims, match in (("dp_pp", (4, 8, 8, 2), "wants --dims"),
+                             ("dp_pp3", (4, 8, 2), "mesh axes must be"),
+                             ("dp_ep", (4, 8, 2), "wants --dims")):
+        with pytest.raises(ValueError, match=match):
+            train(steps=1, batch=8, dims=dims, parallelism=fam,
                   device="cpu")
     with pytest.raises(ValueError, match="moe-dispatch"):
         train(steps=1, batch=8, dims=(4, 8, 2), moe_dispatch="a2a",
@@ -88,8 +93,8 @@ def test_families_of_a14b_and_a15_flags_raise():
     with pytest.raises(ValueError, match="A15"):
         train(steps=1, batch=8, dims=(4, 8, 2), sanitize=True, device="cpu")
     for flags in (["--compile-cache", "d"], ["--sanitize"],
-                  ["--parallelism", "dp_ep"]):
-        with pytest.raises(ValueError, match="A15|A14b"):
+                  ["--parallelism", "dp_ep", "--dims", "4,8,2"]):
+        with pytest.raises(ValueError, match="A15|dp_ep wants --dims"):
             loop.main(["--device", "cpu", "--steps", "1", *flags])
 
 
