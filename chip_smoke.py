@@ -192,7 +192,9 @@ final result line. Standard output:
    device busy time, idle share, and the host's blocking reads;
 3. one ``{"kernels": [...]}`` line: per kernel its route, source, the TPU
    kernel it replaces, main-path launches (in all and per path, the serve
-   replays' and the ladder daemon's included), max
+   replays' and the ladder daemon's included, and the bench phase's: one
+   timed solve per run from the runs' own counters, the driver's device
+   solves), max
    error, time and the shape it is from, plain time, the bound
    (``obs.kernel_cost``'s bytes over 3.35 TB/s or its operations over the
    peak for their type, whichever is larger, from ``obs.counters``' H100
@@ -257,11 +259,13 @@ stdout equal to the single-device solve's and to the mesh phase's sharded
 run and the oracle's on a subset, every rank's K3 launches the plan's
 (``engine.auto.plan_auto``: 1 a rank at config 3, 4 at config 4, twice
 with the warm-up) at a held shape; ``--hlo-report`` on config 3 at (4, 2)
-for sharded and ring (one solve each) and auto (its solve above): the
-record of the collectives every rank issued (``obs.hlo``) within the
-reconcile's bounds of ``obs.comms``, the merge's kind at ratio 1, the auto
-engine's all-gather bytes, all on the data axis, equal to the all-gather
-model's of its plan; then ``python -m dmlp_tpu_torch.serve --mesh 2x1
+for sharded, ring and auto: the record of the collectives every rank
+issued (``obs.hlo``) within the reconcile's bounds of ``obs.comms``, the
+merge's kind at ratio 1, the auto engine's all-gather bytes, all on the
+data axis, equal to the all-gather model's of its plan (config 3's runs,
+sharded and ring with K1 too, are the bench phase's ``bench 3
+--auto-ab`` arms, each held there as here); then ``python -m
+dmlp_tpu_torch.serve --mesh 2x1
 --mesh-merge auto --backend gloo --pallas`` over config 4's corpus (the
 fleet phase's capacity and layout), its warmed buckets and the serve
 trace's first 15 requests each rank's launches the plan's at held shapes,
@@ -286,7 +290,8 @@ bench's step times and the host link's copy rates; the loop CLI
 (``train.loop.main``) for 200 steps, ``--resume`` for 50 (step 250), and
 a ``nan`` fault at step 5 under ``--nan-guard`` whose ``params_checksum``
 equals the fault-free run's; the loop on a (2, 2) mesh of 4 gloo ranks on
-cuda:0 in f32 and in bf16 (each rank's local bf16 products), its losses
+cuda:0 in f32 and in bf16 (each rank's local bf16 products; one spawn of
+4 ranks runs both), its losses
 the (1, 1) run's within rtol 2e-5, the second step's time beside the
 (1, 1) run's, every rank's parameters on the card, the collective
 record's dp all-reduce bytes ``obs.comms``' model plus the replicated row
@@ -298,8 +303,9 @@ the pipeline and MoE families (``dmlp_tpu_torch.train.pipeline`` and
 ``.experts``), which launch no hand-written kernel either: first a probe
 of gloo's send/recv and all-to-all on CUDA tensors between two ranks on
 cuda:0 (what raises, crashes or works; the port stages both through host
-memory under gloo regardless); then the loop CLI on 8 gloo ranks sharing
-cuda:0 at the reference's benchmark widths, 3 steps each: GPipe and
+memory under gloo regardless); then one spawn of 8 gloo ranks sharing
+cuda:0 for the rest: the loop CLI's main at the reference's benchmark
+widths, 3 steps each: GPipe and
 interleaved (V = 2) dp_pp at (2, 4) and dp_pp3 at (2, 2, 2), dims 64,
 2048, 16, batch 512, M = 4; the dense and the a2a (cf 1.25) dp_ep at (2,
 4), dims 64, 512, 2048, 16, 8 experts, batch 4,096 — losses finite and
@@ -307,10 +313,34 @@ falling, the later steps' ``step_time_ms``, ``schedule_ticks`` and
 ``bubble_fraction``, every rank's parameters on cuda:0 with 0 launches,
 and the first step's collective record equal to ``obs.comms.
 train_step_comms`` for what it prices, the backward it leaves out stated
-beside it; then one 8-rank spawn running each family at a small width on
-the card and on the CPU from the same parameters and batches (losses
-within rtol 1e-5) and ``train.dryrun.dryrun_train`` on the card; then the
-weak-scaling sweep at 1, 2, 4 and 8 ranks.
+beside it; each family at a small width on the card and on the CPU from
+the same parameters and batches (losses within rtol 1e-5) and
+``train.dryrun.dryrun_train`` on the card; the weak-scaling sweep at 1,
+2, 4 and 8 ranks.
+
+The ``bench`` phase (after ``train_parallel``; ``--phases build,bench``
+runs it alone, about 400 s after the build) drives the port's tooling
+through its entry points, each a subprocess, into a temporary directory
+(never the repository's root): ``python -m dmlp_tpu_torch.bench 4 --reps
+3 --counters --fused-ab`` (checksums PASS on every run against the
+bench's own float64 oracle, ``Time taken`` median and range, K1's
+launches per timed solve from the counters, 4, and K2's in the
+``DMLP_TPU_FUSED=0`` arm, 4, each with 4 merges); ``bench 4 --reps 3``
+again, and ``python -m dmlp_tpu_torch.perf_gate`` over both rounds:
+``harness/config4/engine_ms`` qualified (3 trials a side, one device), its
+verdict printed, not required; ``bench 3 --auto-ab`` (8 gloo ranks on
+cuda:0: auto, sharded and ring byte-equal to the oracle, each rank's K3
+launches in the auto arm the plan's at a held shape, K1's in the others,
+each arm's ``--hlo-report`` record reconciled); ``bench serve`` over
+``inputs/serve_trace1.jsonl`` with ``--pallas`` (every response golden,
+both gate-carry arms); ``python -m dmlp_tpu_torch.bench.driver`` at its
+defaults (``device_solve_ms_extract``: K1 over the padded dataset,
+``_seg``: the seg fold through K3, with their launches); ``python -m
+dmlp_tpu_torch.report --min-coverage 1.0`` over the records, each naming
+this card. The script sets ``$DMLP_TPU_COMPILE_CACHE`` to a fresh
+temporary directory before the build phase: every later process loads the
+libraries from it, which must not change after the build, and the
+package's own ``_build/`` must stay as it was.
 
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
 build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
@@ -513,9 +543,11 @@ HELD = {"k1": set(), "k3": set()}
 # At most this share of a run's queries may go to the float64 host oracle
 # (the boundary repair): the rest must come from the device's lists.
 MAX_REPAIR_SHARE = 0.01
+# Timed calls of a K1/K2 case's plain version (after its warm-up call).
+PLAIN_REPS = 1
 PHASES = ("build", "kernels", "segmin", "tune", "main", "obs", "mesh",
-          "serve", "fleet", "auto", "train", "train_parallel", "real_oom",
-          "profile")
+          "serve", "fleet", "auto", "train", "train_parallel", "bench",
+          "real_oom", "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
 OUTPUTS: dict = {}
@@ -523,8 +555,13 @@ _INPUTS: dict = {}
 _ORACLE: dict = {}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, stamped with the script's seconds so far."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -656,8 +693,11 @@ def kernel_cases(reps: int):
             for splits in dict.fromkeys((chosen, 1)):
                 ms, out = time_ms(lambda: ex.extract_topk(
                     q, d, cd, ci, mxu_gate=gate, splits=splits, **kw), reps)
+                # One timed call after the warm-up: the plain version's
+                # time is a yardstick, and at the multi-pass shapes one
+                # call takes about a second.
                 plain_ms, (pd, pi, pit, parts) = time_ms(
-                    lambda: plain(gate, splits), max(1, reps // 2))
+                    lambda: plain(gate, splits), PLAIN_REPS)
                 torch.cuda.synchronize()
                 plain_out[splits] = (pd, pi)
                 cmp = ex.compare_lists(out[0], out[1], pd, pi, tol)
@@ -1874,12 +1914,8 @@ MESH_RUNS = (
     ("mesh_1x1_config4_ring", "config4",
      ["--mode", "ring", "--mesh", "1,1", "--pallas"], 1, "nccl",
      "config4_K1", "1"),
-    ("mesh_4x2_config3", "config2",
-     ["--mode", "sharded", "--mesh", "4,2", "--pallas", "--backend",
-      "gloo"], 8, "gloo", "config2_seg", "1"),
-    ("mesh_4x2_config3_ring", "config2",
-     ["--mode", "ring", "--mesh", "4,2", "--pallas", "--backend", "gloo"],
-     8, "gloo", "config2_seg", "1"),
+    # Config 3 sharded and ring with K1 are the bench phase's `bench 3
+    # --auto-ab` arms (bench_auto_config3_checks).
     ("mesh_4x2_config3_K2", "config2",
      ["--mode", "sharded", "--mesh", "4,2", "--pallas", "--backend",
       "gloo"], 8, "gloo", "config2_seg", "0"),
@@ -2077,7 +2113,7 @@ def mesh_phase(tmp_dir):
         # One run also writes the metrics record: its comms block is held
         # against obs.comms' analytic bytes for this mesh.
         metrics = os.path.join(tmp_dir, f"{label}.metrics") \
-            if label == "mesh_4x2_config3" else None
+            if label == "mesh_4x2_config3_K2" else None
         # --warmup: each rank's first solve (its kernels' load, its CUDA
         # context's first allocations) stays out of the timed one.
         try:
@@ -3099,18 +3135,17 @@ def fleet_selfheal(out, corpus_path, corpus, header, reqs, env):
 # on a (4, 2) mesh: each rank folds one 25,600-row block of its shard
 # through K3 for its 2,504-query shard; config 4 on (1, 1) folds four
 # 50,176-row blocks for its 10,000 queries.
+# Config 3 at (4, 2) in auto, sharded and ring, each with --hlo-report,
+# is the bench phase's `bench 3 --auto-ab` (bench_auto_config3_checks).
 AUTO_RUNS = (
-    ("auto_4x2_config3", "config2",
-     ["--mode", "auto", "--mesh", "4,2", "--pallas", "--backend", "gloo"],
-     8, "gloo", "config2_seg", "mesh_4x2_config3", True),
     ("auto_1x1_config4", "config4",
      ["--mode", "auto", "--mesh", "1,1", "--pallas"], 1, "nccl",
      "config4_K1", "mesh_1x1_config4", False),
 )
-# --hlo-report runs of the hand-rolled merges on config 3 at (4, 2):
-# (run, mode, the merge's collective kind)
-AUTO_HLO_RUNS = (("hlo_4x2_config3_sharded", "sharded", "all-gather"),
-                 ("hlo_4x2_config3_ring", "ring", "collective-permute"))
+# The --hlo-report merges of config 3 at (4, 2) by arm: (mode, the
+# merge's collective kind).
+AUTO_HLO_MERGES = (("auto", "all-gather"), ("sharded", "all-gather"),
+                   ("ring", "collective-permute"))
 # Requests of the serve trace the --mesh-merge auto daemon replays.
 AUTO_DAEMON_REQUESTS = 15
 
@@ -3172,12 +3207,12 @@ def hlo_check(label, rec, merge, twin_bytes=None):
 def auto_phase(tmp_dir):
     """The compiler-sharded engine (``--mode auto``: DTensor placements,
     K3 in every rank's fold, the merge a DTensor redistribution) on the
-    card: config 3 at (4, 2) (8 gloo ranks on cuda:0) and config 4 at
-    (1, 1) on NCCL, each with ``--warmup``, stdout equal to the
-    single-device solve's and the sharded engine's and golden on a
+    card: config 4 at (1, 1) on NCCL with ``--warmup``, stdout equal to
+    the single-device solve's and the sharded engine's and golden on a
     subset, every rank's K3 launches the plan's (``engine.auto.
-    plan_auto``) at a shape the segmin phase held; ``--hlo-report`` on
-    config 3 at (4, 2) for sharded, ring and auto, reconciled; then a
+    plan_auto``) at a shape the segmin phase held (config 3 at (4, 2),
+    with ``--hlo-report`` for sharded, ring and auto, is the bench
+    phase's ``--auto-ab``: :func:`bench_auto_config3_checks`); then a
     ``--mesh 2x1 --mesh-merge auto`` daemon over config 4's corpus
     replaying the serve trace's first requests, golden, every rank's
     launches the plan's, drained with exit code 0. Returns the launches
@@ -3255,21 +3290,6 @@ def auto_phase(tmp_dir):
             hlo_check(label, hrec, "all-gather", sum(
                 t.bytes_total for t in comms.engine_comms(
                     "allgather", (r, cc), plan["qloc"], plan["k"])))
-    for label, mode, merge in AUTO_HLO_RUNS:
-        flags = ["--mode", mode, "--mesh", "4,2", "--pallas", "--backend",
-                 "gloo"]
-        text, taken, phases, recs, hrec, wall_ms = _mesh_cli(
-            label, "config2", flags, tmp_dir, warmup=False, hlo=True)
-        launches[label] = {k: sum(rk["launches"][k]
-                                  for rk in recs["mesh"]["ranks"])
-                           for k in KERNELS}
-        emit({"phase": "auto_hlo_run", "run": label, "flags": flags,
-              "time_taken_ms": taken, "wall_ms": wall_ms,
-              "launches": launches[label]})
-        check(text == OUTPUTS["config2_seg"],
-              f"{label}: stdout differs from config2_seg's")
-        hlo_check(label, hrec, merge)
-
     # The --mesh-merge auto daemon over config 4's corpus.
     out = os.path.join(tmp_dir, "auto_daemon")
     os.makedirs(out)
@@ -3628,24 +3648,38 @@ def train_phase(tmp_dir):
     mesh_common = ["--dims", ",".join(map(str, TRAIN_MESH_DIMS)), "--batch",
                    "1024", "--steps", "2", "--log-every", "1"]
     out = {}
-    for label, extra in (
-            ("train_mesh_1x1", []),
-            ("train_mesh_2x2", ["--mesh", "2,2", "--backend", "gloo"]),
-            ("train_mesh_1x1_bf16", ["--compute-dtype", "bfloat16"]),
-            ("train_mesh_2x2_bf16", ["--mesh", "2,2", "--backend", "gloo",
-                                     "--compute-dtype", "bfloat16"])):
-        rec = os.path.join(tmp_dir, f"{label}.json")
-        mfile = os.path.join(tmp_dir, f"{label}.jsonl")
-        t0 = time.perf_counter()
-        rc, _final = counted(label, lambda extra=extra, rec=rec,
-                             mfile=mfile: _loop_main(
-            mesh_common + extra + ["--record", rec, "--metrics-file",
-                                   mfile]))
-        check(rc == 0, f"{label}: exit {rc}")
+    runs = {"train_mesh_1x1": [],
+            "train_mesh_2x2": ["--mesh", "2,2", "--backend", "gloo"],
+            "train_mesh_1x1_bf16": ["--compute-dtype", "bfloat16"],
+            "train_mesh_2x2_bf16": ["--mesh", "2,2", "--backend", "gloo",
+                                    "--compute-dtype", "bfloat16"]}
+    argvs = {label: mesh_common + extra + [
+        "--record", os.path.join(tmp_dir, f"{label}.json"),
+        "--metrics-file", os.path.join(tmp_dir, f"{label}.jsonl")]
+        for label, extra in runs.items()}
+    # The (2, 2) runs: one spawn of 4 gloo ranks on cuda:0 for both.
+    work = os.path.join(tmp_dir, "train_mesh")
+    os.makedirs(work)
+    with open(os.path.join(work, "cfg.json"), "w") as f:
+        json.dump({"rows": [[label, argvs[label]] for label in runs
+                            if "2x2" in label]}, f)
+    got = spawn_par_script("train_mesh", work, 4, "cuda")
+    for label in runs:
+        rec, mfile = argvs[label][-3], argvs[label][-1]
+        if "2x2" in label:
+            check(all(g["rows"][label]["rc"] == 0 for g in got),
+                  f"{label}: exits {[g['rows'][label] for g in got]}")
+            wall = got[0]["rows"][label]["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            rc, _final = counted(label, lambda label=label: _loop_main(
+                argvs[label]))
+            check(rc == 0, f"{label}: exit {rc}")
+            wall = time.perf_counter() - t0
         lines = _jsonl(mfile)
         windows = [r for r in lines if "step" in r]
         with open(rec) as f:
-            out[label] = {"wall_s": time.perf_counter() - t0,
+            out[label] = {"wall_s": wall,
                           "losses": [r["loss"] for r in windows],
                           # the second step's: the first holds the set-up
                           "step_time_ms": windows[-1]["step_time_ms"],
@@ -3654,6 +3688,12 @@ def train_phase(tmp_dir):
                           "hlo": [r for r in lines
                                   if r.get("event") == "hlo"][0],
                           "ranks": json.load(f)["metrics"]["ranks"]}
+        if "2x2" in label:
+            launches[label] = {k: sum(r["kernel_launches"].get(k, 0)
+                                      for r in out[label]["ranks"])
+                               for k in KERNELS}
+            check(not any(launches[label].values()),
+                  f"{label}: the train path launched {launches[label]}")
     pbytes = sum(a * b + b for a, b in zip(TRAIN_MESH_DIMS[:-1],
                                             TRAIN_MESH_DIMS[1:])) * 4
     (psum,) = comms.train_step_comms(pbytes, (2, 2), steps=1)
@@ -3795,14 +3835,21 @@ def gloo_probe():
     return out
 
 
-CARD_CPU_SCRIPT = r"""
-import json, sys
+# The train phases' multi-rank runs, one spawn of gloo ranks for a phase
+# (each rank runs this script with torchrun's environment): cfg["rows"]
+# through the loop CLI's main (which joins the group this script made);
+# with cfg["pp_dims"], each pipeline and MoE family at a small width on
+# the card and on the CPU, and the dry run; with cfg["sweep"], the
+# weak-scaling sweep.
+PAR_SCRIPT = r"""
+import contextlib, io, json, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
 from dmlp_tpu_torch import kernels
 from dmlp_tpu_torch.parallel.distributed import initialize, shutdown
-from dmlp_tpu_torch.train import dryrun, experts as ex, pipeline as pl
+from dmlp_tpu_torch.train import dryrun, experts as ex, loop
+from dmlp_tpu_torch.train import pipeline as pl, sweep
 from dmlp_tpu_torch.train import step as S
 from dmlp_tpu_torch.train.data import teacher_batches
 from dmlp_tpu_torch.train.sharding import batch_slice
@@ -3811,10 +3858,19 @@ work, device = sys.argv[1], sys.argv[2]
 cfg = json.load(open(work + "/cfg.json"))
 initialize(auto=True, device=device, backend="gloo", timeout_s=120)
 rank = dist.get_rank()
+out = {"rows": {}}
+for label, argv in cfg["rows"]:
+    dist.barrier()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = loop.main(argv)
+    dist.barrier()
+    out["rows"][label] = {"rc": rc, "wall_s": time.perf_counter() - t0}
 opt = S.make_optimizer("sgd", 1e-2)
-out = {}
-pp_dims, ep_dims, batch = cfg["pp_dims"], cfg["ep_dims"], cfg["batch"]
-for fam in ("gpipe", "interleaved", "pp3", "dense", "a2a"):
+pp_dims, ep_dims, batch = cfg.get("pp_dims"), cfg.get("ep_dims"), \
+    cfg.get("batch")
+for fam in ("gpipe", "interleaved", "pp3", "dense", "a2a") if pp_dims \
+        else ():
     ep = fam in ("dense", "a2a")
     dims = ep_dims if ep else pp_dims
     it = teacher_batches(dims[0], dims[-1], batch, seed=1)
@@ -3857,13 +3913,50 @@ for fam in ("gpipe", "interleaved", "pp3", "dense", "a2a"):
                          "param_device": str(st["params"].in_w.device),
                          "launches": dict(kernels.LAUNCHES)}
         dist.barrier()
-kernels.reset_launch_counts()
-out["dryrun"] = dryrun.dryrun_train(device=device)
-out["dryrun_launches"] = dict(kernels.LAUNCHES)
+if pp_dims:
+    kernels.reset_launch_counts()
+    out["dryrun"] = dryrun.dryrun_train(device=device)
+    out["dryrun_launches"] = dict(kernels.LAUNCHES)
+if cfg.get("sweep"):
+    dist.barrier()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["sweep"] = {"rc": sweep.main(cfg["sweep"]),
+                        "wall_s": time.perf_counter() - t0,
+                        "launches": dict(kernels.LAUNCHES)}
 with open(f"{work}/card_cpu{rank}.json", "w") as f:
     json.dump(out, f)
 shutdown()
 """
+
+
+def spawn_par_script(label, work, world, device):
+    """Run PAR_SCRIPT on ``world`` gloo ranks (``work``/cfg.json says
+    what) and return each rank's JSON result."""
+    from dmlp_tpu_torch.parallel.distributed import free_port
+    # The ranks' CPU halves share the host's cores: one thread a rank.
+    env = dict(os.environ, MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+               LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PAR_SCRIPT, work, device],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errs = []
+    for p in procs:
+        try:
+            errs.append(p.communicate(timeout=900)[1])
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"{label} spawn: exits {[p.returncode for p in procs]}: "
+          f"{[e[-1500:] for e in errs if e]}")
+    return [json.load(open(os.path.join(work, f"card_cpu{r}.json")))
+            for r in range(world)]
 
 
 def _par_model(label, argv, dims):
@@ -3918,8 +4011,9 @@ def train_parallel_phase(tmp_dir):
     """The pipeline and MoE train families on the card
     (``dmlp_tpu_torch.train.pipeline`` / ``.experts``): first the gloo
     probe (send/recv and all-to-all on CUDA tensors between two gloo ranks
-    on cuda:0); then each full-width row through the loop CLI on 8 gloo
-    ranks sharing cuda:0 (3 steps, each logged): GPipe and interleaved (V
+    on cuda:0); then one spawn of 8 gloo ranks sharing cuda:0
+    (``PAR_SCRIPT``) for the rest: each full-width row through the loop
+    CLI's main (3 steps, each logged): GPipe and interleaved (V
     = 2) dp_pp at (2, 4), dp_pp3 at (2, 2, 2), dims 64, 2048, 16, batch
     512, M = 4; the dense and the a2a (cf 1.25, capacity 160) dp_ep at (2,
     4), dims 64, 512, 2048, 16, 8 experts, batch 4,096 — the losses
@@ -3928,52 +4022,63 @@ def train_parallel_phase(tmp_dir):
     parameters on cuda:0 with 0 kernel launches, and the first step's
     collective record against ``obs.comms.train_step_comms``: equal for
     what the model prices, the backward it leaves out stated beside it;
-    then one spawn of 8 gloo ranks: each family at a small width on the
-    card and on the CPU from the same parameters and batches (losses
-    within rtol 1e-5: a TF32 product would fail), and ``dryrun_train`` on
-    the card; then the weak-scaling sweep at 1, 2, 4 and 8 ranks. No run
-    launches a hand-written kernel. Returns the launches per run."""
+    each family at a small width on the card and on the CPU from the same
+    parameters and batches (losses within rtol 1e-5: a TF32 product would
+    fail), and ``dryrun_train`` on the card; the weak-scaling sweep at 1,
+    2, 4 and 8 ranks. No run launches a hand-written kernel (every rank's
+    counts). Returns the launches per run."""
     import numpy as np
 
-    from dmlp_tpu_torch import kernels
-    from dmlp_tpu_torch.parallel.distributed import free_port
     from dmlp_tpu_torch.train import pipeline as pl
-    from dmlp_tpu_torch.train import sweep
 
     t_phase = time.perf_counter()
     launches = {}
-
-    def counted(label, fn):
-        kernels.reset_launch_counts()
-        out = fn()
-        launches[label] = {k: kernels.LAUNCHES[k] for k in KERNELS}
-        check(not any(launches[label].values()),
-              f"{label}: the train path launched {launches[label]}")
-        return out
-
     probe = gloo_probe()
     emit({"phase": "train_parallel", "run": "gloo_probe", **probe})
+
+    # Every 8-rank run in one spawn of 8 gloo ranks on cuda:0 (PAR_SCRIPT).
+    work = os.path.join(tmp_dir, "card_cpu")
+    os.makedirs(work, exist_ok=True)
+    rows, paths = [], {}
+    for label, argv in PAR_RUNS:
+        dims = PAR_EP_DIMS if "dp_ep" in argv else PAR_PP_DIMS
+        paths[label] = (os.path.join(work, f"{label}.json"),
+                        os.path.join(work, f"{label}.jsonl"))
+        rows.append([label, argv + [
+            "--dims", ",".join(map(str, dims)), "--steps", "3",
+            "--log-every", "1", "--device", PAR_DEVICE, *PAR_FLAGS,
+            "--record", paths[label][0], "--metrics-file", paths[label][1]]])
+    sweep_out = os.path.join(work, "sweep.jsonl")
+    with open(os.path.join(work, "cfg.json"), "w") as f:
+        json.dump({"pp_dims": list(PAR_SMALL_PP_DIMS),
+                   "ep_dims": list(PAR_SMALL_EP_DIMS),
+                   "batch": PAR_SMALL_BATCH, "rows": rows,
+                   "sweep": ["--mesh-sizes", "1,2,4,8", "--device",
+                             PAR_DEVICE, *PAR_FLAGS, "--out", sweep_out]},
+                  f)
+    t0 = time.perf_counter()
+    got = spawn_par_script("train_parallel", work, 8, PAR_DEVICE)
+    emit({"phase": "train_parallel", "run": "spawn",
+          "wall_s": time.perf_counter() - t0})
 
     for label, argv in PAR_RUNS:
         ep = "dp_ep" in argv
         dims = PAR_EP_DIMS if ep else PAR_PP_DIMS
-        rec = os.path.join(tmp_dir, f"{label}.json")
-        mfile = os.path.join(tmp_dir, f"{label}.jsonl")
-        full = argv + ["--dims", ",".join(map(str, dims)), "--steps", "3",
-                       "--log-every", "1", "--device", PAR_DEVICE,
-                       *PAR_FLAGS, "--record", rec, "--metrics-file", mfile]
-        t0 = time.perf_counter()
-        rc, _final = counted(label, lambda full=full: _loop_main(full))
-        wall = time.perf_counter() - t0
-        check(rc == 0, f"{label}: exit {rc}")
+        rec, mfile = paths[label]
+        check(all(g["rows"][label]["rc"] == 0 for g in got),
+              f"{label}: exits {[g['rows'][label]['rc'] for g in got]}")
         lines = _jsonl(mfile)
         windows = [r for r in lines if "step" in r]
         hlo = [r for r in lines if r.get("event") == "hlo"][0]
         with open(rec) as f:
             ranks = json.load(f)["metrics"]["ranks"]
+        launches[label] = {k: sum(r["kernel_launches"].get(k, 0)
+                                  for r in ranks) for k in KERNELS}
         losses = [r["loss"] for r in windows]
         row = {"phase": "train_parallel", "run": label,
-               "argv": full[:-4], "dims": list(dims), "wall_s": wall,
+               "argv": rows[[r[0] for r in rows].index(label)][1][:-4],
+               "dims": list(dims),
+               "wall_s": got[0]["rows"][label]["wall_s"],
                "losses": losses,
                "step_time_ms": [r["step_time_ms"] for r in windows[1:]],
                "samples_per_sec_per_chip": [
@@ -4008,45 +4113,15 @@ def train_parallel_phase(tmp_dir):
                   f"{label}: {k} recorded {hlo['by_axis'].get(k)} bytes, "
                   f"the model {m} + unpriced {u}")
 
-    # The card against the CPU, and the dry run: one spawn of 8 gloo ranks.
-    work = os.path.join(tmp_dir, "card_cpu")
-    os.makedirs(work, exist_ok=True)
-    with open(os.path.join(work, "cfg.json"), "w") as f:
-        json.dump({"pp_dims": list(PAR_SMALL_PP_DIMS),
-                   "ep_dims": list(PAR_SMALL_EP_DIMS),
-                   "batch": PAR_SMALL_BATCH}, f)
-    port = free_port()
-    # The ranks' CPU halves share the host's cores: one thread a rank.
-    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
-               WORLD_SIZE="8", LOCAL_WORLD_SIZE="8", OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", CARD_CPU_SCRIPT, work, PAR_DEVICE],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        for r in range(8)]
-    errs = []
-    for p in procs:
-        try:
-            errs.append(p.communicate(timeout=300)[1])
-        finally:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    check(all(p.returncode == 0 for p in procs),
-          f"card_cpu: exits {[p.returncode for p in procs]}: "
-          f"{[e[-1500:] for e in errs if e]}")
-    got = [json.load(open(os.path.join(work, f"card_cpu{r}.json")))
-           for r in range(8)]
-    wall = time.perf_counter() - t0
-    rows = {}
+    # The card against the CPU, and the dry run.
+    fams = {}
     for fam in ("gpipe", "interleaved", "pp3", "dense", "a2a"):
         runs = got[0][fam]
         devs = list(runs)
         lc = runs[devs[0]]["losses"]
         lh = runs[devs[-1]]["losses"]
         rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
-        rows[fam] = {"losses_card": lc, "losses_cpu": lh,
+        fams[fam] = {"losses_card": lc, "losses_cpu": lh,
                      "max_loss_rel_err": rel,
                      "param_devices": sorted({g[fam][d]["param_device"]
                                               for g in got for d in devs})}
@@ -4062,22 +4137,394 @@ def train_parallel_phase(tmp_dir):
     emit({"phase": "train_parallel", "run": "card_vs_cpu_and_dryrun",
           "dims_pp": list(PAR_SMALL_PP_DIMS),
           "dims_ep": list(PAR_SMALL_EP_DIMS), "batch": PAR_SMALL_BATCH,
-          "wall_s": wall, "families": rows, "dryrun": dry})
+          "families": fams, "dryrun": dry})
 
     # The weak-scaling sweep on the first 1, 2, 4 and 8 ranks.
-    out = os.path.join(tmp_dir, "sweep.jsonl")
-    t0 = time.perf_counter()
-    rc = counted("par_sweep", lambda: sweep.main(
-        ["--mesh-sizes", "1,2,4,8", "--device", PAR_DEVICE, *PAR_FLAGS,
-         "--out", out]))
-    lines = _jsonl(out)
+    lines = _jsonl(sweep_out)
+    launches["par_sweep"] = {k: sum(g["sweep"]["launches"].get(k, 0)
+                                    for g in got) for k in KERNELS}
     emit({"phase": "train_parallel", "run": "sweep",
-          "wall_s": time.perf_counter() - t0, "lines": lines})
-    check(rc == 0 and [p.get("n_chips") for p in lines[:4]] == [1, 2, 4, 8]
+          "wall_s": got[0]["sweep"]["wall_s"], "lines": lines})
+    check(all(g["sweep"]["rc"] == 0 for g in got)
+          and not any(launches["par_sweep"].values())
+          and [p.get("n_chips") for p in lines[:4]] == [1, 2, 4, 8]
           and "summary" in lines[4]
           and all(p["samples_per_sec_per_chip"] > 0 for p in lines[:4]),
           f"sweep: {lines}")
     emit({"phase": "train_parallel_done",
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def _cache_files(directory):
+    """{name: (size, mtime_ns)} of the files in ``directory`` (empty when
+    it does not exist): the compile cache's state, and the package's
+    default build directory's."""
+    if not os.path.isdir(directory):
+        return {}
+    return {e.name: (e.stat().st_size, e.stat().st_mtime_ns)
+            for e in os.scandir(directory) if e.is_file()}
+
+
+def _bench_call(label, argv, timeout=900, env=None):
+    """One bench entry point (``python -m dmlp_tpu_torch.bench...`` or
+    ``.report`` / ``.perf_gate``) in a subprocess from the repository's
+    root; returns (returncode, stdout, stderr, wall seconds)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    e = dict(os.environ if env is None else env, PYTHONPATH=repo)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                       text=True, cwd=repo, env=e, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if p.returncode not in (0, 1) or "Traceback" in p.stderr:
+        raise SystemExit(f"chip_smoke: FAILED: {label}: exit "
+                         f"{p.returncode}: {p.stderr[-3000:]}")
+    return p.returncode, p.stdout, p.stderr, wall
+
+
+def _records(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _spread(reps):
+    """The median and range of a list of ``Time taken`` values."""
+    s = sorted(reps)
+    mid = len(s) // 2
+    med = s[mid] if len(s) % 2 else (s[mid - 1] + s[mid]) / 2
+    return {"median": med, "min": s[0], "max": s[-1], "reps": reps}
+
+
+def bench_auto_config3_checks(base, am):
+    """What the auto phase held of config 3 at (4, 2), on the bench's
+    ``--auto-ab`` arms (each run with ``--warmup``; stdout already equal
+    to the oracle's in full): the auto arm's per-rank K3 launches the
+    plan's (``engine.auto.plan_auto``) at a shape the segmin phase held,
+    the sharded and ring arms' K1 once per chunk of a rank's shard, each
+    arm's repairs within MAX_REPAIR_SHARE, and each arm's ``--hlo-report``
+    record reconciled (the auto engine's all-gather bytes equal to the
+    all-gather model's of its plan)."""
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.auto import plan_auto
+    from dmlp_tpu_torch.obs import comms
+    c = CONFIGS["config2"]
+    plan = plan_auto(EngineConfig(use_pallas=True), c["num_data"],
+                     c["num_queries"], int(config_input("config2").ks.max()),
+                     (4, 2))
+    k3 = (plan["qloc"], plan["data_block"], c["num_attrs"])
+    check(plan["select"] == "seg", f"bench_config3_auto: plan {plan}")
+    check(not HELD["k3"] or k3 in HELD["k3"],
+          f"bench_config3_auto: K3 at {k3}: no segmin case")
+    # Per rank, for the warm-up solve and the timed one.
+    want = dict({k: 0 for k in KERNELS},
+                fused_dist_segmin=2 * plan["nblocks"])
+    for r, rk in enumerate(am["auto_ab_launches"]["auto"]):
+        got = {k: rk.get(k, 0) for k in KERNELS}
+        check(got == want, f"bench_config3_auto: rank {r} launched {got}, "
+                           f"want {want}")
+    # The sharded and ring arms: K1 once per chunk of a rank's shard (and
+    # a merge each where S > 1), as the mesh phase holds its K2 twin.
+    from dmlp_tpu_torch.ops.extract import heuristic_splits
+    nchunks, qloc, chunk_rows, kc, oqloc = mesh_k1_plan("config2", 4, 2)
+    s = heuristic_splits(qloc, chunk_rows, kc, "cuda")
+    check(oqloc is None and (not HELD["k1"] or (
+        qloc, chunk_rows, c["num_attrs"], kc) in HELD["k1"]),
+        f"bench_config3: K1 at {qloc} x {chunk_rows}, kc {kc}: no kernels "
+        "case")
+    want_k1 = {"fused_topk": 2 * nchunks, "extract_topk": 0,
+               "extract_merge": 2 * nchunks if s > 1 else 0,
+               "fused_dist_segmin": 0}
+    for arm in ("sharded", "ring"):
+        for r, rk in enumerate(am["auto_ab_launches"][arm]):
+            got = {k: rk.get(k, 0) for k in KERNELS}
+            check(got == want_k1, f"bench_config3_{arm}: rank {r} "
+                                  f"launched {got}, want {want_k1}")
+    for arm, n in am["auto_ab_repairs"].items():
+        check(n <= MAX_REPAIR_SHARE * c["num_queries"],
+              f"bench_config3_{arm}: {n} of {c['num_queries']} queries "
+              "repaired on the host")
+    for arm, merge in AUTO_HLO_MERGES:
+        with open(os.path.join(base, "outputs",
+                               f"hlo_auto_ab_{arm}_config3.jsonl")) as f:
+            hrec = json.loads(f.read().splitlines()[-1])
+        twin = None
+        if arm == "auto":
+            check(hrec["config"]["plan"]["qloc"] == plan["qloc"]
+                  and hrec["config"]["plan"]["k"] == plan["k"],
+                  f"bench_config3_auto: recorded plan "
+                  f"{hrec['config']['plan']}")
+            twin = sum(t.bytes_total for t in comms.engine_comms(
+                "allgather", (4, 2), plan["qloc"], plan["k"]))
+        hlo_check(f"bench_config3_{arm}", hrec, merge, twin)
+    return plan, k3
+
+
+def hold_driver_shapes(reps):
+    """The bench driver's device-solve launches at its defaults, held
+    against their plain versions on the same inputs as the kernels and
+    segmin phases hold theirs: K1 over the whole padded dataset (10,016 x
+    200,192 x 64, kc 40, at the heuristic S) and K3 over the seg fold's one
+    chunk (10,240 x 200,704 x 64). Returns (K1's, K3's) records."""
+    import torch
+    from dmlp_tpu_torch.bench import driver
+    from dmlp_tpu_torch.engine.single import round_up
+    from dmlp_tpu_torch.ops import dist_segmin as ds
+    from dmlp_tpu_torch.ops import extract as ex
+    from dmlp_tpu_torch.ops.fused import fused_topk
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    inp = driver.make_workload(200_000, 10_000, 64, 32)
+    n, a = inp.data_attrs.shape
+    kc = round_up(32 + 8, 8)
+    q, d, _lab, npad, qpad = driver.stage_extract_inputs(inp, dev)
+    s = ex.heuristic_splits(qpad, npad, kc, "cuda")
+    tol = ex.list_tolerance((q * q).sum(-1), float((d * d).sum(-1).max()),
+                            a, "f32")
+    ms, (od, oi, it) = time_ms(
+        lambda: fused_topk(q, d, n_real=n, kc=kc, splits=s), reps)
+    plain_ms, (pd, pi, pit) = time_ms(lambda: ex.extract_topk_plain(
+        q, d, n_real=n, kc=kc, mxu_gate=True, splits=s), PLAIN_REPS)
+    cmp = ex.compare_lists(od, oi, pd, pi, tol)
+    HELD["k1"].add((qpad, npad, a, kc))
+    k1 = {"phase": "kernel_case", "case": "driver_extract",
+          "kernel": "fused_topk", "shape": [qpad, npad, a, kc],
+          "splits": s, "ms": ms, "plain_ms": plain_ms,
+          "iters_equal": bool(torch.equal(it, pit)), **cmp,
+          **bound(q, d, kc, it, True, False, "f32")}
+    emit(k1)
+    check(cmp["ok"] and k1["iters_equal"],
+          f"driver_extract: K1 disagrees with the plain version {k1}")
+    del q, d, od, oi, pd, pi
+    # The seg fold's chunk: the driver's own arithmetic for it.
+    nq = inp.params.num_queries
+    qpad, npad = round_up(nq, 1024), round_up(n, 1024)
+    b = driver._fold_tile(npad, min(npad, max((9 << 30) // (qpad * 4),
+                                               1024)), 1024)
+    q = torch.zeros((qpad, a), device=dev)
+    q[:nq] = torch.from_numpy(inp.query_attrs.astype("float32"))
+    d = torch.zeros((b, a), device=dev)
+    d[:min(n, b)] = torch.from_numpy(inp.data_attrs[:b].astype("float32"))
+    ar = torch.arange(b, dtype=torch.int32, device=dev)
+    ids = torch.where(ar < n, ar, -1)
+    tol = ex.list_tolerance((q * q).sum(-1), float((d * d).sum(-1).max()),
+                            a, "f32")
+    ms, (dist, segmin) = time_ms(lambda: ds.fused_dist_segmin(q, d, ids),
+                                 reps)
+    plain_ms, (pdist, pseg) = time_ms(
+        lambda: ds.fused_dist_segmin_plain(q, d, ids), PLAIN_REPS)
+    err, inf_same, seg_own = 0.0, True, True
+    for lo in range(0, qpad, 1024):      # row blocks: bounded temporaries
+        x, y = dist[lo:lo + 1024], pdist[lo:lo + 1024]
+        fin = torch.isfinite(x) & torch.isfinite(y)
+        e = torch.where(fin, (x - y).abs(), 0.0).max(1).values
+        err = max(err, float(e.max()))
+        inf_same &= bool(torch.equal(torch.isinf(x), torch.isinf(y)))
+        inf_same &= bool(torch.isinf(x[:, ids < 0]).all())
+        ok_rows = bool((e <= tol[lo:lo + 1024]).all())
+        seg_own &= ok_rows and bool(torch.equal(
+            segmin[lo:lo + 1024], x.view(x.shape[0], -1, ds.SEG).min(-1)
+            .values))
+    HELD["k3"].add((qpad, b, a))
+    k3 = {"phase": "kernel_case", "case": "driver_seg",
+          "kernel": "fused_dist_segmin", "shape": [qpad, b, a], "ms": ms,
+          "plain_ms": plain_ms, "max_abs_err": err,
+          "inf_where_sentinel": inf_same,
+          "within_tolerance_and_segmin_own": seg_own,
+          **segmin_bound(qpad, b, a, "f32")}
+    emit(k3)
+    check(inf_same and seg_own,
+          f"driver_seg: K3 disagrees with the plain version {k3}")
+    del q, d, dist, segmin, pdist, pseg
+    torch.cuda.empty_cache()
+    return k1, k3
+
+
+def bench_phase(tmp_dir, card, reps):
+    """The bench (``python -m dmlp_tpu_torch.bench``), its driver, the
+    ledger's report and the perf gate on the card, every engine a
+    subprocess of the harness loading the kernel libraries from the
+    compile cache the build phase filled. Returns the launches per run
+    (one timed solve each, from the runs' own counters)."""
+    from dmlp_tpu_torch.bench.configs import BENCH_CONFIGS
+    from dmlp_tpu_torch.utils.compile_cache import ENV_VAR
+
+    t_phase = time.perf_counter()
+    base = os.path.join(tmp_dir, "bench")
+    recs_dir = os.path.join(base, "records")
+    os.makedirs(os.path.join(base, "inputs"), exist_ok=True)
+    os.makedirs(recs_dir, exist_ok=True)
+    cache = os.environ[ENV_VAR]
+    cache_before = _cache_files(cache)
+    # The bench's inputs are CONFIGS' own generator runs (the same
+    # arguments and seed, so the same bytes): written once from the texts
+    # the earlier phases generated instead of generated again.
+    for cid, name in ((4, "config4"), (3, "config2")):
+        b, c = BENCH_CONFIGS[cid], CONFIGS[name]
+        check((b.num_data, b.num_queries, b.num_attrs, b.min_attr,
+               b.max_attr, b.min_k, b.max_k, b.num_labels, b.seed) == (
+            c["num_data"], c["num_queries"], c["num_attrs"], c["attr_min"],
+            c["attr_max"], c["min_k"], c["max_k"], c["num_labels"],
+            c["seed"]), f"bench config {cid} is not {name}")
+        with open(os.path.join(base, "inputs", b.input_name), "w") as f:
+            f.write(config_text(name))
+    rec = {r: os.path.join(recs_dir, f"bench_r{i}.jsonl")
+           for i, r in enumerate(("config4_ab", "config4", "config3_auto",
+                                  "serve"), 1)}
+    bench = ["dmlp_tpu_torch.bench", "--base-dir", base]
+    launches, runs = {}, {}
+
+    def row(d):
+        return {k: int(d.get(k, 0)) for k in KERNELS}
+
+    def done(run):
+        emit({"phase": "bench_run", "run": run, **runs[run]})
+
+    # 1. Config 4, 3 reps, counters, and the K1 / K2 A/B.
+    rc, out, err, wall = _bench_call("bench 4 --fused-ab", bench + [
+        "4", "--reps", "3", "--counters", "--fused-ab", "--record",
+        rec["config4_ab"]])
+    check(rc == 0 and "Config 4: checksums PASS" in out,
+          f"bench 4 --fused-ab: {out[-2000:]}")
+    (r1,) = _records(rec["config4_ab"])
+    m = r1["metrics"]
+    check(m.get("fused_ab_identical") is True
+          and m.get("fused_ab_impls") == {"fused": ["fused"],
+                                          "two_pass": ["extract"]},
+          f"bench 4: fused A/B {m.get('fused_ab_unavailable')}")
+    k1, k2 = m["fused_ab_launches"]["fused"], \
+        m["fused_ab_launches"]["two_pass"]
+    check(k1.get("fused_topk") == 4 and not k1.get("extract_topk"),
+          f"bench 4: the fused arm's solve launched {k1}")
+    check(k2.get("extract_topk") == 4 and not k2.get("fused_topk"),
+          f"bench 4: the DMLP_TPU_FUSED=0 arm's solve launched {k2}")
+    check(m.get("counters_dispatches") == sum(k1.values()),
+          f"bench 4: --counters read {m.get('counters_dispatches')} "
+          f"launches, the fused arm's solve {k1}")
+    launches["bench_config4_K1"] = row(k1)
+    launches["bench_config4_K2"] = row(k2)
+    runs["config4_ab"] = {
+        "time_taken_ms": _spread(m["engine_ms_reps"]),
+        "fused": _spread(m["engine_ms_fused_reps"]),
+        "two_pass": _spread(m["engine_ms_two_pass_reps"]),
+        "fused_ab_pct": m.get("fused_ab_pct"),
+        "k1_launches_per_solve": k1, "k2_launches_per_solve": k2,
+        "counters_dispatches": m["counters_dispatches"],
+        "oracle_ms": m["oracle_ms"], "wall_s": wall}
+    done("config4_ab")
+    # 2. Config 4 again, 3 reps: the gate's second round.
+    rc, out, err, wall = _bench_call("bench 4", bench + [
+        "4", "--reps", "3", "--record", rec["config4"]])
+    check(rc == 0 and "Config 4: checksums PASS" in out,
+          f"bench 4: {out[-2000:]}")
+    (r2,) = _records(rec["config4"])
+    runs["config4"] = {"time_taken_ms": _spread(
+        r2["metrics"]["engine_ms_reps"]), "wall_s": wall}
+    done("config4")
+    rc, gate_out, err, _ = _bench_call(
+        "perf_gate", ["dmlp_tpu_torch.perf_gate", "--root", recs_dir,
+                      "--json"])
+    # --json prints the verdict document, then the summary line.
+    gate, _ = json.JSONDecoder().raw_decode(gate_out)
+    cmps = [c for k in ("regressions", "improvements", "unqualified",
+                        "within_noise") for c in gate[k]
+            if c["series"] == "harness/config4/engine_ms"]
+    check(len(cmps) == 1 and "marker" not in cmps[0]
+          and (cmps[0]["prev_round"], cmps[0]["cur_round"]) == (1, 2),
+          f"perf gate: harness/config4/engine_ms not qualified: {cmps}")
+    verdict = ("regressed" if cmps[0]["regressed"] else "improved"
+               if cmps[0]["improved"] else "within noise")
+    runs["gate"] = {"rc": rc, "verdict": verdict,
+                    **{k: cmps[0][k] for k in ("median_prev", "median_cur",
+                                               "noise_band", "delta_pct")}}
+    done("gate")
+    # 3. Config 3 (config 2's input on 8 gloo ranks of cuda:0): auto,
+    # sharded and ring.
+    rc, out, err, wall = _bench_call("bench 3 --auto-ab", bench + [
+        "3", "--auto-ab", "--record", rec["config3_auto"]])
+    check(rc == 0 and "Config 3: checksums PASS" in out,
+          f"bench 3: {out[-2000:]}")
+    auto = [r for r in _records(rec["config3_auto"]) if r["kind"] == "auto"]
+    check(len(auto) == 1 and auto[0]["metrics"].get("auto_ab_identical"),
+          f"bench 3 --auto-ab: {auto and auto[0]['metrics']}")
+    am = auto[0]["metrics"]
+    for arm in ("auto", "sharded", "ring"):
+        ranks = am["auto_ab_launches"][arm]
+        check(len(ranks) == 8, f"bench 3: the {arm} arm's ranks {ranks}")
+        launches[f"bench_config3_{arm}"] = row(
+            {k: sum(r.get(k, 0) for r in ranks) for k in KERNELS})
+    plan, k3 = bench_auto_config3_checks(base, am)
+    runs["config3_auto"] = {
+        **{f"{a}_ms": am[f"engine_ms_{a}"] for a in ("auto", "sharded",
+                                                     "ring")},
+        **{f"warmup_ms_{a}": am.get(f"warmup_ms_{a}")
+           for a in ("auto", "sharded", "ring")},
+        **{f"hlo_bytes_{a}": am.get(f"auto_hlo_bytes_{a}")
+           for a in ("auto", "sharded", "ring")},
+        "k3_per_rank_auto": [r.get("fused_dist_segmin", 0)
+                             for r in am["auto_ab_launches"]["auto"]],
+        "k3_shape": k3, "repairs": am["auto_ab_repairs"], "wall_s": wall}
+    done("config3_auto")
+    # 4. The serve bench: the recorded trace against the daemon.
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rc, out, err, wall = _bench_call("bench serve", bench + [
+        "serve", "--serve-trace", os.path.join(repo, "inputs",
+                                               "serve_trace1.jsonl"),
+        "--reps", "1", "--record",
+        rec["serve"]])
+    check(rc == 0 and "byte-identical to the golden oracle" in out,
+          f"bench serve: {out[-2000:]} {err[-2000:]}")
+    (sv,) = _records(rec["serve"])
+    runs["serve"] = {k: sv["metrics"][k] for k in (
+        "requests_per_sec_carry_on", "requests_per_sec_carry_off",
+        "request_latency_p50_ms_carry_on", "request_latency_p95_ms_carry_on",
+        "cold_start_compile_ms")}
+    runs["serve"]["wall_s"] = wall
+    done("serve")
+    # 5. The driver at its defaults (200,000 x 10,000 x 64, k 32), its
+    # kernels first held at its launch shapes.
+    held = hold_driver_shapes(reps)
+    rc, out, err, wall = _bench_call("bench.driver",
+                                     ["dmlp_tpu_torch.bench.driver"])
+    check(rc == 0, f"bench.driver: {err[-2000:]}")
+    drv = json.loads(out.splitlines()[-1])
+    ph, dl = drv["path"]["phases_ms"], drv["path"]["device_solve_launches"]
+    check("device_solve_ms_extract" in ph and "device_solve_ms_seg" in ph,
+          f"bench.driver: no device solve: {drv['path']}")
+    check(dl["extract"]["fused_topk"] >= 1
+          and dl["seg"]["fused_dist_segmin"] >= 1,
+          f"bench.driver: device-solve launches {dl}")
+    launches["bench_driver_extract"] = row(dl["extract"])
+    launches["bench_driver_seg"] = row(dl["seg"])
+    runs["driver"] = {k: drv.get(k) for k in (
+        "value", "vs_baseline", "baseline_ms_est", "qd_pairs_per_sec",
+        "device_solve_ms", "vs_reference_binary")}
+    runs["driver"].update({k: v for k, v in ph.items()
+                           if k.startswith("device_solve_ms_")},
+                          launches=dl, wall_s=wall,
+                          held={r["case"]: r["shape"] for r in held})
+    done("driver")
+    # 6. The report over the records: every record parsed, each naming
+    # this card.
+    rc, out, err, _ = _bench_call("report", [
+        "dmlp_tpu_torch.report", "--root", recs_dir, "--min-coverage",
+        "1.0", "--out", os.path.join(base, "LEDGER.json")])
+    check(rc == 0, f"report --min-coverage 1.0: {err[-2000:]}")
+    with open(os.path.join(base, "LEDGER.json")) as f:
+        led = json.load(f)
+    devices = {r.get("device") for p in rec.values() for r in _records(p)}
+    check(devices == {card}, f"records name {devices}, not {card!r}")
+    check(led["coverage"]["files"] == len(rec)
+          and led["coverage"]["fraction"] == 1.0,
+          f"report: coverage {led['coverage']}")
+    # The compile cache: every subprocess loaded the build phase's
+    # libraries; nothing was built again, here or in the package.
+    check(_cache_files(cache) == cache_before,
+          f"the compile cache changed: {cache_before} -> "
+          f"{_cache_files(cache)}")
+    emit({"phase": "bench", "devices": sorted(devices),
+          "ledger_series": len(led["series"]),
+          "compile_cache_files": sorted(cache_before),
           "wall_s": time.perf_counter() - t_phase})
     return launches
 
@@ -4127,11 +4574,12 @@ def golden_subset(label, name, lines, size):
     check(ok, f"{label}: the subset differs from the float64 oracle")
 
 
-def profile_main_path():
+def profile_main_path(warm: bool = True):
     """The shipped timed region (engine.run + result formatting, parsing
     excluded) of config 4, the wide-k mix, the wide-k multi-pass and
-    config 2's seg solve once more, each after a warm run, under
-    torch.profiler: device time by kernel name, the device's busy time
+    config 2's seg solve once more under torch.profiler, each after a
+    warm run unless ``warm`` is false (the main phase solved each in this
+    process already): device time by kernel name, the device's busy time
     (union of its kernel and copy intervals), its idle share of the
     window, and the host's blocking scalar reads (the seg step's hazard
     flag)."""
@@ -4149,7 +4597,8 @@ def profile_main_path():
         inp = config_input(name)
         engine = SingleChipEngine(EngineConfig(use_pallas=True,
                                                select=select))
-        format_results(engine.run(inp))
+        if warm:
+            format_results(engine.run(inp))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4211,38 +4660,61 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t_start = time.perf_counter()
-    phase_build()
+    # The compile cache: a fresh directory that the build phase fills and
+    # every later process (mesh ranks, daemons, fleet replicas, the
+    # bench's engines) loads from; the package's own build directory
+    # must stay as it was.
+    from dmlp_tpu_torch import kernels
+    from dmlp_tpu_torch.utils.compile_cache import ENV_VAR, enable_from_flag
+    cache_dir = tempfile.TemporaryDirectory(prefix="dmlp-compile-cache-")
+    enable_from_flag(cache_dir.name)
+    default_build = _cache_files(str(kernels.BUILD_DIR))
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        got = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        emit({"phase": "phase_time", "name": name, "s": phase_s[name]})
+        return got
+
+    timed("build", phase_build)
+    check(os.environ[ENV_VAR] == cache_dir.name and {
+        kernels.library_path(n).name for n in kernels.SOURCES}
+        <= set(_cache_files(cache_dir.name)),
+        "the build phase did not build into the compile cache")
     summary, sweep_inputs, g_inputs = {}, None, None
     if "kernels" in phases:
-        summary, sweep_inputs = kernel_cases(args.reps)
+        summary, sweep_inputs = timed("kernels", kernel_cases, args.reps)
     if "segmin" in phases:
-        g_inputs = segmin_cases(summary, args.reps)
+        g_inputs = timed("segmin", segmin_cases, summary, args.reps)
     tmp = tempfile.TemporaryDirectory()
     tune_path = None
     if "tune" in phases:
         check(sweep_inputs is not None and g_inputs is not None,
               "the tune phase needs the kernels and segmin phases")
-        tune_path = phase_tune(sweep_inputs, g_inputs, tmp.name)
+        tune_path = timed("tune", phase_tune, sweep_inputs, g_inputs,
+                          tmp.name)
         del sweep_inputs, g_inputs
-    launches = main_path(tune_path) if "main" in phases else {}
+    launches = timed("main", main_path, tune_path) \
+        if "main" in phases else {}
     if "obs" in phases:
-        obs_phase(tmp.name)
-    if "mesh" in phases:
-        launches.update(mesh_phase(tmp.name))
-    if "serve" in phases:
-        launches.update(serve_phase(tmp.name))
-    if "fleet" in phases:
-        launches.update(fleet_phase(tmp.name))
-    if "auto" in phases:
-        launches.update(auto_phase(tmp.name))
-    if "train" in phases:
-        launches.update(train_phase(tmp.name))
-    if "train_parallel" in phases:
-        launches.update(train_parallel_phase(tmp.name))
+        timed("obs", obs_phase, tmp.name)
+    for name, fn in (("mesh", mesh_phase), ("serve", serve_phase),
+                     ("fleet", fleet_phase), ("auto", auto_phase),
+                     ("train", train_phase),
+                     ("train_parallel", train_parallel_phase)):
+        if name in phases:
+            launches.update(timed(name, fn, tmp.name))
+    if "bench" in phases:
+        launches.update(timed("bench", bench_phase, tmp.name,
+                              torch.cuda.get_device_name(0), args.reps))
     if "real_oom" in phases:
-        real_oom()
+        timed("real_oom", real_oom)
     if "profile" in phases:
-        profile_main_path()
+        timed("profile", profile_main_path, "main" not in phases)
+    check(_cache_files(str(kernels.BUILD_DIR)) == default_build,
+          f"{kernels.BUILD_DIR} changed: the compile cache was bypassed")
     if summary:
         rows = []
         for name in (n for n in KERNELS if n in summary):
@@ -4266,7 +4738,9 @@ def main(argv=None) -> int:
                             if k in s}})
         print(json.dumps({"kernels": rows}), flush=True)
     tmp.cleanup()
-    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+    cache_dir.cleanup()
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
+          "phase_s": phase_s})
     check(phases >= set(PHASES),
           "a partial run (--phases) prints no result line")
     print(json.dumps({"ok": True, "device": {

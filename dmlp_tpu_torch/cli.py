@@ -13,7 +13,8 @@ Usage::
                              [--mode single|sharded|ring|auto] [--mesh R,C]
                              [--backend nccl|gloo]
                              [--pallas] [--debug] [--fast] [--device-full]
-                             [--faults FILE] [--hlo-report FILE] < input.in
+                             [--faults FILE] [--hlo-report FILE]
+                             [--compile-cache DIR] < input.in
 
 ``--device-full`` solves with ``engine.run_device_full`` (warm-up
 included): the vote and the report order on the device, in f32.
@@ -49,13 +50,19 @@ crash flight recorder, ``FLIGHT_*.json`` beside FILE); ``--profile DIR``
 writes a ``torch.profiler`` Chrome trace of the timed solve, and the
 summary's ``profile`` block the device's busy time and idle share over
 it. ``--hlo-report FILE`` records the collectives every rank issues in
-the timed solve (``obs.hlo``: a dispatch mode, entered only with this
-flag) and appends one ``kind="hlo"`` RunRecord: the record's bytes per
+the timed solve, or with ``--warmup`` in the warm-up solve, which issues
+the same ones and keeps the recorder out of ``Time taken`` (``obs.hlo``:
+a dispatch mode, entered only with this flag), and appends one
+``kind="hlo"`` RunRecord: the record's bytes per
 kind and mesh axis, held against ``obs.comms``' models (the auto engine's
 against the all-gather engine's model of its plan) and the allocator's
 peak against the memory model. On the mesh
 rank 0 writes every artifact, and the ranks' counters are gathered into
 its record.
+
+``--compile-cache DIR`` builds and loads the kernel libraries and the
+native parser in DIR (``utils.compile_cache``), shared with every rank
+this process starts.
 """
 
 from __future__ import annotations
@@ -159,6 +166,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="serve the OpenMetrics text on "
                              "localhost:PORT/metrics (0 = ephemeral; "
                              "implies the telemetry session)")
+    parser.add_argument("--compile-cache", metavar="DIR", default=None,
+                        help="build directory of the kernel and parser "
+                             "libraries (utils.compile_cache; created, "
+                             "raises when unusable); "
+                             "$DMLP_TPU_COMPILE_CACHE is the ambient form "
+                             "(flag wins)")
     return parser
 
 
@@ -220,6 +233,8 @@ def main(argv: Optional[Sequence[str]] = None,
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
     stderr = stderr or sys.stderr
+    from dmlp_tpu_torch.utils.compile_cache import enable_from_flag
+    enable_from_flag(args.compile_cache)   # before any library is built
 
     from dmlp_tpu_torch.resilience import inject as rs_inject
     from dmlp_tpu_torch.resilience import stats as rs_stats
@@ -559,15 +574,20 @@ def _solve_on_mesh(args, config, stdin, stdout, stderr, probe) -> int:
         with timer.phase("parse"), obs_span("cli.parse"):
             inp = parse_input(stdin)
     solve = engine.run_device_full if args.device_full else engine.run
-    if args.warmup:
-        with timer.phase("warmup"), obs_span("cli.warmup_compile"):
-            solve(inp)
-        if probe is not None:
-            probe.reset()
     record = contextlib.nullcontext()
     if args.hlo_report:
         from dmlp_tpu_torch.obs import hlo as obs_hlo
         record = obs_hlo.recording(engine, label="cli.solve")
+    if args.warmup:
+        # The recorder is a dispatch mode that sees every op: with a
+        # warm-up it records that solve (the same plan, so the same
+        # collectives), and Time taken stays free of it.
+        with timer.phase("warmup"), obs_span("cli.warmup_compile"), \
+                record as recorder:
+            solve(inp)
+        record = contextlib.nullcontext(recorder)
+        if probe is not None:
+            probe.reset()
     with _profiled(args, prof) if engine.root \
             else contextlib.nullcontext():
         timer.start()

@@ -49,13 +49,17 @@ class ReplicaSpec:
     ``flags`` are the daemon's own (``--device cpu``, ``--pallas``,
     ``--mesh RxC --backend gloo``, ...). A mesh replica's daemon starts
     its R·C − 1 worker ranks itself from ``--mesh``; the environment
-    carries no compiler setting for them."""
+    carries no compiler setting for them. ``compile_cache`` is every
+    spawn's ``--compile-cache`` (``utils.compile_cache``): relaunches,
+    scale-ups and re-splits load the first generation's libraries instead
+    of building them again."""
 
     def __init__(self, corpus_path: str, out_dir: str,
                  warm_spec: str = "1x1", batch_cap: int = 32,
                  flags: Optional[List[str]] = None,
                  env_extra: Optional[Dict[str, str]] = None,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None,
+                 compile_cache: Optional[str] = None):
         self.corpus_path = os.path.abspath(corpus_path)
         self.out_dir = os.path.abspath(out_dir)
         self.warm_spec = warm_spec
@@ -63,6 +67,8 @@ class ReplicaSpec:
         self.flags = list(flags or [])
         self.env_extra = dict(env_extra or {})
         self.capacity = capacity
+        self.compile_cache = (os.path.abspath(compile_cache)
+                              if compile_cache else None)
 
     def spawn(self, name: str,
               capacity: Optional[int] = None) -> fh.FleetProc:
@@ -70,10 +76,12 @@ class ReplicaSpec:
         cap = capacity or self.capacity
         if cap:
             flags += ["--capacity", str(int(cap))]
+        cache = {"compile_cache": self.compile_cache} \
+            if self.compile_cache else {}
         return fh.spawn_replica(self.corpus_path, self.out_dir, name,
                                 self.warm_spec,
                                 batch_cap=self.batch_cap, flags=flags,
-                                env_extra=self.env_extra)
+                                env_extra=self.env_extra, **cache)
 
 
 class ManagedReplica:

@@ -48,8 +48,12 @@ def spawn_replica(corpus_path: str, out_dir: str, name: str,
                   warm_spec: str, batch_cap: int = 32,
                   flags: Optional[List[str]] = None,
                   env_extra: Optional[Dict[str, str]] = None,
-                  record: Optional[str] = None) -> FleetProc:
-    """Start one replica daemon (not waited on: :func:`await_replica`)."""
+                  record: Optional[str] = None,
+                  compile_cache: Optional[str] = None) -> FleetProc:
+    """Start one replica daemon (not waited on: :func:`await_replica`).
+    ``compile_cache`` is the daemon's ``--compile-cache``: the replica
+    builds and loads its libraries there (``$DMLP_TPU_COMPILE_CACHE``
+    also rides the inherited environment)."""
     ready = os.path.join(out_dir, f"{name}_ready.json")
     telem = os.path.join(out_dir, f"{name}_telemetry.prom")
     errlog = os.path.join(out_dir, f"{name}.err")
@@ -64,6 +68,8 @@ def spawn_replica(corpus_path: str, out_dir: str, name: str,
            "--tick-ms", "2"] + (flags or [])
     if record:
         cmd += ["--record", record]
+    if compile_cache:
+        cmd += ["--compile-cache", compile_cache]
     with open(errlog, "w") as ef:
         proc = subprocess.Popen(cmd, stderr=ef,
                                 stdout=subprocess.DEVNULL,

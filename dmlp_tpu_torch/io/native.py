@@ -1,10 +1,11 @@
 """ctypes bridge to the port's native parser (``io/fastparse.cpp``).
 
 Port of ``dmlp_tpu/io/native.py``, with the port's own copy of the C++
-source. At first use ``g++ -O3 -shared -fPIC`` builds it into
-``dmlp_tpu_torch/_build/``, named by a hash of the source and the flags
-(as ``kernels.library_path`` names the CUDA libraries), and ``ctypes``
-loads it.
+source. At first use ``g++ -O3 -shared -fPIC`` builds it into the build
+directory (``dmlp_tpu_torch/_build/``, or the compile cache:
+``utils.compile_cache``, resolved at each call), named by a hash of the
+source and the flags (as ``kernels.library_path`` names the CUDA
+libraries), and ``ctypes`` loads it.
 
 The C++ parser accepts exactly what it can parse as the pure-Python parser
 does (``io.grammar.parse_input_text``): the same arrays, bit for bit
@@ -32,8 +33,10 @@ from typing import Optional, Union
 import numpy as np
 
 from dmlp_tpu_torch.io.grammar import KNNInput, Params
+from dmlp_tpu_torch.utils import compile_cache
 
 SOURCE = Path(__file__).resolve().parent / "fastparse.cpp"
+# The build directory when no compile cache is set.
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
@@ -48,7 +51,8 @@ def library_path() -> Path:
     """The built library: keyed by the source's and the flags' hash."""
     h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"fastparse-{h.hexdigest()[:16]}.so"
+    return compile_cache.build_dir(BUILD_DIR) / \
+        f"fastparse-{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
@@ -67,7 +71,7 @@ def build() -> dict:
                 cxx = shutil.which("g++")
                 if cxx is None:
                     raise OSError("g++ not found")
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                out.parent.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
                 p = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
                                     str(SOURCE)], capture_output=True,

@@ -2,8 +2,10 @@
 
 Each kernel is one ``.cu`` file in this directory with a plain ``extern "C"``
 launcher. It is compiled at first use by ``nvcc`` for ``sm_90a`` into a
-shared library under ``dmlp_tpu_torch/_build/`` (named by a hash of the
-source and the flags, so an edit rebuilds) and loaded with ``ctypes``; the
+shared library in the build directory (``dmlp_tpu_torch/_build/``, or the
+compile cache: ``utils.compile_cache``, resolved at each call), named by a
+hash of the source and the flags, so an edit rebuilds, and loaded with
+``ctypes``; the
 wrapper passes raw device pointers and PyTorch's current stream. This needs
 neither ninja nor PyTorch's C++ headers. A missing ``nvcc``, a failed build
 or a failed load raises ``KernelBuildError``: there is no fallback.
@@ -20,7 +22,10 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
+from dmlp_tpu_torch.utils import compile_cache
+
 KERNEL_DIR = Path(__file__).resolve().parent
+# The build directory when no compile cache is set (``build_dir``).
 BUILD_DIR = KERNEL_DIR.parent / "_build"
 NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -100,9 +105,16 @@ def source_hash(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """The compile cache's directory when one is set, else
+    :data:`BUILD_DIR`; resolved at each call."""
+    return compile_cache.build_dir(BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
-    """The built library: keyed by :func:`source_hash`."""
-    return BUILD_DIR / f"{name}-{source_hash(name)}.so"
+    """The built library in :func:`build_dir`: keyed by
+    :func:`source_hash`."""
+    return build_dir() / f"{name}-{source_hash(name)}.so"
 
 
 def build_command(name: str, nvcc: str = "nvcc") -> Tuple[List[str], Path]:
@@ -124,7 +136,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     if not todo:
         return info
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for n in todo:
+        library_path(n).parent.mkdir(parents=True, exist_ok=True)
     procs = []
     for n in todo:
         argv, tmp = build_command(n, nvcc)

@@ -10,7 +10,7 @@ Usage::
         [--precision auto|f32|bf16] [--data-block N]
         [--warm-buckets NQxK,NQxK,...] [--ready-file PATH] [--faults FILE]
         [--telemetry FILE] [--telemetry-port PORT] [--trace FILE]
-        [--slo SPEC ...] [--record FILE]
+        [--slo SPEC ...] [--record FILE] [--compile-cache DIR]
         [--mesh RxC [--mesh-merge allgather|ring|auto] [--backend nccl|gloo]]
 
 The corpus file is the standard input grammar: its data section becomes
@@ -39,8 +39,11 @@ reference's compiler-scheduled merge (the engine's "gspmd" strategy: K1
 folds the chunks as before, and the lists merge by a DTensor
 redistribution from data-sharded to query-sharded).
 
-The reference's ``--snapshot-every-s`` (A15) and ``--compile-cache`` (no
-compiled program to cache) are not flags here.
+``--compile-cache DIR`` (``$DMLP_TPU_COMPILE_CACHE`` the ambient form)
+builds and loads the kernel libraries and the native parser in DIR
+(``utils.compile_cache``), shared with the worker ranks and, through the
+fleet's spawns, with every replica. The reference's
+``--snapshot-every-s`` comes with the checker slice (A15b).
 """
 
 from __future__ import annotations
@@ -190,8 +193,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="collective backend of --mesh (default: nccl on "
                         "the card, gloo on the CPU; more ranks than cards "
                         "need gloo, given explicitly)")
+    p.add_argument("--compile-cache", metavar="DIR", default=None,
+                   help="build directory of the kernel and parser "
+                        "libraries (utils.compile_cache; raises when "
+                        "unusable); $DMLP_TPU_COMPILE_CACHE is the ambient "
+                        "form (flag wins)")
     args = p.parse_args(argv)
     mesh_shape = _parse_mesh(args.mesh)
+
+    from dmlp_tpu_torch.utils.compile_cache import enable_from_flag
+    # Before any library is built: the warm-up builds and loads them.
+    enable_from_flag(args.compile_cache)
 
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.io.grammar import parse_input

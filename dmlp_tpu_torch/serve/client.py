@@ -354,6 +354,22 @@ def warm_buckets_for_trace(requests: List[Dict[str, Any]],
 
 # -- daemon lifecycle (shared by the bench harness and the smoke) --------------
 
+def clear_flight_dumps(directory: str) -> List[str]:
+    """Remove stale ``FLIGHT_*.json`` post-mortems from ``directory``
+    and return their names. Callers that assert 'an orderly drain left
+    no flight dump' must call this first: a crash in a previous run
+    would otherwise fail every later clean run."""
+    stale = [p for p in os.listdir(directory)
+             if p.startswith("FLIGHT_") and p.endswith(".json")]
+    for p in stale:
+        os.remove(os.path.join(directory, p))
+    return stale
+
+
+def flight_dumps(directory: str) -> List[str]:
+    return [p for p in os.listdir(directory) if p.startswith("FLIGHT_")]
+
+
 def await_ready(proc, ready_path: str, timeout_s: float = 300.0,
                 errlog: str = "") -> Dict[str, Any]:
     """Block until the daemon subprocess writes its ready file; raise

@@ -32,8 +32,10 @@ card (gloo carries the CUDA tensors). The device is ``cuda`` unless
 ``--device cpu`` is given; without a card the run raises.
 
 The pipeline and MoE families run in f32 without offload, as in the
-reference; their flags raise where they do not apply. ``--sanitize`` and
-``--compile-cache`` raise naming A15.
+reference; their flags raise where they do not apply. ``--compile-cache
+DIR`` builds and loads the native libraries in DIR (``utils.
+compile_cache``), shared with the ranks ``--mesh`` starts; ``--sanitize``
+raises, naming the checker slice (A15b).
 """
 
 from __future__ import annotations
@@ -128,14 +130,12 @@ def build_sharded_state(mesh, dims, optimizer, seed: int = 0,
     return state
 
 
-def refuse_unported(sanitize: bool = False,
-                    compile_cache: Optional[str] = None) -> None:
-    """Raise for what this package does not port yet: ``--sanitize`` and
-    ``--compile-cache`` (A15)."""
-    if compile_cache:
-        raise ValueError("--compile-cache is not ported yet (A15)")
+def refuse_unported(sanitize: bool = False) -> None:
+    """Raise for what this package does not port yet: ``--sanitize``,
+    the runtime sanitizer of the checker slice (A15b)."""
     if sanitize:
-        raise ValueError("--sanitize is not ported yet (A15)")
+        raise ValueError("--sanitize is not ported yet: it comes with the "
+                         "checker (A15b)")
 
 
 def _ranks() -> int:
@@ -613,7 +613,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "FILE and the crash flight recorder")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--sanitize", action="store_true",
-                   help="not ported yet (A15): raises")
+                   help="not ported yet (the checker, A15b): raises")
     p.add_argument("--nan-guard", action="store_true",
                    help="per-step non-finite-loss guard: restore the "
                         "latest checkpoint, replay the stream step for "
@@ -627,7 +627,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host-memory offload level ('params': moments on "
                         "the card; bare --offload means 'all')")
     p.add_argument("--compile-cache", metavar="DIR", default=None,
-                   help="not ported yet (A15): raises")
+                   help="build directory of the native libraries "
+                        "(utils.compile_cache; raises when unusable); "
+                        "$DMLP_TPU_COMPILE_CACHE is the ambient form")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (default cuda; raises without a "
                         "card)")
@@ -641,7 +643,9 @@ def main(argv=None) -> int:
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    refuse_unported(args.sanitize, args.compile_cache)
+    refuse_unported(args.sanitize)
+    from dmlp_tpu_torch.utils.compile_cache import enable_from_flag
+    enable_from_flag(args.compile_cache)
     mesh_shape_arg = None
     if args.mesh:
         mesh_shape_arg = tuple(int(d) for d in args.mesh.split(","))

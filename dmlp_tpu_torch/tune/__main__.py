@@ -6,6 +6,7 @@ Regenerate the variant cache on the current card::
                                   [--kc 48 ...] [--kernel both]
                                   [--precision f32] [--reps 3]
                                   [--out PATH] [--device cuda|cpu]
+                                  [--record FILE] [--compile-cache DIR]
 
 It builds a seeded uniform workload of that size, plans it as the engine
 does (``engine.single.plan_chunks`` on the extraction kernel's granule,
@@ -25,9 +26,10 @@ variants.json``), keeping other keys. ``--kernel``:
 
 ``--smoke`` runs a tiny sweep of every knob on the CPU (the plain
 versions, timed by the host's clock): it proves measure, pick, persist and
-reload. ``--validate PATH`` checks a cache file and exits. The reference's
-``--compile-cache`` (an XLA cache: tooling, ROADMAP A15) and ``--record``
-(a RunRecord of the sweep: tooling, A15) are not ported.
+reload. ``--validate PATH`` checks a cache file and exits. ``--record
+FILE`` writes one ``kind="tune"`` RunRecord of the sweep (``obs.run``).
+``--compile-cache DIR`` builds and loads the kernel libraries in DIR
+(``utils.compile_cache``; ``$DMLP_TPU_COMPILE_CACHE`` the ambient form).
 """
 
 from __future__ import annotations
@@ -69,6 +71,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="a tiny sweep of every knob on the CPU")
     ap.add_argument("--validate", metavar="PATH", default=None,
                     help="check an existing cache file and exit")
+    ap.add_argument("--record", metavar="FILE", default=None,
+                    help="also write one RunRecord (obs.run) summarizing "
+                         "the sweep")
+    ap.add_argument("--compile-cache", metavar="DIR", default=None,
+                    help="build directory of the kernel libraries "
+                         "(utils.compile_cache; raises when unusable); "
+                         "$DMLP_TPU_COMPILE_CACHE is the ambient form")
     return ap
 
 
@@ -136,6 +145,8 @@ def split_case_groups(data, queries, kc, *, gate, precision, chunk_target):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from dmlp_tpu_torch.utils.compile_cache import enable_from_flag
+    enable_from_flag(args.compile_cache)
     if args.validate:
         return _validate(args.validate)
 
@@ -209,6 +220,15 @@ def main(argv=None) -> int:
         return 1
     kind = device_kind(dev)
     sweep.save_winners(winners, out_path, kind)
+    if args.record:
+        from dmlp_tpu_torch.obs.run import RunRecord, current_device
+        RunRecord(kind="tune", tool="dmlp_tpu_torch.tune",
+                  config={"n": n, "q": nq, "a": a, "kcs": list(kcs),
+                          "reps": reps, "device_kind": kind,
+                          "kernel": kernels, "smoke": bool(args.smoke)},
+                  metrics={"winners": winners},
+                  artifacts={"cache": out_path},
+                  device=current_device(dev)).write(args.record)
     print(json.dumps({"device_kind": kind, "cache": out_path,
                       "winners": [{k: w[k] for k in (
                           "kernel", "qb", "b", "a", "kc", "precision",

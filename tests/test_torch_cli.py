@@ -4,6 +4,7 @@ and to ``--engine golden``, the stderr ``Time taken`` line, no JAX and no
 
 import ast
 import io
+import json
 import re
 import subprocess
 import sys
@@ -95,23 +96,52 @@ def test_module_entry_point_imports_no_reference(tmp_path):
     assert lines[-1] == "FORBIDDEN=[]"
 
 
-@pytest.mark.parametrize("entry", ["device_full", "tune_smoke"])
+# A tiny bench config 1 for the bench's entry (its oracle and one engine
+# run in a few seconds).
+TINY_BENCH = ("from dmlp_tpu_torch.bench import configs\n"
+              "configs.BENCH_CONFIGS[1] = configs.BenchConfig(1, 200, 20, "
+              "4, 0.0, 10.0, 1, 8, 4, 7, 'tiny.in')\n")
+
+
+@pytest.mark.parametrize("entry", ["device_full", "tune_smoke", "bench",
+                                   "bench_driver", "report", "perf_gate"])
 def test_device_full_and_tune_smoke_import_no_reference(entry, tmp_path):
     """The same scan after a ``--device-full`` solve of an input past the
-    native parser's threshold, and after ``python -m dmlp_tpu_torch.tune
-    --smoke``."""
+    native parser's threshold, after ``python -m dmlp_tpu_torch.tune
+    --smoke``, and after the tooling entry points: ``python -m
+    dmlp_tpu_torch.bench`` (a tiny config 1), ``.bench.driver`` (a small
+    ``BENCH_*`` shape), ``.report`` and ``.perf_gate`` over the root."""
+    text, setup = "", ""
     if entry == "device_full":
         text = generate_input_text(12000, 100, 16, 0.0, 50.0, 1, 16, 5,
                                    seed=4)
         module, argv = "dmlp_tpu_torch", [
             "dmlp_tpu_torch", "--device", "cpu", "--pallas", "--device-full",
             "--phase-times"]
-    else:
-        text = ""
+    elif entry == "tune_smoke":
         module, argv = "dmlp_tpu_torch.tune", [
             "tune", "--smoke", "--out", str(tmp_path / "smoke.json")]
+    elif entry == "bench":
+        setup = TINY_BENCH
+        module, argv = "dmlp_tpu_torch.bench", [
+            "bench", "1", "--device", "cpu", "--base-dir", str(tmp_path),
+            "--record", str(tmp_path / "runs.jsonl")]
+    elif entry == "bench_driver":
+        setup = ("import os\nos.environ.update(BENCH_NUM_DATA='2000', "
+                 "BENCH_NUM_QUERIES='64', BENCH_NUM_ATTRS='8', "
+                 "BENCH_K='8', BENCH_REPEATS='1')\n")
+        module, argv = "dmlp_tpu_torch.bench.driver", [
+            "driver", "--device", "cpu"]
+    elif entry == "report":
+        module, argv = "dmlp_tpu_torch.report", [
+            "report", "--root", str(ROOT), "--out",
+            str(tmp_path / "L.json"), "--min-coverage", "0.9"]
+    else:
+        module, argv = "dmlp_tpu_torch.perf_gate", [
+            "perf_gate", "--root", str(ROOT)]
     probe = (
         "import runpy, sys\n"
+        + setup +
         f"sys.argv = {argv!r}\n"
         "try:\n"
         f"    runpy.run_module({module!r}, run_name='__main__')\n"
@@ -130,8 +160,20 @@ def test_device_full_and_tune_smoke_import_no_reference(entry, tmp_path):
     if entry == "device_full":
         assert p.stdout.count("\n") == 100
         assert "prune: null" in lines and lines[-2] == "PARSER=native"
-    else:
+    elif entry == "tune_smoke":
         assert '"device_kind": "cpu"' in p.stdout.splitlines()[-1]
+    elif entry == "bench":
+        assert "Config 1: checksums PASS" in p.stdout
+        rec = json.loads((tmp_path / "runs.jsonl").read_text())
+        assert (rec["tool"], rec["device"]) == ("dmlp_tpu_torch.bench",
+                                                "cpu")
+    elif entry == "bench_driver":
+        assert json.loads(p.stdout)["path"]["device"] == "cpu"
+    elif entry == "report":
+        assert json.loads((tmp_path / "L.json").read_text())["coverage"][
+            "fraction"] >= 0.9
+    else:
+        assert "gated series checked" in p.stdout
 
 
 def test_no_source_in_the_port_imports_the_reference_or_jax():

@@ -447,3 +447,35 @@ def test_cli_hlo_report_round_trip(tmp_path, mode):
         == doc["collective_bytes_total"] > 0
     assert doc["bytes_by_kind_axis"][merge] == {
         "data": comms["kinds"][merge]["hlo_bytes"]}
+
+
+def test_cli_hlo_report_with_warmup_records_the_warmup(tmp_path):
+    """With ``--warmup`` the recorder (a dispatch mode over every op)
+    records the warm-up solve, which issues the timed solve's collectives:
+    the record equals the one of a run without a warm-up, byte for byte
+    per kind and axis, and ``Time taken`` is measured without it."""
+    text = generate_input_text(3000, 20, 6, -10, 10, 1, 12, 4, seed=9)
+    src = tmp_path / "in.txt"
+    src.write_text(text)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    docs = {}
+    for warm in ([], ["--warmup"]):
+        path = tmp_path / f"HLO_r{len(warm)}.jsonl"
+        with open(src) as f:
+            p = subprocess.run(
+                [sys.executable, "-m", "dmlp_tpu_torch", "--device", "cpu",
+                 "--mode", "sharded", "--mesh", "2,1", "--phase-times",
+                 "--hlo-report", str(path), *warm],
+                stdin=f, capture_output=True, text=True, cwd=ROOT, env=env,
+                timeout=300)
+        assert p.returncode == 0, p.stderr[-2000:]
+        assert p.stdout == format_results(knn_golden(parse_input_text(text)))
+        assert ("phase warmup:" in p.stderr) == bool(warm)
+        (line,) = path.read_text().splitlines()
+        docs[bool(warm)] = json.loads(line)["comms"]
+    assert docs[True]["bytes_by_kind_axis"] == \
+        docs[False]["bytes_by_kind_axis"]
+    assert docs[True]["collective_bytes_total"] == \
+        docs[False]["collective_bytes_total"] > 0
+    assert docs[True]["reconcile"]["comms_model"]["within_bounds"]

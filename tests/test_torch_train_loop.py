@@ -71,10 +71,11 @@ def test_offload_through_the_loop_equals_resident(level):
     assert a["loss"] == b["loss"]
 
 
-def test_families_of_a14b_and_a15_flags_raise():
+def test_families_of_a14b_and_a15_flags_raise(monkeypatch, tmp_path):
     """The pipeline and MoE families (A14b) run, under the reference's
     flag rules: each raises where its dims or default mesh do not fit;
-    the flags left to A15 raise naming it."""
+    ``--sanitize``, left to the checker (A15b), raises naming it, and
+    ``--compile-cache`` (A15a) runs, its directory made and exported."""
     for fam, dims, match in (("dp_pp", (4, 8, 8, 2), "wants --dims"),
                              ("dp_pp3", (4, 8, 2), "mesh axes must be"),
                              ("dp_ep", (4, 8, 2), "wants --dims")):
@@ -92,10 +93,18 @@ def test_families_of_a14b_and_a15_flags_raise():
               device="cpu")
     with pytest.raises(ValueError, match="A15"):
         train(steps=1, batch=8, dims=(4, 8, 2), sanitize=True, device="cpu")
-    for flags in (["--compile-cache", "d"], ["--sanitize"],
+    for flags in (["--sanitize"],
                   ["--parallelism", "dp_ep", "--dims", "4,8,2"]):
-        with pytest.raises(ValueError, match="A15|dp_ep wants --dims"):
+        with pytest.raises(ValueError, match="A15b|dp_ep wants --dims"):
             loop.main(["--device", "cpu", "--steps", "1", *flags])
+    from dmlp_tpu_torch.utils import compile_cache
+    monkeypatch.setenv(compile_cache.ENV_VAR, "")
+    cache = tmp_path / "cache"
+    assert loop.main(["--device", "cpu", "--steps", "1", "--batch", "8",
+                      "--dims", "4,8,2", "--compile-cache",
+                      str(cache)]) == 0
+    assert cache.is_dir()
+    assert compile_cache.resolve_cache_dir() == str(cache)
 
 
 def test_metrics_events(tmp_path):
