@@ -186,8 +186,8 @@ final result line. Standard output:
    ``real_oom``: an allocation of four times the card's memory, outside
    the engine, raises an error that ``resilience.retry.classify`` calls
    "oom";
-   ``profile``: the timed regions of config 4, the wide-k mix, the wide-k
-   multi-pass and config 2's seg solve once more under torch.profiler —
+   ``profile``: the timed regions of config 4 and config 2's seg solve
+   once more under torch.profiler —
    device time by kernel (the split kernel, the merge and K3 by name),
    device busy time, idle share, and the host's blocking reads;
 3. one ``{"kernels": [...]}`` line: per kernel its route, source, the TPU
@@ -341,6 +341,25 @@ this card. The script sets ``$DMLP_TPU_COMPILE_CACHE`` to a fresh
 temporary directory before the build phase: every later process loads the
 libraries from it, which must not change after the build, and the
 package's own ``_build/`` must stay as it was.
+
+The ``check`` phase (after ``main``; ``--phases build,check`` runs it
+alone, solving its plain twins itself) drives the checker's runtime half
+on the card: a ``sync_probe`` line (which of ``torch.cuda.synchronize``,
+``Event.synchronize``, ``Stream.synchronize``, ``.cpu()``, ``.item()``,
+``nonzero``, an unpinned and a pinned ``.to("cuda")`` the card's
+``torch.cuda.set_sync_debug_mode("error")`` flags); the sanitizer's teeth
+(a seeded ``.item()`` and a seeded ``torch.nonzero`` of CUDA tensors inside
+``check.sanitize.sanitized()`` must raise, the explicit ``readback``
+must not); config 4 ``--pallas --sanitize`` (K1) and config 2 ``--select
+seg --pallas --sanitize`` (K3) through ``cli.main``, each ``cmp``-equal to
+the main phase's plain stdout of the same input with the same launch
+counts, ``Time taken`` sanitized beside plain, and the deliberate syncs
+each took by site; a sanitized 3-step train run against its plain twin
+(resident and with parameter offload, losses within 1e-6 relative);
+and ``python -m dmlp_tpu_torch.check.race_stress --device cuda --pallas``
+(a 2,000-row daemon, K1 over its resident chunks,
+under the race sanitizer: every response the oracle's, 0 inversions, 0
+blocking calls under a lock).
 
 ``--phases`` and ``--reps`` narrow a run while developing (``--phases
 build,segmin`` holds and times K3 alone; ``--phases build,mesh`` solves
@@ -545,12 +564,15 @@ HELD = {"k1": set(), "k3": set()}
 MAX_REPAIR_SHARE = 0.01
 # Timed calls of a K1/K2 case's plain version (after its warm-up call).
 PLAIN_REPS = 1
-PHASES = ("build", "kernels", "segmin", "tune", "main", "obs", "mesh",
-          "serve", "fleet", "auto", "train", "train_parallel", "bench",
-          "real_oom", "profile")
+PHASES = ("build", "kernels", "segmin", "tune", "main", "check", "obs",
+          "mesh", "serve", "fleet", "auto", "train", "train_parallel",
+          "bench", "real_oom", "profile")
 _TEXTS: dict = {}
 # stdout of the single-device solves, by run (the main and mesh phases)
 OUTPUTS: dict = {}
+# the main phase's Time taken ms and launches, by run
+MAIN_TIMES: dict = {}
+MAIN_LAUNCHES: dict = {}
 _INPUTS: dict = {}
 _ORACLE: dict = {}
 
@@ -1683,6 +1705,7 @@ def main_path(tune_path):
                   f"{label}: stdout differs from {extra['same_as']}'s")
         outputs[label], launches[label] = text_out, got
         OUTPUTS[label] = text_out
+        MAIN_TIMES[label], MAIN_LAUNCHES[label] = int(m.group(1)), got
         if subset:
             golden_subset(label, name, out_lines, subset)
         if "exact" in extra:
@@ -1691,6 +1714,208 @@ def main_path(tune_path):
     tmp.cleanup()
     check(outputs["config4_K1"] == outputs["config4_K2_warmup"],
           "gated and ungated config-4 solves print different results")
+    return launches
+
+
+# The check phase's sanitized solves: (run of MAIN_RUNS, its flags).
+CHECK_RUNS = (("config4_K1", ["--pallas"]),
+              ("config2_seg", ["--select", "seg", "--pallas"]))
+
+
+def sync_probe():
+    """Which syncs the card's ``set_sync_debug_mode("error")`` flags."""
+    import torch
+    x = torch.arange(1024.0, device="cuda")
+    host = torch.ones(1024)
+    pinned = host.pin_memory()
+    ops = {
+        "torch.cuda.synchronize": torch.cuda.synchronize,
+        "Event.synchronize": lambda: _event_sync(torch),
+        "Stream.synchronize":
+            lambda: torch.cuda.current_stream().synchronize(),
+        ".cpu()": lambda: x.cpu(),
+        ".item()": lambda: x[3].item(),
+        "nonzero": lambda: torch.nonzero(x > 10),
+        "unpinned .to(cuda)": lambda: host.to("cuda"),
+        "pinned .to(cuda, non_blocking)":
+            lambda: pinned.to("cuda", non_blocking=True),
+    }
+    flags = {}
+    for name, op in ops.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            op()
+            flags[name] = False
+        except RuntimeError as e:
+            check("synchroniz" in str(e), f"sync probe {name}: {e}")
+            flags[name] = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit({"phase": "sync_probe", "torch": torch.__version__,
+          "flagged": flags})
+    return flags
+
+
+def _event_sync(torch):
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+
+
+def _sanitizer_teeth():
+    """A seeded implicit readback and a seeded sync inside sanitized()
+    on CUDA tensors must raise; the explicit readback must not."""
+    import torch
+    from dmlp_tpu_torch.check.sanitize import (ImplicitSyncError, readback,
+                                               sanitized)
+    x = torch.arange(64.0, device="cuda")
+    caught = {}
+    with sanitized():
+        try:
+            x[5].item()
+            caught["item"] = None
+        except ImplicitSyncError as e:
+            caught["item"] = type(e).__name__
+        try:
+            torch.nonzero(x > 10)
+            caught["nonzero"] = None
+        except RuntimeError as e:
+            caught["nonzero"] = "synchronizing" if "synchroniz" in str(e) \
+                else str(e)[:120]
+        got = readback(x[:4], "chip_smoke.teeth")  # check: allow-host-sync
+    mode = torch.cuda.get_sync_debug_mode()
+    emit({"phase": "check_teeth", "caught": caught,
+          "readback": got.tolist(), "sync_debug_mode_after": mode})
+    check(caught == {"item": "ImplicitSyncError",
+                     "nonzero": "synchronizing"},
+          f"the sanitizer missed a seeded sync on the card: {caught}")
+    check(got.tolist() == [0.0, 1.0, 2.0, 3.0] and mode == 0,
+          f"readback {got}, sync debug mode {mode} after the region")
+
+
+def _cli_run(label, name, flags, tmp_dir, fused="1"):
+    """One cli.main solve on the card as the main phase runs it (no tune
+    cache file): (stdout, Time taken ms, launches, stderr lines)."""
+    import torch
+    from dmlp_tpu_torch import cli, kernels
+    env = {"DMLP_TPU_FUSED": fused,
+           "DMLP_TPU_TUNE_CACHE": os.path.join(tmp_dir, "absent.json")}
+    os.environ.update(env)
+    try:
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rc = cli.main([*flags, "--phase-times"],
+                      stdin=io.StringIO(config_text(name)), stdout=out,
+                      stderr=err)
+        got = dict(kernels.LAUNCHES)
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    check(rc == 0, f"{label}: cli.main returned {rc}")
+    lines = err.getvalue().splitlines()
+    m = re.fullmatch(r"Time taken: (\d+) ms", lines[0])
+    check(m is not None, f"{label}: stderr line {lines[0]!r}")
+    return out.getvalue(), int(m.group(1)), got, lines
+
+
+def _sanitized_train():
+    """A sanitized 3-step train run on the card against its plain twin,
+    resident and with the parameters offloaded."""
+    from dmlp_tpu_torch.check import sanitize
+    from dmlp_tpu_torch.train.loop import train
+    for label, kw in (("check_train", {}),
+                      ("check_train_offload", {"offload": "params"})):
+        sanitize.reset_fences()
+        t0 = time.perf_counter()
+        _, san = train(steps=3, batch=4096, dims=(64, 512, 512, 10),
+                       log_every=1, sanitize=True, device="cuda", **kw)
+        san_s = time.perf_counter() - t0
+        fences = dict(sanitize.FENCED)
+        _, plain = train(steps=3, batch=4096, dims=(64, 512, 512, 10),
+                         log_every=1, device="cuda", **kw)
+        rel = abs(san["loss"] - plain["loss"]) / abs(plain["loss"])
+        emit({"phase": "check_train", "run": label, "steps": san["step"],
+              "loss_sanitized": san["loss"], "loss_plain": plain["loss"],
+              "rel_diff": rel, "wall_s_sanitized": san_s,
+              "fenced": fences})
+        check(san["step"] == 3 and rel <= 1e-6,
+              f"{label}: sanitized loss {san['loss']} vs {plain['loss']}")
+
+
+def _race_stress(tmp_dir):
+    """``race_stress --device cuda --pallas`` (K1 over the resident
+    chunks) in its own interpreter (the race sanitizer patches the lock
+    factories process-wide)."""
+    out = os.path.join(tmp_dir, "race")
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "dmlp_tpu_torch.check.race_stress",
+         "--device", "cuda", "--pallas", "--json", "--out", out],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"race_stress: {p.stderr[-3000:]}")
+    v = json.loads(p.stdout)
+    rc = v["racecheck"]
+    emit({"phase": "check_race", "device": v["device"],
+          "pallas": v["pallas"], "requests": v["requests"],
+          "ingests": v["ingests"], "stats_ops": v["stats_ops"],
+          "scrapes": v["scrapes"], "stress_wall_ms": v["wall_ms"],
+          "locks_created": rc["locks_created"], "edges": rc["edges"],
+          "inversions": rc["inversions"],
+          "blocking_under_lock": rc["blocking_under_lock"],
+          "engine_launches": v["engine_launches"], "wall_s": wall})
+    check(v["ok"] and v["device"] == "cuda" and rc["ok"]
+          and rc["inversions"] == 0 and rc["blocking_under_lock"] == 0,
+          f"race_stress: {rc['violations'][:3]}")
+    check(v["engine_launches"].get("fused_topk", 0) > 0,
+          f"race_stress: the daemon launched {v['engine_launches']}")
+    return {k: int(v["engine_launches"].get(k, 0)) for k in KERNELS}
+
+
+def check_phase(tmp_dir):
+    """The checker's runtime half on the card (module docstring): the
+    sync probe, the sanitizer's teeth, the sanitized K1 and K3 solves
+    against their plain twins, a sanitized train run, the race stress.
+    Returns the launches per run."""
+    import torch
+    from dmlp_tpu_torch.check import sanitize
+    sync_probe()
+    _sanitizer_teeth()
+    launches = {}
+    for run, flags in CHECK_RUNS:
+        name = next(r[1] for r in MAIN_RUNS if r[0] == run)
+        want = next(r[4] for r in MAIN_RUNS if r[0] == run)
+        if run not in OUTPUTS:       # the main phase did not run
+            out, ms, got, _ = _cli_run(run, name, flags, tmp_dir)
+            check(all(got[k] == v for k, v in want.items()),
+                  f"{run}: launches {got} != the plan's {want}")
+            OUTPUTS[run], MAIN_TIMES[run], MAIN_LAUNCHES[run] = \
+                out, ms, got
+        label = f"check_{run}_sanitized"
+        sanitize.reset_fences()
+        out, ms, got, lines = _cli_run(label, name, [*flags, "--sanitize"],
+                                       tmp_dir)
+        rung = [ln.split()[1] for ln in lines if ln.startswith("rung: ")]
+        emit({"phase": "check_solve", "run": label,
+              "time_taken_ms_sanitized": ms,
+              "time_taken_ms_plain": MAIN_TIMES[run],
+              "launches": got, "launches_plain": MAIN_LAUNCHES[run],
+              "identical": out == OUTPUTS[run], "rung": rung,
+              "fenced": dict(sanitize.FENCED),
+              "sync_debug_mode_after": torch.cuda.get_sync_debug_mode()})
+        check(out == OUTPUTS[run],
+              f"{label}: stdout differs from the plain solve's")
+        check(got == MAIN_LAUNCHES[run],
+              f"{label}: launches {got} != plain {MAIN_LAUNCHES[run]}")
+        check(rung == ["lowp"] and torch.cuda.get_sync_debug_mode() == 0,
+              f"{label}: rung {rung}")
+        launches[label] = got
+    _sanitized_train()
+    launches["check_race_stress"] = _race_stress(tmp_dir)
     return launches
 
 
@@ -4576,13 +4801,14 @@ def golden_subset(label, name, lines, size):
 
 def profile_main_path(warm: bool = True):
     """The shipped timed region (engine.run + result formatting, parsing
-    excluded) of config 4, the wide-k mix, the wide-k multi-pass and
-    config 2's seg solve once more under torch.profiler, each after a
-    warm run unless ``warm`` is false (the main phase solved each in this
-    process already): device time by kernel name, the device's busy time
-    (union of its kernel and copy intervals), its idle share of the
-    window, and the host's blocking scalar reads (the seg step's hazard
-    flag)."""
+    excluded) of config 4 and config 2's seg solve once more under
+    torch.profiler, each after a warm run unless ``warm`` is false (the
+    main phase solved each in this process already): device time by
+    kernel name, the device's busy time (union of its kernel and copy
+    intervals), its idle share of the window, and the host's blocking
+    scalar reads. The wide-k mix and the multi-pass are no longer
+    profiled here: their seconds went to the check phase (their idle
+    shares are in PERF.md)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dmlp_tpu_torch.config import EngineConfig
@@ -4591,8 +4817,6 @@ def profile_main_path(warm: bool = True):
     from dmlp_tpu_torch.obs.counters import busy_ms
 
     for label, name, select in (("config4_K1", "config4", "auto"),
-                                ("widek_mix", "widek_mix", "auto"),
-                                ("widek_multipass", "widek_mp", "auto"),
                                 ("config2_seg", "config2", "seg")):
         inp = config_input(name)
         engine = SingleChipEngine(EngineConfig(use_pallas=True,
@@ -4698,6 +4922,8 @@ def main(argv=None) -> int:
         del sweep_inputs, g_inputs
     launches = timed("main", main_path, tune_path) \
         if "main" in phases else {}
+    if "check" in phases:
+        launches.update(timed("check", check_phase, tmp.name))
     if "obs" in phases:
         timed("obs", obs_phase, tmp.name)
     for name, fn in (("mesh", mesh_phase), ("serve", serve_phase),

@@ -1,0 +1,59 @@
+"""Static analysis and runtime sanitizers for the ``dmlp_tpu_torch`` tree
+(``python -m dmlp_tpu_torch.check``) — port of ``dmlp_tpu/check``.
+
+An AST-based pass (stdlib ``ast``, no dependencies) over the whole
+package enforcing the repo-specific rule families that carry over to
+PyTorch:
+
+- **R0 hygiene** (:mod:`.hygiene`): the conservative ruff subset
+  (unused imports, bare except, mutable default args, pointless
+  f-strings).
+- **R3 host-sync hazards** (:mod:`.hostsync`): ``.item()``,
+  ``.tolist()``, ``.cpu()``, ``.numpy()``, ``float()``/``int()``/
+  ``bool()``/``np.asarray`` of device tensors and branches on them in
+  ``engine/``, ``ops/``, ``parallel/``, ``serve/`` and ``fleet/``, with
+  a ``# check: allow-host-sync`` allowlist for the fenced readbacks that
+  are intentional.
+- **R5 resilience swallowing** (:mod:`.resilient`): broad ``except
+  Exception`` without re-raise or ``# check: no-retry`` in the
+  resilience/serving error paths.
+- **R6 metric-name contract** (:mod:`.metricnames`): literal
+  snake_case registry names, one kind per name package-wide.
+- **R7 concurrency discipline** (:mod:`.concurrency`): lock-order
+  inversions over the inferred package lock graph, guarded-field
+  accesses outside their lock (incl. mutable reference escapes),
+  blocking calls under a lock (CUDA fences, readbacks and
+  ``torch.distributed`` collectives included), and thread-lifecycle
+  holes.
+
+R1, R8, R9 and R10 (the comms-model, low-precision, placement and
+collective-record contracts) come with the checker's next slice; R2 and
+R4 (jit recompiles, jax API drift) have no torch analog. Asking for any
+of them raises (:func:`.analyzer.check_families`).
+
+Cross-module context flows through the cacheable facts layer
+(:mod:`.facts`), and verdicts are cached per file content hash
+(:mod:`.cache`) so re-runs only re-analyze changed files;
+``--stale-allows`` reports allow-directives that no longer suppress
+anything. Accepted pre-existing findings are pinned in
+``dmlp_tpu_torch/check/check_baseline.json`` (:mod:`.baseline`); any
+NEW finding fails the run. The runtime side lives in :mod:`.sanitize`
+(``DMLP_TPU_SANITIZE=1`` / ``--sanitize``: implicit readbacks raise, on
+the CPU and on the card) and :mod:`.racecheck` (``DMLP_TPU_RACECHECK=1``:
+instrumented lock factories record real acquisition orders, catching
+actual inversions and blocking-under-lock as they happen;
+:mod:`.race_stress` drives a live daemon under it).
+"""
+
+from dmlp_tpu_torch.check.analyzer import analyze_package, analyze_paths
+from dmlp_tpu_torch.check.baseline import (diff_baseline, load_baseline,
+                                           save_baseline)
+from dmlp_tpu_torch.check.findings import Finding
+from dmlp_tpu_torch.check.sanitize import (fenced, readback,
+                                           sanitize_enabled, sanitized)
+
+__all__ = [
+    "Finding", "analyze_package", "analyze_paths", "load_baseline",
+    "save_baseline", "diff_baseline", "sanitize_enabled", "sanitized",
+    "readback", "fenced",
+]

@@ -14,7 +14,7 @@ Usage::
                              [--backend nccl|gloo]
                              [--pallas] [--debug] [--fast] [--device-full]
                              [--faults FILE] [--hlo-report FILE]
-                             [--compile-cache DIR] < input.in
+                             [--compile-cache DIR] [--sanitize] < input.in
 
 ``--device-full`` solves with ``engine.run_device_full`` (warm-up
 included): the vote and the report order on the device, in f32.
@@ -63,6 +63,12 @@ its record.
 ``--compile-cache DIR`` builds and loads the kernel libraries and the
 native parser in DIR (``utils.compile_cache``), shared with every rank
 this process starts.
+
+``--sanitize`` (or ``$DMLP_TPU_SANITIZE=1``) runs the warm-up and the
+timed solve under ``check.sanitize.sanitized()``: an implicit host
+readback raises (on the card also a synchronizing CUDA operation), the
+intended readbacks go through ``check.sanitize.readback``; stdout stays
+byte-identical on a clean program, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ import os
 import sys
 from typing import IO, Optional, Sequence
 
+from dmlp_tpu_torch.check.sanitize import maybe_sanitized
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.io.grammar import parse_input
 from dmlp_tpu_torch.io.report import format_results
@@ -172,6 +179,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "raises when unusable); "
                              "$DMLP_TPU_COMPILE_CACHE is the ambient form "
                              "(flag wins)")
+    parser.add_argument("--sanitize", action="store_true",
+                        help="run the warm-up and the timed solve under "
+                             "dmlp_tpu_torch.check.sanitize: implicit host "
+                             "readbacks (and on the card synchronizing "
+                             "CUDA operations) raise instead of silently "
+                             "serializing; $DMLP_TPU_SANITIZE=1 enables it "
+                             "too. Output is byte-identical on a clean "
+                             "program")
     return parser
 
 
@@ -354,7 +369,8 @@ def _run_cli(args, stdin, stdout, stderr, probe, tracer) -> int:
     else:
         solve = engine.run_device_full if args.device_full else engine.run
         if args.warmup:
-            with timer.phase("warmup"), obs_span("cli.warmup_compile"):
+            with timer.phase("warmup"), obs_span("cli.warmup_compile"), \
+                    maybe_sanitized(force=args.sanitize):
                 solve(inp)
             if probe is not None:
                 # The warm-up recorded the launches the timed solve is
@@ -362,7 +378,8 @@ def _run_cli(args, stdin, stdout, stderr, probe, tracer) -> int:
                 probe.reset()
         with _profiled(args, prof):
             timer.start()
-            with obs_span("cli.solve", mode=args.mode, engine="torch"):
+            with obs_span("cli.solve", mode=args.mode, engine="torch"), \
+                    maybe_sanitized(force=args.sanitize):
                 results = solve(inp)
     with timer.phase("format"), obs_span("cli.format_results"):
         text = format_results(results, debug=config.debug)
@@ -426,7 +443,7 @@ def _epilogue(args, inp, timer, engine, counters, stderr, comms=None,
             measured = (sess.sampler.measured_peak() if sess
                         else memwatch.peak_watermark(engine.device))
             mem = memwatch.reconcile(model, measured)
-        except Exception:  # obs never fails a run: counted, not raised
+        except Exception:  # check: no-retry — obs never fails a run: counted, not raised
             telemetry.registry().counter("obs.errors").inc(label="mem")
     if args.metrics:
         _emit_metrics(args, inp, timer, phase_ms, counters, comms, engine,
@@ -583,7 +600,7 @@ def _solve_on_mesh(args, config, stdin, stdout, stderr, probe) -> int:
         # warm-up it records that solve (the same plan, so the same
         # collectives), and Time taken stays free of it.
         with timer.phase("warmup"), obs_span("cli.warmup_compile"), \
-                record as recorder:
+                record as recorder, maybe_sanitized(force=args.sanitize):
             solve(inp)
         record = contextlib.nullcontext(recorder)
         if probe is not None:
@@ -592,7 +609,8 @@ def _solve_on_mesh(args, config, stdin, stdout, stderr, probe) -> int:
             else contextlib.nullcontext():
         timer.start()
         with record as recorder, obs_span("cli.solve", mode=args.mode,
-                                          engine="torch"):
+                                          engine="torch"), \
+                maybe_sanitized(force=args.sanitize):
             results = solve(inp)
     if args.hlo_report and hasattr(engine, "comms_from_hlo"):
         # The auto engine's last_comms from what it issued, before the

@@ -65,7 +65,7 @@ from dmlp_tpu_torch.obs import memwatch, telemetry
 from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.ops.summaries import note_scan
 from dmlp_tpu_torch.ops.topk import streaming_topk
-from dmlp_tpu_torch.parallel.collectives import broadcast_object
+from dmlp_tpu_torch.parallel.collectives import broadcast_object, move
 from dmlp_tpu_torch.parallel.mesh import DATA_AXIS, QUERY_AXIS, make_mesh
 from dmlp_tpu_torch.resilience import inject as rs_inject
 from dmlp_tpu_torch.resilience import retry as rs_retry
@@ -257,9 +257,11 @@ class AutoShardedEngine(ShardedEngine):
             q_sh = self._place(self._scatter_queries(
                 inp.query_attrs if self.root else None, qloc, na),
                 [Replicate(), Shard(0)])
-            d = a_sh.to_local().to(self._staging_dtype()).to(dev)
-            lab, ids_dev = l_sh.to_local().to(dev), i_sh.to_local().to(dev)
-            q = q_sh.to_local().to(dev)
+            site = "auto.stage"
+            d = move(a_sh.to_local().to(self._staging_dtype()), dev, site)
+            lab = move(l_sh.to_local(), dev, site)
+            ids_dev = move(i_sh.to_local(), dev, site)
+            q = move(q_sh.to_local(), dev, site)
         t0 = self._phase("stage_enqueue", t0)
 
         def _op():

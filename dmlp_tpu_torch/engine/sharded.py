@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmlp_tpu_torch.check.sanitize import fenced
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine.finalize import (boundary_overflow, finalize_host,
                                             lowp_eps,
@@ -75,7 +76,7 @@ from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
 from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
                                      select_topk, streaming_fallback,
                                      streaming_topk)
-from dmlp_tpu_torch.parallel.collectives import (allgather_merge_topk,
+from dmlp_tpu_torch.parallel.collectives import (allgather_merge_topk, move,
                                                  broadcast_object,
                                                  gather_topk,
                                                  gspmd_merge_topk,
@@ -221,7 +222,8 @@ class ShardedEngine:
                      for i in range(r * c)]
         got = scatter_from_root(parts, (qloc, na), torch.float32,
                                 self.device)
-        return got.to(self._staging_dtype()).to(self.device)
+        return move(got.to(self._staging_dtype()), self.device,
+                    "sharded.stage_queries")
 
     # -- planning (rank 0) ---------------------------------------------------
     def _plan_prune_mesh(self, inp: KNNInput, shard_rows: int, nchunks: int,
@@ -422,7 +424,9 @@ class ShardedEngine:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # The phase boundary's fence is a deliberate host wait.
+            with fenced("sharded.phase_sync"):
+                torch.cuda.synchronize(self.device)
 
     def _solve_chunked(self, inp: Optional[KNNInput], plan: dict, split,
                        stats):
@@ -468,7 +472,7 @@ class ShardedEngine:
             lab_pad = torch.full((rows,), -1, dtype=torch.int32,
                                  device=l_sh.device)
             lab_pad[:shard_rows] = l_sh
-            labels_dev = lab_pad.to(dev)
+            labels_dev = move(lab_pad, dev, "sharded.stage_labels")
         t0 = self._phase("stage_enqueue", t0)
 
         kern = _kernel(plan["impl"])
@@ -591,8 +595,10 @@ class ShardedEngine:
             i_sh = self._scatter_rows(ids, shard_rows, (), torch.int32)
             q_dev = self._scatter_queries(
                 inp.query_attrs if self.root else None, qloc, na)
-            d = a_sh.to(self._staging_dtype()).to(dev)
-            lab, ids_dev = l_sh.to(dev), i_sh.to(dev)
+            d = move(a_sh.to(self._staging_dtype()), dev,
+                     "sharded.stage_rows")
+            lab = move(l_sh, dev, "sharded.stage_rows")
+            ids_dev = move(i_sh, dev, "sharded.stage_rows")
         if self.root:
             dense = n * na * self._itemsize()
             note_scan(self, scanned_bytes=dense, dense_bytes=dense,
@@ -651,10 +657,13 @@ class ShardedEngine:
         plan = self._plan_shard(d_attrs.shape[0], q_attrs.shape[0],
                                 d_attrs.shape[1], kmax)
         dev = self.device
-        q = torch.from_numpy(q_attrs).to(self._staging_dtype()).to(dev)
-        d = torch.from_numpy(d_attrs).to(self._staging_dtype()).to(dev)
-        lab = torch.from_numpy(d_labels).to(dev)
-        ids = torch.from_numpy(d_ids).to(dev)
+        site = "sharded.stage_local"
+        q = move(torch.from_numpy(q_attrs).to(self._staging_dtype()), dev,
+                 site)
+        d = move(torch.from_numpy(d_attrs).to(self._staging_dtype()), dev,
+                 site)
+        lab = move(torch.from_numpy(d_labels), dev, site)
+        ids = move(torch.from_numpy(d_ids), dev, site)
         n_real = int((d_ids >= 0).sum())
         id_base = int(max(d_ids[0], 0)) if len(d_ids) else 0
 
@@ -796,9 +805,11 @@ class ShardedEngine:
             nq = sub.params.num_queries
             ks_pad = np.zeros(qpad, np.int32)
             ks_pad[:nq] = sub.ks
-            top = TopK(*(t.to(self.device) for t in top))
+            top = TopK(*(move(t, self.device, "sharded.epilogue_stage")
+                         for t in top))
             pred, rids, rd = resilient_get(list(_device_epilogue(
-                top, torch.from_numpy(ks_pad).to(self.device),
+                top, move(torch.from_numpy(ks_pad), self.device,
+                          "sharded.epilogue_stage"),
                 num_labels=num_labels)), site=self._fetch_site)
             rd = rd.astype(np.float64)
             gids = np.arange(nq) if idx is None else idx

@@ -56,6 +56,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from dmlp_tpu_torch.check.sanitize import fenced, readback
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
                                             EPS_REL_F32, LOWP_COEF,
@@ -113,7 +114,9 @@ class ChunkThrottle:
         ev.record()
         self._pending.append(ev)
         if len(self._pending) > self._window:
-            self._pending.pop(0).synchronize()
+            # The backpressure fence is a deliberate host wait.
+            with fenced("single.chunk_throttle"):
+                self._pending.pop(0).synchronize()
 
 
 class MeasuredIters:
@@ -147,7 +150,9 @@ def flush_measured_iters(engine) -> None:
     pend = getattr(engine, "_pending_iters", [])
     engine._pending_iters = []
     for kernel, total, shape in pend:
-        obs_counters.record_measured_iters(kernel, int(total), shape)
+        total = int(readback(  # check: allow-host-sync
+            total, "single.measured_iters"))
+        obs_counters.record_measured_iters(kernel, total, shape)
 
 
 def round_up(x: int, m: int) -> int:
@@ -161,6 +166,16 @@ def host_staging(arr: np.ndarray, device: torch.device,
     t = torch.from_numpy(np.ascontiguousarray(arr)).to(
         torch.bfloat16 if staging == "bfloat16" else torch.float32)
     return t.pin_memory() if device.type == "cuda" else t
+
+
+def put(arr: np.ndarray, device: torch.device,
+        site: str = "single.put") -> torch.Tensor:
+    """A small host array on ``device`` by a blocking copy: explicit
+    staging, the port's ``jax.device_put``, fenced as ``site`` for the
+    sanitizer (a pageable host-to-device copy synchronizes)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    with fenced(site):
+        return t.to(device)
 
 
 def stage(host: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -187,7 +202,9 @@ def resilient_get(values: List[torch.Tensor], site: str = "single.fetch"
 
     def _get():
         rs_inject.fire(site)
-        return [v.cpu().numpy() for v in values]
+        # The solve's fence, inside the timeout's worker thread when
+        # there is one (the sanitizer's CUDA layer is process-wide).
+        return readback(list(values), site)  # check: allow-host-sync
 
     def _op():
         if deadline > 0 and rs_retry.resilience_enabled():
@@ -511,8 +528,7 @@ class SingleChipEngine:
         labels[:n] = inp.labels
         ids = np.full(rows, -1, np.int32)
         ids[:n] = np.arange(n, dtype=np.int32)
-        return (torch.from_numpy(labels).to(self.device),
-                torch.from_numpy(ids).to(self.device))
+        return put(labels, self.device), put(ids, self.device)
 
     def _solve_scan(self, inp: KNNInput) -> Tuple[TopK, int]:
         """Whole-dataset staging and one blockwise fold ("sort")."""
@@ -532,8 +548,8 @@ class SingleChipEngine:
         self._last_select = select
         dev = self.device
         d_attrs = stage(host_staging(attrs, dev, self._staging), dev)
-        d_labels = torch.from_numpy(labels).to(dev)
-        d_ids = torch.from_numpy(ids).to(dev)
+        d_labels = put(labels, dev)
+        d_ids = put(ids, dev)
         qb = min(cfg.query_block, round_up(max(nq, 1), 8))
         qpad = round_up(max(nq, 1), qb)
         q_dev = self._stage_queries(inp.query_attrs, qpad)
@@ -659,7 +675,7 @@ class SingleChipEngine:
                   blocks_total=min(nchunks, -(-n // chunk_rows)),
                   blocks_pruned=pruned)
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
-        glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
+        glabels = put(inp.labels.astype(np.int32), dev)
         return extract_finalize(od, oi, glabels, k), qpad
 
     def _solve_extract_multipass(self, inp: KNNInput):
@@ -757,8 +773,8 @@ class SingleChipEngine:
                                  inp.query_attrs)
         dn_max = float(np.einsum("na,na->n", inp.data_attrs,
                                  inp.data_attrs).max())
-        qn_dev = torch.from_numpy(qn_host.astype(np.float32)).to(dev)
-        dn_dev = torch.tensor(np.float32(dn_max), device=dev)
+        qn_dev = put(qn_host.astype(np.float32), dev)
+        dn_dev = put(np.float32(dn_max), dev)
         # One launch per later pass over the resident dataset; the chunk
         # list goes once the concatenation is queued, so the dataset is
         # not resident twice for the sweep.
@@ -791,7 +807,7 @@ class SingleChipEngine:
         note_scan(self, scanned_bytes=dense, dense_bytes=dense,
                   blocks_total=n_staged, blocks_pruned=0)
 
-        glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
+        glabels = put(inp.labels.astype(np.int32), dev)
         top, valid = _mp_merge(torch.cat(ods, 1), torch.cat(ois, 1),
                                glabels, kcap=kcap)
         # One readback for both checks: the fd sequence (stall) and the
@@ -890,7 +906,7 @@ class SingleChipEngine:
                   blocks_total=min(nchunks, -(-n // chunk_rows)),
                   blocks_pruned=pruned)
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
-        glabels = torch.from_numpy(inp.labels.astype(np.int32)).to(dev)
+        glabels = put(inp.labels.astype(np.int32), dev)
         top_b = extract_finalize(od, oi, glabels, kb)
         return [(top_b, qpad_b, bulk, "extract"),
                 (carry_o, qo_pad, outl, select_out)]
@@ -992,7 +1008,7 @@ class SingleChipEngine:
                 ks_pad = np.ones(qpad, np.int32)
                 ks_pad[:nq] = sub.ks
                 cols_dev = boundary_cols(
-                    top.dists, torch.from_numpy(ks_pad).to(self.device))
+                    top.dists, put(ks_pad, self.device))
             with obs_span("single.fetch", select=select, kcap=kcap):
                 fetched = resilient_get(
                     ([] if cfg.exact else [top.dists]) + [top.ids]
@@ -1073,7 +1089,7 @@ class SingleChipEngine:
             ks_pad = np.zeros(qpad, np.int32)
             ks_pad[:nq] = sub.ks
             pred, rids, rd = resilient_get(list(_device_epilogue(
-                top, torch.from_numpy(ks_pad).to(self.device),
+                top, put(ks_pad, self.device),
                 num_labels=num_labels)))
             fetch_ms += (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()

@@ -22,6 +22,16 @@ of the serving daemon (``dmlp_tpu_torch.serve``).
   and the router as subprocesses.
 
 ``python -m dmlp_tpu_torch.fleet`` runs the router, static over existing
-replicas or supervised (``--spawn-corpus``). The reference installs its
-lock-order race checker here; that hook is not ported yet (ROADMAP A15).
+replicas or supervised (``--spawn-corpus``).
 """
+
+# Same early racecheck hook as dmlp_tpu_torch.serve: `python -m
+# dmlp_tpu_torch.fleet` executes this __init__ before the router/engine
+# imports create any serving locks, so DMLP_TPU_RACECHECK=1 tracks the full
+# fleet surface.
+import torch  # noqa: F401  (before the install: torch's locks stay native)
+
+from dmlp_tpu_torch.check import racecheck as _racecheck  # noqa: E402
+
+_racecheck.install_from_env()
+

@@ -46,6 +46,8 @@ import signal
 import sys
 from typing import List, Optional, Sequence, Tuple
 
+from dmlp_tpu_torch.check import racecheck
+
 
 def _parse_replicas(spec: str) -> List[Tuple[str, int]]:
     out: List[Tuple[str, int]] = []
@@ -166,6 +168,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="predictive policy scales up when the trend "
                         "projects an SLO crossing within this horizon")
     args = p.parse_args(argv)
+    # Idempotent backstop (the real install runs in fleet/__init__,
+    # before any serving lock exists).
+    racecheck.install_from_env()
 
     from dmlp_tpu_torch.fleet.router import FleetRouter
 
@@ -279,6 +284,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                           "mode": "closed_loop"},
                   metrics=metrics,
                   device=current_device()).append_jsonl(args.record)
+    racecheck.write_report_if_requested()
     bad = [c for c in child_rcs if c["rc"] != 0]
     if supervisor is not None:
         # Orderly retirements BEFORE the drain (scale-down, re-shard

@@ -348,7 +348,7 @@ class FleetSupervisor:
         while not self._stop.wait(timeout=self.poll_s):
             try:
                 self.poll_once()
-            except Exception as e:  # the supervisor outlives any
+            except Exception as e:  # check: no-retry — the supervisor outlives any
                 # single poll failure: the event is recorded, the next
                 # tick re-evaluates from scratch
                 obs_instant("fleet.scale.poll_error",
@@ -411,7 +411,7 @@ class FleetSupervisor:
                 self.spawn_one(capacity=mr.capacity,
                                generation=mr.generation + 1)
                 return
-            except Exception as e:  # a failed relaunch is the
+            except Exception as e:  # check: no-retry — a failed relaunch is the
                 # budget's problem, not a crash loop
                 obs_instant("fleet.scale.relaunch_failed",
                             error=f"{type(e).__name__}: {e}")
@@ -531,7 +531,7 @@ class FleetSupervisor:
                         policy=policy)
             try:
                 self.spawn_one()
-            except Exception as e:  # scale-up is best effort:
+            except Exception as e:  # check: no-retry — scale-up is best effort:
                 # the next window re-decides
                 obs_instant("fleet.scale.up_failed",
                             error=f"{type(e).__name__}: {e}")

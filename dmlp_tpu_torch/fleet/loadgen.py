@@ -173,7 +173,7 @@ def run_ramp(port: int, header: Dict[str, Any],
         try:
             step["slo"] = (stats_fn or
                            (lambda: _fleet_slo_stats(port)))()
-        except Exception as e:  # a stats blip never aborts
+        except Exception as e:  # check: no-retry — a stats blip never aborts
             # the ramp mid-experiment
             step["slo"] = {"error": f"{type(e).__name__}: {e}"}
         steps.append(step)

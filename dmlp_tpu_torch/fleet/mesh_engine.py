@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from dmlp_tpu_torch import kernels
+from dmlp_tpu_torch.check.sanitize import fenced, readback
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine.finalize import (boundary_overflow, finalize_host,
                                             lowp_eps,
@@ -76,7 +77,7 @@ from dmlp_tpu_torch.engine.sharded import ShardedEngine, _labels_for_ids
 from dmlp_tpu_torch.engine.single import (_BF16_AUTO_K_CAP, ChunkThrottle,
                                           MeasuredIters, fit_blocks,
                                           flush_measured_iters, host_staging,
-                                          plan_chunks, resilient_get,
+                                          plan_chunks, put, resilient_get,
                                           resolve_kcap, round_up, stage)
 from dmlp_tpu_torch.io.grammar import KNNInput, Params
 from dmlp_tpu_torch.io.report import QueryResult
@@ -258,17 +259,21 @@ class MeshResidentEngine(ResidentServingCore, ShardedEngine):
             l_sh = self._scatter_rows(labels, sr, (), torch.int32)
             rows = self._buf_rows
             host = np.zeros((rows, na), np.float64)
-            host[:sr] = a_sh.cpu().numpy()
+            # The shard's one readback at staging (gloo scatters into
+            # host memory anyway; under NCCL it lands on the card).
+            host[:sr], lab_sh = readback(  # check: allow-host-sync
+                [a_sh, l_sh], "fleet.stage_resident")
             lab = np.full(rows, -1, np.int32)
-            lab[:sr] = l_sh.cpu().numpy()
+            lab[:sr] = lab_sh
             base = self.coords[0] * sr
             ids = np.full(rows, -1, np.int32)
             real = max(min(self.n_real - base, sr), 0)
             ids[:real] = np.arange(base, base + real, dtype=np.int32)
             dev = self.device
-            self._buf = host_staging(host, dev, self._staging).to(dev)
-            self._d_labels = torch.from_numpy(lab).to(dev)
-            self._d_ids = torch.from_numpy(ids).to(dev)
+            with fenced("fleet.stage_resident"):
+                self._buf = host_staging(host, dev, self._staging).to(dev)
+            self._d_labels = put(lab, dev, "fleet.stage_resident")
+            self._d_ids = put(ids, dev, "fleet.stage_resident")
 
     def _chunk(self, t: int) -> torch.Tensor:
         cr = self._chunk_rows
@@ -466,7 +471,7 @@ class MeshResidentEngine(ResidentServingCore, ShardedEngine):
         q_dev = stage(host_staging(q_host, self.device, self._staging),
                       self.device)
         t0 = self._phase("stage", t0)
-        gated = tiles = 0
+        gated, tiles = None, 0
         if cmd["path"] == "extract":
             top, gated, tiles = self._fold_chunks(cmd, q_dev)
         else:
@@ -480,13 +485,17 @@ class MeshResidentEngine(ResidentServingCore, ShardedEngine):
         with obs_span("fleet.gather", mesh=[r, c], **self._rid_args()):
             out = self._gather(merged)
         self._phase("gather", t0)
+        # The gate count is read after the gather, when the lists it rode
+        # with have left the card: it waits on nothing.
+        gated = 0 if gated is None else int(readback(  # check: allow-host-sync
+            gated, "fleet.gate_count"))
         step = {"rank": self.rank, "coords": [rr, cc],
                 "launches": {kk: v - launches.get(kk, 0)
                              for kk, v in kernels.LAUNCHES.items()},
                 "launch_variants": _variant_delta(variants),
                 "kernel_loads": sum(kernels.LOADS.values()),
                 "phase_ms": dict(self._step_ms),
-                "gated": int(gated), "tiles": int(tiles)}
+                "gated": gated, "tiles": tiles}
         steps = gather_objects(step)
         return out, steps
 
@@ -529,7 +538,7 @@ class MeshResidentEngine(ResidentServingCore, ShardedEngine):
             od, oi = empty.dists, empty.ids
         base = rr * self._shard_rows
         top = TopK(od, _labels_for_ids(oi, self._d_labels, base), oi)
-        return top, (0 if gz is None else int(gz.item())), tiles
+        return top, gz, tiles
 
     def _stream_shard(self, cmd: Dict[str, Any],
                       q_dev: torch.Tensor) -> TopK:

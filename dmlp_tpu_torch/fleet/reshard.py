@@ -74,7 +74,7 @@ def execute_resplit(supervisor, mr, grow_factor: int = 2,
                 new_capacity=new_cap)
     try:
         fp = supervisor.spawn_proc(name, capacity=new_cap)
-    except Exception as e:  # a failed spawn leaves the old replica
+    except Exception as e:  # check: no-retry — a failed spawn leaves the old replica
         # serving at its old capacity (recorded; the next threshold
         # crossing retries with a fresh process)
         reg.counter("fleet.reshard.failures").inc(label="spawn")
@@ -98,7 +98,7 @@ def execute_resplit(supervisor, mr, grow_factor: int = 2,
             fp.proc.kill()
             try:
                 fp.proc.wait(timeout=30)
-            except Exception:  # the OS owns it now
+            except Exception:  # check: no-retry — the OS owns it now
                 pass
             reg.counter("fleet.reshard.failures").inc(label="replay")
             return {"ok": False,

@@ -459,7 +459,7 @@ class FleetRouter:
         try:
             self._tracer.write(self.trace_path,
                                process_name=f"router:{self.port}")
-        except Exception:  # a trace never kills a drain
+        except Exception:  # check: no-retry — a trace never kills a drain
             pass
         if obs_trace.active() is self._tracer:
             obs_trace.uninstall()
@@ -593,7 +593,7 @@ class FleetRouter:
             if self.slo is not None:
                 try:
                     self.slo.tick()
-                except Exception:  # a failing SLO tick never
+                except Exception:  # check: no-retry — a failing SLO tick never
                     pass           # stops the health probing
 
     # -- routing ---------------------------------------------------------------
@@ -811,12 +811,12 @@ class FleetRouter:
         if self.supervisor is not None:
             try:
                 out["supervisor"] = self.supervisor.snapshot()
-            except Exception:  # stats never fail
+            except Exception:  # check: no-retry — stats never fail
                 pass
         if self.slo is not None:
             try:
                 out["slo"] = self.slo.snapshot()
-            except Exception:  # stats never fail
+            except Exception:  # check: no-retry — stats never fail
                 pass
         h = reg.get("fleet.request_latency_ms")
         if h is not None and h.count:

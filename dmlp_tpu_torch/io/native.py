@@ -73,6 +73,10 @@ def build() -> dict:
                     raise OSError("g++ not found")
                 out.parent.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                # check: allow-concurrency=R703 — the g++ build under the
+                # lock is the once-guard: it runs at most ONCE per process
+                # (_tried flips first), and concurrent parsers must block
+                # until the .so exists rather than racing the compiler.
                 p = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
                                     str(SOURCE)], capture_output=True,
                                    text=True, timeout=300)

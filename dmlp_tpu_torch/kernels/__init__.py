@@ -167,6 +167,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            # check: allow-concurrency=R703 — the nvcc build under the
+            # lock is the once-guard: every launcher needs the library,
+            # so a second caller must wait for the first one's build
+            # rather than race it on the same output file.
             build_all([name])
             try:
                 lib = ctypes.CDLL(str(library_path(name)))

@@ -131,10 +131,12 @@ class CostProbe:
         device time (each end event is waited for: call after the work's
         fetch, when it has finished). Returns this drain's ms per
         kernel."""
+        from dmlp_tpu_torch.check.sanitize import fenced
         got: Dict[str, float] = {}
         events, self._events = self._events, []
         for kernel, start, end in events:
-            end.synchronize()
+            with fenced("counters.drain_events"):
+                end.synchronize()
             ms = start.elapsed_time(end)
             got[kernel] = got.get(kernel, 0.0) + ms
             self._device_ms[kernel] = self._device_ms.get(kernel, 0.0) + ms

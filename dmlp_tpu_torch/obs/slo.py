@@ -278,14 +278,14 @@ class SLOEvaluator:
         for obj in self.objectives:
             if obj.kind != "latency":
                 continue
-            h = self.registry.histogram(obj.metric, unit="ms")
+            h = self.registry.histogram(obj.metric, unit="ms")  # check: allow-metric-name — objective-declared series
             h.enable_windows(max_window_s=max(max_w, obj.window_s),
                              sub_s=self._sub_for(obj),
                              time_fn=self._time)
         sub = (float(self._sub_s) if self._sub_s is not None
                else min(telemetry.WINDOW_SUB_S, max_w / 24.0))
         for name in self.trend_metrics:
-            h = self.registry.histogram(name, unit="ms")
+            h = self.registry.histogram(name, unit="ms")  # check: allow-metric-name — trend-declared series
             h.enable_windows(max_window_s=max_w, sub_s=sub,
                              time_fn=self._time)
 
@@ -471,7 +471,7 @@ class SLOEvaluator:
         for name, value, label in gauge_sets:
             # Names are the literal slo.* family above, routed through
             # one emission loop; the objective id rides as the label.
-            self.registry.gauge(name).set(value, label=label)
+            self.registry.gauge(name).set(value, label=label)  # check: allow-metric-name
         for tr in emitted:
             self.registry.counter("slo.transitions").inc(
                 label=tr["state"])

@@ -245,8 +245,9 @@ class Histogram:
         frame's schedule, so an idle gap yields a fresh frame at the
         right phase instead of one frame stretched across the gap
         (stale samples would then never age out)."""
-        # Every caller holds self._lock (the ``_locked`` suffix is the
-        # contract); _time/_frames/_sub_s change only under that lock.
+        # check: allow-concurrency=R702 — every caller holds self._lock
+        # (the ``_locked`` suffix is the contract); _time/_frames/_sub_s
+        # change only under that lock.
         now, frames, sub_s = self._time(), self._frames, self._sub_s
         last = frames[-1]
         if now - last.start >= sub_s:
@@ -260,8 +261,9 @@ class Histogram:
         """Merge every frame overlapping the trailing ``window_s``
         into one (counts, count, sum, min, max) state. Caller holds
         the lock."""
-        # The caller holds self._lock (the ``_locked`` suffix is the
-        # contract); _frames/_sub_s change only under that lock.
+        # check: allow-concurrency=R702 — the caller holds self._lock (the
+        # ``_locked`` suffix is the contract); _frames/_sub_s change only
+        # under that lock.
         frames, sub_s = self._frames, self._sub_s
         now = self._rotate_locked()
         cutoff = now - float(window_s)
@@ -700,7 +702,7 @@ def observe_span(name: str, dur_ms: float, args: Dict[str, Any]) -> None:
             if NAME_RE.match(safe):
                 # Span names are dotted identifiers already; this is the
                 # one seam that registers metric names dynamically.
-                h = REGISTRY.histogram(safe + ".ms", unit="ms")
+                h = REGISTRY.histogram(safe + ".ms", unit="ms")  # check: allow-metric-name
             s.span_histograms[name] = h
         if h is not None:
             h.observe(dur_ms)
@@ -708,7 +710,7 @@ def observe_span(name: str, dur_ms: float, args: Dict[str, Any]) -> None:
             s.flight.record("span", name, dur_ms=round(dur_ms, 3),
                             **{k: v for k, v in args.items()
                                if isinstance(v, (str, int, float, bool))})
-    except Exception:  # telemetry must not fail the run
+    except Exception:  # check: no-retry — telemetry must not fail the run
         pass
 
 
@@ -720,7 +722,7 @@ def observe_instant(name: str, args: Dict[str, Any]) -> None:
         s.flight.record("instant", name,
                         **{k: v for k, v in args.items()
                            if isinstance(v, (str, int, float, bool))})
-    except Exception:  # telemetry must not fail the run
+    except Exception:  # check: no-retry — telemetry must not fail the run
         pass
 
 
@@ -774,7 +776,7 @@ class FlightRecorder:
         try:
             from dmlp_tpu_torch.resilience import stats as rs_stats
             doc["resilience"] = rs_stats.snapshot()
-        except Exception:  # dump must still land
+        except Exception:  # check: no-retry — dump must still land
             pass
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
@@ -791,7 +793,7 @@ def flight_event(name: str, **data) -> None:
     if s is not None and s.flight is not None:
         try:
             s.flight.record("event", name, **data)
-        except Exception:  # telemetry never raises
+        except Exception:  # check: no-retry — telemetry never raises
             pass
 
 
@@ -811,7 +813,7 @@ def flight_fault(site: str, classification: str, error: str,
                             error=error)
             if dump:
                 s.flight.dump(s.flight_dir, "fatal_fault")
-    except Exception:  # telemetry never raises
+    except Exception:  # check: no-retry — telemetry never raises
         pass
 
 
@@ -823,7 +825,7 @@ def dump_on_crash(reason: str = "crash") -> Optional[str]:
         return None
     try:
         return s.flight.dump(s.flight_dir, reason)
-    except Exception:  # a failing dump must not mask
+    except Exception:  # check: no-retry — a failing dump must not mask
         return None    # the original crash
 
 
@@ -923,7 +925,7 @@ class Sampler:
                 round(time.monotonic() - self._t0, 3))
             self.ticks += 1
             REGISTRY.gauge("telemetry.sampler_ticks").set(self.ticks)
-        except Exception:  # sampling must never raise
+        except Exception:  # check: no-retry — sampling must never raise
             pass
 
     def _sample_memory(self) -> None:
@@ -934,9 +936,15 @@ class Sampler:
             return
         label = str(stats["index"])
         REGISTRY.gauge("mem.stats_unavailable").set(0)
-        for key in ("bytes_in_use", "peak_bytes_in_use", "bytes_reserved",
-                    "bytes_limit"):
-            REGISTRY.gauge(f"mem.device.{key}").set(stats[key], label=label)
+        # Literal names (check rule R6), one gauge per allocator field.
+        REGISTRY.gauge("mem.device.bytes_in_use").set(
+            stats["bytes_in_use"], label=label)
+        REGISTRY.gauge("mem.device.peak_bytes_in_use").set(
+            stats["peak_bytes_in_use"], label=label)
+        REGISTRY.gauge("mem.device.bytes_reserved").set(
+            stats["bytes_reserved"], label=label)
+        REGISTRY.gauge("mem.device.bytes_limit").set(
+            stats["bytes_limit"], label=label)
         self.peaks["max_memory_allocated"] = max(
             self.peaks.get("max_memory_allocated", 0),
             stats["peak_bytes_in_use"])
@@ -1082,7 +1090,7 @@ class TelemetrySession:
             try:
                 self.flight.record("event", "sigterm_drain")
                 hook()
-            except Exception:  # a failing hook must
+            except Exception:  # check: no-retry — a failing hook must
                 pass           # not resurrect the kill mid-drain
             return
         try:
@@ -1113,7 +1121,7 @@ class TelemetrySession:
             with open(tmp, "w") as f:
                 f.write(REGISTRY.to_openmetrics())
             os.replace(tmp, self.path)
-        except Exception:  # export must not kill a run
+        except Exception:  # check: no-retry — export must not kill a run
             pass
 
     def snapshot_record(self, extra_config: Optional[dict] = None):

@@ -61,9 +61,11 @@ def _fence_all(values) -> None:
         import torch
         devices = {v.device for v in values
                    if isinstance(v, torch.Tensor) and v.is_cuda}
+        from dmlp_tpu_torch.check.sanitize import fenced
         for dev in devices:
-            torch.cuda.synchronize(dev)
-    except Exception:  # check: no-retry — fencing never fails a span
+            with fenced("trace.span_fence"):
+                torch.cuda.synchronize(dev)
+    except Exception:  # fencing never fails a span
         pass
 
 
@@ -150,7 +152,7 @@ class Span:
                 from torch.profiler import record_function
                 self._annot = record_function(self.name)
                 self._annot.__enter__()
-            except Exception:  # check: no-retry — annotation is optional
+            except Exception:  # annotation is optional
                 self._annot = None
         self._t0 = _clock()
         return self
@@ -163,7 +165,7 @@ class Span:
         if self._annot is not None:
             try:
                 self._annot.__exit__(*exc)
-            except Exception:  # check: no-retry
+            except Exception:  # best effort: a span records regardless
                 pass
         self._tracer._complete(self.name, self._t0, t1, self.args)
         return False

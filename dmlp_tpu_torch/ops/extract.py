@@ -54,6 +54,7 @@ from typing import Optional
 
 import torch
 
+from dmlp_tpu_torch.check.sanitize import readback
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_F32,
                                             LOWP_COEF)
 from dmlp_tpu_torch.kernels import (LAUNCHES, KernelBuildError,
@@ -277,7 +278,8 @@ def split_partials_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                 lbs = lb - eps
                 go = _tile_any(~torch.isnan(lbs) & (torch.clamp_min(lbs, 0.0)
                                                     < t), tile_q)
-                if not bool(go.any()):
+                # The plain version skips a gated-out block on the host.
+                if not readback(go.any(), "extract.plain_gate"):  # check: allow-host-sync
                     continue
             dist = torch.clamp_min(qn[:, None] + dn[None, lo:hi]
                                    - 2.0 * (qx @ dx[lo:hi].T), 0.0)
@@ -288,7 +290,8 @@ def split_partials_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                 go = go & _tile_any(dist.min(1).values < t, tile_q)
             iters[:, j] = go.to(torch.int32)
             rows = go[tile_of]
-            if not bool(rows.any()):
+            if not readback(rows.any(),  # check: allow-host-sync
+                            "extract.plain_rows"):
                 continue
             alld = torch.cat([ld, dist], 1)
             alli = torch.cat([li, (id_base + pos).to(torch.int32)
@@ -594,26 +597,32 @@ def compare_lists(od_a, oi_a, od_b, oi_b, tol: torch.Tensor) -> dict:
     are infinite in the same places); (2) every id whose distance lies
     below ``kth - 2*tol`` (kth = b's largest kept distance) on either side
     is in the other side's list. Returns {"ok", "max_abs_err",
-    "bad_dist_rows", "bad_id_rows"}."""
-    da = torch.sort(od_a.double().cpu(), 1).values
-    db = torch.sort(od_b.double().cpu(), 1).values
-    tol = tol.double().cpu()[:, None]
+    "bad_dist_rows", "bad_id_rows"}. Computed on the host: one readback
+    of the lists, one of the verdict."""
+    host = readback([od_a, oi_a, od_b, oi_b, tol],  # check: allow-host-sync
+                    "extract.compare_lists")
+    od_a, oi_a, od_b, oi_b, tol = (torch.from_numpy(h) for h in host)
+    da = torch.sort(od_a.double(), 1).values
+    db = torch.sort(od_b.double(), 1).values
+    tol = tol.double()[:, None]
     fin = torch.isfinite(da) & torch.isfinite(db)
     same_inf = torch.isinf(da) == torch.isinf(db)
     diff = torch.where(fin, (da - db).abs(), torch.zeros_like(da))
     bad_d = ~(same_inf & (diff <= tol)).all(1)
     thr = db[:, -1:] - 2 * tol
-    ia, ib = oi_a.long().cpu(), oi_b.long().cpu()
+    ia, ib = oi_a.long(), oi_b.long()
     sa, sb = torch.sort(ia, 1).values, torch.sort(ib, 1).values
 
     def missing(ids, dist, other_sorted):
         idx = torch.searchsorted(other_sorted, ids).clamp_max(
             other_sorted.shape[1] - 1)
         found = torch.gather(other_sorted, 1, idx) == ids
-        return ((dist.double().cpu() < thr) & ~found).any(1)
+        return ((dist.double() < thr) & ~found).any(1)
 
     bad_i = missing(ia, od_a, sb) | missing(ib, od_b, sa)
+    bad_d, bad_i, diff = readback(  # check: allow-host-sync
+        [bad_d, bad_i, diff], "extract.compare_lists")
     return {"ok": not bool(bad_d.any() or bad_i.any()),
-            "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "max_abs_err": float(diff.max()) if diff.size else 0.0,
             "bad_dist_rows": int(bad_d.sum()),
             "bad_id_rows": int(bad_i.sum())}

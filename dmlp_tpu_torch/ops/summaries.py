@@ -378,8 +378,11 @@ def stage_summaries(summ: BlockSummaries, device) -> Dict:
     live = summ.counts > 0
     dn_max = float(np.square(summ.nmax[live]).max()) if live.any() else 0.0
 
+    from dmlp_tpu_torch.check.sanitize import fenced
+
     def put(a):
-        return torch.as_tensor(np.array(a)).to(device)
+        with fenced("summaries.stage"):
+            return torch.as_tensor(np.array(a)).to(device)
 
     return {
         "counts": put(np.asarray(summ.counts, np.int32)),

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from dmlp_tpu_torch.check.sanitize import readback
 from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.ops.distance import masked_pairwise_sq_l2
 
@@ -140,7 +141,8 @@ def make_block_step(select: str, k: int, use_pallas: bool = False):
         sel_min = torch.gather(segmin, -1, seg_idx)
         t = sel_min[:, min(k, s) - 1]
         last = sel_min[:, -1]
-        if bool((torch.isfinite(last) & (last <= t)).any()):
+        tied = (torch.isfinite(last) & (last <= t)).any()
+        if readback(tied, "topk.seg_tie"):  # check: allow-host-sync
             return step_full(carry, tile, blabels, bids)
         # Whole SEG-column segments, gathered in pick order.
         cand_d = torch.gather(tile.view(qb, nseg, SEG), 1,

@@ -22,7 +22,10 @@ Every collective moves one tensor: a list's three (Q, K) arrays travel
 packed as int32 (the distances' float32 bits unchanged). Under gloo the
 tensors go through host memory — copied off the card before the
 collective and back after it, here and nowhere else; under NCCL they stay
-on the card. A group of one rank runs no collective at all.
+on the card. A group of one rank runs no collective at all. Those copies
+and the object collectives (which read their pickled sizes back) are the
+mesh's deliberate syncs: each sits in a named ``check.sanitize.fenced``
+site, so a ``--sanitize`` run passes them and lists them.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmlp_tpu_torch.check.sanitize import fenced, readback
 from dmlp_tpu_torch.ops.topk import TopK, merge_topk, select_topk
 
 
@@ -42,6 +46,16 @@ def _wire_device(group, device: torch.device) -> torch.device:
     if dist.get_backend(group) == "nccl":
         return device
     return torch.device("cpu")
+
+
+def move(t: torch.Tensor, device, site: str) -> torch.Tensor:
+    """``t`` on ``device``; a move between the card and the host (gloo's
+    wire) is a deliberate sync, fenced as ``site``."""
+    device = torch.device(device)
+    if t.device.type == device.type:
+        return t.to(device)
+    with fenced(site):
+        return t.to(device)
 
 
 def _pack(top: TopK) -> torch.Tensor:
@@ -63,11 +77,12 @@ def allgather_merge_topk(local: TopK, k: int, group=None) -> TopK:
     if n == 1:
         return select_topk(local.dists, local.labels, local.ids, k)
     dev = local.dists.device
-    mine = _pack(local).to(_wire_device(group, dev))
+    mine = move(_pack(local), _wire_device(group, dev),
+                  "collectives.allgather_wire")
     parts = [torch.empty_like(mine) for _ in range(n)]
     dist.all_gather(parts, mine, group=group)
     # (R, 3, Q, K) -> (3, Q, R*K): per query, all shards' candidates.
-    g = torch.stack(parts).to(dev)
+    g = move(torch.stack(parts), dev, "collectives.allgather_wire")
     _, three, q, kk = g.shape
     flat = _unpack(g.permute(1, 2, 0, 3).reshape(three, q, n * kk))
     return select_topk(flat.dists, flat.labels, flat.ids, k)
@@ -91,13 +106,14 @@ def ring_allreduce_topk(local: TopK, k: int, group=None) -> TopK:
     wire = _wire_device(group, dev)
     acc = local
     for _ in range(n - 1):
-        out = _pack(acc).to(wire)
+        out = move(_pack(acc), wire, "collectives.ring_wire")
         inc = torch.empty_like(out)
         for req in dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, out, nxt, group),
                 dist.P2POp(dist.irecv, inc, prv, group)]):
             req.wait()
-        acc = merge_topk(_unpack(inc.to(dev)), local, k)
+        acc = merge_topk(_unpack(move(inc, dev, "collectives.ring_wire")),
+                         local, k)
     return acc
 
 
@@ -123,7 +139,7 @@ def gspmd_merge_topk(local: TopK, k: int, mesh) -> TopK:
     r = mesh.size(0)
     dev = local.dists.device
     wire = dev if mesh.device_type == dev.type else torch.device("cpu")
-    mine = _pack(local).to(wire)
+    mine = move(_pack(local), wire, "collectives.gspmd_wire")
     placed = DTensor.from_local(mine, mesh, [Shard(2), Shard(1)],
                                 run_check=False)
     got = placed.redistribute(mesh, [Replicate(), Shard(1)]).to_local()
@@ -131,7 +147,7 @@ def gspmd_merge_topk(local: TopK, k: int, mesh) -> TopK:
     if tuple(got.shape) != (three, q, r * kk):
         raise RuntimeError(f"gspmd merge: redistribute gave "
                            f"{tuple(got.shape)}, want {(three, q, r * kk)}")
-    flat = _unpack(got.to(dev))
+    flat = _unpack(move(got, dev, "collectives.gspmd_wire"))
     return select_topk(flat.dists, flat.labels, flat.ids, k)
 
 
@@ -142,13 +158,15 @@ def gather_topk(top: TopK, group, dst: int = 0) -> Optional[TopK]:
     if n == 1:
         return top
     dev = top.dists.device
-    mine = _pack(top).to(_wire_device(group, dev))
+    mine = move(_pack(top), _wire_device(group, dev),
+                  "collectives.gather_wire")
     parts = [torch.empty_like(mine) for _ in range(n)] \
         if dist.get_rank() == dst else None
     dist.gather(mine, parts, dst=dst, group=group)
     if parts is None:
         return None
-    return _unpack(torch.cat(parts, 1).to(dev))
+    return _unpack(move(torch.cat(parts, 1), dev,
+                          "collectives.gather_wire"))
 
 
 def scatter_from_root(parts: Optional[Sequence[np.ndarray]], shape,
@@ -165,8 +183,8 @@ def scatter_from_root(parts: Optional[Sequence[np.ndarray]], shape,
     out = torch.empty(tuple(shape), dtype=dtype, device=wire)
     lst = None
     if dist.get_rank() == src:
-        lst = [torch.from_numpy(np.ascontiguousarray(p)).to(wire)
-               for p in parts]
+        lst = [move(torch.from_numpy(np.ascontiguousarray(p)), wire,
+                      "collectives.scatter_stage") for p in parts]
     dist.scatter(out, lst, src=src)
     return out
 
@@ -176,7 +194,8 @@ def broadcast_object(obj, src: int = 0):
     if dist.get_world_size() == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    with fenced("collectives.broadcast_object"):
+        dist.broadcast_object_list(box, src=src)
     return box[0]
 
 
@@ -185,7 +204,8 @@ def gather_objects(obj, dst: int = 0) -> Optional[List]:
     if dist.get_world_size() == 1:
         return [obj]
     out = [None] * dist.get_world_size() if dist.get_rank() == dst else None
-    dist.gather_object(obj, out, dst=dst)
+    with fenced("collectives.gather_objects"):
+        dist.gather_object(obj, out, dst=dst)
     return out
 
 
@@ -199,8 +219,10 @@ def all_gather_arrays(arrays: Sequence[np.ndarray]) -> List[List[np.ndarray]]:
     for a in arrays:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if dist.get_backend() == "nccl":
-            t = t.to(torch.device("cuda", torch.cuda.current_device()))
+            t = move(t, torch.device("cuda", torch.cuda.current_device()),
+                       "collectives.all_gather_arrays")
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t)
-        out.append([p.cpu().numpy() for p in parts])
+        out.append(readback(  # check: allow-host-sync
+            parts, "collectives.all_gather_arrays"))
     return [list(per_rank) for per_rank in zip(*out)]

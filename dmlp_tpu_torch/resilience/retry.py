@@ -149,7 +149,7 @@ def call_with_timeout(op: Callable, timeout_s: float, site: str = "",
     def _worker():
         try:
             result.append(op())
-        except BaseException as e:  # relayed to the caller below
+        except BaseException as e:  # check: no-retry — relayed to the caller below
             error.append(e)
 
     t = threading.Thread(target=_worker, daemon=True,

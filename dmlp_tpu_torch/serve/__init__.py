@@ -17,9 +17,18 @@ staging and kernel builds once and then serves query streams:
 
 Responses are byte-identical to the float64 golden oracle on every path:
 the resident solves reuse the engine's candidates -> host float64
-finalize -> boundary repair pipeline unchanged. The reference's race
-sanitizer hook (ROADMAP A15) is not here.
+finalize -> boundary repair pipeline unchanged.
 """
+
+# `python -m dmlp_tpu_torch.serve` executes this __init__ first, so this is
+# the earliest point where DMLP_TPU_RACECHECK=1 can wrap the lock factories
+# and have EVERY serving-surface lock tracked (telemetry's import-time
+# globals are retrofitted by install either way).
+import torch  # noqa: F401  (before the install: torch's locks stay native)
+
+from dmlp_tpu_torch.check import racecheck as _racecheck  # noqa: E402
+
+_racecheck.install_from_env()
 
 from dmlp_tpu_torch.serve.admission import AdmissionController  # noqa: F401
 from dmlp_tpu_torch.serve.batching import MicroBatcher, Request  # noqa: F401

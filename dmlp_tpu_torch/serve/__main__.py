@@ -42,8 +42,12 @@ redistribution from data-sharded to query-sharded).
 ``--compile-cache DIR`` (``$DMLP_TPU_COMPILE_CACHE`` the ambient form)
 builds and loads the kernel libraries and the native parser in DIR
 (``utils.compile_cache``), shared with the worker ranks and, through the
-fleet's spawns, with every replica. The reference's
-``--snapshot-every-s`` comes with the checker slice (A15b).
+fleet's spawns, with every replica. ``--snapshot-every-s S`` appends
+the RunRecord to ``--record`` every S seconds while serving.
+``DMLP_TPU_RACECHECK=1`` runs the daemon under the race sanitizer
+(``check.racecheck``, installed by this package's ``__init__`` before any
+serving lock exists); ``DMLP_TPU_RACECHECK_OUT=FILE`` writes its verdict
+at drain.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ import contextlib
 import os
 import sys
 from typing import List, Optional, Sequence, Tuple
+
+from dmlp_tpu_torch.check import racecheck
 
 
 def _parse_warm_buckets(spec: str) -> List[Tuple[int, int]]:
@@ -181,6 +187,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "stats op carries its state")
     p.add_argument("--record", metavar="FILE", default=None,
                    help="append the serving RunRecord here at drain")
+    p.add_argument("--snapshot-every-s", type=float, default=0.0,
+                   metavar="S",
+                   help="also append the RunRecord to --record every S "
+                        "seconds while serving (0 = at drain only)")
     p.add_argument("--mesh", default=None, metavar="RxC",
                    help="serve mesh-resident over an RxC (data x query) "
                         "mesh of ranks, this process rank 0 "
@@ -199,6 +209,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "unusable); $DMLP_TPU_COMPILE_CACHE is the ambient "
                         "form (flag wins)")
     args = p.parse_args(argv)
+    # The DMLP_TPU_RACECHECK=1 install happens in serve/__init__.py, which
+    # `python -m dmlp_tpu_torch.serve` runs before this module creates any
+    # lock; this call is the idempotent backstop for embedders.
+    racecheck.install_from_env()
     mesh_shape = _parse_mesh(args.mesh)
 
     from dmlp_tpu_torch.utils.compile_cache import enable_from_flag
@@ -273,7 +287,8 @@ def _serve(args, corpus, config, budget, warm, mesh_shape) -> int:
             telemetry_path=args.telemetry,
             telemetry_port=args.telemetry_port, record_path=args.record,
             trace_path=args.trace, objectives=args.slo,
-            mesh_shape=mesh_shape, mesh_merge=args.mesh_merge)
+            mesh_shape=mesh_shape, mesh_merge=args.mesh_merge,
+            snapshot_every_s=args.snapshot_every_s)
         daemon.start()
         sys.stderr.write(f"dmlp_tpu_torch.serve: ready port={daemon.port} "
                          f"cold_start_compile_ms="
@@ -282,6 +297,7 @@ def _serve(args, corpus, config, budget, warm, mesh_shape) -> int:
         if args.ready_file:
             daemon.write_ready_file(args.ready_file)
         daemon.run_until_drained()
+        racecheck.write_report_if_requested()
         sys.stderr.write("dmlp_tpu_torch.serve: drained clean\n")
         return 0
     except Exception:

@@ -259,7 +259,7 @@ class MicroBatcher:
                 req = batch[0]
                 try:
                     req.value = req.fn()
-                except BaseException as e:  # raised on the caller's thread
+                except BaseException as e:  # check: no-retry — raised on the caller's thread
                     req.exc = e
                 req.complete()
             elif batch[0].kind == "ingest":
@@ -276,7 +276,7 @@ class MicroBatcher:
         and the daemon exits)."""
         try:
             fn()
-        except Exception:  # counted; the daemon reads the engine's state
+        except Exception:  # check: no-retry — counted; the daemon reads the engine's state
             telemetry.registry().counter("serve.hook_errors").inc(
                 label=label)
 
@@ -293,6 +293,10 @@ class MicroBatcher:
         e0 = 0.0
         if obs_trace.sinks_active():
             e0 = time.perf_counter()
+            # check: allow-concurrency=R702 — _wake_pc is written in
+            # _collect and read here, both only on the batcher thread
+            # (_run is the sole caller of either); the write holds
+            # _cond only because _collect already does.
             self._phase("serve.phase.queue", req.t_enqueue_pc,
                         max(req.t_enqueue_pc, self._wake_pc), req.rid,
                         kind="ingest")
@@ -305,7 +309,7 @@ class MicroBatcher:
             rows = self.engine.ingest(req.labels, req.attrs,
                                       start=req.start)
             req.complete(corpus_rows=rows)
-        except Exception as e:  # surfaced to the client
+        except Exception as e:  # check: no-retry — surfaced to the client
             req.complete(error=f"{type(e).__name__}: {e}")
         if e0:
             self._phase("serve.phase.ingest", e0, time.perf_counter(),
@@ -317,6 +321,8 @@ class MicroBatcher:
         e0 = 0.0
         if obs_trace.sinks_active():
             e0 = time.perf_counter()
+            # check: allow-concurrency=R702 — batcher-thread-only read
+            # (see _execute_ingest).
             self._phase("serve.phase.queue", req.t_enqueue_pc,
                         max(req.t_enqueue_pc, self._wake_pc), req.rid,
                         kind="corpus")
@@ -333,7 +339,7 @@ class MicroBatcher:
                 "epoch": state["epoch"],
             }
             req.complete()
-        except Exception as e:  # surfaced to the client
+        except Exception as e:  # check: no-retry — surfaced to the client
             req.complete(error=f"{type(e).__name__}: {e}")
         if e0:
             self._phase("serve.phase.corpus", e0, time.perf_counter(),
@@ -366,7 +372,7 @@ class MicroBatcher:
                 finally:
                     if rids:
                         self.engine.trace_rids = None
-        except Exception as e:  # the batch fails visibly, the daemon lives
+        except Exception as e:  # check: no-retry — the batch fails visibly, the daemon lives
             reg.counter("serve.batch_errors").inc()
             msg = f"{type(e).__name__}: {e}"
             for r in batch:
@@ -402,6 +408,8 @@ class MicroBatcher:
                 # batch solve is attributed to every coalesced request
                 # (one rid's phases tile its wall time; they do not sum
                 # across rids).
+                # check: allow-concurrency=R702 — batcher-thread-only
+                # read (see _execute_ingest).
                 q1 = min(max(self._wake_pc, r.t_enqueue_pc), t0)
                 self._phase("serve.phase.queue", r.t_enqueue_pc, q1,
                             r.rid)

@@ -33,8 +33,9 @@ Shutdown: SIGTERM, or an in-band ``drain`` op, stops admission
 (and release a mesh's workers), waits for the handlers to write their
 responses, and exits 0.
 
-Not here yet, with its ROADMAP item: periodic records
-(``--snapshot-every-s``, A15).
+``snapshot_every_s`` (``--snapshot-every-s``) appends the serving
+RunRecord to ``record_path`` every that many seconds while serving, as
+well as at drain.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ class _Handler(socketserver.StreamRequestHandler):
                     resp = daemon.handle_line(line)
                 except protocol.ProtocolError as e:
                     resp = {"ok": False, "error": str(e)}
-                except Exception as e:  # the connection survives a bad
+                except Exception as e:  # check: no-retry — the connection survives a bad
                     # request; solve failures come back per request
                     resp = {"ok": False,
                             "error": f"{type(e).__name__}: {e}"}
@@ -147,9 +148,11 @@ class ServeDaemon:
                  trace_path: Optional[str] = None,
                  objectives: Optional[List[Any]] = None,
                  mesh_shape: Optional[Tuple[int, int]] = None,
-                 mesh_merge: str = "allgather"):
+                 mesh_merge: str = "allgather",
+                 snapshot_every_s: float = 0.0):
         self.corpus = corpus
         self.record_path = record_path
+        self.snapshot_every_s = snapshot_every_s
         config = config or EngineConfig()
         # Request tracing: a process-wide tracer and the clock-sync marker
         # a merge of several processes' traces aligns on; written at
@@ -349,7 +352,7 @@ class ServeDaemon:
         if self.slo is not None:
             try:
                 out["slo"] = self.slo.snapshot()
-            except Exception:  # stats never fail on the SLO block
+            except Exception:  # check: no-retry — stats never fail on the SLO block
                 telemetry.registry().counter("obs.errors").inc(label="slo")
         return out
 
@@ -402,7 +405,7 @@ class ServeDaemon:
         if self.record_path:
             try:
                 self.snapshot_record().append_jsonl(self.record_path)
-            except Exception:  # a record never kills the drain: counted
+            except Exception:  # check: no-retry — a record never kills the drain: counted
                 telemetry.registry().counter("obs.errors").inc(
                     label="record")
 
@@ -411,7 +414,10 @@ class ServeDaemon:
     def run_until_drained(self) -> None:
         """Block until a drain is requested (SIGTERM or the in-band op),
         then drain and shut down. A broken mesh engine closes the daemon
-        and raises instead."""
+        and raises instead. With ``snapshot_every_s`` the RunRecord is
+        appended on that period too."""
+        next_snap = (time.monotonic() + self.snapshot_every_s
+                     if self.snapshot_every_s else None)
         while not self._drain_event.wait(timeout=0.2):
             broken = getattr(self.engine, "broken", None)
             if broken is not None:
@@ -421,10 +427,13 @@ class ServeDaemon:
             if self.slo is not None:
                 try:
                     self.slo.tick()
-                except Exception:  # evaluation never takes the serve
+                except Exception:  # check: no-retry — evaluation never takes the serve
                     # loop down: counted, and the next tick re-reads all
                     telemetry.registry().counter("obs.errors").inc(
                         label="slo")
+            if next_snap is not None and time.monotonic() >= next_snap:
+                self._append_record()
+                next_snap = time.monotonic() + self.snapshot_every_s
         self.drain()
 
     def _restore_sigterm(self) -> None:
@@ -461,7 +470,7 @@ class ServeDaemon:
             try:
                 self._tracer.write(self.trace_path,
                                    process_name=f"serve:{self.port}")
-            except Exception:  # a trace never kills the drain: counted
+            except Exception:  # check: no-retry — a trace never kills the drain: counted
                 telemetry.registry().counter("obs.errors").inc(
                     label="trace")
             if obs_trace.active() is self._tracer:

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from dmlp_tpu_torch import kernels
+from dmlp_tpu_torch.check.sanitize import fenced, readback
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
                                             EPS_REL_F32, LOWP_COEF)
@@ -74,7 +75,7 @@ from dmlp_tpu_torch.engine.single import (_BF16_AUTO_K_CAP, ChunkThrottle,
                                           SingleChipEngine, _mp_floor,
                                           _mp_merge, active_precision,
                                           extract_finalize, fit_blocks,
-                                          host_staging, plan_chunks,
+                                          host_staging, plan_chunks, put,
                                           resilient_get, resolve_kcap,
                                           round_up)
 from dmlp_tpu_torch.fleet import consistency as ccs
@@ -347,11 +348,12 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         ids[:n] = np.arange(n, dtype=np.int32)
         dev = self.device
         with obs_span("serve.stage_resident", rows=rows, na=na):
-            self._buf = host_staging(self._host_attrs, dev,
-                                     self._staging).to(dev)
-            self._d_labels = torch.from_numpy(
-                self._host_labels.copy()).to(dev)
-            self._d_ids = torch.from_numpy(ids).to(dev)
+            with fenced("serve.stage_resident"):
+                self._buf = host_staging(self._host_attrs, dev,
+                                         self._staging).to(dev)
+            self._d_labels = put(self._host_labels.copy(), dev,
+                                 "serve.stage_resident")
+            self._d_ids = put(ids, dev, "serve.stage_resident")
 
         # -- bucket registry and build bookkeeping --------------------------
         self._buckets: Dict[Tuple[int, int], _Bucket] = {}
@@ -629,13 +631,13 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
         with obs_span("serve.prune_score", blocks=self._ex_nchunks,
                       qpad=entry.qpad, **self._rid_args()):
             mask = osum.score_blocks(
-                q_dev, torch.from_numpy(qvalid).to(dev),
-                torch.from_numpy(ks).to(dev), sd["counts"], sd["nmin"],
-                sd["nmax"], sd["lo"], sd["hi"], sd["dn_max"],
+                q_dev, put(qvalid, dev, "serve.prune_stage"),
+                put(ks, dev, "serve.prune_stage"), sd["counts"],
+                sd["nmin"], sd["nmax"], sd["lo"], sd["hi"], sd["dn_max"],
                 sd["eps_rel"], sd["eps_cancel"])
             # The mask decides which chunks the folds launch over, so the
             # host reads it (O(blocks) bytes) before launching them.
-            keep = mask.cpu().numpy()
+            keep = readback(mask, "serve.prune_mask")  # check: allow-host-sync
         self.last_phase_ms["prune"] = (time.perf_counter() - t0) * 1e3
         total = int(np.count_nonzero(
             self._summ.counts[:self._ex_nchunks] > 0))
@@ -753,8 +755,8 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
             qn_host[:nq] = np.einsum("qa,qa->q", inp.query_attrs,
                                      inp.query_attrs)
             dev = self.device
-            qn_dev = torch.from_numpy(qn_host.astype(np.float32)).to(dev)
-            dn_dev = torch.tensor(np.float32(self._dn_max()), device=dev)
+            qn_dev = put(qn_host.astype(np.float32), dev, "serve.mp_stage")
+            dn_dev = put(np.float32(self._dn_max()), dev, "serve.mp_stage")
             d_full = self._buf[:self._ex_rows]
             fds = []
             for _p in range(1, npasses):
@@ -913,7 +915,7 @@ class ResidentEngine(ResidentServingCore, SingleChipEngine):
             self._pending_gate = None
             # The one read of the batch's gate count (the results were
             # fetched already, so this waits on nothing).
-            gated = int(gz.item())
+            gated = int(readback(gz, "serve.gate_count"))  # check: allow-host-sync
             frac = gated / max(ntiles, 1)
             self.last_gated_fraction = frac
             reg = telemetry.registry()

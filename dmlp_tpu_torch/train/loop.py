@@ -34,8 +34,11 @@ card (gloo carries the CUDA tensors). The device is ``cuda`` unless
 The pipeline and MoE families run in f32 without offload, as in the
 reference; their flags raise where they do not apply. ``--compile-cache
 DIR`` builds and loads the native libraries in DIR (``utils.
-compile_cache``), shared with the ranks ``--mesh`` starts; ``--sanitize``
-raises, naming the checker slice (A15b).
+compile_cache``), shared with the ranks ``--mesh`` starts. ``--sanitize``
+(or ``$DMLP_TPU_SANITIZE=1``) runs every step under
+``check.sanitize.sanitized(train=True)``: an implicit host readback
+raises, on the card also a synchronizing CUDA operation, and a backward
+that produces a NaN raises at the op (``detect_anomaly``).
 """
 
 from __future__ import annotations
@@ -128,14 +131,6 @@ def build_sharded_state(mesh, dims, optimizer, seed: int = 0,
         state["opt"] = {m: {n: t.pin_memory() for n, t in ms.items()}
                         for m, ms in state["opt"].items()}
     return state
-
-
-def refuse_unported(sanitize: bool = False) -> None:
-    """Raise for what this package does not port yet: ``--sanitize``,
-    the runtime sanitizer of the checker slice (A15b)."""
-    if sanitize:
-        raise ValueError("--sanitize is not ported yet: it comes with the "
-                         "checker (A15b)")
 
 
 def _ranks() -> int:
@@ -280,7 +275,6 @@ def train(steps: int = 100, batch: int = 1024,
     group every rank calls it with the same arguments; ``metrics`` given
     on every rank also records the first step's collectives (each rank
     takes part), and rank 0's logger is the one to read."""
-    refuse_unported(sanitize)
     device = resolve_device(device)
     optimizer = make_optimizer(optimizer_name, lr)
     mesh, state, step_fn, (d_in, n_classes), slicer = _build_parallel(
@@ -341,6 +335,14 @@ def train(steps: int = 100, batch: int = 1024,
     # state when the guard is on and it holds nothing. Every rank looks
     # before any rank writes (the save is collective: a rank that saw the
     # first rank's files would skip it and deadlock the others).
+    # Sanitized training: each step under sanitized(train=True); the
+    # loop's readbacks (the NaN guard's loss, the log windows) stay
+    # outside it, as in the reference.
+    from dmlp_tpu_torch.check.sanitize import maybe_sanitized
+
+    def san():  # fresh context per step: @contextmanager cms are one-shot
+        return maybe_sanitized(train=True, force=sanitize)
+
     if nan_guard and checkpoint_dir:
         empty = ckpt_lib.latest_step(checkpoint_dir) is None
         if _ranks() > 1:
@@ -376,7 +378,7 @@ def train(steps: int = 100, batch: int = 1024,
             # consumed on attempt 1 and the retry's re-run lands. The
             # fault is raised before the step touches the state.
             acts = rs_inject.fire("train.step", step=i) or ()
-            with obs_span("train.step"):
+            with obs_span("train.step"), san():
                 s2, m2 = step_fn(state, xd, yd)
             return acts, s2, m2
 
@@ -613,7 +615,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "FILE and the crash flight recorder")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--sanitize", action="store_true",
-                   help="not ported yet (the checker, A15b): raises")
+                   help="run every step under check.sanitize (implicit "
+                        "host readbacks and NaN-producing backwards "
+                        "raise); $DMLP_TPU_SANITIZE=1 enables it too")
     p.add_argument("--nan-guard", action="store_true",
                    help="per-step non-finite-loss guard: restore the "
                         "latest checkpoint, replay the stream step for "
@@ -643,7 +647,6 @@ def main(argv=None) -> int:
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    refuse_unported(args.sanitize)
     from dmlp_tpu_torch.utils.compile_cache import enable_from_flag
     enable_from_flag(args.compile_cache)
     mesh_shape_arg = None

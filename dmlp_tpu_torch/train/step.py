@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.func import functional_call
 
+from dmlp_tpu_torch.check.sanitize import fenced
 from dmlp_tpu_torch.train.model import round_weight_grads
 
 TrainState = Dict[str, Any]  # {"params": MLP, "opt": {...}, "step": int}
@@ -116,7 +117,8 @@ def settle(state: TrainState) -> None:
     host reads its leaves."""
     fence = state.get("fence")
     if fence is not None:
-        fence.synchronize()
+        with fenced("train.offload_fence"):
+            fence.synchronize()
         state["fence"] = None
 
 

@@ -74,8 +74,9 @@ def test_offload_through_the_loop_equals_resident(level):
 def test_families_of_a14b_and_a15_flags_raise(monkeypatch, tmp_path):
     """The pipeline and MoE families (A14b) run, under the reference's
     flag rules: each raises where its dims or default mesh do not fit;
-    ``--sanitize``, left to the checker (A15b), raises naming it, and
-    ``--compile-cache`` (A15a) runs, its directory made and exported."""
+    ``--sanitize`` (A15b) runs every step under the sanitizer, through
+    the API and the CLI, and ``--compile-cache`` (A15a) runs, its
+    directory made and exported."""
     for fam, dims, match in (("dp_pp", (4, 8, 8, 2), "wants --dims"),
                              ("dp_pp3", (4, 8, 2), "mesh axes must be"),
                              ("dp_ep", (4, 8, 2), "wants --dims")):
@@ -91,12 +92,14 @@ def test_families_of_a14b_and_a15_flags_raise(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="pp-schedule"):
         train(steps=1, batch=8, dims=(4, 8, 2), pp_schedule="interleaved",
               device="cpu")
-    with pytest.raises(ValueError, match="A15"):
-        train(steps=1, batch=8, dims=(4, 8, 2), sanitize=True, device="cpu")
-    for flags in (["--sanitize"],
-                  ["--parallelism", "dp_ep", "--dims", "4,8,2"]):
-        with pytest.raises(ValueError, match="A15b|dp_ep wants --dims"):
-            loop.main(["--device", "cpu", "--steps", "1", *flags])
+    _, last = train(steps=1, batch=8, dims=(4, 8, 2), sanitize=True,
+                    log_every=1, device="cpu")
+    assert last["step"] == 1 and np.isfinite(last["loss"])
+    assert loop.main(["--device", "cpu", "--steps", "1", "--batch", "8",
+                      "--dims", "4,8,2", "--sanitize"]) == 0
+    with pytest.raises(ValueError, match="dp_ep wants --dims"):
+        loop.main(["--device", "cpu", "--steps", "1", "--parallelism",
+                   "dp_ep", "--dims", "4,8,2"])
     from dmlp_tpu_torch.utils import compile_cache
     monkeypatch.setenv(compile_cache.ENV_VAR, "")
     cache = tmp_path / "cache"
