@@ -343,8 +343,18 @@ libraries from it, which must not change after the build, and the
 package's own ``_build/`` must stay as it was.
 
 The ``check`` phase (after ``main``; ``--phases build,check`` runs it
-alone, solving its plain twins itself) drives the checker's runtime half
-on the card: a ``sync_probe`` line (which of ``torch.cuda.synchronize``,
+alone, solving its plain twins itself) starts the static checker,
+``python -m dmlp_tpu_torch.check --json --no-cache``, over the tree the
+build phase compiled, and beside it the same over a copy of the tree
+with two teeth (R802 on ``extract_topk.cu`` without its ``lowp-eps``
+annotations, R101 on the mesh engine's data group moved to an
+undeclared axis); both run on the host's spare cores while the phase's
+card work goes on, and its ``check_static`` line (the families, files,
+findings and seconds) comes last: exit 0 and 0 findings required, the
+``.cu`` bytes R8 scanned those whose ``kernels.source_hash`` names the
+loaded libraries, and both teeth biting. The card work drives the
+checker's runtime half: a ``sync_probe`` line (which of
+``torch.cuda.synchronize``,
 ``Event.synchronize``, ``Stream.synchronize``, ``.cpu()``, ``.item()``,
 ``nonzero``, an unpinned and a pinned ``.to("cuda")`` the card's
 ``torch.cuda.set_sync_debug_mode("error")`` flags); the sanitizer's teeth
@@ -1876,46 +1886,155 @@ def _race_stress(tmp_dir):
     return {k: int(v["engine_launches"].get(k, 0)) for k in KERNELS}
 
 
+def _start_checker(args, cwd, out_path):
+    """Start ``python -m dmlp_tpu_torch.check --json --no-cache *args``
+    in ``cwd`` (the package there is the one analyzed), its verdict to
+    ``out_path``: (process, start time, the files)."""
+    out = open(out_path, "w")
+    err = open(out_path + ".err", "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "dmlp_tpu_torch.check", "--json",
+         "--no-cache", *args], stdout=out, stderr=err, cwd=cwd)
+    return p, time.perf_counter(), (out, err, out_path)
+
+
+def _finish_checker(run):
+    """(exit code, the JSON verdict, seconds) of a started checker."""
+    p, t0, (out, err, path) = run
+    try:
+        rc = p.wait(timeout=300)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+        err.close()
+    secs = time.perf_counter() - t0
+    with open(path + ".err") as f:
+        tail = f.read()[-3000:]
+    check(rc in (0, 1), f"the checker failed ({rc}): {tail}")
+    with open(path) as f:
+        return rc, json.load(f), secs
+
+
+def _start_check_static(tmp_dir):
+    """Start the static checker over the tree the build phase compiled,
+    and over a copy of it with two teeth (``extract_topk.cu`` stripped
+    of its ``lowp-eps`` annotations: R802; a mesh engine's data group
+    moved to an undeclared axis: R101). Both run on the host's spare
+    cores while the check phase's card work goes on."""
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    copy = os.path.join(tmp_dir, "check_teeth")
+    shutil.copytree(os.path.join(root, "dmlp_tpu_torch"),
+                    os.path.join(copy, "dmlp_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    edits = (("kernels/extract_topk.cu", "// check: lowp-eps=lowp_eps", ""),
+             ("engine/sharded.py", "self.mesh.get_group(DATA_AXIS)",
+              'self.mesh.get_group("rows")'))
+    for rel, old, new in edits:
+        path = os.path.join(copy, "dmlp_tpu_torch", rel)
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        check(old in text, f"check_static: {rel} lost {old!r}")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text.replace(old, new))
+    return (_start_checker([], root, os.path.join(tmp_dir, "check.json")),
+            _start_checker(["--families", "R1,R8"], copy,
+                           os.path.join(tmp_dir, "check_teeth.json")))
+
+
+def _finish_check_static(started):
+    """The static checker's verdicts: the default families exit 0 with 0
+    findings, R8 scanned the very bytes of the ``.cu`` sources whose
+    ``kernels.source_hash`` names the loaded libraries, and both teeth
+    bite."""
+    import hashlib
+    from dmlp_tpu_torch import kernels
+    rc, v, secs = _finish_checker(started[0])
+    trc, tv, tsecs = _finish_checker(started[1])
+    check(rc == 0 and v["ok"] and v["findings"] == [],
+          f"check_static: {len(v['findings'])} finding(s): "
+          f"{[f['rule'] + ' ' + f['path'] for f in v['findings']][:5]}")
+    hashes = {}
+    for name in kernels.SOURCES:
+        rel = f"dmlp_tpu_torch/kernels/{name}.cu"
+        raw = kernels.source_path(name).read_bytes()
+        check(v["cuda_sources"].get(rel) == hashlib.sha256(raw).hexdigest(),
+              f"check_static: R8 scanned other bytes of {rel} than the "
+              f"source on disk")
+        want = hashlib.sha256(
+            raw + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib = kernels.load(name)
+        check(kernels.source_hash(name) == want
+              and os.path.basename(lib._name) == f"{name}-{want}.so",
+              f"check_static: the loaded {lib._name} is not the build of "
+              f"the scanned {rel} ({want})")
+        hashes[name] = want
+    teeth = {}
+    for f in tv["findings"]:
+        teeth[f["rule"]] = teeth.get(f["rule"], 0) + 1
+    emit({"phase": "check_static", "families": v["families"],
+          "files": v["files"], "findings": len(v["findings"]),
+          "seconds": secs, "cuda_sources": v["cuda_sources"],
+          "source_hash": hashes, "teeth": teeth, "teeth_exit": trc,
+          "teeth_seconds": tsecs})
+    check(trc == 1 and teeth.get("R802", 0) >= 3
+          and teeth.get("R101", 0) >= 1,
+          f"check_static: the teeth did not bite: {teeth}")
+
+
 def check_phase(tmp_dir):
-    """The checker's runtime half on the card (module docstring): the
-    sync probe, the sanitizer's teeth, the sanitized K1 and K3 solves
-    against their plain twins, a sanitized train run, the race stress.
+    """The checker on the card (module docstring): the sync probe, the
+    sanitizer's teeth, the sanitized K1 and K3 solves against their
+    plain twins, a sanitized train run, the race stress, and beside them
+    on the host the static checker over the built tree with its teeth.
     Returns the launches per run."""
     import torch
     from dmlp_tpu_torch.check import sanitize
-    sync_probe()
-    _sanitizer_teeth()
-    launches = {}
-    for run, flags in CHECK_RUNS:
-        name = next(r[1] for r in MAIN_RUNS if r[0] == run)
-        want = next(r[4] for r in MAIN_RUNS if r[0] == run)
-        if run not in OUTPUTS:       # the main phase did not run
-            out, ms, got, _ = _cli_run(run, name, flags, tmp_dir)
-            check(all(got[k] == v for k, v in want.items()),
-                  f"{run}: launches {got} != the plan's {want}")
-            OUTPUTS[run], MAIN_TIMES[run], MAIN_LAUNCHES[run] = \
-                out, ms, got
-        label = f"check_{run}_sanitized"
-        sanitize.reset_fences()
-        out, ms, got, lines = _cli_run(label, name, [*flags, "--sanitize"],
-                                       tmp_dir)
-        rung = [ln.split()[1] for ln in lines if ln.startswith("rung: ")]
-        emit({"phase": "check_solve", "run": label,
-              "time_taken_ms_sanitized": ms,
-              "time_taken_ms_plain": MAIN_TIMES[run],
-              "launches": got, "launches_plain": MAIN_LAUNCHES[run],
-              "identical": out == OUTPUTS[run], "rung": rung,
-              "fenced": dict(sanitize.FENCED),
-              "sync_debug_mode_after": torch.cuda.get_sync_debug_mode()})
-        check(out == OUTPUTS[run],
-              f"{label}: stdout differs from the plain solve's")
-        check(got == MAIN_LAUNCHES[run],
-              f"{label}: launches {got} != plain {MAIN_LAUNCHES[run]}")
-        check(rung == ["lowp"] and torch.cuda.get_sync_debug_mode() == 0,
-              f"{label}: rung {rung}")
-        launches[label] = got
-    _sanitized_train()
-    launches["check_race_stress"] = _race_stress(tmp_dir)
+    static = _start_check_static(tmp_dir)
+    try:
+        sync_probe()
+        _sanitizer_teeth()
+        launches = {}
+        for run, flags in CHECK_RUNS:
+            name = next(r[1] for r in MAIN_RUNS if r[0] == run)
+            want = next(r[4] for r in MAIN_RUNS if r[0] == run)
+            if run not in OUTPUTS:       # the main phase did not run
+                out, ms, got, _ = _cli_run(run, name, flags, tmp_dir)
+                check(all(got[k] == v for k, v in want.items()),
+                      f"{run}: launches {got} != the plan's {want}")
+                OUTPUTS[run], MAIN_TIMES[run], MAIN_LAUNCHES[run] = \
+                    out, ms, got
+            label = f"check_{run}_sanitized"
+            sanitize.reset_fences()
+            out, ms, got, lines = _cli_run(
+                label, name, [*flags, "--sanitize"], tmp_dir)
+            rung = [ln.split()[1] for ln in lines
+                    if ln.startswith("rung: ")]
+            emit({"phase": "check_solve", "run": label,
+                  "time_taken_ms_sanitized": ms,
+                  "time_taken_ms_plain": MAIN_TIMES[run],
+                  "launches": got, "launches_plain": MAIN_LAUNCHES[run],
+                  "identical": out == OUTPUTS[run], "rung": rung,
+                  "fenced": dict(sanitize.FENCED),
+                  "sync_debug_mode_after": torch.cuda.get_sync_debug_mode()})
+            check(out == OUTPUTS[run],
+                  f"{label}: stdout differs from the plain solve's")
+            check(got == MAIN_LAUNCHES[run],
+                  f"{label}: launches {got} != plain {MAIN_LAUNCHES[run]}")
+            check(rung == ["lowp"]
+                  and torch.cuda.get_sync_debug_mode() == 0,
+                  f"{label}: rung {rung}")
+            launches[label] = got
+        _sanitized_train()
+        launches["check_race_stress"] = _race_stress(tmp_dir)
+        _finish_check_static(static)
+    finally:
+        for p, _t0, _files in static:     # stopped on any failure
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     return launches
 
 

@@ -2,8 +2,8 @@
 (``python -m dmlp_tpu_torch.check``) — port of ``dmlp_tpu/check``.
 
 An AST-based pass (stdlib ``ast``, no dependencies) over the whole
-package enforcing the repo-specific rule families that carry over to
-PyTorch:
+package — and a text pass over its CUDA sources — enforcing the
+repo-specific rule families that carry over to PyTorch:
 
 - **R0 hygiene** (:mod:`.hygiene`): the conservative ruff subset
   (unused imports, bare except, mutable default args, pointless
@@ -26,10 +26,27 @@ PyTorch:
   ``torch.distributed`` collectives included), and thread-lifecycle
   holes.
 
-R1, R8, R9 and R10 (the comms-model, low-precision, placement and
-collective-record contracts) come with the checker's next slice; R2 and
-R4 (jit recompiles, jax API drift) have no torch analog. Asking for any
-of them raises (:func:`.analyzer.check_families`).
+- **R1 collective-axis contract** (:mod:`.collectives`,
+  :mod:`.dispatchcost`): every ``torch.distributed`` collective's
+  process group resolves to a declared mesh axis (of the module's own
+  mesh, where it builds one), and in ``engine/``, ``parallel/`` and
+  ``train/`` it carries ``# check: comms-model=<fn>`` naming its
+  ``obs/comms.py`` model (or ``# check: no-traffic`` with a reason);
+  the engines' top-k kernel calls thread a ``MeasuredIters`` probe, and
+  every recorded or counted kernel has an ``obs/kernel_cost.py`` model.
+- **R8 low-precision contract** (:mod:`.lowprec`): over
+  ``kernels/*.cu`` and the ops wrappers, no half accumulators, no
+  products on sub-f32 operands, no TF32 anywhere, and every sub-f32
+  cast names its ``engine/finalize.py`` eps bound
+  (``lowp-eps=<fn>``).
+- **R9 DTensor placement contract** (:mod:`.autoshard`): mesh dims
+  named from declared axes, one placement per mesh dim, explicit
+  placements in ``engine/auto.py``.
+- **R10 reconcile contract** (:mod:`.hlointro`): every comms-model
+  annotation is a key of ``obs/hlo.py``'s ``MODEL_COLLECTIVE_KINDS``.
+
+R2 and R4 (jit recompiles, jax API drift) have no torch analog; asking
+for either raises (:func:`.analyzer.check_families`).
 
 Cross-module context flows through the cacheable facts layer
 (:mod:`.facts`), and verdicts are cached per file content hash

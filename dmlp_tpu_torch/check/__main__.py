@@ -7,7 +7,7 @@ the verdict.
 
 Usage::
 
-    python -m dmlp_tpu_torch.check                # R0,R3,R5,R6,R7 over the port
+    python -m dmlp_tpu_torch.check                # R0,R1,R3,R5-R10, the port
     python -m dmlp_tpu_torch.check --families R0  # hygiene only
     python -m dmlp_tpu_torch.check --json         # machine output
     python -m dmlp_tpu_torch.check --write-baseline   # accept findings
@@ -15,8 +15,11 @@ Usage::
     python -m dmlp_tpu_torch.check --no-cache ... # bypass ~/.cache
     python -m dmlp_tpu_torch.check path/to/file.py ...  # explicit targets
 
-``--families R1`` (or R8, R9, R10) raises, naming the checker's next
-slice; ``R2`` and ``R4`` raise, having no torch analog. The default
+The port runs every family of the JAX package's checker but two:
+``--families R2`` and ``R4`` raise, having no torch analog. The
+analyzed sources are the Python modules and the CUDA kernels
+(``kernels/*.cu``, read by R8); ``--json`` lists every analyzed CUDA
+source with the sha256 of the bytes it read. The default
 baseline is ``dmlp_tpu_torch/check/check_baseline.json``, and
 ``--write-baseline`` without ``--baseline`` writes there (never the
 repository root's, which is the JAX package's).
@@ -38,11 +41,14 @@ from dmlp_tpu_torch.check.analyzer import (ALL_FAMILIES, DEFAULT_FAMILIES,
                                            analyze_paths,
                                            analyze_paths_tracking,
                                            UnportedFamilyError,
-                                           check_families, package_root,
+                                           check_families, iter_sources,
+                                           package_root, relpath,
+                                           repo_root,
                                            stale_allow_directives)
 from dmlp_tpu_torch.check.baseline import (default_path, diff_baseline,
                                            load_baseline, save_baseline)
-from dmlp_tpu_torch.check.cache import CheckCache
+from dmlp_tpu_torch.check.cache import CheckCache, content_sha
+from dmlp_tpu_torch.check.common import is_cuda_path
 from dmlp_tpu_torch.check.findings import RULES
 
 
@@ -143,6 +149,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     err = sys.stderr
     if args.json:
+        sources = list(iter_sources(paths))
+        cuda_sources = {}
+        for path in sources:
+            if is_cuda_path(path):
+                with open(path, "rb") as f:
+                    cuda_sources[relpath(path, repo_root())] = \
+                        content_sha(f.read())
         verdict = {
             "check_schema": 1,
             "families": list(families or DEFAULT_FAMILIES),
@@ -156,6 +169,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 for (r, pa, s, k), n in sorted(stale.items())],
             "cache": {"enabled": cache.enabled, "hits": cache.hits,
                       "misses": cache.misses},
+            "files": len(sources),
+            "cuda_sources": cuda_sources,
             "ok": not new,
         }
         json.dump(verdict, sys.stdout, indent=2)

@@ -1,7 +1,9 @@
 """Analysis driver: walk sources, build cross-module facts, run rules.
 
-Cross-module context (metric registrations, the package lock graph) is
-needed by several families, so analysis is phased: reduce every file to its
+Cross-module context (metric registrations, the package lock graph, the
+declared axes, the comms and kernel-cost models, the eps bounds, the
+reconcile table) is needed by several families, so analysis is phased:
+reduce every file — the Python modules and the CUDA sources — to its
 cacheable *facts* (:mod:`.facts`), merge them into one
 :class:`~dmlp_tpu_torch.check.facts.PackageFacts`, then run each family over
 each module. Unparseable files become a synthetic ``R000`` finding
@@ -21,7 +23,8 @@ import os
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 from dmlp_tpu_torch.check.cache import CheckCache, content_sha
-from dmlp_tpu_torch.check.common import ModuleInfo
+from dmlp_tpu_torch.check.common import (CUDA_SUFFIXES, CudaModule,
+                                         ModuleInfo, is_cuda_path)
 from dmlp_tpu_torch.check.facts import PackageFacts, module_facts
 from dmlp_tpu_torch.check.findings import Finding
 
@@ -30,17 +33,7 @@ from dmlp_tpu_torch.check.findings import Finding
 ALL_FAMILIES = ("R0", "R1", "R2", "R3", "R4", "R5", "R6", "R7", "R8",
                 "R9", "R10")
 #: the families this package runs
-PORTED_FAMILIES = ("R0", "R3", "R5", "R6", "R7")
-#: families whose rules read the comms models, the kernel registry, the
-#: kernel sources or the DTensor placements: the checker's next slice
-LATER_FAMILIES = {
-    "R1": "the collective-axis contract and its comms-model annotations"
-          " (with R105/R106, the dispatch-cost rules)",
-    "R8": "the low-precision contract over the CUDA sources and torch"
-          " code (TF32, non-f32 accumulation)",
-    "R9": "the DTensor placement contract",
-    "R10": "the collective-record reconcile table",
-}
+PORTED_FAMILIES = ("R0", "R1", "R3", "R5", "R6", "R7", "R8", "R9", "R10")
 #: families with no torch analog
 NO_ANALOG = {
     "R2": "jit recompilation hazards: eager PyTorch traces nothing",
@@ -53,18 +46,14 @@ DEFAULT_FAMILIES = PORTED_FAMILIES
 
 
 class UnportedFamilyError(ValueError):
-    """A family this package does not run: a later slice's, or one with
-    no torch analog. Never skipped silently."""
+    """A family this package does not run: one with no torch analog, or
+    an unknown name. Never skipped silently."""
 
 
 def check_families(families: Optional[Sequence[str]]) -> None:
     """Raise :class:`UnportedFamilyError` for a requested family this
     package does not run, naming why."""
     for fam in families or ():
-        if fam in LATER_FAMILIES:
-            raise UnportedFamilyError(
-                f"family {fam} ({LATER_FAMILIES[fam]}) is not ported "
-                f"yet: it comes with the checker's next slice (A15c)")
         if fam in NO_ANALOG:
             raise UnportedFamilyError(
                 f"family {fam} has no analog in the torch port "
@@ -84,9 +73,13 @@ def repo_root() -> str:
     return os.path.dirname(package_root())
 
 
-def _iter_py_files(paths: Sequence[str]) -> Iterable[str]:
+_SOURCE_SUFFIXES = (".py",) + CUDA_SUFFIXES
+
+
+def iter_sources(paths: Sequence[str]) -> Iterable[str]:
+    """Every Python and CUDA source under ``paths``."""
     for p in paths:
-        if os.path.isfile(p) and p.endswith(".py"):
+        if os.path.isfile(p) and p.endswith(_SOURCE_SUFFIXES):
             yield p
         elif os.path.isdir(p):
             for dirpath, dirnames, filenames in os.walk(p):
@@ -94,11 +87,11 @@ def _iter_py_files(paths: Sequence[str]) -> Iterable[str]:
                                      if d != "__pycache__"
                                      and not d.startswith("."))
                 for fn in sorted(filenames):
-                    if fn.endswith(".py"):
+                    if fn.endswith(_SOURCE_SUFFIXES):
                         yield os.path.join(dirpath, fn)
 
 
-def _relpath(path: str, root: str) -> str:
+def relpath(path: str, root: str) -> str:
     ap = os.path.abspath(path)
     root = os.path.abspath(root)
     if ap.startswith(root + os.sep):
@@ -108,16 +101,19 @@ def _relpath(path: str, root: str) -> str:
 
 def load_modules(paths: Sequence[str], root: Optional[str] = None
                  ) -> tuple:
-    """(modules, parse_findings) for every .py under ``paths``."""
+    """(modules, parse_findings) for every source under ``paths``: a
+    :class:`ModuleInfo` per Python file, a :class:`CudaModule` per CUDA
+    file."""
     root = root or repo_root()
     modules: List[ModuleInfo] = []
     findings: List[Finding] = []
-    for path in _iter_py_files(paths):
-        rel = _relpath(path, root)
+    for path in iter_sources(paths):
+        rel = relpath(path, root)
         try:
             with open(path, encoding="utf-8") as f:
                 source = f.read()
-            modules.append(ModuleInfo(path, rel, source))
+            cls = CudaModule if is_cuda_path(path) else ModuleInfo
+            modules.append(cls(path, rel, source))
         except (SyntaxError, UnicodeDecodeError, OSError) as e:
             findings.append(Finding(
                 "R000", rel, getattr(e, "lineno", 0) or 0, 0, "",
@@ -127,9 +123,14 @@ def load_modules(paths: Sequence[str], root: Optional[str] = None
 
 def build_rules(facts: PackageFacts,
                 families: Optional[Sequence[str]] = None) -> list:
+    from dmlp_tpu_torch.check.autoshard import AutoShardRule
+    from dmlp_tpu_torch.check.collectives import CollectiveRule
     from dmlp_tpu_torch.check.concurrency import ConcurrencyRule
+    from dmlp_tpu_torch.check.dispatchcost import DispatchCostRule
+    from dmlp_tpu_torch.check.hlointro import HloIntroRule
     from dmlp_tpu_torch.check.hostsync import HostSyncRule
     from dmlp_tpu_torch.check.hygiene import HygieneRule
+    from dmlp_tpu_torch.check.lowprec import LowPrecRule
     from dmlp_tpu_torch.check.metricnames import MetricNameRule
     from dmlp_tpu_torch.check.resilient import ResilientRule
 
@@ -138,6 +139,9 @@ def build_rules(facts: PackageFacts,
     rules = []
     if "R0" in fams:
         rules.append(HygieneRule())
+    if "R1" in fams:
+        rules.append(CollectiveRule(facts))
+        rules.append(DispatchCostRule(facts))
     if "R3" in fams:
         rules.append(HostSyncRule())
     if "R5" in fams:
@@ -146,7 +150,22 @@ def build_rules(facts: PackageFacts,
         rules.append(MetricNameRule(facts))
     if "R7" in fams:
         rules.append(ConcurrencyRule(facts.concurrency))
+    if "R8" in fams:
+        rules.append(LowPrecRule(facts))
+    if "R9" in fams:
+        rules.append(AutoShardRule(facts))
+    if "R10" in fams:
+        rules.append(HloIntroRule(facts))
     return rules
+
+
+def run_rules(rules: list, mod, add) -> None:
+    """Run ``rules`` over one module: every rule over a Python module,
+    only the rules that read CUDA (``cuda = True``) over a CUDA one."""
+    cuda = isinstance(mod, CudaModule)
+    for rule in rules:
+        if not cuda or getattr(rule, "cuda", False):
+            rule.run(mod, add)
 
 
 def analyze_modules(modules: List[ModuleInfo],
@@ -160,8 +179,7 @@ def analyze_modules(modules: List[ModuleInfo],
     findings: List[Finding] = []
     add = findings.append
     for mod in modules:
-        for rule in rules:
-            rule.run(mod, add)
+        run_rules(rules, mod, add)
     findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))
     return findings
 
@@ -194,8 +212,8 @@ def _analyze_cached(paths, families, root, cache: CheckCache):
     root = root or repo_root()
     files: List[Tuple[str, str, bytes]] = []   # (path, rel, raw)
     parse_findings: List[Finding] = []
-    for path in _iter_py_files(paths):
-        rel = _relpath(path, root)
+    for path in iter_sources(paths):
+        rel = relpath(path, root)
         try:
             with open(path, "rb") as f:
                 files.append((path, rel, f.read()))
@@ -237,8 +255,7 @@ def _analyze_cached(paths, families, root, cache: CheckCache):
         if rules is None:
             rules = build_rules(merged, families)
         mod_findings: List[Finding] = []
-        for rule in rules:
-            rule.run(mod, mod_findings.append)
+        run_rules(rules, mod, mod_findings.append)
         cache.put_findings(shas[rel], key,
                            [f.to_dict() for f in mod_findings])
         findings.extend(mod_findings)
@@ -247,9 +264,10 @@ def _analyze_cached(paths, families, root, cache: CheckCache):
     return findings, modules
 
 
-def _parse(path, rel, raw, parse_findings) -> Optional[ModuleInfo]:
+def _parse(path, rel, raw, parse_findings):
+    cls = CudaModule if is_cuda_path(path) else ModuleInfo
     try:
-        return ModuleInfo(path, rel, raw.decode("utf-8"))
+        return cls(path, rel, raw.decode("utf-8"))
     except (SyntaxError, UnicodeDecodeError) as e:
         parse_findings.append(Finding(
             "R000", rel, getattr(e, "lineno", 0) or 0, 0, "",

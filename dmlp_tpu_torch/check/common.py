@@ -10,6 +10,11 @@ passed into ``jax.jit``/``shard_map``), its recompile family's and its
 traced-branch rule's input. Eager PyTorch has no traced bodies, so that
 table is dropped here: a branch on a device tensor is a host sync
 wherever it sits (:mod:`.hostsync`), and R003 applies to every def.
+
+The CUDA sources (``kernels/*.cu``) are modules of their own kind,
+:class:`CudaModule`: their text with comments blanked, and their
+``// check:`` directives by line. Only the low-precision family (R8)
+reads them.
 """
 
 from __future__ import annotations
@@ -18,9 +23,13 @@ import ast
 from typing import Dict, List, Optional, Set, Tuple
 
 CHECK_COMMENT = "# check:"
+CUDA_CHECK_COMMENT = "// check:"
+#: file suffixes the analyzer loads as :class:`CudaModule`
+CUDA_SUFFIXES = (".cu", ".cuh")
 
 
-def parse_directives(source: str) -> Dict[int, Set[str]]:
+def parse_directives(source: str, marker: str = CHECK_COMMENT
+                     ) -> Dict[int, Set[str]]:
     """``# check: <d1> <d2>`` comments by 1-based line.
 
     A directive silences findings on its own line; a *standalone*
@@ -33,15 +42,15 @@ def parse_directives(source: str) -> Dict[int, Set[str]]:
     for i, raw in enumerate(source.splitlines(), start=1):
         line = raw.strip()
         ds: Set[str] = set()
-        pos = raw.find(CHECK_COMMENT)
+        pos = raw.find(marker)
         # Only real comments count: a '# check:' inside a string literal
         # has code (an opening quote) before the '#' on the line — the
         # cheap test below is "comment starts the stripped line or is
         # preceded by code"; string false-positives only ADD allow
         # directives, never hide real code, so the cheap test is enough.
         if pos >= 0:
-            ds = set(raw[pos + len(CHECK_COMMENT):].split())
-        if line.startswith("#"):
+            ds = set(raw[pos + len(marker):].split())
+        if line.startswith(marker.split()[0]):
             carry |= ds
             continue
         if ds or carry:
@@ -104,6 +113,11 @@ class ModuleInfo:
         # "torch" -> "torch"): the table call names canonicalize by
         self.aliases: Dict[str, str] = {}
         self._scan_imports()
+        #: module-level ``NAME = "literal"`` string constants
+        self.str_consts: Dict[str, str] = {}
+        #: def name -> its first def node (any depth)
+        self.defs: Dict[str, ast.AST] = {}
+        self._scan_module_level()
 
     # -- structure ----------------------------------------------------------
     def _link(self, node: ast.AST, parent, scope: List[str]):
@@ -172,7 +186,27 @@ class ModuleInfo:
                 hit = True
         return hit
 
+    def directive_values(self, node: ast.AST, prefix: str) -> List[str]:
+        """Values of ``<prefix>=<value>`` directives governing ``node``."""
+        vals = []
+        for ln in sorted(self._directive_lines(node)):
+            for d in sorted(self.directives.get(ln, ())):
+                if d.startswith(prefix + "="):
+                    vals.append(d[len(prefix) + 1:])
+        return vals
+
     # -- module-level tables -------------------------------------------------
+    def _scan_module_level(self):
+        for stmt in self.tree.body:
+            if isinstance(stmt, ast.Assign) and len(stmt.targets) == 1 \
+                    and isinstance(stmt.targets[0], ast.Name) \
+                    and isinstance(stmt.value, ast.Constant) \
+                    and isinstance(stmt.value.value, str):
+                self.str_consts[stmt.targets[0].id] = stmt.value.value
+        for node in ast.walk(self.tree):
+            if isinstance(node, _FUNC_NODES):
+                self.defs.setdefault(node.name, node)
+
     def _scan_imports(self):
         for node in ast.walk(self.tree):
             if isinstance(node, ast.Import):
@@ -197,3 +231,78 @@ class ModuleInfo:
         if src:
             return f"{src}.{rest}" if rest else src
         return name
+
+
+def _blank_comments(source: str, strings: bool = True) -> str:
+    """``source`` with C/C++ comments (and, with ``strings``, string
+    literals) blanked to spaces (newlines kept, so offsets and line
+    numbers hold)."""
+    out = list(source)
+    i, n = 0, len(source)
+    while i < n:
+        c = source[i]
+        two = source[i:i + 2]
+        if two == "//":
+            j = source.find("\n", i)
+            j = n if j < 0 else j
+        elif two == "/*":
+            j = source.find("*/", i + 2)
+            j = n if j < 0 else j + 2
+        elif c in "\"'":
+            j = i + 1
+            while j < n and source[j] != c and source[j] != "\n":
+                j += 2 if source[j] == "\\" else 1
+            j = min(j + 1, n)
+            if not strings:         # keep the literal, skip past it
+                i = j
+                continue
+        else:
+            i += 1
+            continue
+        for k in range(i, j):
+            if out[k] != "\n":
+                out[k] = " "
+        i = j
+    return "".join(out)
+
+
+class CudaModule:
+    """A CUDA source file: its text, the same text with comments and
+    string literals blanked (``code``, what the rules match against),
+    with comments alone blanked (``code_asm``: inline PTX lives in string
+    literals), and its ``// check:`` directives by line, carried from a
+    standalone comment line to the next code line as in Python files."""
+
+    def __init__(self, path: str, relpath: str, source: str):
+        self.path = path
+        self.relpath = relpath
+        self.source = source
+        self.code = _blank_comments(source)
+        self.code_asm = _blank_comments(source, strings=False)
+        self.directives = parse_directives(source, CUDA_CHECK_COMMENT)
+        self.used_allows: Set[Tuple[int, str]] = set()
+        starts = [0]
+        for i, c in enumerate(source):
+            if c == "\n":
+                starts.append(i + 1)
+        self._line_starts = starts
+
+    def line_of(self, offset: int) -> int:
+        """1-based line of a character offset."""
+        import bisect
+        return bisect.bisect_right(self._line_starts, offset)
+
+    def allowed(self, line: int, directive: str) -> bool:
+        if directive in self.directives.get(line, ()):
+            self.used_allows.add((line, directive))
+            return True
+        return False
+
+    def directive_values(self, line: int, prefix: str) -> List[str]:
+        return sorted(d[len(prefix) + 1:]
+                      for d in self.directives.get(line, ())
+                      if d.startswith(prefix + "="))
+
+
+def is_cuda_path(path: str) -> bool:
+    return path.endswith(CUDA_SUFFIXES)

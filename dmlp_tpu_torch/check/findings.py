@@ -13,13 +13,23 @@ import dataclasses
 from typing import Tuple
 
 #: rule id -> one-line description, the ``--list-rules`` catalog. Only
-#: the families this package ports are listed (R0, R3, R5, R6, R7).
+#: the families this package runs are listed (all but R2 and R4).
 RULES = {
     # R0 — generic hygiene (the conservative ruff subset)
     "R001": "unused import (ruff F401)",
     "R002": "bare `except:` swallows everything (ruff E722)",
     "R003": "mutable default argument (ruff B006)",
     "R004": "f-string without placeholders (ruff F541)",
+    # R1 — collective-axis contract (torch.distributed)
+    "R101": "collective's process group names a mesh axis no *_AXIS"
+            " constant declares",
+    "R102": "collective's axis is not a dim of the mesh its module builds",
+    "R103": "collective call site has no analytic comms-model annotation",
+    "R104": "comms-model annotation names a function obs/comms.py lacks",
+    "R105": "engine top-k kernel call lacks a MeasuredIters/"
+            "_queue_iters probe (extraction term degrades to modeled)",
+    "R106": "recorded or counted kernel has no obs/kernel_cost _MODELS"
+            " entry, or a counted launch records no dispatch",
     # R3 — host-sync hazards (engine/, ops/, parallel/, serve/, fleet/)
     "R301": ".item()/.tolist()/.cpu()/.numpy() forces a device sync",
     "R302": "explicit readback (sanitize.readback) — annotate fenced"
@@ -47,24 +57,48 @@ RULES = {
             " a lock",
     "R704": "thread started without a join/stop path or a daemon"
             " declaration",
+    # R8 — low-precision contract (kernels/*.cu, ops wrappers, TF32)
+    "R801": "low-precision accumulator (half/bf16 accumulation in CUDA,"
+            " a product on sub-f32 operands, or TF32 turned on)",
+    "R802": "sub-f32 cast without a `check: lowp-eps=<fn>` annotation"
+            " naming its analytic error bound",
+    "R803": "lowp-eps annotation names a function engine/finalize.py"
+            " does not define",
+    # R9 — DTensor placement contract
+    "R901": "mesh dim not a declared axis, or a placements list whose"
+            " entry count differs from its mesh's dims",
+    "R902": "DTensor placement call in engine/auto.py without explicit"
+            " placements",
+    "R903": "placements list held in a variable resolves to an entry"
+            " count that differs from its mesh's dims",
+    # R10 — the collective-record reconcile contract (obs/hlo.py)
+    "R1001": "comms-model annotation names a model the obs/hlo.py"
+             " reconcile table (MODEL_COLLECTIVE_KINDS) does not map —"
+             " the model-vs-record reconcile silently skips the site",
 }
 
 #: rule family -> allowlist directive that silences it at a call site.
 ALLOW_DIRECTIVES = {
     "R0": "allow-hygiene",
+    "R1": "allow-collective",
     "R3": "allow-host-sync",
     "R5": "no-retry",
     "R6": "allow-metric-name",
     "R7": "allow-concurrency",
+    "R8": "allow-lowprec",
+    "R9": "allow-auto-shard",
+    "R10": "allow-hlo-model",
 }
 
-#: every directive that SUPPRESSES a finding (for ``--stale-allows``).
-#: A directive of one of these kinds that no longer silences anything
-#: is stale and should be pruned. (``noqa`` and the later families'
-#: annotations are not suppressions — never reported stale here.)
-#: ``allow-concurrency`` also matches its rule-scoped form
+#: every directive that SUPPRESSES a finding (for ``--stale-allows``):
+#: the family allowlists plus the R1 traffic waiver. A directive of one
+#: of these kinds that no longer silences anything is stale and should
+#: be pruned. (``noqa`` and the annotations ``comms-model=``/
+#: ``lowp-eps=`` are declarations, not suppressions — never reported
+#: stale here.) ``allow-concurrency`` also matches its rule-scoped form
 #: ``allow-concurrency=R70x``.
-SUPPRESSION_DIRECTIVES = tuple(sorted(ALLOW_DIRECTIVES.values()))
+SUPPRESSION_DIRECTIVES = tuple(sorted(
+    set(ALLOW_DIRECTIVES.values()) | {"no-traffic"}))
 
 
 def is_suppression_directive(directive: str) -> bool:

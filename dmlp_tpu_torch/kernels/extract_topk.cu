@@ -146,8 +146,9 @@ constexpr unsigned FULL = 0xffffffffu;
 static_assert(sizeof(float) * TQ * TN >= sizeof(u64) * NW * KC_MAX,
               "the distance tile must hold the seeding sort's keys");
 
+// The one rounding of the bf16 first pass; its error is lowp_eps's.
 __device__ __forceinline__ float to_bf16_rne(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+  return __bfloat162float(__float2bfloat16_rn(x));  // check: lowp-eps=lowp_eps
 }
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
@@ -191,10 +192,11 @@ __device__ __forceinline__ void stage_chunk(float* qsb, float* dsb,
 
 // BF16: round the entries this thread staged, once its copies landed.
 __device__ __forceinline__ void round_chunk(float* qsb, float* dsb, int tid) {
+  // check: lowp-eps=lowp_eps
   for (int idx = tid; idx < TQ * AK; idx += NT) qsb[idx] = to_bf16_rne(qsb[idx]);
   for (int idx = tid; idx < TN * AK; idx += NT) {
     const int c = idx / AK, ak = idx - c * AK;
-    dsb[ak * DS + c] = to_bf16_rne(dsb[ak * DS + c]);
+    dsb[ak * DS + c] = to_bf16_rne(dsb[ak * DS + c]);  // check: lowp-eps=lowp_eps
   }
 }
 

@@ -65,6 +65,25 @@ COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "collective-permute", "all-to-all")
 ROOTED_KINDS = ("broadcast", "scatter", "gather")
 
+#: obs.comms model *function* -> the collective kind its formula prices.
+#: This is the reconcile table of the source annotations: every ``#
+#: check: comms-model=`` annotation must name a key here (check family
+#: R10), so a renamed model cannot leave a dangling annotation that
+#: reconciles nothing. The reference's eight, and the root's scatter and
+#: gather, which the port issues.
+MODEL_COLLECTIVE_KINDS: Dict[str, str] = {
+    "allgather_topk_traffic": "all-gather",
+    "host_allgather_candidates_traffic": "all-gather",
+    "ring_topk_traffic": "collective-permute",
+    "pipeline_ppermute_traffic": "collective-permute",
+    "psum_traffic": "all-reduce",
+    "tp_psum_activation_traffic": "all-reduce",
+    "ep_psum_combine_traffic": "all-reduce",
+    "moe_a2a_traffic": "all-to-all",
+    "scatter_traffic": "scatter",
+    "gather_topk_traffic": "gather",
+}
+
 #: CollectiveTraffic.collective record name -> collective kind: the
 #: models the reconcile holds the record against
 TRAFFIC_COLLECTIVE_KINDS: Dict[str, str] = {
@@ -545,7 +564,8 @@ def flat_metrics(doc: Dict[str, Any]) -> Dict[str, Any]:
 
 __all__ = [
     "SCHEMA_VERSION", "COLLECTIVE_KINDS", "ROOTED_KINDS",
-    "TRAFFIC_COLLECTIVE_KINDS", "COMMS_RATIO_BOUNDS", "MEMORY_RATIO_BOUNDS",
+    "MODEL_COLLECTIVE_KINDS", "TRAFFIC_COLLECTIVE_KINDS",
+    "COMMS_RATIO_BOUNDS", "MEMORY_RATIO_BOUNDS",
     "bytes_moved", "CollectiveRecorder", "active", "HloReport",
     "collective_totals", "normalise", "fingerprint", "build_report",
     "recording", "traffic_from_report", "reconcile_comms",

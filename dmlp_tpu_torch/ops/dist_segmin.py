@@ -114,6 +114,7 @@ def prepare_operands(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
     q, d = q_attrs.float(), d_attrs.float()
     qn, dn = (q * q).sum(-1), (d * d).sum(-1)
     if precision == "bf16":
+        # check: lowp-eps=lowp_eps
         q, d = q.to(torch.bfloat16).float(), d.to(torch.bfloat16).float()
     qb, na = q.shape
     qT = q.new_empty((na, -(-qb // QUERY_TILE) * QUERY_TILE))

@@ -36,6 +36,7 @@ def pairwise_sq_l2(queries: torch.Tensor, data: torch.Tensor,
     qn = (q * q).sum(-1)
     dn = (d * d).sum(-1)
     if precision == "bf16":
+        # check: lowp-eps=lowp_eps
         q, d = q.to(torch.bfloat16).float(), d.to(torch.bfloat16).float()
     cross = q @ d.T
     return torch.clamp_min(qn[:, None] + dn[None, :] - 2.0 * cross, 0.0)

@@ -184,7 +184,7 @@ def _gate_coef(na: int, precision: str) -> float:
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).float()
+    return x.to(torch.bfloat16).float()  # check: lowp-eps=lowp_eps
 
 
 def _tile_any(flags: torch.Tensor, tile_q: int) -> torch.Tensor:

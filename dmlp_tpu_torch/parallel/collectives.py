@@ -80,7 +80,7 @@ def allgather_merge_topk(local: TopK, k: int, group=None) -> TopK:
     mine = move(_pack(local), _wire_device(group, dev),
                   "collectives.allgather_wire")
     parts = [torch.empty_like(mine) for _ in range(n)]
-    dist.all_gather(parts, mine, group=group)
+    dist.all_gather(parts, mine, group=group)  # check: comms-model=allgather_topk_traffic
     # (R, 3, Q, K) -> (3, Q, R*K): per query, all shards' candidates.
     g = move(torch.stack(parts), dev, "collectives.allgather_wire")
     _, three, q, kk = g.shape
@@ -108,6 +108,7 @@ def ring_allreduce_topk(local: TopK, k: int, group=None) -> TopK:
     for _ in range(n - 1):
         out = move(_pack(acc), wire, "collectives.ring_wire")
         inc = torch.empty_like(out)
+        # check: comms-model=ring_topk_traffic
         for req in dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, out, nxt, group),
                 dist.P2POp(dist.irecv, inc, prv, group)]):
@@ -162,7 +163,7 @@ def gather_topk(top: TopK, group, dst: int = 0) -> Optional[TopK]:
                   "collectives.gather_wire")
     parts = [torch.empty_like(mine) for _ in range(n)] \
         if dist.get_rank() == dst else None
-    dist.gather(mine, parts, dst=dst, group=group)
+    dist.gather(mine, parts, dst=dst, group=group)  # check: comms-model=gather_topk_traffic
     if parts is None:
         return None
     return _unpack(move(torch.cat(parts, 1), dev,
@@ -185,7 +186,7 @@ def scatter_from_root(parts: Optional[Sequence[np.ndarray]], shape,
     if dist.get_rank() == src:
         lst = [move(torch.from_numpy(np.ascontiguousarray(p)), wire,
                       "collectives.scatter_stage") for p in parts]
-    dist.scatter(out, lst, src=src)
+    dist.scatter(out, lst, src=src)  # check: comms-model=scatter_traffic
     return out
 
 
@@ -195,6 +196,8 @@ def broadcast_object(obj, src: int = 0):
         return obj
     box = [obj]
     with fenced("collectives.broadcast_object"):
+        # check: no-traffic (a pickled plan or command of a few hundred
+        # bytes: the record names it "broadcast"; no model prices it)
         dist.broadcast_object_list(box, src=src)
     return box[0]
 
@@ -205,6 +208,8 @@ def gather_objects(obj, dst: int = 0) -> Optional[List]:
         return [obj]
     out = [None] * dist.get_world_size() if dist.get_rank() == dst else None
     with fenced("collectives.gather_objects"):
+        # check: no-traffic (each rank's pickled run summary, once a
+        # run, after the timed region; no model prices it)
         dist.gather_object(obj, out, dst=dst)
     return out
 
@@ -222,6 +227,7 @@ def all_gather_arrays(arrays: Sequence[np.ndarray]) -> List[List[np.ndarray]]:
             t = move(t, torch.device("cuda", torch.cuda.current_device()),
                        "collectives.all_gather_arrays")
         parts = [torch.empty_like(t) for _ in range(n)]
+        # check: comms-model=host_allgather_candidates_traffic
         dist.all_gather(parts, t)
         out.append(readback(  # check: allow-host-sync
             parts, "collectives.all_gather_arrays"))

@@ -73,10 +73,12 @@ def _exchange(send: torch.Tensor, dst: Optional[int], src: Optional[int],
     wire = _wire_device(group, dev)
     ops, buf = [], None
     if dst is not None:
+        # check: comms-model=pipeline_ppermute_traffic
         ops.append(dist.P2POp(dist.isend, send.detach().contiguous().to(wire),
                               dst, group))
     if src is not None:
         buf = torch.empty(send.shape, dtype=send.dtype, device=wire)
+        # check: comms-model=pipeline_ppermute_traffic
         ops.append(dist.P2POp(dist.irecv, buf, src, group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
@@ -126,12 +128,14 @@ class AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
+        # check: comms-model=tp_psum_activation_traffic,ep_psum_combine_traffic
         dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
+        # check: comms-model=tp_psum_activation_traffic,ep_psum_combine_traffic
         dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -147,7 +151,7 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     wire = _wire_device(group, x.device)
     src = x.detach().contiguous().to(wire)
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
+    dist.all_to_all_single(out, src, group=group)  # check: comms-model=moe_a2a_traffic
     return out.to(x.device)
 
 
@@ -187,6 +191,9 @@ def reduce_grads(grads: Sequence[torch.Tensor], groups: Sequence) -> None:
             by_group.setdefault(grp, []).append(g)
     for grp, gs in by_group.items():
         flat = torch.cat([g.reshape(-1) for g in gs])
+        # check: no-traffic (the sums by placement, over the world, dp
+        # and dp,tp groups, are not modelled: psum_traffic prices only
+        # the dp x tp family's dp sum, which train.step issues)
         dist.all_reduce(flat, group=grp)
         for g, part in zip(gs, flat.split([g.numel() for g in gs])):
             g.copy_(part.view_as(g))

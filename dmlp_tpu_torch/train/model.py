@@ -138,6 +138,8 @@ class Bf16MatMul(torch.autograd.Function):
         if need_h:
             ghl = mm_acc_f32(gl, wl.t())
             if col:   # partial sums of the replicated input's gradient
+                # check: no-traffic (a tp collective: the reference
+                # models none of them, and neither does obs.comms)
                 dist.all_reduce(ghl, group=mesh.get_group())
             gh = DTensor.from_local(ghl.to(h.dtype), mesh, h.placements,
                                     shape=h.shape, stride=h.stride())

@@ -308,6 +308,7 @@ class PartialsStep:
         t = torch.stack([metrics["loss"].float(),
                          metrics["accuracy"].float()])
         if self.world is not None:
+            # check: no-traffic (two floats, the host's loss readout)
             dist.all_reduce(t, group=self.world)
         loss, acc = (t / metrics["divisor"]).tolist()
         return {"loss": loss, "accuracy": acc}

@@ -172,6 +172,9 @@ class GatherDim(torch.autograd.Function):
         shape[dim] = total
         full = local.new_zeros(shape)
         full.narrow(dim, start, local.shape[dim]).copy_(local)
+        # check: no-traffic (the Megatron gather as an all-reduce of
+        # zero-padded blocks: a tp collective, unmodelled as in the
+        # reference)
         dist.all_reduce(full, group=group)
         ctx.block = (dim, start, local.shape[dim])
         return full

@@ -138,6 +138,7 @@ def allreduce_grads(grads, group) -> None:
         return
     for g in grads:
         local = _local(g)
+        # check: comms-model=psum_traffic
         dist.all_reduce(local, op=dist.ReduceOp.SUM, group=group)
         local.div_(size)
 
@@ -149,6 +150,7 @@ def global_metrics(metrics: Dict[str, torch.Tensor],
     one size)."""
     t = torch.stack([metrics["loss"].float(), metrics["accuracy"].float()])
     if group is not None and dist.get_world_size(group) > 1:
+        # check: no-traffic (two floats, the host's loss readout)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         t = t / dist.get_world_size(group)
     loss, acc = t.tolist()
