@@ -40,11 +40,23 @@ kernel runs its plain PyTorch version. The mesh engines are
 Observability (``dmlp_tpu_torch.obs``), each hook one module-global read
 when it is off: the reference's spans (``single.prune_score``,
 ``single.solve_scan``, ``single.enqueue_pipelined``,
-``single.enqueue_extract``, ``single.fetch``, ``single.finalize``), the
-memory model and sampler ticks at peak residency, ``last_comms`` (empty:
-one device runs no collective), and with a cost probe installed the K1/K2
-``iters`` summed on the device per launch shape (:class:`MeasuredIters`)
-and read back once, after the solve's fetch.
+``single.enqueue_extract``, ``single.fetch``, ``single.finalize``); under
+the root ``single.run_device_full`` of a device-full solve also
+``single.host_copy`` and ``single.pin`` (the padded float32 copy and its
+pinning), ``single.chunk_wait`` (the chunk window's host wait) and
+``single.extract_epilogue`` (the label upload, which waits for the queued
+launches, and the list sort); the host-to-device bytes that ``stage`` and
+``put`` hand over, counted as ``h2d_bytes`` on the innermost open span and
+rolled up into the root; the memory model and sampler ticks at peak
+residency, ``last_comms`` (empty: one device runs no collective), and
+with a cost probe installed the K1/K2 ``iters`` summed on the device per
+launch shape (:class:`MeasuredIters`) and read back once, after the
+solve's fetch.
+
+``last_phase_ms`` splits each solve on the host's clock, tracer or not:
+``enqueue`` (planning, staging and launches, from which ``copy``, ``pin``
+and, summed over every chunk loop of the solve, ``launch`` and
+``chunk_wait``), ``fetch`` and ``finalize``.
 """
 
 from __future__ import annotations
@@ -99,13 +111,16 @@ class ChunkThrottle:
     """Sliding-window backpressure for chunked staging: ``tick()`` after
     each chunk's fold records a CUDA event on the current stream and waits
     on the one from ``window`` chunks back, so at most that many staged
-    chunks are in flight on the card. On the CPU every step is already
-    synchronous and ``tick`` does nothing."""
+    chunks are in flight on the card. Each host wait is the span
+    ``single.chunk_wait``; ``take_wait_s()`` hands over their sum since
+    the last call. On the CPU every step is already synchronous and
+    ``tick`` does nothing."""
 
     def __init__(self, device: torch.device, window: int = _CHUNK_WINDOW):
         self._cuda = device.type == "cuda"
         self._window = window
         self._pending: list = []
+        self._wait_s = 0.0
 
     def tick(self) -> None:
         if not self._cuda:
@@ -114,9 +129,17 @@ class ChunkThrottle:
         ev.record()
         self._pending.append(ev)
         if len(self._pending) > self._window:
+            t0 = time.perf_counter()
             # The backpressure fence is a deliberate host wait.
-            with fenced("single.chunk_throttle"):
+            with obs_span("single.chunk_wait"), \
+                    fenced("single.chunk_throttle"):
                 self._pending.pop(0).synchronize()
+            self._wait_s += time.perf_counter() - t0
+
+    def take_wait_s(self) -> float:
+        """Seconds the host waited since the last call."""
+        s, self._wait_s = self._wait_s, 0.0
+        return s
 
 
 class MeasuredIters:
@@ -159,13 +182,26 @@ def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def staging_dtype(staging: str) -> torch.dtype:
+    return torch.bfloat16 if staging == "bfloat16" else torch.float32
+
+
+def pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` pinned when the copy goes to the card (so the host-to-device
+    copy can run asynchronously), traced as ``single.pin``; ``t`` itself
+    for the CPU."""
+    if device.type != "cuda":
+        return t
+    with obs_span("single.pin", bytes=t.nbytes):
+        return t.pin_memory()
+
+
 def host_staging(arr: np.ndarray, device: torch.device,
                  staging: str = "float32") -> torch.Tensor:
     """A host tensor in the staging dtype, pinned when the copy goes to
-    the card (so the host-to-device copy can run asynchronously)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr)).to(
-        torch.bfloat16 if staging == "bfloat16" else torch.float32)
-    return t.pin_memory() if device.type == "cuda" else t
+    the card."""
+    return pinned(torch.from_numpy(np.ascontiguousarray(arr)).to(
+        staging_dtype(staging)), device)
 
 
 def put(arr: np.ndarray, device: torch.device,
@@ -175,19 +211,24 @@ def put(arr: np.ndarray, device: torch.device,
     sanitizer (a pageable host-to-device copy synchronizes)."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
     with fenced(site):
-        return t.to(device)
+        out = t.to(device)
+    obs_trace.count("h2d_bytes", t.nbytes)
+    return out
 
 
 def stage(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Host-to-device copy, asynchronous from pinned memory: the staging
     chokepoint of every solve path, so it is the ``single.stage_put``
     injection site, and a transient failure retries the copy (copying the
-    same host tensor again is idempotent)."""
+    same host tensor again is idempotent). The bytes handed over count
+    once, as ``h2d_bytes``, however many attempts it took."""
     def _op():
         rs_inject.fire("single.stage_put")
         return host.to(device, non_blocking=True)
 
-    return rs_retry.call_with_retry(_op, "single.stage_put")
+    out = rs_retry.call_with_retry(_op, "single.stage_put")
+    obs_trace.count("h2d_bytes", host.nbytes)
+    return out
 
 
 def resilient_get(values: List[torch.Tensor], site: str = "single.fetch"
@@ -501,13 +542,28 @@ class SingleChipEngine:
         self.last_phase_ms["prune"] = (time.perf_counter() - t0) * 1e3
         return schedule, pruned
 
+    def _host_padded(self, src: np.ndarray, rows: int) -> torch.Tensor:
+        """``src`` padded with zero rows to ``rows``, as one host tensor in
+        the staging dtype, pinned for the card. The padded copy and the pin
+        add to ``last_phase_ms["copy"]`` and ``["pin"]``."""
+        t0 = time.perf_counter()
+        with obs_span("single.host_copy", bytes=rows * src.shape[1]
+                      * self._staging_itemsize()):
+            a = np.zeros((rows, src.shape[1]), np.float32)
+            a[:len(src)] = src
+            t = torch.from_numpy(a).to(staging_dtype(self._staging))
+        t1 = time.perf_counter()
+        t = pinned(t, self.device)
+        ms = self.last_phase_ms
+        ms["copy"] = ms.get("copy", 0.0) + (t1 - t0) * 1e3
+        ms["pin"] = ms.get("pin", 0.0) + (time.perf_counter() - t1) * 1e3
+        return t
+
     def _host_queries(self, query_attrs: np.ndarray,
                       qpad: int) -> torch.Tensor:
         """The queries padded with zero rows to ``qpad``, as one host
         tensor in the staging dtype."""
-        q = np.zeros((qpad, query_attrs.shape[1]), np.float32)
-        q[:len(query_attrs)] = query_attrs
-        return host_staging(q, self.device, self._staging)
+        return self._host_padded(query_attrs, qpad)
 
     def _stage_queries(self, query_attrs: np.ndarray,
                        qpad: int) -> torch.Tensor:
@@ -516,10 +572,18 @@ class SingleChipEngine:
     def _pinned_chunks(self, inp: KNNInput, rows: int) -> torch.Tensor:
         """The dataset padded with zero rows to ``rows``, as one (pinned,
         on the card) host tensor the chunk loop slices."""
-        a = np.zeros((rows, inp.params.num_attrs), np.float32)
-        n = inp.params.num_data
-        a[:n] = inp.data_attrs
-        return host_staging(a, self.device, self._staging)
+        return self._host_padded(inp.data_attrs, rows)
+
+    def _note_chunk_loop(self, t_loop: float,
+                         throttle: ChunkThrottle) -> None:
+        """Add a chunk loop's host time since ``t_loop`` to
+        ``last_phase_ms``: the chunk window's waits as ``chunk_wait``, the
+        rest (the stage calls and launches) as ``launch``."""
+        wait = throttle.take_wait_s() * 1e3
+        ms = self.last_phase_ms
+        ms["chunk_wait"] = ms.get("chunk_wait", 0.0) + wait
+        ms["launch"] = ms.get("launch", 0.0) \
+            + (time.perf_counter() - t_loop) * 1e3 - wait
 
     def _padded_ids_labels(self, inp: KNNInput, rows: int):
         """(labels, ids) padded to ``rows`` with -1, on the device."""
@@ -594,6 +658,7 @@ class SingleChipEngine:
         carries = [init_topk(qsb, k, dev) for _ in range(nqb)]
         throttle = ChunkThrottle(dev)
         scanned = 0
+        t_loop = time.perf_counter()
         with obs_span("single.enqueue_pipelined", select=select,
                       chunks=nchunks, scheduled=len(schedule), qblocks=nqb,
                       k=k):
@@ -609,6 +674,7 @@ class SingleChipEngine:
                 # A watermark tick while the chunk is referenced (no-op
                 # without a telemetry session).
                 telemetry.sample_memory_now()
+        self._note_chunk_loop(t_loop, throttle)
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
                   blocks_total=nchunks,
@@ -657,6 +723,7 @@ class SingleChipEngine:
         scanned = 0
         throttle = ChunkThrottle(dev)
         mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, k))
+        t_loop = time.perf_counter()
         with obs_span("single.enqueue_extract", chunks=nchunks, kc=k,
                       impl=impl, scheduled=len(live)):
             for c in live:
@@ -669,14 +736,18 @@ class SingleChipEngine:
                 mi.add(iters)
                 throttle.tick()
                 telemetry.sample_memory_now()   # staging window live
+        self._note_chunk_loop(t_loop, throttle)
         mi.done()
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
                   blocks_total=min(nchunks, -(-n // chunk_rows)),
                   blocks_pruned=pruned)
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
-        glabels = put(inp.labels.astype(np.int32), dev)
-        return extract_finalize(od, oi, glabels, k), qpad
+        # A pageable upload synchronizes the stream: this waits for the
+        # launches still queued.
+        with obs_span("single.extract_epilogue"):
+            glabels = put(inp.labels.astype(np.int32), dev)
+            return extract_finalize(od, oi, glabels, k), qpad
 
     def _solve_extract_multipass(self, inp: KNNInput):
         """All-wide-k solve on the extraction kernel in P floor-raised
@@ -757,6 +828,7 @@ class SingleChipEngine:
         od = oi = None
         throttle = ChunkThrottle(dev)
         mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, kc))
+        t_loop = time.perf_counter()
         for c in range(n_staged):
             lo = c * chunk_rows
             hi = min(lo + chunk_rows, n)
@@ -765,6 +837,7 @@ class SingleChipEngine:
                                  id_base=lo, kc=kc, precision=prec)
             mi.add(iters)
             throttle.tick()
+        self._note_chunk_loop(t_loop, throttle)
         mi.done()
         ods, ois = [od], [oi]
 
@@ -783,6 +856,7 @@ class SingleChipEngine:
         del chunks
         fds = []
         mir = MeasuredIters(self, impl, (qpad, full_rows, na, kc))
+        t_loop = time.perf_counter()
         for _ in range(1, npasses):
             floor, fd = _mp_floor(ods[-1], qn_dev, dn_dev,
                                   staging=self._staging, na=na,
@@ -794,6 +868,7 @@ class SingleChipEngine:
             throttle.tick()
             ods.append(od)
             ois.append(oi)
+        self._note_chunk_loop(t_loop, throttle)
         mir.done()
         # The last pass's fd too: a plateau pinning the last boundary
         # flags as well.
@@ -887,19 +962,23 @@ class SingleChipEngine:
         scanned = 0
         throttle = ChunkThrottle(dev)
         mi = MeasuredIters(self, impl, (qpad_b, chunk_rows, na, kb))
-        for c in live:
-            lo = c * chunk_rows
-            hi = min(lo + chunk_rows, n)
-            da = stage(host[lo:lo + chunk_rows], dev)
-            scanned += (hi - lo) * na * self._staging_itemsize()
-            od, oi, iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
-                                 id_base=lo, kc=kb, precision=prec)
-            mi.add(iters)
-            carry_o = _outlier_fold(carry_o, qo_dev, da, labels_dev, lo, n,
-                                    k=ko, select=select_out,
-                                    use_pallas=cfg.use_pallas)
-            throttle.tick()
-            telemetry.sample_memory_now()
+        t_loop = time.perf_counter()
+        with obs_span("single.enqueue_extract", chunks=nchunks, kc=kb,
+                      impl=impl, scheduled=len(live), outliers=len(outl)):
+            for c in live:
+                lo = c * chunk_rows
+                hi = min(lo + chunk_rows, n)
+                da = stage(host[lo:lo + chunk_rows], dev)
+                scanned += (hi - lo) * na * self._staging_itemsize()
+                od, oi, iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
+                                     id_base=lo, kc=kb, precision=prec)
+                mi.add(iters)
+                carry_o = _outlier_fold(carry_o, qo_dev, da, labels_dev, lo,
+                                        n, k=ko, select=select_out,
+                                        use_pallas=cfg.use_pallas)
+                throttle.tick()
+                telemetry.sample_memory_now()
+        self._note_chunk_loop(t_loop, throttle)
         mi.done()
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
@@ -1073,7 +1152,14 @@ class SingleChipEngine:
         is repaired, so ``last_repairs`` is 0, and ``last_prune`` is None:
         no prune plan ran. An explicit bfloat16 staging is honoured; "auto"
         stages float32 in the port, so the reference's no_auto_coarsen has
-        nothing to do here."""
+        nothing to do here. Traced as the root span
+        ``single.run_device_full``, which ends with the solve's
+        ``h2d_bytes``."""
+        with obs_span("single.run_device_full",
+                      queries=inp.params.num_queries):
+            return self._device_full(inp)
+
+    def _device_full(self, inp: KNNInput) -> List[QueryResult]:
         n = inp.params.num_data
         num_labels = int(inp.labels.max()) + 1 if n else 1
         merged: List[QueryResult] = [None] * inp.params.num_queries
@@ -1082,24 +1168,27 @@ class SingleChipEngine:
         segments = self._solve_segments(inp, allow_multipass=False)
         telemetry.sample_memory_now()
         fetch_ms = final_ms = 0.0
-        for top, qpad, idx, _select in segments:
+        for top, qpad, idx, select in segments:
             sub = inp if idx is None else subset_queries(inp, idx)
             nq = sub.params.num_queries
             t0 = time.perf_counter()
             ks_pad = np.zeros(qpad, np.int32)
             ks_pad[:nq] = sub.ks
-            pred, rids, rd = resilient_get(list(_device_epilogue(
-                top, put(ks_pad, self.device),
-                num_labels=num_labels)))
+            with obs_span("single.fetch", select=select,
+                          kcap=top.dists.shape[1]):
+                pred, rids, rd = resilient_get(list(_device_epilogue(
+                    top, put(ks_pad, self.device),
+                    num_labels=num_labels)))
             fetch_ms += (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
-            rd = rd.astype(np.float64)
-            gids = np.arange(nq) if idx is None else idx
-            for qi in range(nq):
-                k = int(sub.ks[qi])
-                merged[int(gids[qi])] = QueryResult(
-                    int(gids[qi]), k, int(pred[qi]),
-                    rids[qi, :k].astype(np.int64), rd[qi, :k])
+            with obs_span("single.finalize"):
+                rd = rd.astype(np.float64)
+                gids = np.arange(nq) if idx is None else idx
+                for qi in range(nq):
+                    k = int(sub.ks[qi])
+                    merged[int(gids[qi])] = QueryResult(
+                        int(gids[qi]), k, int(pred[qi]),
+                        rids[qi, :k].astype(np.int64), rd[qi, :k])
             final_ms += (time.perf_counter() - t0) * 1e3
         self.last_phase_ms["fetch"] = fetch_ms
         self.last_phase_ms["finalize"] = final_ms

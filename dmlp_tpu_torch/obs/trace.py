@@ -15,6 +15,13 @@ block launched (the reference's ``jax.block_until_ready``). A CPU tensor
 needs no fence. Fences run only while a span is real: with tracing off,
 nothing waits.
 
+Every span carries an integer ``id`` and the ``parent`` id of the span
+open on the same thread when it opened (None at a root), written into the
+event's ``args``. ``count(name, n)`` adds ``n`` to ``args[name]`` of the
+innermost open span on this thread; a span's counts roll up into its
+parent's when it closes, so a root holds the totals of its subtree.
+``tree_faults`` checks an exported trace's ids and parents.
+
 Export is the Chrome trace-event JSON format, loadable in
 https://ui.perfetto.dev or chrome://tracing: ``ts``/``dur`` are
 microseconds from the tracer's epoch. ``Tracer(annotate=True)`` also
@@ -28,6 +35,7 @@ unconditionally.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -127,9 +135,10 @@ NULL_SPAN = _NullSpan()
 class Span:
     """One traced region. A context manager; ``set()`` attaches args,
     ``fence()`` registers tensors whose device is synchronized before the
-    closing timestamp."""
+    closing timestamp. ``id`` and ``parent`` are set when it opens."""
 
-    __slots__ = ("_tracer", "name", "args", "_t0", "_fences", "_annot")
+    __slots__ = ("_tracer", "name", "args", "_t0", "_fences", "_annot",
+                 "id", "parent", "_up", "_counts")
 
     def __init__(self, tracer: "Tracer", name: str,
                  args: Optional[Dict[str, Any]]):
@@ -139,6 +148,10 @@ class Span:
         self._t0 = 0.0
         self._fences: list = []
         self._annot = None
+        self.id = None
+        self.parent = None
+        self._up = None        # the enclosing open Span on this thread
+        self._counts = None    # {name: n} added by count() while open
 
     def set(self, **kwargs) -> None:
         self.args.update(kwargs)
@@ -146,14 +159,27 @@ class Span:
     def fence(self, value) -> None:
         self._fences.append(value)
 
+    def count(self, name: str, n) -> None:
+        c = self._counts
+        if c is None:
+            c = self._counts = {}
+        c[name] = c.get(name, 0) + n
+
     def __enter__(self) -> "Span":
-        if self._tracer._annotate:
+        tr = self._tracer
+        if tr._annotate:
             try:
                 from torch.profiler import record_function
                 self._annot = record_function(self.name)
                 self._annot.__enter__()
             except Exception:  # annotation is optional
                 self._annot = None
+        stack = tr._stack()
+        self.id = next(tr._ids)
+        if stack:
+            self._up = stack[-1]
+            self.parent = self._up.id
+        stack.append(self)
         self._t0 = _clock()
         return self
 
@@ -167,7 +193,17 @@ class Span:
                 self._annot.__exit__(*exc)
             except Exception:  # best effort: a span records regardless
                 pass
-        self._tracer._complete(self.name, self._t0, t1, self.args)
+        tr = self._tracer
+        stack = tr._stack()
+        if self in stack:      # with any inner span left open
+            del stack[stack.index(self):]
+        if self._counts:
+            self.args.update(self._counts)
+            if self._up is not None:
+                for k, v in self._counts.items():
+                    self._up.count(k, v)
+        tr._complete(self.name, self._t0, t1, self.args, span_id=self.id,
+                     parent=self.parent)
         return False
 
 
@@ -187,10 +223,25 @@ class Tracer:
         self._pid = os.getpid()
         self._tids: Dict[int, int] = {}
         self._annotate = annotate
+        self._ids = itertools.count(1)
+        self._local = threading.local()     # .stack: this thread's open Spans
 
     # -- recording -----------------------------------------------------------
     def span(self, name: str, **args) -> Span:
         return Span(self, name, args)
+
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def count(self, name: str, n) -> None:
+        """Add ``n`` to ``args[name]`` of the innermost open span on this
+        thread; nothing when none is open."""
+        stack = self._stack()
+        if stack:
+            stack[-1].count(name, n)
 
     def instant(self, name: str, ts: float = None, **args) -> None:
         """A zero-duration marker (``ph: "i"``). ``ts`` (epoch-relative
@@ -217,13 +268,14 @@ class Tracer:
                      unix_ms=unix_ms, **args)
 
     def _complete(self, name: str, t0: float, t1: float,
-                  args: Dict[str, Any]) -> None:
+                  args: Dict[str, Any], span_id: int = None,
+                  parent: int = None) -> None:
         ev = {"name": name, "ph": "X",
               "ts": (t0 - self._epoch) * 1e6,
               "dur": max((t1 - t0) * 1e6, 0.0),
-              "pid": self._pid, "tid": self._tid()}
-        if args:
-            ev["args"] = args
+              "pid": self._pid, "tid": self._tid(),
+              "args": {**args, "id": next(self._ids) if span_id is None
+                       else span_id, "parent": parent}}
         self._append(ev)
         cb = _span_observer
         if cb is not None:
@@ -306,6 +358,15 @@ def counter(name: str, **series) -> None:
         t.counter(name, **series)
 
 
+def count(name: str, n) -> None:
+    """Counting hook: add ``n`` to ``args[name]`` of the innermost open
+    span on this thread (rolled up into its ancestors as they close); one
+    module-global read when no tracer is installed."""
+    t = _active
+    if t is not None:
+        t.count(name, n)
+
+
 def sinks_active() -> bool:
     """True when completed spans go anywhere (Tracer or telemetry
     observer). Request-phase instrumentation gates its clock reads on
@@ -325,3 +386,34 @@ def complete_at(name: str, t0: float, t1: float, **args) -> None:
     cb = _span_observer
     if cb is not None:
         cb(name, max((t1 - t0) * 1e3, 0.0), args)
+
+
+def tree_faults(events: List[dict]) -> List[str]:
+    """What breaks the span tree in exported ``events`` (a trace's
+    ``traceEvents``): an ``id`` used twice in one process, a ``parent``
+    that is no span of the child's process, or a parent on another
+    thread or whose interval does not enclose its child's. Spans without
+    an ``id`` are not checked. Empty when the tree is sound."""
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("args", {}).get("id") is not None]
+    by_id: Dict[tuple, dict] = {}
+    faults = []
+    for e in spans:
+        key = (e["pid"], e["args"]["id"])
+        if key in by_id:
+            faults.append(f"span id {key[1]} used twice in pid {key[0]}")
+        by_id[key] = e
+    slack = 1e-3    # us: ts and dur are rounded separately
+    for e in spans:
+        parent = e["args"].get("parent")
+        if parent is None:
+            continue
+        p = by_id.get((e["pid"], parent))
+        if p is None:
+            faults.append(f"span {e['name']} has parent {parent}, no span "
+                          "of its process")
+        elif p["tid"] != e["tid"] or e["ts"] < p["ts"] - slack \
+                or e["ts"] + e["dur"] > p["ts"] + p["dur"] + slack:
+            faults.append(f"span {e['name']} lies outside its parent "
+                          f"{p['name']}")
+    return faults
