@@ -42,11 +42,14 @@ when it is off: the reference's spans (``single.prune_score``,
 ``single.solve_scan``, ``single.enqueue_pipelined``,
 ``single.enqueue_extract``, ``single.fetch``, ``single.finalize``); under
 the root ``single.run_device_full`` of a device-full solve also
-``single.host_copy`` and ``single.pin`` (the padded float32 copy and its
-pinning), ``single.chunk_wait`` (the chunk window's host wait) and
+``single.host_copy`` and ``single.pin`` (the cast of the queries, and of
+each chunk inside its chunk loop, into a host block in the staging dtype,
+and the taking of that block, pinned for the card),
+``single.chunk_wait`` (the chunk window's host wait) and
 ``single.extract_epilogue`` (the label upload, which waits for the queued
 launches, and the list sort); the host-to-device bytes that ``stage`` and
-``put`` hand over, counted as ``h2d_bytes`` on the innermost open span and
+``put`` hand over, counted as ``h2d_bytes``, and the bytes each cast
+writes, counted as ``host_cast_bytes``, on the innermost open span and
 rolled up into the root; the memory model and sampler ticks at peak
 residency, ``last_comms`` (empty: one device runs no collective), and
 with a cost probe installed the K1/K2 ``iters`` summed on the device per
@@ -54,9 +57,10 @@ launch shape (:class:`MeasuredIters`) and read back once, after the
 solve's fetch.
 
 ``last_phase_ms`` splits each solve on the host's clock, tracer or not:
-``enqueue`` (planning, staging and launches, from which ``copy``, ``pin``
-and, summed over every chunk loop of the solve, ``launch`` and
-``chunk_wait``), ``fetch`` and ``finalize``.
+``enqueue`` (planning, staging and launches, from which ``copy`` and
+``pin``, the casts and the taking of their blocks, and, summed over every
+chunk loop of the solve, ``launch`` and ``chunk_wait``, neither of which
+counts the casts inside the loop), ``fetch`` and ``finalize``.
 """
 
 from __future__ import annotations
@@ -194,6 +198,22 @@ def pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
         return t
     with obs_span("single.pin", bytes=t.nbytes):
         return t.pin_memory()
+
+
+def host_block(shape: Tuple[int, int], dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """A fresh, uninitialised host tensor, pinned when the copy goes to
+    the card, traced as ``single.pin``. Pinned blocks come from PyTorch's
+    caching host allocator, which keeps them from one solve to the next
+    and hands a block out again only once the event of every asynchronous
+    copy from it has completed. On the CPU every call is a new tensor:
+    ``stage`` hands the host tensor itself on there, so a staged chunk
+    never shares memory with a later one."""
+    if device.type != "cuda":
+        return torch.empty(shape, dtype=dtype)
+    with obs_span("single.pin",
+                  bytes=shape[0] * shape[1] * dtype.itemsize):
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
 
 
 def host_staging(arr: np.ndarray, device: torch.device,
@@ -542,22 +562,28 @@ class SingleChipEngine:
         self.last_phase_ms["prune"] = (time.perf_counter() - t0) * 1e3
         return schedule, pruned
 
-    def _host_padded(self, src: np.ndarray, rows: int) -> torch.Tensor:
-        """``src`` padded with zero rows to ``rows``, as one host tensor in
-        the staging dtype, pinned for the card. The padded copy and the pin
-        add to ``last_phase_ms["copy"]`` and ``["pin"]``."""
+    def _host_padded(self, src: np.ndarray, rows: int,
+                     **where) -> torch.Tensor:
+        """``src`` (at most ``rows`` rows) cast straight into a fresh host
+        tensor of ``rows`` rows in the staging dtype (``host_block``,
+        pinned for the card), its tail of pad rows zeroed. One ``copy_``
+        from the float64 rows: PyTorch's CPU copy runs on every thread, and
+        its cast to bfloat16 rounds through float32, as the staging eps
+        assumes. The cast is the span ``single.host_copy`` (``where`` adds
+        its args) and counts ``host_cast_bytes``; the cast and the taking
+        of the block add to ``last_phase_ms["copy"]`` and ``["pin"]``."""
+        dtype = staging_dtype(self._staging)
         t0 = time.perf_counter()
-        with obs_span("single.host_copy", bytes=rows * src.shape[1]
-                      * self._staging_itemsize()):
-            a = np.zeros((rows, src.shape[1]), np.float32)
-            a[:len(src)] = src
-            t = torch.from_numpy(a).to(staging_dtype(self._staging))
+        dst = host_block((rows, src.shape[1]), dtype, self.device)
         t1 = time.perf_counter()
-        t = pinned(t, self.device)
+        with obs_span("single.host_copy", bytes=dst.nbytes, **where):
+            dst[:len(src)].copy_(torch.from_numpy(np.ascontiguousarray(src)))
+            dst[len(src):].zero_()
+            obs_trace.count("host_cast_bytes", dst.nbytes)
         ms = self.last_phase_ms
-        ms["copy"] = ms.get("copy", 0.0) + (t1 - t0) * 1e3
-        ms["pin"] = ms.get("pin", 0.0) + (time.perf_counter() - t1) * 1e3
-        return t
+        ms["pin"] = ms.get("pin", 0.0) + (t1 - t0) * 1e3
+        ms["copy"] = ms.get("copy", 0.0) + (time.perf_counter() - t1) * 1e3
+        return dst
 
     def _host_queries(self, query_attrs: np.ndarray,
                       qpad: int) -> torch.Tensor:
@@ -569,21 +595,34 @@ class SingleChipEngine:
                        qpad: int) -> torch.Tensor:
         return stage(self._host_queries(query_attrs, qpad), self.device)
 
-    def _pinned_chunks(self, inp: KNNInput, rows: int) -> torch.Tensor:
-        """The dataset padded with zero rows to ``rows``, as one (pinned,
-        on the card) host tensor the chunk loop slices."""
-        return self._host_padded(inp.data_attrs, rows)
+    def _host_chunk(self, inp: KNNInput, lo: int, rows: int) -> torch.Tensor:
+        """The chunk of ``rows`` dataset rows from ``lo``, zero rows past
+        the data, as a host tensor ready for ``stage``: cast inside the
+        chunk loop, so the host casts the next chunk while the card folds
+        this one."""
+        return self._host_padded(inp.data_attrs[lo:lo + rows], rows,
+                                 chunk=lo // rows)
 
-    def _note_chunk_loop(self, t_loop: float,
+    def _loop_clock(self) -> Tuple[float, float]:
+        """The start of a chunk loop for ``_note_chunk_loop``: the clock
+        and the ``copy`` and ``pin`` milliseconds so far."""
+        ms = self.last_phase_ms
+        return (time.perf_counter(),
+                ms.get("copy", 0.0) + ms.get("pin", 0.0))
+
+    def _note_chunk_loop(self, t_loop: Tuple[float, float],
                          throttle: ChunkThrottle) -> None:
-        """Add a chunk loop's host time since ``t_loop`` to
-        ``last_phase_ms``: the chunk window's waits as ``chunk_wait``, the
-        rest (the stage calls and launches) as ``launch``."""
+        """Add a chunk loop's host time since ``t_loop`` (``_loop_clock``)
+        to ``last_phase_ms``: the chunk window's waits as ``chunk_wait``,
+        the rest (the stage calls and launches) less the casts and pins
+        the loop added to ``copy`` and ``pin`` as ``launch``."""
+        t0, host0 = t_loop
         wait = throttle.take_wait_s() * 1e3
         ms = self.last_phase_ms
+        host = ms.get("copy", 0.0) + ms.get("pin", 0.0) - host0
         ms["chunk_wait"] = ms.get("chunk_wait", 0.0) + wait
         ms["launch"] = ms.get("launch", 0.0) \
-            + (time.perf_counter() - t_loop) * 1e3 - wait
+            + (time.perf_counter() - t0) * 1e3 - wait - host
 
     def _padded_ids_labels(self, inp: KNNInput, rows: int):
         """(labels, ids) padded to ``rows`` with -1, on the device."""
@@ -652,19 +691,18 @@ class SingleChipEngine:
         q_dev = [stage(q_host[b * qsb:(b + 1) * qsb], dev)
                  for b in range(nqb)]
         schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
-        host = self._pinned_chunks(inp, nchunks * chunk_rows)
         d_labels, d_ids = self._padded_ids_labels(inp, nchunks * chunk_rows)
         step = make_block_step(select, k, cfg.use_pallas)
         carries = [init_topk(qsb, k, dev) for _ in range(nqb)]
         throttle = ChunkThrottle(dev)
         scanned = 0
-        t_loop = time.perf_counter()
+        t_loop = self._loop_clock()
         with obs_span("single.enqueue_pipelined", select=select,
                       chunks=nchunks, scheduled=len(schedule), qblocks=nqb,
                       k=k):
             for c in schedule:
                 lo, hi = c * chunk_rows, (c + 1) * chunk_rows
-                da = stage(host[lo:hi], dev)
+                da = stage(self._host_chunk(inp, lo, chunk_rows), dev)
                 scanned += max(min(hi, n) - lo, 0) * na \
                     * self._staging_itemsize()
                 for b in range(nqb):
@@ -718,18 +756,17 @@ class SingleChipEngine:
         live = [c for c in schedule if c * chunk_rows < n]
         dev = self.device
         q_dev = self._stage_queries(inp.query_attrs, qpad)
-        host = self._pinned_chunks(inp, nchunks * chunk_rows)
         od = oi = None   # the first survivor starts the lists fresh
         scanned = 0
         throttle = ChunkThrottle(dev)
         mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, k))
-        t_loop = time.perf_counter()
+        t_loop = self._loop_clock()
         with obs_span("single.enqueue_extract", chunks=nchunks, kc=k,
                       impl=impl, scheduled=len(live)):
             for c in live:
                 lo = c * chunk_rows
                 hi = min(lo + chunk_rows, n)
-                da = stage(host[lo:lo + chunk_rows], dev)
+                da = stage(self._host_chunk(inp, lo, chunk_rows), dev)
                 scanned += (hi - lo) * na * self._staging_itemsize()
                 od, oi, iters = kern(q_dev, da, od, oi, n_real=hi - lo,
                                      id_base=lo, kc=k, precision=prec)
@@ -823,16 +860,16 @@ class SingleChipEngine:
         self.last_phase_ms["prune"] = 0.0
         dev = self.device
         q_dev = self._stage_queries(inp.query_attrs, qpad)
-        host = self._pinned_chunks(inp, nchunks * chunk_rows)
         chunks: List[torch.Tensor] = []
         od = oi = None
         throttle = ChunkThrottle(dev)
         mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, kc))
-        t_loop = time.perf_counter()
+        t_loop = self._loop_clock()
         for c in range(n_staged):
             lo = c * chunk_rows
             hi = min(lo + chunk_rows, n)
-            chunks.append(stage(host[lo:lo + chunk_rows], dev))
+            chunks.append(stage(self._host_chunk(inp, lo, chunk_rows),
+                                dev))
             od, oi, iters = kern(q_dev, chunks[-1], od, oi, n_real=hi - lo,
                                  id_base=lo, kc=kc, precision=prec)
             mi.add(iters)
@@ -856,7 +893,7 @@ class SingleChipEngine:
         del chunks
         fds = []
         mir = MeasuredIters(self, impl, (qpad, full_rows, na, kc))
-        t_loop = time.perf_counter()
+        t_loop = self._loop_clock()
         for _ in range(1, npasses):
             floor, fd = _mp_floor(ods[-1], qn_dev, dn_dev,
                                   staging=self._staging, na=na,
@@ -956,19 +993,18 @@ class SingleChipEngine:
         # segment can need.
         schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
         live = [c for c in schedule if c * chunk_rows < n]
-        host = self._pinned_chunks(inp, nchunks * chunk_rows)
         carry_o = init_topk(qo_pad, ko, dev)
         od = oi = None
         scanned = 0
         throttle = ChunkThrottle(dev)
         mi = MeasuredIters(self, impl, (qpad_b, chunk_rows, na, kb))
-        t_loop = time.perf_counter()
+        t_loop = self._loop_clock()
         with obs_span("single.enqueue_extract", chunks=nchunks, kc=kb,
                       impl=impl, scheduled=len(live), outliers=len(outl)):
             for c in live:
                 lo = c * chunk_rows
                 hi = min(lo + chunk_rows, n)
-                da = stage(host[lo:lo + chunk_rows], dev)
+                da = stage(self._host_chunk(inp, lo, chunk_rows), dev)
                 scanned += (hi - lo) * na * self._staging_itemsize()
                 od, oi, iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
                                      id_base=lo, kc=kb, precision=prec)

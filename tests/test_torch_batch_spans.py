@@ -1,6 +1,7 @@
 """The batch engine's spans and counts (``engine/single.py`` under
 ``obs/trace.py``): a device-full solve on the CPU splits into linked
-spans under one root a solve, the host-to-device bytes it counts equal
+spans under one root a solve, each chunk's cast a child of the chunk
+loop, the host-to-device bytes and the bytes cast that it counts equal
 the byte arithmetic of its input, the tracer's ids, parents and counts
 follow each thread's open spans, the CLI's trace with them passes
 ``tools/check_trace.py`` and ``obs_trace.tree_faults``, the routed
@@ -78,8 +79,22 @@ def test_a_device_full_solve_is_one_linked_tree_a_solve(inp):
         for e in kids:
             assert r["ts"] <= e["ts"]
             assert e["ts"] + e["dur"] <= r["ts"] + r["dur"] + 1e-3
-    # Two host copies a solve (queries, corpus); no pin on the CPU.
-    assert sum(e["name"] == "single.host_copy" for e in spans) == 4
+    # A host copy a solve for the queries, under the root, and one for
+    # each staged chunk, under the chunk loop; no pin on the CPU.
+    _, staged, _, _ = _plan(engine)
+    for r in roots:
+        rid = r["args"]["id"]
+        loop = [e for e in spans if e["name"] == "single.enqueue_extract"
+                and e["args"]["parent"] == rid]
+        assert len(loop) == 1
+        copies = [e for e in spans if e["name"] == "single.host_copy"
+                  and r["ts"] <= e["ts"] <= r["ts"] + r["dur"]]
+        assert [e["args"]["parent"] for e in copies] == \
+            [rid] + [loop[0]["args"]["id"]] * staged
+        assert [e["args"].get("chunk") for e in copies] == \
+            [None] + list(range(staged))
+    assert sum(e["name"] == "single.host_copy" for e in spans) \
+        == 2 * (1 + staged)
     assert not any(e["name"] == "single.pin" for e in spans)
     phases = engine.last_phase_ms
     assert {"copy", "pin", "launch", "chunk_wait", "enqueue", "fetch",
@@ -91,7 +106,7 @@ def test_a_device_full_solve_is_one_linked_tree_a_solve(inp):
 def test_h2d_bytes_are_the_byte_arithmetic_of_the_input(inp):
     engine = _engine()
     spans = _traced(engine, inp, 1)
-    nchunks, staged, rows, qpad = _plan(engine)
+    _, staged, rows, qpad = _plan(engine)
     want = {"chunks": staged * rows * NA * 4, "queries": qpad * NA * 4,
             "labels": N * 4, "ks": qpad * 4}
     by = {e["name"]: e["args"].get("h2d_bytes") for e in spans}
@@ -101,7 +116,14 @@ def test_h2d_bytes_are_the_byte_arithmetic_of_the_input(inp):
     assert by["single.fetch"] == want["ks"]
     copies = [e["args"]["bytes"] for e in spans
               if e["name"] == "single.host_copy"]
-    assert copies == [want["queries"], nchunks * rows * NA * 4]
+    assert copies == [want["queries"]] + [rows * NA * 4] * staged
+    assert sum(copies[1:]) == want["chunks"]
+    # The bytes cast: the padded corpus's staged chunks and the queries.
+    cast = {e["name"]: e["args"].get("host_cast_bytes") for e in spans}
+    assert cast["single.run_device_full"] == want["chunks"] \
+        + want["queries"]
+    assert cast["single.enqueue_extract"] == want["chunks"]
+    assert cast["single.fetch"] is None
 
 
 def test_no_tracer_leaves_every_hook_the_shared_no_op(inp, monkeypatch):
@@ -248,6 +270,13 @@ def test_the_routed_solve_splits_the_same_way(inp):
     assert loop["args"]["outliers"] == 3
     _, staged, rows, _ = _plan(engine)
     assert loop["args"]["h2d_bytes"] == staged * rows * NA * 4
+    # Two query copies (bulk, outliers) under the root, the chunks' under
+    # the loop.
+    copies = [e["args"]["parent"] for e in spans
+              if e["name"] == "single.host_copy"]
+    assert copies == [root["args"]["id"]] * 2 \
+        + [loop["args"]["id"]] * staged
+    assert loop["args"]["host_cast_bytes"] == staged * rows * NA * 4
     ph = engine.last_phase_ms
     parts = ph["copy"] + ph["pin"] + ph["launch"] + ph["chunk_wait"]
     assert ph["launch"] > 0 and 0 < parts <= ph["enqueue"]
