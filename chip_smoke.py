@@ -33,9 +33,10 @@ processes it waits on together. Standard output:
    bit), also with a multi-pass ``floor``, at the wide-k bulk and at the
    multi-pass first pass, and at the mesh path's per-rank shapes (config
    3's shard fresh and carried, the wide-k bulk on the (4, 2) mesh, config
-   5's 32-attribute shard); on the integer ``tie_grid`` (exact f32 sums) the
-   sorted (distance, id) pairs equal the plain version's with
-   ``torch.equal`` at both S; at each main-path shape the per-block time
+   5's 32-attribute shard, the held-shard fold's uint8 chunk fresh and
+   carried); on the integer ``tie_grid`` and the held-shard chunks (exact
+   f32 sums) the sorted (distance, id) pairs equal the plain version's
+   with ``torch.equal`` at both S; at each main-path shape the per-block time
    ``block_us`` (a full S = 1 launch against a one-block one, over the
    blocks a CTA sweeps after its first and the waves of the grid) and
    ``tile_block_us`` (K2 at S = 1 from a carry of zeros, which no distance
@@ -158,7 +159,14 @@ processes it waits on together. Standard output:
    1,000-query subset against the oracle and repairs at most 1% of its
    queries; config 3's sharded run also writes ``--metrics``, whose
    ``comms`` block (every rank's record, equal on every rank) must equal
-   ``obs.comms``' analytic bytes for the (4, 2) mesh;
+   ``obs.comms``' analytic bytes for the (4, 2) mesh; last, the held-shard
+   solve of the benchmark's BIGANN-1B cell at fewer rows (HELD_RUN) on a
+   (1, 1) NCCL mesh: a uint8 shard handed to ``ShardedEngine.hold_shard``
+   on the card, the cell's 1,000 uint8 queries with k 10 through
+   ``run_device_full``, whose results must equal the scatter path's on the
+   same rows as a float64 input entry for entry, with K1 and its merge
+   launched once a chunk at the shape the kernels phase held and only the
+   queries and ks staged (``h2d_bytes``);
    ``serve`` (before it, the kernels phase holds K1/K2 at every resident
    chunk shape of every warmed (qpad, kcap), the multi-pass first and
    resident passes at every qpad, and a carry folded from a later chunk,
@@ -571,7 +579,17 @@ MESH_SHAPES = {"mesh_config3_fresh": "config 3, a rank's shard",
                "mesh_config3_carried": "config 3, carried",
                "mesh_widek_bulk": "wide-k bulk on the (4, 2) mesh",
                "mesh_config5": "config 5, a rank's shard",
-               "mesh_outlier_f32": "wide-k outliers on the (4, 2) mesh"}
+               "mesh_outlier_f32": "wide-k outliers on the (4, 2) mesh",
+               "mesh_held_fresh": "BIGANN-1B held shard, a uint8 chunk",
+               "mesh_held_carried": "BIGANN-1B held shard, carried"}
+# The held-shard solve of the benchmark's bigann1b.batch_sharded cell
+# (benchmark/configs/bigann1b.json): its queries a solve, k, attributes
+# and labels, and a rank's 250,000,000-row shard of the 1,000,000,000, of
+# which the mesh phase holds ``rows`` (4 chunks of the cell's 51,200, the
+# last one short, as the cell's last is) on a (1, 1) mesh.
+HELD_RUN = {"num_queries": 1_000, "k": 10, "num_attrs": 128,
+            "num_labels": 10, "shard_rows": 250_000_000,
+            "num_data": 1_000_000_000, "rows": 203_800}
 # The serve phase's replay: request sizes that straddle the port's query
 # buckets (granule 32), k in 1..32 (some requests with per-query ks), and
 # four k = 1,024 requests for the wide-k bucket; the daemon warms every
@@ -623,7 +641,8 @@ HELD_PATHS = {
         "banded_config4_dense", "tuned_config4", "device_full_config4",
         "device_full_widek_mix", "check_config4_K1_sanitized",
         "check_race_stress", "mesh_1x1_config4", "mesh_1x1_config4_ring",
-        "mesh_4x2_widek", "distributed_config5", "serve_replay",
+        "mesh_4x2_widek", "mesh_held_1x1", "distributed_config5",
+        "serve_replay",
         "fleet_plain_replica", "fleet_mesh_replica", "auto_mesh_daemon",
         "bench_config4_K1", "bench_config3_sharded", "bench_config3_ring",
         "bench_driver_extract")),
@@ -636,8 +655,9 @@ HELD_PATHS = {
         "tuned_config4", "ladder_heuristic", "device_full_config4",
         "device_full_widek_mix", "check_config4_K1_sanitized",
         "check_race_stress", "mesh_1x1_config4", "mesh_1x1_config4_ring",
-        "mesh_4x2_config3_K2", "mesh_4x2_widek", "distributed_config5",
-        "serve_replay", "serve_ladder", "fleet_plain_replica",
+        "mesh_4x2_config3_K2", "mesh_4x2_widek", "mesh_held_1x1",
+        "distributed_config5", "serve_replay", "serve_ladder",
+        "fleet_plain_replica",
         "fleet_mesh_replica", "auto_mesh_daemon", "bench_config4_K1",
         "bench_config4_K2", "bench_config3_sharded", "bench_config3_ring",
         "bench_driver_extract")),
@@ -1195,6 +1215,21 @@ def kernel_cases(reps: int):
     run_case("mesh_config5", q5, d5, n_real=shard5, id_base=shard5,
              kc=single.resolve_kcap(cfg, c5["max_k"], "extract", 1 << 30))
     del q5, d5
+    # The held-shard fold of the BIGANN-1B cell (HELD_RUN), a rank's
+    # chunk: the solve's queries (zero padding) against one chunk cast
+    # from uint8, fresh and carried; integer values in 0..255, so every
+    # f32 distance is exact.
+    hq, hck, hkc = held_k1_shape(cfg)
+    hna = HELD_RUN["num_attrs"]
+    qh = uniform((hq, hna), 26, 256, True)
+    qh[HELD_RUN["num_queries"]:] = 0.0
+    dh0, dh1 = uniform((hck, hna), 27, 256, True), \
+        uniform((hck, hna), 28, 256, True)
+    first = run_case("mesh_held_fresh", qh, dh0, n_real=hck, id_base=0,
+                     kc=hkc, exact=True)
+    run_case("mesh_held_carried", qh, dh1, n_real=hck, id_base=hck,
+             kc=hkc, carry=first[:2], d_prev=dh0, exact=True)
+    del qh, dh0, dh1, first
     serve_kernel_cases(run_case, uniform, reps)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
     # choose_splits takes the smallest S within SPLIT_TOL of its model's
@@ -1210,6 +1245,22 @@ def kernel_cases(reps: int):
     summary["fused_topk"]["ms_by_shape"] = by_shape
     summary["fused_topk"]["ms_by_mesh_shape"] = mesh_by_shape
     return summary, sweep_inputs
+
+
+def held_k1_shape(cfg):
+    """(qloc, chunk rows, kc) of K1 in the held-shard fold of the
+    BIGANN-1B cell (HELD_RUN) under ``cfg``: its queries over one query
+    column, a rank's shard in the engine's chunks, k's list width over the
+    whole corpus (``ShardedEngine._plan_held``'s rules)."""
+    from dmlp_tpu_torch.engine.single import (plan_chunks, resolve_kcap,
+                                              round_up)
+    from dmlp_tpu_torch.ops.extract import QUERY_TILE
+    h = HELD_RUN
+    _, _, ck = plan_chunks(h["shard_rows"], cfg.resolve_granule("extract"),
+                           cfg.data_block)
+    return (round_up(h["num_queries"], QUERY_TILE), ck,
+            resolve_kcap(cfg, h["k"], "extract", h["num_data"],
+                         staging="float32"))
 
 
 def serve_geometry():
@@ -2821,8 +2872,117 @@ def mesh_phase(tmp_dir):
         if metrics:
             mesh_comms_check(label, name, (r, cc), metrics)
 
+    launches["mesh_held_1x1"] = mesh_held_run()
     nccl_probe()
     launches["distributed_config5"] = _config5_finish(*config5)
+    return launches
+
+
+def mesh_held_run():
+    """The held-shard solve of the BIGANN-1B cell at HELD_RUN's rows on
+    a (1, 1) NCCL mesh (this process the one rank): a seeded uint8 shard
+    with int32 labels handed to ``ShardedEngine.hold_shard`` on the card,
+    one warm-up solve, then one solve of the cell's uint8 queries (k 10)
+    traced and counted. Its results equal the scatter path's
+    (``run_device_full`` on the same rows as a float64 ``KNNInput``)
+    entry for entry; K1 and its merge launch once a chunk, at the S
+    ``heuristic_splits`` picks and at the shape the kernels phase held
+    (``held_k1_shape``); the solve stages only the queries and ks
+    (``h2d_bytes``) and casts every real row once (``cast_bytes``).
+    Returns the traced solve's launches."""
+    import numpy as np
+    import torch
+    from dmlp_tpu_torch import kernels
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.sharded import ShardedEngine
+    from dmlp_tpu_torch.engine.single import plan_chunks
+    from dmlp_tpu_torch.io.grammar import KNNInput, Params, QueryBatch
+    from dmlp_tpu_torch.obs import memwatch
+    from dmlp_tpu_torch.obs import trace as obs_trace
+    from dmlp_tpu_torch.ops.extract import heuristic_splits
+    from dmlp_tpu_torch.parallel.distributed import initialize, shutdown
+
+    h = HELD_RUN
+    n, nq, na = h["rows"], h["num_queries"], h["num_attrs"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    attrs = torch.randint(0, 256, (n, na), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    labels = torch.randint(0, h["num_labels"], (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    q = torch.randint(0, 256, (nq, na), generator=gen, device="cuda",
+                      dtype=torch.uint8).cpu().numpy()
+    ks = np.full(nq, h["k"], np.int32)
+    cfg = EngineConfig(mode="sharded", mesh_shape=(1, 1), use_pallas=True,
+                       device="cuda")
+    qloc, ck, kc = held_k1_shape(cfg)
+    _, nchunks, run_ck = plan_chunks(n, cfg.resolve_granule("extract"),
+                                     cfg.data_block)
+    s = heuristic_splits(qloc, ck, kc, "cuda")
+    created = initialize(device="cuda", timeout_s=120)
+    try:
+        eng = ShardedEngine(cfg)
+        eng.hold_shard(attrs, labels, n)
+        qb = QueryBatch(ks=ks, query_attrs=q)
+        eng.run_device_full(qb)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tracer = obs_trace.install(obs_trace.Tracer())
+        t0 = time.perf_counter()
+        try:
+            held = eng.run_device_full(qb)
+        finally:
+            obs_trace.uninstall()
+        held_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        variants = {k: dict(v) for k, v in kernels.LAUNCH_VARIANTS.items()}
+        phases = dict(eng.last_phase_ms)
+        model = memwatch.model_for_engine(eng, qb)
+        shape = [model["q_local"], int(eng._cast_buf.shape[0]), na,
+                 model["kcap"]]
+        root = next(e for e in tracer.events() if e["ph"] == "X"
+                    and e["name"] == "sharded.held_device_full")["args"]
+        inp = KNNInput(Params(n, nq, na), labels.cpu().numpy(),
+                       attrs.cpu().numpy().astype(np.float64), ks,
+                       q.astype(np.float64))
+        del eng
+        t0 = time.perf_counter()
+        scatter = ShardedEngine(cfg).run_device_full(inp)
+        scatter_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if created:
+            shutdown()
+
+    def entries(res):
+        return [(r.query_id, r.k, r.predicted_label,
+                 r.neighbor_ids.tolist(), r.neighbor_dists.tolist())
+                for r in res]
+    same = entries(held) == entries(scatter)
+    want = {k: 0 for k in KERNELS}
+    want.update(fused_topk=nchunks, extract_merge=nchunks if s > 1 else 0)
+    h2d = qloc * na * 4 + qloc * 4
+    emit({"phase": "mesh", "run": "mesh_held_1x1", "rows": n,
+          "queries": nq, "k": h["k"], "held_ms": held_ms,
+          "scatter_ms": scatter_ms, "phases_ms": phases,
+          "k1_shape": shape + [s], "launches": launches,
+          "launches_expected": want, "splits": variants.get("fused_topk"),
+          "h2d_bytes": root.get("h2d_bytes"), "h2d_bytes_expected": h2d,
+          "cast_bytes": root.get("cast_bytes"),
+          "memory_model_bytes": model["total_bytes"],
+          "same_as_scatter": same})
+    check(same, "mesh_held_1x1: results differ from the scatter path's")
+    check(run_ck == ck and shape == [qloc, ck, na, kc],
+          f"mesh_held_1x1: K1 at {shape}, chunks of {run_ck}; the cell's "
+          f"fold launches at {[qloc, ck, na, kc]}")
+    check(not HELD["k1"] or tuple(shape) in HELD["k1"],
+          f"mesh_held_1x1: K1/K2 at {shape}: no kernels case")
+    check(launches == want and variants.get("fused_topk") == {s: nchunks},
+          f"mesh_held_1x1: launched {launches} at {variants}, want {want} "
+          f"at S={s}")
+    check(root.get("h2d_bytes") == h2d
+          and root.get("cast_bytes") == n * na * 4,
+          f"mesh_held_1x1: h2d_bytes {root.get('h2d_bytes')} (want {h2d}), "
+          f"cast_bytes {root.get('cast_bytes')} (want {n * na * 4})")
     return launches
 
 

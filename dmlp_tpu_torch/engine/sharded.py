@@ -29,25 +29,39 @@ the parsed input, the others with None.
    finalizes in float64 and repairs the boundary hazards with the full
    input (``engine.finalize``), as the single-device engine does.
 
+A held shard (:meth:`ShardedEngine.hold_shard`) skips step 2's rows:
+each rank hands the engine its own uint8 row shard on its card once, and
+every ``run_device_full`` after that takes
+rank 0's queries alone (an ``io.grammar.QueryBatch``), broadcasts them and
+folds the held shard with the same chunk loop, each chunk cast on the card
+into one reused float32 buffer; no corpus byte moves during a solve.
+
 Rank 0's ``last_phase_ms`` splits the solve: ``prune`` (scoring),
 ``stage_enqueue`` (plan broadcast, scatter and staging of the query
 shards), ``fold`` (its own shard's launches, to the device's end),
 ``merge``, ``gather``, ``fetch`` and ``finalize``. The mesh engines have
-no degradation ladder, as in the reference.
+no degradation ladder, as in the reference. A held-shard solve's keys
+are ``stage_queries``, ``fold``, ``merge``, ``gather``, ``epilogue``,
+``fetch`` and ``finalize``.
 
 Observability (``dmlp_tpu_torch.obs``): the reference's spans by the
 reference's names (``sharded.prune_score``, ``sharded.stage_enqueue``,
 ``sharded.enqueue_chunked``, ``sharded.merge``, ``sharded.solve_merge``,
 ``sharded.solve_local_shards``, ``sharded.fetch``, ``sharded.finalize``,
-``sharded.device_full``) plus ``sharded.gather``; ``last_comms``, the
-analytic traffic of the solve's collectives (``obs.comms``: the root's
-scatters, the data-axis merge, the query-axis gather), the same on every
-rank; the memory model on rank 0; and with a cost probe installed each
-rank's K1/K2 ``iters``, read back once after the solve.
+``sharded.device_full``) plus ``sharded.gather``, and for a held-shard
+solve the root ``sharded.held_device_full`` with ``sharded.stage_queries``
+and ``sharded.epilogue`` (counting ``h2d_bytes`` and ``cast_bytes``);
+``last_comms``, the analytic traffic of the solve's collectives
+(``obs.comms``: the root's scatters, or a held solve's query broadcast,
+the data-axis merge, the query-axis gather), the same on every rank; the
+memory model on rank 0 (``obs.memwatch.held_shard_model`` for a held
+shard); and with a cost probe installed each rank's K1/K2 ``iters``, read
+back once after the solve.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List, Optional
 
@@ -55,7 +69,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dmlp_tpu_torch.check.sanitize import fenced
+from dmlp_tpu_torch.check.sanitize import fenced, readback
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine.finalize import (boundary_overflow, finalize_host,
                                             lowp_eps,
@@ -64,12 +78,13 @@ from dmlp_tpu_torch.engine.finalize import (boundary_overflow, finalize_host,
 from dmlp_tpu_torch.engine.single import (ChunkThrottle, MeasuredIters,
                                           _device_epilogue, fit_blocks,
                                           flush_measured_iters, hetk_split,
-                                          plan_chunks, resilient_get,
+                                          plan_chunks, put, resilient_get,
                                           resolve_kcap, round_up)
-from dmlp_tpu_torch.io.grammar import KNNInput, subset_queries
+from dmlp_tpu_torch.io.grammar import KNNInput, QueryBatch, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
 from dmlp_tpu_torch.obs import comms as obs_comms
 from dmlp_tpu_torch.obs import memwatch, telemetry
+from dmlp_tpu_torch.obs import trace as obs_trace
 from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
                                           prune_enabled, prune_mask)
@@ -77,7 +92,9 @@ from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
                                      select_topk, streaming_fallback,
                                      streaming_topk)
 from dmlp_tpu_torch.parallel.collectives import (allgather_merge_topk, move,
+                                                 broadcast_from_root,
                                                  broadcast_object,
+                                                 gather_objects,
                                                  gather_topk,
                                                  gspmd_merge_topk,
                                                  ring_allreduce_topk,
@@ -118,6 +135,51 @@ def _kernel(impl: str):
     from dmlp_tpu_torch.ops.extract import extract_topk
     from dmlp_tpu_torch.ops.fused import fused_topk
     return fused_topk if impl == "fused" else extract_topk
+
+
+@dataclasses.dataclass(frozen=True)
+class HeldShard:
+    """A rank's own row shard, kept on its card for every later solve
+    (:meth:`ShardedEngine.hold_shard`): rows ``[r * shard_rows, r *
+    shard_rows + attrs.shape[0])`` of the ``num_data``-row corpus for mesh
+    row r, as the caller holds them (uint8), with their labels."""
+
+    attrs: torch.Tensor       # (rows, na) uint8, on the card
+    labels: torch.Tensor      # (rows,) int32, on the card
+    shard_rows: int           # every shard's row count but the last's
+    num_data: int
+    num_labels: int           # the largest label over every shard, plus 1
+
+
+def _held_layout(facts, r: int, n: int) -> dict:
+    """Rank 0's verdict on the shards every rank offered
+    (``ShardedEngine.hold_shard``): ``facts`` holds each rank's (mesh row,
+    rows, attributes, its largest label, its own fault or None) in rank
+    order. The shards must tile rows [0, n) in mesh-row order, every one
+    but the last ``shard_rows`` long, the ranks of one mesh row holding
+    the same shard; global ids must fit int32."""
+    def bad(msg):
+        return {"error": msg}
+    for rank, (_, _, _, _, fault) in enumerate(facts):
+        if fault:
+            return bad(f"rank {rank}: {fault}")
+    rows_of = {}
+    for rank, (rr, rows, _, _, _) in enumerate(facts):
+        if rows_of.setdefault(rr, rows) != rows:
+            return bad(f"the ranks of mesh row {rr} hold shards of "
+                       f"different lengths")
+    shard_rows = rows_of[0]
+    lens = [rows_of[rr] for rr in range(r)]
+    if min(lens) < 1 or any(x != shard_rows for x in lens[:-1]) \
+            or lens[-1] > shard_rows or sum(lens) != n:
+        return bad(f"shards of {lens} rows do not tile {n} rows as "
+                   f"{r} shards of ceil(n / {r}) rows, the last one shorter")
+    if n >= 2 ** 31:
+        return bad(f"{n} rows: global ids must fit int32")
+    if len({na for _, _, na, _, _ in facts}) != 1:
+        return bad("the shards differ in their number of attributes")
+    return {"error": None, "shard_rows": shard_rows,
+            "num_labels": max(m for _, _, _, m, _ in facts) + 1}
 
 
 def _labels_for_ids(ids: torch.Tensor, labels: torch.Tensor,
@@ -161,10 +223,20 @@ class ShardedEngine:
         self.last_comms: list = []
         self.last_mem_model = None
         self._pending_iters: list = []
+        self.held: Optional[HeldShard] = None
+        self._cast_buf: Optional[torch.Tensor] = None
 
     @property
     def root(self) -> bool:
         return self.rank == 0
+
+    def _refuse_held(self) -> None:
+        """Every rank alike, before any collective: the paths that take a
+        ``KNNInput`` cannot solve against a held shard."""
+        if self.held is not None:
+            raise RuntimeError(
+                "this engine holds a shard: only run_device_full solves "
+                "against it (the exact path needs the corpus on rank 0)")
 
     def _itemsize(self) -> int:
         return 2 if self._staging == "bfloat16" else 4
@@ -430,21 +502,18 @@ class ShardedEngine:
 
     def _solve_chunked(self, inp: Optional[KNNInput], plan: dict, split,
                        stats):
-        """The chunked extract fold on every rank: this rank's row shard
-        in ~chunk_rows pieces, each folded by the extraction kernel into
-        the running (qloc, k) lists of its query shard (global ids affine
-        per piece: id = r * shard_rows + toff + j, the kernel's id
-        contract), and the router's outliers through the streaming fold on
-        the same staged pieces. A piece that the prune mask drops, or that
-        holds no real row, is never staged."""
+        """The chunked extract solve on every rank: rank 0 scatters the
+        row shards and the query shards, each rank keeps its shard in
+        pinned host memory (the staging dtype) and :meth:`_fold` stages it
+        piece by piece (``chunk_rows`` rows a piece), then the merge and
+        the gather. A piece that the prune mask drops, or that holds no
+        real row, is never staged."""
         n, na = plan["n"], plan["na"]
         shard_rows, nchunks, ck = (plan["shard_rows"], plan["nchunks"],
                                    plan["chunk_rows"])
-        qloc, k, prec = plan["qloc"], plan["k"], plan["precision"]
+        qloc, k = plan["qloc"], plan["k"]
         outl = plan["outliers"]
-        keep = plan["keep"]
         r, c = self.mesh.shape
-        rr = self.coords[0]
         dev = self.device
         t0 = time.perf_counter()
 
@@ -475,8 +544,47 @@ class ShardedEngine:
             labels_dev = move(lab_pad, dev, "sharded.stage_labels")
         t0 = self._phase("stage_enqueue", t0)
 
+        def chunk(toff: int, n_real: int) -> torch.Tensor:
+            return host[toff:toff + ck].to(dev, non_blocking=True)
+
+        top, carry_o = self._fold(plan, q_dev, chunk, labels_dev, outl,
+                                  qo_dev if outl is not None else None)
+        t0 = self._phase("fold", t0)
+
+        if self.root:
+            self._note_chunked_scan(inp, plan, stats)
+        top_b, top_o = self._merge_gather(top, k, t0, carry_o,
+                                          outl["k"] if outl else None)
+        qpad = c * qloc
+        if outl is None:
+            return [(top_b, qpad, None, "extract")]
+        return [(top_b, qpad, None if split is None else split[0],
+                 "extract"),
+                (top_o, c * outl["qloc"],
+                 None if split is None else split[1], outl["select"])]
+
+    def _fold(self, plan: dict, q_dev: torch.Tensor, chunk, labels_dev,
+              outl: Optional[dict] = None, qo_dev=None):
+        """Every rank: fold this rank's row shard, piece by piece, into
+        running (qloc, k) lists of its query shard with the extraction
+        kernel (global ids affine per piece: id = r * shard_rows + toff +
+        j, the kernel's id contract), and the router's outliers through
+        the streaming fold on the same pieces. ``chunk(toff, n_real)``
+        hands over the piece at row ``toff`` of the shard on the device,
+        ``chunk_rows`` rows of which the first ``n_real`` are real: where
+        the pieces come from is the caller's. A piece that the prune mask
+        drops, or that holds no real row, is never asked for. Returns
+        (the lists with labels, the outliers' carry or None), the device
+        done with both."""
+        n, na = plan["n"], plan["na"]
+        shard_rows, nchunks, ck = (plan["shard_rows"], plan["nchunks"],
+                                   plan["chunk_rows"])
+        qloc, k, prec = plan["qloc"], plan["k"], plan["precision"]
+        keep = plan["keep"]
+        rr = self.coords[0]
+        dev = self.device
         kern = _kernel(plan["impl"])
-        od = oi = None
+        od = oi = carry_o = None
         if outl is not None:
             ostep = make_block_step(outl["select"], outl["k"],
                                     self.config.use_pallas)
@@ -492,7 +600,7 @@ class ShardedEngine:
                 id_base, n_real = _chunk_span(n, rr, shard_rows, toff, ck)
                 if n_real == 0:
                     continue
-                da = host[toff:toff + ck].to(dev, non_blocking=True)
+                da = chunk(toff, n_real)
                 od, oi, iters = kern(q_dev, da, od, oi, n_real=n_real,
                                      id_base=id_base, kc=k, precision=prec)
                 mi.add(iters)
@@ -510,26 +618,27 @@ class ShardedEngine:
             base = rr * shard_rows
             top = TopK(od, _labels_for_ids(oi, labels_dev, base), oi)
             self._sync()
-        t0 = self._phase("fold", t0)
+        return top, carry_o
 
-        if self.root:
-            self._note_chunked_scan(inp, plan, stats)
+    def _merge_gather(self, top: TopK, k: int, t0: float,
+                      carry_o: Optional[TopK] = None,
+                      k_o: Optional[int] = None):
+        """Every rank: the data-axis merge of the folded lists (and of the
+        outliers' carry), then row 0's query-axis gather to rank 0; the
+        phases ``merge`` and ``gather`` from ``t0``. Returns rank 0's
+        (lists, outliers' lists or None); None for each elsewhere."""
+        r, c = self.mesh.shape
         with obs_span("sharded.merge", mesh=[r, c], kc=k):
             merged = self._merge(top, k)
-            merged_o = self._merge(carry_o, outl["k"]) if outl else None
+            merged_o = self._merge(carry_o, k_o) if carry_o is not None \
+                else None
             self._sync()
         t0 = self._phase("merge", t0)
         with obs_span("sharded.gather", mesh=[r, c]):
             top_b = self._gather(merged)
-            top_o = self._gather(merged_o) if outl else None
+            top_o = self._gather(merged_o) if merged_o is not None else None
         self._phase("gather", t0)
-        qpad = c * qloc
-        if outl is None:
-            return [(top_b, qpad, None, "extract")]
-        return [(top_b, qpad, None if split is None else split[0],
-                 "extract"),
-                (top_o, c * outl["qloc"],
-                 None if split is None else split[1], outl["select"])]
+        return top_b, top_o
 
     def _note_chunked_scan(self, inp: KNNInput, plan: dict, stats) -> None:
         """Rank 0's scan accounting of a chunked solve over every shard
@@ -621,13 +730,7 @@ class ShardedEngine:
             top = rs_retry.call_with_retry(_op, "sharded.solve")
             self._sync()
         t0 = self._phase("fold", t0)
-        with obs_span("sharded.merge", mesh=[r, c], kc=k):
-            merged = self._merge(top, k)
-            self._sync()
-        t0 = self._phase("merge", t0)
-        with obs_span("sharded.gather", mesh=[r, c]):
-            out = self._gather(merged)
-        self._phase("gather", t0)
+        out, _ = self._merge_gather(top, k, t0)
         return [(out, c * qloc, None, plan["select"])]
 
     # -- public API ----------------------------------------------------------
@@ -635,6 +738,7 @@ class ShardedEngine:
         """Every rank: the dense solve (no routing, no pruning). Rank 0
         returns the (Q, K) selection-ordered candidate lists (float64
         dists, labels, ids); the others None."""
+        self._refuse_held()
         (top, _qpad, _idx, _select), = self._solve_segments(
             inp, routed=False, allow_prune=False)
         flush_measured_iters(self)
@@ -722,6 +826,7 @@ class ShardedEngine:
         """Every rank: the mesh solve; rank 0 then fetches the merged
         lists, finalizes them in float64 and repairs the boundary hazards
         with the full input, and returns the results (the others None)."""
+        self._refuse_held()
         n = inp.params.num_data if self.root else 0
         segments = self._solve_segments(inp)
         self.last_repairs = 0
@@ -788,38 +893,220 @@ class ShardedEngine:
         repair), then on rank 0 the vote and the report order on its card
         in f32 over the gathered lists (``engine.single._device_epilogue``);
         only the (Q, K) predictions, report ids and f32 distances are
-        fetched, and they are the result."""
+        fetched, and they are the result.
+
+        On an engine that holds a shard (:meth:`hold_shard`) rank 0 passes
+        a :class:`~dmlp_tpu_torch.io.grammar.QueryBatch` instead, and the
+        solve folds the held shards (:meth:`_held_device_full`)."""
+        if self.held is not None:
+            return self._held_device_full(inp)
         with obs_span("sharded.device_full", mesh=list(self.mesh.shape)):
             segments = self._solve_segments(inp, allow_prune=False)
-        self.last_repairs = 0
-        self.last_prune = None
-        telemetry.sample_memory_now()
-        if not self.root:
-            flush_measured_iters(self)
-            return None
-        n = inp.params.num_data
-        num_labels = int(inp.labels.max()) + 1 if n else 1
-        merged: List[QueryResult] = [None] * inp.params.num_queries
-        for top, qpad, idx, _select in segments:
-            sub = inp if idx is None else subset_queries(inp, idx)
-            nq = sub.params.num_queries
-            ks_pad = np.zeros(qpad, np.int32)
-            ks_pad[:nq] = sub.ks
-            top = TopK(*(move(t, self.device, "sharded.epilogue_stage")
-                         for t in top))
-            pred, rids, rd = resilient_get(list(_device_epilogue(
-                top, move(torch.from_numpy(ks_pad), self.device,
-                          "sharded.epilogue_stage"),
-                num_labels=num_labels)), site=self._fetch_site)
-            rd = rd.astype(np.float64)
-            gids = np.arange(nq) if idx is None else idx
-            for qi in range(nq):
-                k = int(sub.ks[qi])
-                merged[int(gids[qi])] = QueryResult(
-                    int(gids[qi]), k, int(pred[qi]),
-                    rids[qi, :k].astype(np.int64), rd[qi, :k])
+            self.last_repairs = 0
+            self.last_prune = None
+            telemetry.sample_memory_now()
+            if not self.root:
+                flush_measured_iters(self)
+                return None
+            n = inp.params.num_data
+            num_labels = int(inp.labels.max()) + 1 if n else 1
+            merged: List[QueryResult] = [None] * inp.params.num_queries
+            for top, qpad, idx, _select in segments:
+                sub = inp if idx is None else subset_queries(inp, idx)
+                gids = np.arange(sub.params.num_queries) if idx is None \
+                    else idx
+                for res in self._epilogue_results(top, sub.ks, qpad,
+                                                  num_labels, gids):
+                    merged[res.query_id] = res
         flush_measured_iters(self)
         return merged
+
+    def _epilogue_results(self, top: TopK, ks: np.ndarray, qpad: int,
+                          num_labels: int, ids) -> List[QueryResult]:
+        """Rank 0, after a device-full solve's gather: the vote and the
+        report order on its card in f32 over the gathered (qpad, K) lists
+        (``engine.single._device_epilogue``), the readback of the (Q, K)
+        predictions, report ids and f32 distances, and one
+        ``QueryResult`` for each of the ``len(ks)`` real queries, the i-th
+        under the id ``ids[i]``. Spans and phases ``epilogue``, ``fetch``
+        and ``finalize`` (``sharded.*``), added up over a solve's
+        segments."""
+        nq = len(ks)
+        ks_pad = np.zeros(qpad, np.int32)
+        ks_pad[:nq] = ks
+        t0 = time.perf_counter()
+        with obs_span("sharded.epilogue"):
+            top = TopK(*(move(t, self.device, "sharded.epilogue_stage")
+                         for t in top))
+            out = _device_epilogue(top, put(ks_pad, self.device,
+                                            "sharded.epilogue_stage"),
+                                   num_labels=num_labels)
+        t0 = self._phase("epilogue", t0)
+        with obs_span("sharded.fetch"):
+            pred, rids, rd = resilient_get(list(out), site=self._fetch_site)
+        t0 = self._phase("fetch", t0)
+        with obs_span("sharded.finalize"):
+            rd = rd.astype(np.float64)
+            results = [QueryResult(int(ids[qi]), int(ks[qi]), int(pred[qi]),
+                                   rids[qi, :ks[qi]].astype(np.int64),
+                                   rd[qi, :ks[qi]])
+                       for qi in range(nq)]
+        self._phase("finalize", t0)
+        return results
+
+    # -- the held shard (every rank) -----------------------------------------
+    def hold_shard(self, attrs: torch.Tensor, labels: torch.Tensor,
+                   num_data: int) -> None:
+        """Every rank, in step, once at set-up: hand the engine this rank's
+        own row shard of a ``num_data``-row corpus, ``attrs`` (rows, na)
+        uint8 and ``labels`` (rows,) int32, both on this rank's card. Mesh row r holds rows [r * S, r * S + rows), S the length of
+        every shard but the last (which may be shorter), so global ids
+        stay affine: r * S + offset. The engine keeps the tensors as they
+        are (no copy, no padding) and from then on solves only through
+        :meth:`run_device_full`, which takes rank 0's queries and moves no
+        corpus byte. Rank 0 checks the layout over every rank's facts; a
+        bad layout raises on every rank."""
+        rr = self.coords[0]
+        fault, rows, na, top_label = None, -1, -1, -1
+        if attrs.dim() != 2 or attrs.dtype != torch.uint8:
+            fault = (f"attrs must be 2-D uint8, not {tuple(attrs.shape)} "
+                     f"{attrs.dtype}")
+        elif tuple(labels.shape) != (attrs.shape[0],) \
+                or labels.dtype != torch.int32:
+            fault = "labels must be (rows,) int32 beside attrs"
+        elif attrs.device != self.device or labels.device != self.device:
+            fault = f"the shard must lie on this rank's {self.device}"
+        elif not attrs.is_contiguous():
+            fault = "attrs must be contiguous"
+        else:
+            rows, na = int(attrs.shape[0]), int(attrs.shape[1])
+            if rows:
+                top_label = int(readback(  # check: allow-host-sync
+                    labels.max(), "sharded.hold_labels"))
+        facts = gather_objects((rr, rows, na, top_label, fault))
+        verdict = _held_layout(facts, self.mesh.shape[0], int(num_data)) \
+            if self.root else None
+        verdict = broadcast_object(verdict)
+        if verdict["error"]:
+            raise ValueError(f"hold_shard: {verdict['error']}")
+        self.held = HeldShard(attrs, labels, verdict["shard_rows"],
+                              int(num_data), verdict["num_labels"])
+        self._cast_buf = None
+
+    def _plan_held(self, qb, precision: str) -> dict:
+        """Rank 0's plan of a held-shard solve: the chunking of the held
+        shards, the padded query shard, the candidate width and K1's
+        launch, or ``{"error": ...}`` for input the path cannot solve."""
+        from dmlp_tpu_torch.ops.extract import QUERY_TILE
+        from dmlp_tpu_torch.ops.fused import resolve_topk_kernel
+
+        held, cfg = self.held, self.config
+        r, c = self.mesh.shape
+        if not isinstance(qb, QueryBatch):
+            return {"error": f"an engine that holds a shard solves a "
+                             f"QueryBatch, not {type(qb).__name__}"}
+        nq, na = qb.num_queries, qb.num_attrs
+        if na != int(held.attrs.shape[1]):
+            return {"error": f"queries of {na} attributes against a corpus "
+                             f"of {int(held.attrs.shape[1])}"}
+        if nq == 0 or len(qb.ks) != nq or int(qb.ks.min()) < 1:
+            return {"error": "a solve needs one k >= 1 for each of at "
+                             "least one query"}
+        _, nchunks, ck = plan_chunks(held.shard_rows,
+                                     cfg.resolve_granule("extract"),
+                                     cfg.data_block)
+        qloc = round_up(max(-(-nq // c), 1), QUERY_TILE)
+        k = resolve_kcap(cfg, int(qb.ks.max()), "extract",
+                         r * held.shard_rows, staging="float32")
+        impl = resolve_topk_kernel(qloc, ck, na, k,
+                                   rung=self._degrade_rung)[1]
+        if impl is None:
+            return {"error": f"k up to {int(qb.ks.max())} (lists of {k}) "
+                             f"is past the extraction kernel's lists"}
+        return {"path": "held", "n": held.num_data, "na": na, "nq": nq,
+                "shard_rows": held.shard_rows, "nchunks": nchunks,
+                "chunk_rows": ck, "qloc": qloc, "k": k, "impl": impl,
+                "precision": precision, "outliers": None, "keep": None}
+
+    def _cast_buffer(self, rows: int, na: int) -> torch.Tensor:
+        """The float32 (rows, na) piece every held chunk is cast into on
+        the card, made at the first solve of a held shard (zeroed, so a
+        short last piece's tail holds earlier real rows, never garbage)
+        and reused: the stream orders each cast after the launch that read
+        the piece before."""
+        if self._cast_buf is None:
+            self._cast_buf = torch.zeros((rows, na), dtype=torch.float32,
+                                         device=self.device)
+        return self._cast_buf
+
+    def _held_device_full(self, qb: Optional[QueryBatch]
+                          ) -> Optional[List[QueryResult]]:
+        """Every rank: the device-full solve against the held shards. Rank
+        0 plans, stages its padded queries on its card and broadcasts
+        them; every rank folds its held shard through :meth:`_fold`, each
+        piece cast on the card into one reused float32 buffer just before
+        K1; the lists merge over the data axis and gather to rank 0, which
+        runs the vote and the report order on its card and fetches them.
+        No corpus byte crosses PCIe or the wire. Traced as the root span
+        ``sharded.held_device_full`` (children ``sharded.stage_queries``,
+        ``sharded.enqueue_chunked``, ``sharded.merge``,
+        ``sharded.gather``, and on rank 0 ``sharded.epilogue``,
+        ``sharded.fetch``, ``sharded.finalize``), which ends with the
+        solve's ``h2d_bytes`` (the queries and ks) and ``cast_bytes``;
+        ``last_phase_ms`` times the same blocks."""
+        held = self.held
+        r, c = self.mesh.shape
+        self.last_phase_ms = {}
+        self.last_hetk = None
+        self.last_prune = None
+        self.last_repairs = 0
+        self._pending_iters = []
+        prec = self.config.resolve_precision()
+        self.last_precision = {"active": prec, "configured": prec}
+        with obs_span("sharded.held_device_full", mesh=[r, c]):
+            t0 = time.perf_counter()
+            with obs_span("sharded.stage_queries"):
+                plan = broadcast_object(
+                    self._plan_held(qb, prec) if self.root else None)
+                if "error" in plan:
+                    raise ValueError(f"held solve: {plan['error']}")
+                qloc, na, k = plan["qloc"], plan["na"], plan["k"]
+                q_all = None
+                if self.root:
+                    q = np.zeros((c * qloc, na), np.float32)
+                    q[:plan["nq"]] = qb.query_attrs
+                    q_all = put(q, self.device, "sharded.stage_queries")
+                q_all = broadcast_from_root(q_all, (c * qloc, na),
+                                            torch.float32, self.device)
+                cc = self.coords[1]
+                q_dev = q_all[cc * qloc:(cc + 1) * qloc]
+            t0 = self._phase("stage_queries", t0)
+            self._last_select = "extract"
+            self.last_extract_impl = plan["impl"]
+            self.last_comms = obs_comms.held_comms(
+                (r, c), c * qloc * na * 4, self._merge_strategy, qloc, k)
+            if self.root:
+                memwatch.note_engine_model(self, qb)
+            buf = self._cast_buffer(plan["chunk_rows"], na)
+
+            def chunk(toff: int, n_real: int) -> torch.Tensor:
+                piece = buf[:n_real]
+                piece.copy_(held.attrs[toff:toff + n_real])
+                obs_trace.count("cast_bytes", piece.nbytes)
+                return buf
+
+            top, _ = self._fold(plan, q_dev, chunk, held.labels)
+            t0 = self._phase("fold", t0)
+            top, _ = self._merge_gather(top, k, t0)
+            telemetry.sample_memory_now()
+            if not self.root:
+                flush_measured_iters(self)
+                return None
+            results = self._epilogue_results(
+                top, qb.ks, c * plan["qloc"], held.num_labels,
+                np.arange(plan["nq"]))
+        flush_measured_iters(self)
+        return results
 
 
 class RingEngine(ShardedEngine):

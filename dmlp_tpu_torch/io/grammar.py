@@ -94,6 +94,27 @@ class KNNInput:
         return np.arange(self.params.num_queries, dtype=np.int32)
 
 
+@dataclasses.dataclass
+class QueryBatch:
+    """Queries and their k against a corpus held elsewhere: the data side
+    lives on the mesh engine's ranks, each of which holds its own row
+    shard on its card (``engine.sharded.ShardedEngine.hold_shard``), so
+    the input of a solve is the query side of a ``KNNInput`` alone.
+    ``query_attrs`` may hold uint8, float32 or float64 values; the solve
+    computes in float32, so float64 values must be exact there."""
+
+    ks: np.ndarray            # (num_queries,)  int32
+    query_attrs: np.ndarray   # (num_queries, num_attrs)
+
+    @property
+    def num_queries(self) -> int:
+        return int(self.query_attrs.shape[0])
+
+    @property
+    def num_attrs(self) -> int:
+        return int(self.query_attrs.shape[1])
+
+
 def subset_queries(inp: KNNInput, idx: np.ndarray) -> KNNInput:
     """A view of ``inp`` restricted to the query rows in ``idx`` (the data
     side is shared, not copied). Used by the heterogeneous-k router

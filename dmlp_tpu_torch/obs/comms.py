@@ -15,6 +15,8 @@ shape parameters the solve uses, so tests can hold the engines' records
   reference's single-process mesh has no counterpart for;
 - row 0's gather of the merged lists over the "query" axis to rank 0
   (``gather_topk``);
+- the root's broadcast of a held-shard solve's padded queries over the
+  whole group (``broadcast_from_root``): the held solve scatters no rows;
 - the multi-process contract run's candidate all-gather
   (``host_allgather_candidates_traffic``).
 
@@ -110,6 +112,17 @@ def scatter_traffic(world: int, payload: int, what: str,
     and keeps its own part."""
     return CollectiveTraffic(
         "scatter_from_root", "world", world, (world - 1) * payload,
+        payload, count=count, senders=1,
+        note=f"{what}: {payload} B to each of {world - 1} ranks")
+
+
+def broadcast_traffic(world: int, payload: int, what: str,
+                      count: int = 1) -> CollectiveTraffic:
+    """The root's broadcast over the whole group
+    (``broadcast_from_root``): rank 0 sends its ``payload`` bytes to each
+    of the other world - 1 ranks."""
+    return CollectiveTraffic(
+        "broadcast_from_root", "world", world, (world - 1) * payload,
         payload, count=count, senders=1,
         note=f"{what}: {payload} B to each of {world - 1} ranks")
 
@@ -270,6 +283,19 @@ def scatter_comms(mesh_shape, shard_rows: int, na: int, qlocs,
     out += [scatter_traffic(world, qloc * na * 4, "query shard")
             for qloc in qlocs]
     return out
+
+
+def held_comms(mesh_shape, query_bytes: int, merge_strategy: str,
+               q_local: int, k: int) -> List[CollectiveTraffic]:
+    """The collectives of one held-shard solve, in issue order: the
+    root's broadcast of the padded query block (``query_bytes``), the
+    data-axis merge and row 0's query-axis gather. No row moves: every
+    rank holds its own shard. A group of one rank broadcasts nothing."""
+    r, c = mesh_shape
+    out = [] if r * c <= 1 else [
+        broadcast_traffic(r * c, query_bytes, "query block")]
+    return out + engine_comms(merge_strategy, mesh_shape, q_local, k) \
+        + gather_comms(mesh_shape, q_local, k)
 
 
 def gather_comms(mesh_shape, q_local: int, k: int

@@ -69,8 +69,9 @@ ROOTED_KINDS = ("broadcast", "scatter", "gather")
 #: This is the reconcile table of the source annotations: every ``#
 #: check: comms-model=`` annotation must name a key here (check family
 #: R10), so a renamed model cannot leave a dangling annotation that
-#: reconciles nothing. The reference's eight, and the root's scatter and
-#: gather, which the port issues.
+#: reconciles nothing. The reference's eight, and the root's scatter,
+#: gather and (the held-shard solve's queries) broadcast, which the port
+#: issues.
 MODEL_COLLECTIVE_KINDS: Dict[str, str] = {
     "allgather_topk_traffic": "all-gather",
     "host_allgather_candidates_traffic": "all-gather",
@@ -82,6 +83,7 @@ MODEL_COLLECTIVE_KINDS: Dict[str, str] = {
     "moe_a2a_traffic": "all-to-all",
     "scatter_traffic": "scatter",
     "gather_topk_traffic": "gather",
+    "broadcast_traffic": "broadcast",
 }
 
 #: CollectiveTraffic.collective record name -> collective kind: the
@@ -92,6 +94,7 @@ TRAFFIC_COLLECTIVE_KINDS: Dict[str, str] = {
     "ring_allreduce_topk": "collective-permute",
     "scatter_from_root": "scatter",
     "gather_topk": "gather",
+    "broadcast_from_root": "broadcast",
     # gspmd_* records come from a record (traffic_from_report): identity
     **{f"gspmd_{k}": k for k in COLLECTIVE_KINDS + ROOTED_KINDS},
 }

@@ -25,6 +25,9 @@ port of ``dmlp_tpu/obs/memwatch.py``.
 
 - :func:`fleet_engine_model` is the mesh-resident serving engine's, per
   rank.
+- :func:`held_shard_model` is a mesh engine's per rank when it holds its
+  uint8 shard (``ShardedEngine.hold_shard``), where the scatter path
+  prices a window of staged chunks.
 - :func:`train_step_model` is the reference's dp x tp train-step model,
   term for term.
 """
@@ -237,6 +240,41 @@ def mesh_engine_model(n: int, nq: int, na: int, kmax: int, mesh_shape,
                    path="chunked" if chunked else "merged")
 
 
+def held_shard_model(shard_rows: int, na: int, nq: int, kmax: int,
+                     mesh_shape, config=None, merge: str = "allgather"
+                     ) -> Dict[str, Any]:
+    """Peak resident device bytes of one rank of a mesh engine that holds
+    its row shard: the uint8 shard with its int32 labels, the one float32
+    piece each chunk is cast into, the broadcast query block (every query
+    shard), the double-buffered (qloc, kc) lists, the ``iters`` of the
+    chunks in flight and the merge buffer. Nothing is staged from the
+    host."""
+    from dmlp_tpu_torch.config import EngineConfig
+    from dmlp_tpu_torch.engine.single import (_CHUNK_WINDOW, plan_chunks,
+                                              resolve_kcap, round_up)
+    from dmlp_tpu_torch.ops.extract import QUERY_TILE
+
+    cfg = config or EngineConfig(mode="sharded")
+    r, c = mesh_shape
+    _, nchunks, chunk_rows = plan_chunks(
+        max(shard_rows, 1), cfg.resolve_granule("extract"), cfg.data_block)
+    qloc = round_up(max(-(-max(nq, 1) // c), 1), QUERY_TILE)
+    kc = resolve_kcap(cfg, kmax, "extract", r * shard_rows,
+                      staging="float32")
+    terms = _extract_terms(qloc, chunk_rows, min(nchunks, _CHUNK_WINDOW + 1),
+                           na, kc, 4, 1)
+    del terms["staged_corpus"]
+    terms.update({"held_shard": shard_rows * na,
+                  "held_labels": shard_rows * 4,
+                  "cast_buffer": chunk_rows * na * 4,
+                  "query_blocks": c * qloc * na * 4,
+                  "merge_buffer": (2 if merge == "ring" else r) * qloc * kc
+                  * _TOPK_ITEMSIZE})
+    return _finish(terms, mode="held", mesh=[r, c], kcap=kc,
+                   shard_rows=shard_rows, q_local=qloc, per_device=True,
+                   n_devices=r * c, path="held")
+
+
 def serve_engine_model(resident_rows: int, na: int,
                        staging: str = "float32", qpad: int = 0,
                        kcap: int = 0, summary_blocks: int = 0
@@ -356,6 +394,12 @@ def model_for_engine(engine, inp) -> Dict[str, Any]:
     from dmlp_tpu_torch.engine.single import plan_chunks, resolve_kcap, \
         round_up
     from dmlp_tpu_torch.ops.extract import QUERY_TILE
+    held = getattr(engine, "held", None)
+    if held is not None:
+        return held_shard_model(
+            held.shard_rows, int(held.attrs.shape[1]), inp.num_queries,
+            int(inp.ks.max()), tuple(engine.mesh.shape),
+            config=engine.config, merge=engine._merge_strategy)
     p = inp.params
     kmax = int(inp.ks.max()) if p.num_queries else 1
     if hasattr(engine, "mem_model"):

@@ -15,8 +15,9 @@ order (``ops.topk``):
 
 Besides them, the root's data movement of the mesh engines: the
 ``Scatterv`` of row and query shards (:func:`scatter_from_root`), the
-gather of the merged lists over the query axis (:func:`gather_topk`), and
-object broadcasts and gathers of small plans and records.
+broadcast of a held-shard solve's queries (:func:`broadcast_from_root`),
+the gather of the merged lists over the query axis (:func:`gather_topk`),
+and object broadcasts and gathers of small plans and records.
 
 Every collective moves one tensor: a list's three (Q, K) arrays travel
 packed as int32 (the distances' float32 bits unchanged). Under gloo the
@@ -188,6 +189,23 @@ def scatter_from_root(parts: Optional[Sequence[np.ndarray]], shape,
                       "collectives.scatter_stage") for p in parts]
     dist.scatter(out, lst, src=src)  # check: comms-model=scatter_traffic
     return out
+
+
+def broadcast_from_root(t: Optional[torch.Tensor], shape,
+                        dtype: torch.dtype, device: torch.device,
+                        src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s tensor ``t`` of ``shape`` and ``dtype`` on every
+    rank of the whole group, on ``device``; the other ranks pass None.
+    Under NCCL it goes card to card, under gloo through host memory."""
+    if dist.get_world_size() == 1:
+        return t
+    wire = _wire_device(None, device)
+    if dist.get_rank() == src:
+        buf = move(t.contiguous(), wire, "collectives.broadcast_wire")
+    else:
+        buf = torch.empty(tuple(shape), dtype=dtype, device=wire)
+    dist.broadcast(buf, src=src)  # check: comms-model=broadcast_traffic
+    return move(buf, device, "collectives.broadcast_wire")
 
 
 def broadcast_object(obj, src: int = 0):

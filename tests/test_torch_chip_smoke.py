@@ -26,7 +26,7 @@ cs = _load()
 
 # The runs each kernel was launched by in a full run on the card (the
 # kernels line's launches_by_path), by count.
-HELD_SIZES = {"fused_topk": 22, "extract_topk": 6, "extract_merge": 28,
+HELD_SIZES = {"fused_topk": 23, "extract_topk": 6, "extract_merge": 29,
               "fused_dist_segmin": 13}
 
 
