@@ -465,16 +465,21 @@ CONFIGS = {
                            seed=42, banded="seg", qband=1),
 }
 CONFIG4 = CONFIGS["config4"]
-KERNELS = ("fused_topk", "extract_topk", "extract_merge",
-           "fused_dist_segmin")
+KERNELS = ("fused_topk", "extract_topk", "fused_topk_u8", "extract_topk_u8",
+           "extract_merge", "fused_dist_segmin")
 # The merge stands in for the sequential grid axis of the Pallas kernel,
 # along which its (tq, kc) lists are carried from block to block.
 REPLACES = {"fused_topk": "dmlp_tpu/ops/pallas_fused.py:108",
             "extract_topk": "dmlp_tpu/ops/pallas_extract.py:390",
+            # uint8 operands: the Pallas kernel takes f32 or bf16 only
+            "fused_topk_u8": "none (integer variant of K1)",
+            "extract_topk_u8": "none (integer variant of K2)",
             "extract_merge": "dmlp_tpu/ops/pallas_extract.py:499",
             "fused_dist_segmin": "dmlp_tpu/ops/pallas_distance.py:93"}
 SOURCES = {"fused_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
            "extract_topk": "dmlp_tpu_torch/kernels/extract_topk.cu",
+           "fused_topk_u8": "dmlp_tpu_torch/kernels/extract_topk.cu",
+           "extract_topk_u8": "dmlp_tpu_torch/kernels/extract_topk.cu",
            "extract_merge": "dmlp_tpu_torch/kernels/extract_topk.cu",
            "fused_dist_segmin": "dmlp_tpu_torch/kernels/dist_segmin.cu"}
 # (run, config, CLI flags, DMLP_TPU_FUSED, launches the plan implies,
@@ -641,14 +646,17 @@ HELD_PATHS = {
         "banded_config4_dense", "tuned_config4", "device_full_config4",
         "device_full_widek_mix", "check_config4_K1_sanitized",
         "check_race_stress", "mesh_1x1_config4", "mesh_1x1_config4_ring",
-        "mesh_4x2_widek", "mesh_held_1x1", "distributed_config5",
-        "serve_replay",
+        "mesh_4x2_widek", "distributed_config5", "serve_replay",
         "fleet_plain_replica", "fleet_mesh_replica", "auto_mesh_daemon",
         "bench_config4_K1", "bench_config3_sharded", "bench_config3_ring",
         "bench_driver_extract")),
     "extract_topk": frozenset((
         "config4_K2_warmup", "ladder_tuned", "ladder_heuristic",
         "mesh_4x2_config3_K2", "serve_ladder", "bench_config4_K2")),
+    # The held uint8 shard's fold takes the integer K1 (K2 with the gate
+    # off).
+    "fused_topk_u8": frozenset(("mesh_held_1x1",)),
+    "extract_topk_u8": frozenset(("mesh_held_1x1_K2",)),
     "extract_merge": frozenset((
         "config4_K2_warmup", "config4_K1", "widek_mix", "widek_multipass",
         "banded_config4", "banded_config4_dense", "ladder_tuned",
@@ -656,7 +664,8 @@ HELD_PATHS = {
         "device_full_widek_mix", "check_config4_K1_sanitized",
         "check_race_stress", "mesh_1x1_config4", "mesh_1x1_config4_ring",
         "mesh_4x2_config3_K2", "mesh_4x2_widek", "mesh_held_1x1",
-        "distributed_config5", "serve_replay", "serve_ladder",
+        "mesh_held_1x1_K2", "distributed_config5", "serve_replay",
+        "serve_ladder",
         "fleet_plain_replica",
         "fleet_mesh_replica", "auto_mesh_daemon", "bench_config4_K1",
         "bench_config4_K2", "bench_config3_sharded", "bench_config3_ring",
@@ -1229,6 +1238,7 @@ def kernel_cases(reps: int):
                      kc=hkc, exact=True)
     run_case("mesh_held_carried", qh, dh1, n_real=hck, id_base=hck,
              kc=hkc, carry=first[:2], d_prev=dh0, exact=True)
+    held_u8_cases(summary, qh, dh0, dh1, hck, hkc, sm_count, reps)
     del qh, dh0, dh1, first
     serve_kernel_cases(run_case, uniform, reps)
     emit({"phase": "kernels", "kernels_held": sorted(summary)})
@@ -1245,6 +1255,68 @@ def kernel_cases(reps: int):
     summary["fused_topk"]["ms_by_shape"] = by_shape
     summary["fused_topk"]["ms_by_mesh_shape"] = mesh_by_shape
     return summary, sweep_inputs
+
+
+def held_u8_cases(summary, qf, d0f, d1f, n_real, kc, sm_count, reps):
+    """The integer K1/K2 at the held-shard fold's shape: the same integer
+    values as uint8, the queries and a chunk as the held solve hands them
+    over, fresh and carried, at the S the integer kernel's accounting
+    picks, at S 8 and at S 1, gate on and off. The lists, ids and
+    ``iters`` equal the FMA kernel's (on the float32 values, through the
+    same wrapper, its norms computed there) and the plain version's with
+    ``torch.equal``; the merge is the same kernel on both routes. Times:
+    CUDA events of both kernels through the wrapper, and the plain
+    version's."""
+    import torch
+    from dmlp_tpu_torch.obs import counters, kernel_cost
+    from dmlp_tpu_torch.ops import extract as ex
+
+    q8, d08, d18 = (t.to(torch.uint8) for t in (qf, d0f, d1f))
+    qb, na = q8.shape
+    b = d08.shape[0]
+    chosen = ex.choose_splits(qb, b, kc, sm_count, na)
+    carry = None
+    for label, d8, df, id_base in (("held_u8_fresh", d08, d0f, 0),
+                                   ("held_u8_carried", d18, d1f, n_real)):
+        cd, ci = carry if carry is not None else (None, None)
+        outs = {}
+        for gate in (True, False):
+            kname = "fused_topk_u8" if gate else "extract_topk_u8"
+            for splits in dict.fromkeys((chosen, 8, 1)):
+                kw = dict(n_real=n_real, id_base=id_base, kc=kc,
+                          mxu_gate=gate, splits=splits)
+                ms, got = time_ms(lambda: ex.extract_topk(
+                    q8, d8, cd, ci, **kw), reps)
+                fma_ms, fma = time_ms(lambda: ex.extract_topk(
+                    qf, df, cd, ci, **kw), reps)
+                plain_ms, plain = time_ms(lambda: ex.extract_topk_plain(
+                    q8, d8, cd, ci, **kw), PLAIN_REPS)
+                torch.cuda.synchronize()
+                eq_fma = all(torch.equal(a, c) for a, c in zip(got, fma))
+                eq_plain = all(torch.equal(a, c)
+                               for a, c in zip(got, plain))
+                cost = (kernel_cost.fused_topk_cost if gate
+                        else kernel_cost.extract_topk_cost)(
+                    qb, b, na, kc, int(got[2].sum()), "int8",
+                    carried=carry is not None, itemsize=1)
+                bnd = kernel_cost.bound_ms(cost, counters.PEAKS[H100])
+                rec = {"phase": "kernel_case", "case": label,
+                       "kernel": kname, "shape": [qb, b, na, kc],
+                       "carry": carry is not None, "splits": splits,
+                       "ms": ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
+                       "equal_fma": eq_fma, "equal_plain": eq_plain,
+                       "tiles_processed": int(got[2].sum()),
+                       "tiles": got[2].numel(), **bnd}
+                emit(rec)
+                check(eq_fma and eq_plain,
+                      f"{label}/{kname}/S={splits}: lists, ids or iters "
+                      f"differ (FMA kernel {eq_fma}, plain {eq_plain})")
+                outs[(gate, splits)] = got
+                s = summary.setdefault(kname, {"max_abs_err": 0.0})
+                if splits == chosen and carry is not None:
+                    s.update(ms=ms, plain_ms=plain_ms, bound=rec,
+                             shape=f"{label} {rec['shape']} S={chosen}")
+        carry = outs[(True, chosen)][:2]
 
 
 def held_k1_shape(cfg):
@@ -1971,9 +2043,9 @@ def main_path(tune_path):
             per = variants.setdefault(
                 "fused_topk" if gate else "extract_topk", {})
             per[s] = per.get(s, 0) + n
-        want = {**want, "extract_merge": sum(
+        want = dict({k: 0 for k in KERNELS}, **want, extract_merge=sum(
             n for per in variants.values() for s, n in per.items()
-            if s > 1)}
+            if s > 1))
         t0 = time.perf_counter()
         text = config_text(name)
         input_ms = (time.perf_counter() - t0) * 1e3
@@ -2796,9 +2868,10 @@ def mesh_phase(tmp_dir):
         s = heuristic_splits(qloc, chunk_rows, kc, "cuda")
         k12 = ("fused_topk", "extract_topk")[fused == "0"]
         # Per rank, for the warm-up solve and the timed one.
-        want_rank = {"fused_topk": 0, "extract_topk": 0, k12: 2 * nchunks,
-                     "extract_merge": 2 * nchunks if s > 1 else 0,
-                     "fused_dist_segmin": 2 * nchunks if routed else 0}
+        want_rank = dict({k: 0 for k in KERNELS}, **{
+            k12: 2 * nchunks,
+            "extract_merge": 2 * nchunks if s > 1 else 0,
+            "fused_dist_segmin": 2 * nchunks if routed else 0})
         check(not HELD["k1"] or (qloc, chunk_rows, c["num_attrs"], kc)
               in HELD["k1"], f"{label}: K1/K2 at {qloc} x {chunk_rows} x "
                              f"{c['num_attrs']}, kc {kc}: no kernels case")
@@ -2872,7 +2945,7 @@ def mesh_phase(tmp_dir):
         if metrics:
             mesh_comms_check(label, name, (r, cc), metrics)
 
-    launches["mesh_held_1x1"] = mesh_held_run()
+    launches.update(mesh_held_run())
     nccl_probe()
     launches["distributed_config5"] = _config5_finish(*config5)
     return launches
@@ -2887,9 +2960,13 @@ def mesh_held_run():
     (``run_device_full`` on the same rows as a float64 ``KNNInput``)
     entry for entry; K1 and its merge launch once a chunk, at the S
     ``heuristic_splits`` picks and at the shape the kernels phase held
-    (``held_k1_shape``); the solve stages only the queries and ks
-    (``h2d_bytes``) and casts every real row once (``cast_bytes``).
-    Returns the traced solve's launches."""
+    (``held_k1_shape``): the integer K1 (``fused_topk_u8``), its uint8
+    queries and the held chunks as they lie; the solve stages only the
+    uint8 queries and ks (``h2d_bytes``), casts no byte (no
+    ``cast_bytes``) and copies only the short last chunk (``pad_bytes``).
+    One more solve under ``DMLP_TPU_FUSED=0`` takes the integer K2
+    (``extract_topk_u8``) once a chunk and answers alike. Returns the
+    launches of both solves, by run."""
     import numpy as np
     import torch
     from dmlp_tpu_torch import kernels
@@ -2918,7 +2995,7 @@ def mesh_held_run():
     qloc, ck, kc = held_k1_shape(cfg)
     _, nchunks, run_ck = plan_chunks(n, cfg.resolve_granule("extract"),
                                      cfg.data_block)
-    s = heuristic_splits(qloc, ck, kc, "cuda")
+    s = heuristic_splits(qloc, ck, kc, "cuda", na)
     created = initialize(device="cuda", timeout_s=120)
     try:
         eng = ShardedEngine(cfg)
@@ -2937,8 +3014,16 @@ def mesh_held_run():
         launches = dict(kernels.LAUNCHES)
         variants = {k: dict(v) for k, v in kernels.LAUNCH_VARIANTS.items()}
         phases = dict(eng.last_phase_ms)
+        kernels.reset_launch_counts()
+        os.environ["DMLP_TPU_FUSED"] = "0"
+        try:
+            held_k2 = eng.run_device_full(qb)
+        finally:
+            os.environ.pop("DMLP_TPU_FUSED")
+        launches_k2 = dict(kernels.LAUNCHES)
         model = memwatch.model_for_engine(eng, qb)
-        shape = [model["q_local"], int(eng._cast_buf.shape[0]), na,
+        shape = [model["q_local"],
+                 int(eng._held_bufs[torch.uint8].shape[0]), na,
                  model["kcap"]]
         root = next(e for e in tracer.events() if e["ph"] == "X"
                     and e["name"] == "sharded.held_device_full")["args"]
@@ -2959,31 +3044,44 @@ def mesh_held_run():
                 for r in res]
     same = entries(held) == entries(scatter)
     want = {k: 0 for k in KERNELS}
-    want.update(fused_topk=nchunks, extract_merge=nchunks if s > 1 else 0)
-    h2d = qloc * na * 4 + qloc * 4
+    want.update(fused_topk_u8=nchunks,
+                extract_merge=nchunks if s > 1 else 0)
+    want_k2 = dict(want, fused_topk_u8=0, extract_topk_u8=nchunks)
+    h2d = qloc * na + qloc * 4
+    pad = (n - (nchunks - 1) * run_ck) * na
     emit({"phase": "mesh", "run": "mesh_held_1x1", "rows": n,
           "queries": nq, "k": h["k"], "held_ms": held_ms,
           "scatter_ms": scatter_ms, "phases_ms": phases,
           "k1_shape": shape + [s], "launches": launches,
-          "launches_expected": want, "splits": variants.get("fused_topk"),
+          "launches_expected": want, "launches_k2": launches_k2,
+          "launches_k2_expected": want_k2,
+          "same_as_k2": entries(held_k2) == entries(held),
+          "splits": variants.get("fused_topk_u8"),
           "h2d_bytes": root.get("h2d_bytes"), "h2d_bytes_expected": h2d,
-          "cast_bytes": root.get("cast_bytes"),
+          "cast_bytes": root.get("cast_bytes", 0),
+          "pad_bytes": root.get("pad_bytes"), "pad_bytes_expected": pad,
           "memory_model_bytes": model["total_bytes"],
           "same_as_scatter": same})
     check(same, "mesh_held_1x1: results differ from the scatter path's")
+    check(entries(held_k2) == entries(held) and launches_k2 == want_k2,
+          f"mesh_held_1x1_K2: launched {launches_k2}, want {want_k2}, or "
+          f"its results differ from K1's")
     check(run_ck == ck and shape == [qloc, ck, na, kc],
           f"mesh_held_1x1: K1 at {shape}, chunks of {run_ck}; the cell's "
           f"fold launches at {[qloc, ck, na, kc]}")
     check(not HELD["k1"] or tuple(shape) in HELD["k1"],
           f"mesh_held_1x1: K1/K2 at {shape}: no kernels case")
-    check(launches == want and variants.get("fused_topk") == {s: nchunks},
+    check(launches == want
+          and variants.get("fused_topk_u8") == {s: nchunks},
           f"mesh_held_1x1: launched {launches} at {variants}, want {want} "
           f"at S={s}")
     check(root.get("h2d_bytes") == h2d
-          and root.get("cast_bytes") == n * na * 4,
+          and root.get("cast_bytes", 0) == 0
+          and root.get("pad_bytes") == pad,
           f"mesh_held_1x1: h2d_bytes {root.get('h2d_bytes')} (want {h2d}), "
-          f"cast_bytes {root.get('cast_bytes')} (want {n * na * 4})")
-    return launches
+          f"cast_bytes {root.get('cast_bytes')} (want none), pad_bytes "
+          f"{root.get('pad_bytes')} (want {pad})")
+    return {"mesh_held_1x1": launches, "mesh_held_1x1_K2": launches_k2}
 
 
 def _config5_start(tmp_dir):
@@ -5162,9 +5260,8 @@ def bench_auto_config3_checks(base, am):
         qloc, chunk_rows, c["num_attrs"], kc) in HELD["k1"]),
         f"bench_config3: K1 at {qloc} x {chunk_rows}, kc {kc}: no kernels "
         "case")
-    want_k1 = {"fused_topk": 2 * nchunks, "extract_topk": 0,
-               "extract_merge": 2 * nchunks if s > 1 else 0,
-               "fused_dist_segmin": 0}
+    want_k1 = dict({k: 0 for k in KERNELS}, fused_topk=2 * nchunks,
+                   extract_merge=2 * nchunks if s > 1 else 0)
     for arm in ("sharded", "ring"):
         for r, rk in enumerate(am["auto_ab_launches"][arm]):
             got = {k: rk.get(k, 0) for k in KERNELS}

@@ -33,8 +33,12 @@ A held shard (:meth:`ShardedEngine.hold_shard`) skips step 2's rows:
 each rank hands the engine its own uint8 row shard on its card once, and
 every ``run_device_full`` after that takes
 rank 0's queries alone (an ``io.grammar.QueryBatch``), broadcasts them and
-folds the held shard with the same chunk loop, each chunk cast on the card
-into one reused float32 buffer; no corpus byte moves during a solve.
+folds the held shard with the same chunk loop; no corpus byte moves during
+a solve. Where every query value is an integer in 0..255
+(:func:`integer_queries`, checked on the host once a solve) the queries
+travel as uint8 and K1 takes each held chunk as it lies on the card (the
+integer kernel of ``ops.extract``); otherwise each chunk is cast on the
+card into one reused float32 buffer for the FMA kernel.
 
 Rank 0's ``last_phase_ms`` splits the solve: ``prune`` (scoring),
 ``stage_enqueue`` (plan broadcast, scatter and staging of the query
@@ -131,6 +135,19 @@ def _tile(n: int, target: int, granule: int) -> int:
     return n
 
 
+def integer_queries(query_attrs: np.ndarray) -> bool:
+    """Whether every query value is an integer in 0..255, so that the
+    queries are uint8 without loss and a held uint8 shard takes the
+    integer kernel: true of any uint8 array, else checked value by
+    value."""
+    q = np.asarray(query_attrs)
+    if q.dtype == np.uint8:
+        return True
+    if q.size == 0 or q.dtype.kind not in "iuf":
+        return False
+    return bool(((q >= 0) & (q <= 255) & (q == np.floor(q))).all())
+
+
 def _kernel(impl: str):
     from dmlp_tpu_torch.ops.extract import extract_topk
     from dmlp_tpu_torch.ops.fused import fused_topk
@@ -224,7 +241,7 @@ class ShardedEngine:
         self.last_mem_model = None
         self._pending_iters: list = []
         self.held: Optional[HeldShard] = None
-        self._cast_buf: Optional[torch.Tensor] = None
+        self._held_bufs: dict = {}
 
     @property
     def root(self) -> bool:
@@ -590,7 +607,8 @@ class ShardedEngine:
                                     self.config.use_pallas)
             carry_o = init_topk(outl["qloc"], outl["k"], dev)
         throttle = ChunkThrottle(dev)
-        mi = MeasuredIters(self, plan["impl"], (qloc, ck, na, k))
+        mi = MeasuredIters(self, plan["impl"], (qloc, ck, na, k),
+                           integer=plan.get("integer", False))
         with obs_span("sharded.enqueue_chunked", chunks=nchunks, kc=k,
                       impl=plan["impl"]):
             for t in range(nchunks):
@@ -991,13 +1009,14 @@ class ShardedEngine:
             raise ValueError(f"hold_shard: {verdict['error']}")
         self.held = HeldShard(attrs, labels, verdict["shard_rows"],
                               int(num_data), verdict["num_labels"])
-        self._cast_buf = None
+        self._held_bufs = {}
 
     def _plan_held(self, qb, precision: str) -> dict:
         """Rank 0's plan of a held-shard solve: the chunking of the held
-        shards, the padded query shard, the candidate width and K1's
-        launch, or ``{"error": ...}`` for input the path cannot solve."""
-        from dmlp_tpu_torch.ops.extract import QUERY_TILE
+        shards, the padded query shard, the candidate width, K1's launch
+        and its route (``integer``: uint8 queries and chunks, the integer
+        kernel), or ``{"error": ...}`` for input the path cannot solve."""
+        from dmlp_tpu_torch.ops.extract import QUERY_TILE, supports_u8
         from dmlp_tpu_torch.ops.fused import resolve_topk_kernel
 
         held, cfg = self.held, self.config
@@ -1023,36 +1042,49 @@ class ShardedEngine:
         if impl is None:
             return {"error": f"k up to {int(qb.ks.max())} (lists of {k}) "
                              f"is past the extraction kernel's lists"}
+        integer = integer_queries(qb.query_attrs) \
+            and supports_u8(qloc, ck, na, k)
         return {"path": "held", "n": held.num_data, "na": na, "nq": nq,
                 "shard_rows": held.shard_rows, "nchunks": nchunks,
                 "chunk_rows": ck, "qloc": qloc, "k": k, "impl": impl,
-                "precision": precision, "outliers": None, "keep": None}
+                "precision": precision, "outliers": None, "keep": None,
+                "integer": integer}
 
-    def _cast_buffer(self, rows: int, na: int) -> torch.Tensor:
-        """The float32 (rows, na) piece every held chunk is cast into on
-        the card, made at the first solve of a held shard (zeroed, so a
-        short last piece's tail holds earlier real rows, never garbage)
-        and reused: the stream orders each cast after the launch that read
-        the piece before."""
-        if self._cast_buf is None:
-            self._cast_buf = torch.zeros((rows, na), dtype=torch.float32,
-                                         device=self.device)
-        return self._cast_buf
+    def _held_buffer(self, rows: int, na: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+        """The (rows, na) piece of ``dtype`` a held chunk is copied into
+        on the card: float32 for the cast route (every chunk), uint8 for
+        the integer route (only a last chunk shorter than ``rows``, whose
+        kernel launch needs whole blocks). Made at the first solve that
+        needs it (zeroed, so a short piece's tail holds earlier real rows,
+        never garbage) and reused: the stream orders each copy after the
+        launch that read the piece before."""
+        buf = self._held_bufs.get(dtype)
+        if buf is None:
+            buf = self._held_bufs[dtype] = torch.zeros(
+                (rows, na), dtype=dtype, device=self.device)
+        return buf
 
     def _held_device_full(self, qb: Optional[QueryBatch]
                           ) -> Optional[List[QueryResult]]:
         """Every rank: the device-full solve against the held shards. Rank
         0 plans, stages its padded queries on its card and broadcasts
-        them; every rank folds its held shard through :meth:`_fold`, each
-        piece cast on the card into one reused float32 buffer just before
-        K1; the lists merge over the data axis and gather to rank 0, which
-        runs the vote and the report order on its card and fetches them.
-        No corpus byte crosses PCIe or the wire. Traced as the root span
+        them; every rank folds its held shard through :meth:`_fold`; the
+        lists merge over the data axis and gather to rank 0, which runs
+        the vote and the report order on its card and fetches them. No
+        corpus byte crosses PCIe or the wire. On the integer route (the
+        plan's ``integer``) the queries are uint8 and K1 reads each held
+        piece where it lies (a short last piece copied into one reused
+        uint8 buffer of whole blocks); on the cast route they are float32
+        and each piece is cast on the card into one reused float32 buffer
+        just before K1. Traced as the root span
         ``sharded.held_device_full`` (children ``sharded.stage_queries``,
         ``sharded.enqueue_chunked``, ``sharded.merge``,
         ``sharded.gather``, and on rank 0 ``sharded.epilogue``,
         ``sharded.fetch``, ``sharded.finalize``), which ends with the
-        solve's ``h2d_bytes`` (the queries and ks) and ``cast_bytes``;
+        solve's ``h2d_bytes`` (the queries and ks), ``cast_bytes`` (the
+        float32 bytes cast; none on the integer route) and ``pad_bytes``
+        (the uint8 bytes of the short last piece copied);
         ``last_phase_ms`` times the same blocks."""
         held = self.held
         r, c = self.mesh.shape
@@ -1071,28 +1103,36 @@ class ShardedEngine:
                 if "error" in plan:
                     raise ValueError(f"held solve: {plan['error']}")
                 qloc, na, k = plan["qloc"], plan["na"], plan["k"]
+                integer = plan["integer"]
+                qdt = (np.uint8, torch.uint8) if integer \
+                    else (np.float32, torch.float32)
                 q_all = None
                 if self.root:
-                    q = np.zeros((c * qloc, na), np.float32)
+                    q = np.zeros((c * qloc, na), qdt[0])
                     q[:plan["nq"]] = qb.query_attrs
                     q_all = put(q, self.device, "sharded.stage_queries")
-                q_all = broadcast_from_root(q_all, (c * qloc, na),
-                                            torch.float32, self.device)
+                q_all = broadcast_from_root(q_all, (c * qloc, na), qdt[1],
+                                            self.device)
                 cc = self.coords[1]
                 q_dev = q_all[cc * qloc:(cc + 1) * qloc]
             t0 = self._phase("stage_queries", t0)
             self._last_select = "extract"
             self.last_extract_impl = plan["impl"]
             self.last_comms = obs_comms.held_comms(
-                (r, c), c * qloc * na * 4, self._merge_strategy, qloc, k)
+                (r, c), q_all.nbytes, self._merge_strategy, qloc, k)
             if self.root:
                 memwatch.note_engine_model(self, qb)
-            buf = self._cast_buffer(plan["chunk_rows"], na)
+            ck = plan["chunk_rows"]
+            rows = int(held.attrs.shape[0])
 
             def chunk(toff: int, n_real: int) -> torch.Tensor:
+                if integer and toff + ck <= rows:
+                    return held.attrs[toff:toff + ck]
+                buf = self._held_buffer(ck, na, q_dev.dtype)
                 piece = buf[:n_real]
                 piece.copy_(held.attrs[toff:toff + n_real])
-                obs_trace.count("cast_bytes", piece.nbytes)
+                obs_trace.count("pad_bytes" if integer else "cast_bytes",
+                                piece.nbytes)
                 return buf
 
             top, _ = self._fold(plan, q_dev, chunk, held.labels)

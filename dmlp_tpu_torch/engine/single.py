@@ -152,10 +152,16 @@ class MeasuredIters:
     none without a probe); ``done()`` queues it on the engine for
     :func:`flush_measured_iters` after the solve's fetch."""
 
-    def __init__(self, engine, impl: str, shape: Tuple[int, int, int, int]):
+    def __init__(self, engine, impl: str, shape: Tuple[int, int, int, int],
+                 integer: bool = False):
         self._on = obs_counters.active() is not None
         self._engine = engine
-        self._kernel = "fused_topk" if impl == "fused" else "extract_topk"
+        if integer:     # the integer kernel's launches (uint8 operands)
+            self._kernel = "fused_topk_u8" if impl == "fused" \
+                else "extract_topk_u8"
+        else:
+            self._kernel = "fused_topk" if impl == "fused" \
+                else "extract_topk"
         self._shape = tuple(int(v) for v in shape)
         self._sum = None
 

@@ -34,11 +34,13 @@ SOURCES = ("extract_topk", "dist_segmin")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 # Kernel launches by kernel name ("fused_topk" = K1, gate on;
-# "extract_topk" = K2, gate off; "extract_merge" = the merge of K1/K2's
-# split partial lists, one per launch at S > 1; "fused_dist_segmin" = K3).
-# A wrapper adds one where it launches its CUDA kernel, and nowhere else:
-# never for the plain version.
+# "extract_topk" = K2, gate off; "fused_topk_u8" / "extract_topk_u8" = the
+# same over uint8 operands, the integer kernel; "extract_merge" = the merge
+# of K1/K2's split partial lists, one per launch at S > 1;
+# "fused_dist_segmin" = K3). A wrapper adds one where it launches its CUDA
+# kernel, and nowhere else: never for the plain version.
 LAUNCHES: Dict[str, int] = {"fused_topk": 0, "extract_topk": 0,
+                            "fused_topk_u8": 0, "extract_topk_u8": 0,
                             "extract_merge": 0, "fused_dist_segmin": 0}
 # The same launches by the value of their knob: {kernel: {S or G: launches}}
 # (S for K1/K2, G for K3).

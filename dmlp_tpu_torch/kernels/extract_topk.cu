@@ -6,7 +6,8 @@
 // off) and dmlp_tpu/ops/pallas_fused.py::fused_topk (:108, K1: gate on).
 // One source serves both: MXU_GATE, BLOCK_SKIP and BF16 are compile-time
 // template flags; n_real and id_base are run-time arguments, so one build
-// serves every chunk of a solve.
+// serves every chunk of a solve. extract_topk_kernel_u8 is the same
+// contract over uint8 operands, its products on the tensor cores (below).
 //
 // Contract (the K1/K2 contract of the reference):
 //   d(i, j) = max(qn_i + dn_j - 2 q_i.d_j, 0), +inf where d < floor_i or
@@ -80,6 +81,51 @@
 // which the 128 KB lists of kc 512 do not leave room for. With few query
 // tiles (1,024 queries make 32 CTAs) the split of the data axis is what
 // fills the 132 SMs.
+//
+// The integer variant (extract_topk_kernel_u8) takes uint8 queries and
+// data as they lie in device memory (a corpus held on the card as uint8)
+// and keeps the contract above, list for list, id for id and iters for
+// iters. Its gate and prefilter are run-time flags (one instantiation:
+// a uniform branch a block costs nothing beside the block's barriers). It replaces no TPU kernel: the Pallas kernel
+// takes f32 or bf16 operands only. Why it is exact: every value is an
+// integer in 0..255, so each product, each partial sum of q.d and each
+// squared norm is an integer, and the u8 x u8 -> s32 tensor-core product
+// sums them without rounding; d = |q|^2 + |d|^2 - 2 q.d is formed in
+// int32 (no overflow while 2 * na * 255^2 < 2^31, U8_NA_MAX) and rounded
+// once to f32. While na * 255^2 < 2^24 (na <= 258; BIGANN's 128 reach at
+// most 8,323,200) every f32 sum of the FMA kernel is exact too, so both
+// kernels compute the same f32 bits for every (query, row) pair, and the
+// gate, the prefilter and the extraction, which see only those bits and
+// the norms (the same integers, converted to f32 exactly), decide alike.
+// Design:
+//   * The query tile (TQ rows, attribute bytes in 16-byte pieces, a
+//     padded stride) is copied once for the whole sweep; its |q|^2 are
+//     exact int32 sums (dp4a), eight threads a row.
+//   * The data arrive by 16-byte cp.async in chunks of KB = 128 attribute
+//     bytes of the block's TN rows (one chunk a block at BIGANN's 128), in
+//     a ring of U8_STAGES stages, each chunk's copy started one unit ahead;
+//     rows past n_real are zero-filled and never read. The row stride is
+//     padded to 144 bytes, so that the fragment loads and the 16-byte norm
+//     loads hit 32 distinct banks.
+//   * Products: the m16n8k32 u8 x u8 -> s32 mma (4 k-steps for 128
+//     attributes). Warp w owns tile columns [32w, 32w + 32) for all 32
+//     rows: 2 x 4 accumulator tiles, A and B fragments read as 32-bit
+//     words from the staged bytes, with no conversion pass. Thread t sums
+//     the squares of data row t from the same stage (dp4a), so no norm
+//     is read or computed outside the kernel.
+//   * The gate runs after the products (they cost little here): the same
+//     f32 predicate on the same values, so iters and the skipped blocks
+//     equal the FMA kernel's. The distances stay in registers until the
+//     block-min prefilter (any value below its row's threshold) says a
+//     block has candidates; only then is the tile written, into the stage
+//     the block has just read, and the FMA kernel's extraction runs on it.
+// What bounds it on the card: the products are 2*Qb*B*A integer operations
+// on the tensor cores (1,979 TOPS), about 0.5 us a block for one CTA at
+// the SM's share, and each query tile re-reads the data from L2 (16 us of
+// L2 traffic for 1,024 queries over a 51,200-row chunk at about 6 TB/s).
+// What is left is the per-block latency of the staging wait, the norm and
+// gate reductions and the barriers, with two CTAs a SM (about 104 KB of
+// shared memory at kc 32) overlapping each other's phases.
 //
 // The merge (extract_merge_kernel) takes the exact top-kc of carry ++
 // partials. Each entry is a 64-bit key: the distance as an order-keeping
@@ -642,6 +688,347 @@ extract_topk_kernel(const float* __restrict__ q, const float* __restrict__ d,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The integer variant: uint8 queries and data, products on the tensor cores.
+
+constexpr int KB = 128;              // attribute bytes per staged chunk
+constexpr int DS8 = KB + 16;         // padded row stride (bytes) of a staged chunk
+constexpr int U8_STAGES = 2;         // the ring of staged chunks
+constexpr int U8_STAGE = TN * DS8;   // bytes of one stage
+constexpr int DT = TN + 8;           // padded row stride (floats) of the distance tile
+constexpr int U8_NA_MAX = 16512;     // 2 * na * 255^2 < 2^31: the int32 sums stay exact
+static_assert((int)sizeof(float) * TQ * DT <= U8_STAGE,
+              "a stage must hold the distance tile");
+static_assert((int)sizeof(u64) * NW * KC_MAX <= U8_STAGE,
+              "a stage must hold the seeding sort's keys");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Start the copy of attribute bytes [a0, a0 + KB) of data block c0's TN
+// rows into one stage (row r at r * DS8); rows at or past n_real and bytes
+// at or past na are zero-filled by the copy and never read.
+__device__ __forceinline__ void stage_u8(unsigned char* st, const uint8_t* d,
+                                         int c0, int n_real, int na, int a0,
+                                         int tid) {
+  constexpr int P = KB / 16;
+  for (int idx = tid; idx < TN * P; idx += NT) {
+    const int r = idx / P, p = idx - r * P;
+    const int a = a0 + 16 * p;
+    const bool ok = c0 + r < n_real && a < na;
+    cp_async16(st + r * DS8 + 16 * p,
+               ok ? d + (size_t)(c0 + r) * na + a : d, ok);
+  }
+}
+
+// The sum of squares of 16 bytes, added to acc (exact in 32 bits).
+__device__ __forceinline__ unsigned sq16(uint4 v, unsigned acc) {
+  acc = __dp4a(v.x, v.x, acc);
+  acc = __dp4a(v.y, v.y, acc);
+  acc = __dp4a(v.z, v.z, acc);
+  return __dp4a(v.w, v.w, acc);
+}
+
+// c += a (16 x 32, row) . b (32 x 8, col), uint8 operands, int32 sums.
+__device__ __forceinline__ void mma_u8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(NT, 2)
+extract_topk_kernel_u8(const uint8_t* __restrict__ q,
+                       const uint8_t* __restrict__ d,
+                       const float* __restrict__ floor_,
+                       const float* __restrict__ cd, const int* __restrict__ ci,
+                       float* __restrict__ od, int* __restrict__ oi,
+                       int* __restrict__ iters, int qb, int b, int na, int kc,
+                       int n_real, int id_base, bool mxu_gate,
+                       bool block_skip, float eps_rel, float eps_coef) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nch = (na + KB - 1) / KB;
+  const int qs_stride = nch * KB + 16;
+  u64* ck = reinterpret_cast<u64*>(smem_raw);             // [NW][TN] candidate keys
+  unsigned char* stg = smem_raw + sizeof(u64) * NW * TN;  // [U8_STAGES][TN][DS8]
+  unsigned char* qs = stg + U8_STAGES * U8_STAGE;         // [TQ][qs_stride]
+  int* dn_i = reinterpret_cast<int*>(qs + TQ * qs_stride);  // [TN] |d|^2
+  int* qn_i = dn_i + TN;                                  // [TQ] |q|^2
+  float* tcur = reinterpret_cast<float*>(qn_i + TQ);      // [TQ] thresholds
+  float* fl_s = tcur + TQ;                                // [TQ]
+  float* ld = fl_s + TQ;                                  // [TQ][kc] sorted
+  int* li = reinterpret_cast<int*>(ld + TQ * kc);         // [TQ][kc]
+  __shared__ float red[3][NW];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group, column pair
+  const int row0 = blockIdx.x * TQ;
+  const int nrows = min(TQ, qb - row0);
+  const int nblk = b / TN;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int j0 = (int)((long long)split * nblk / splits);
+  const int j1 = (int)((long long)(split + 1) * nblk / splits);
+  const bool seed = splits == 1 && cd != nullptr;
+  od += (size_t)split * qb * kc;
+  oi += (size_t)split * qb * kc;
+
+  // The query tile, once for the whole sweep: row r's bytes at r *
+  // qs_stride, zero past na and in rows past nrows.
+  const int qp = qs_stride / 16;
+  for (int idx = tid; idx < TQ * qp; idx += NT) {
+    const int r = idx / qp, p = idx - r * qp;
+    const bool ok = r < nrows && 16 * p < na;
+    cp_async16(qs + r * qs_stride + 16 * p,
+               ok ? q + (size_t)(row0 + r) * na + 16 * p : q, ok);
+  }
+  cp_async_commit();
+  for (int r = tid; r < TQ; r += NT)
+    fl_s[r] = (r < nrows && floor_ != nullptr) ? floor_[row0 + r] : -INFINITY;
+  if (seed) {
+    // As the FMA kernel seeds, with stage 0 (not yet in use) as the keys.
+    u64* keys = reinterpret_cast<u64*>(stg) + warp * KC_MAX;
+    for (int r = warp; r < nrows; r += NW) {
+      const float* crow = cd + (size_t)(row0 + r) * kc;
+      const int* irow = ci + (size_t)(row0 + r) * kc;
+      float* L = ld + r * kc;
+      int* I = li + r * kc;
+      int unsorted = 0;
+      for (int c = lane; c + 1 < kc; c += 32)
+        unsorted |= !(crow[c] <= crow[c + 1]);
+      if (!__any_sync(FULL, unsorted)) {
+        for (int c = lane; c < kc; c += 32) {
+          L[c] = crow[c] + 0.0f;
+          I[c] = irow[c];
+        }
+        continue;
+      }
+      int npad = 32;
+      while (npad < kc) npad <<= 1;
+      for (int e = lane; e < npad; e += 32)
+        keys[e] = e < kc ? ((u64)float_key(crow[e]) << 32) | (unsigned)e
+                         : ~0ull;
+      warp_sort_shared(keys, npad, lane);
+      for (int c = lane; c < kc; c += 32) {
+        const int slot = (int)(keys[c] & 0xffffffffu);
+        L[c] = crow[slot] + 0.0f;
+        I[c] = irow[slot];
+      }
+      __syncwarp();
+    }
+  } else {
+    for (int r = warp; r < nrows; r += NW) {
+      float cmax = INFINITY;
+      if (cd != nullptr) {
+        float m = -INFINITY;
+        for (int c = lane; c < kc; c += 32)
+          m = fmaxf(m, cd[(size_t)(row0 + r) * kc + c]);
+        cmax = warp_max(m) + 0.0f;
+      }
+      for (int c = lane; c < kc; c += 32) {
+        ld[r * kc + c] = cmax;
+        li[r * kc + c] = -1;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    // Each query row's |q|^2, exact: eight threads a row.
+    const int r = tid >> 3;
+    unsigned s = 0;
+    for (int p = tid & 7; p < nch * KB / 16; p += 8)
+      s = sq16(*reinterpret_cast<const uint4*>(qs + r * qs_stride + 16 * p), s);
+    s += __shfl_xor_sync(FULL, s, 1);
+    s += __shfl_xor_sync(FULL, s, 2);
+    s += __shfl_xor_sync(FULL, s, 4);
+    if ((tid & 7) == 0) qn_i[r] = (int)s;
+  }
+  for (int r = tid; r < TQ; r += NT)
+    tcur[r] = r < nrows ? ld[r * kc + kc - 1] : INFINITY;
+  __syncthreads();
+
+  // Units u = (block j0 + u / nch, attribute chunk u % nch), staged
+  // U8_STAGES - 1 ahead; one cp.async group a unit (empty past the end).
+  const int nunits = (j1 - j0) * nch;
+  auto start_unit = [&](int uu) {
+    if (uu < nunits) {
+      const int jj = j0 + uu / nch, kk = uu - (uu / nch) * nch;
+      stage_u8(stg + (uu % U8_STAGES) * U8_STAGE, d, jj * TN, n_real, na,
+               kk * KB, tid);
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < U8_STAGES - 1; ++s) start_unit(s);
+  static_assert(TN == NW * 32, "each warp owns 32 tile columns");
+  const int cw = warp * 32;
+  int u = 0;
+  for (int j = j0; j < j1; ++j) {
+    const int c0 = j * TN;
+    // Warp w computes rows [0, 32) x columns [32w, 32w + 32) of the tile:
+    // 2 x 4 m16n8 tiles; thread t also sums the squares of data row t.
+    int acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+    unsigned dsq = 0;
+    for (int kk = 0; kk < nch; ++kk, ++u) {
+      start_unit(u + U8_STAGES - 1);
+      cp_async_wait<U8_STAGES - 1>();
+      __syncthreads();
+      const unsigned char* st = stg + (u % U8_STAGES) * U8_STAGE;
+#pragma unroll
+      for (int p = 0; p < KB / 16; ++p)
+        dsq = sq16(*reinterpret_cast<const uint4*>(st + tid * DS8 + 16 * p),
+                   dsq);
+      const unsigned char* qk = qs + kk * KB;
+#pragma unroll
+      for (int ks = 0; ks < KB / 32; ++ks) {
+        unsigned a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const unsigned char* qa = qk + (mi * 16 + g) * qs_stride + ks * 32 + 4 * t4;
+          a[mi][0] = *reinterpret_cast<const unsigned*>(qa);
+          a[mi][1] = *reinterpret_cast<const unsigned*>(qa + 8 * qs_stride);
+          a[mi][2] = *reinterpret_cast<const unsigned*>(qa + 16);
+          a[mi][3] = *reinterpret_cast<const unsigned*>(qa + 8 * qs_stride + 16);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const unsigned char* bp = st + (cw + ni * 8 + g) * DS8 + ks * 32 + 4 * t4;
+          const unsigned b0 = *reinterpret_cast<const unsigned*>(bp);
+          const unsigned b1 = *reinterpret_cast<const unsigned*>(bp + 16);
+          mma_u8(acc[0][ni], a[0], b0, b1);
+          mma_u8(acc[1][ni], a[1], b0, b1);
+        }
+      }
+      if (kk + 1 < nch) __syncthreads();  // this stage is staged again
+    }
+    dn_i[tid] = (int)dsq;
+    if (mxu_gate) {
+      // The FMA kernel's gate, on the same float values (|d|^2 exact).
+      const bool real = c0 + tid < n_real;
+      const float dnv = __int2float_rn((int)dsq);
+      const float sdn = sqrtf(fmaxf(dnv, 0.f));
+      float mn, mx, hi;
+      block_range(real ? sdn : INFINITY, real ? sdn : -INFINITY,
+                  real ? dnv : 0.f, red, mn, mx, hi);
+      int pass = 0;
+      if (tid < nrows) {
+        const float qv = __int2float_rn(qn_i[tid]);
+        const float sq = sqrtf(fmaxf(qv, 0.f));
+        const float gap = fmaxf(fmaxf(mn - sq, sq - mx), 0.f);
+        const float lb = __fmul_rn(gap, gap);
+        const float scale = __fadd_rn(fmaxf(qv, 0.f), hi);
+        const float eps = __fadd_rn(__fmul_rn(eps_rel, sqrtf(__fmul_rn(lb, scale))),
+                                    __fmul_rn(eps_coef, scale));
+        const float lbs = __fsub_rn(lb, eps);
+        pass = !isnan(lbs) && fmaxf(lbs, 0.f) < tcur[tid];
+      }
+      if (!__syncthreads_or(pass)) {
+        if (tid == 0) iters[blockIdx.x * nblk + j] = 0;
+        continue;
+      }
+    } else {
+      __syncthreads();  // dn_i complete, every warp's products done
+    }
+
+    // d = max(|q|^2 + |d|^2 - 2 q.d, 0) in int32, one rounding to f32;
+    // the block-min prefilter before the tile is written at all.
+    float v[2][4][4];
+    int cand = 0;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = mi * 16 + g + (e >= 2 ? 8 : 0);
+          const int c = cw + ni * 8 + 2 * t4 + (e & 1);
+          float x = fmaxf(
+              __int2float_rn(qn_i[r] + dn_i[c] - 2 * acc[mi][ni][e]), 0.f);
+          if (x < fl_s[r] || c0 + c >= n_real) x = INFINITY;
+          v[mi][ni][e] = x;
+          cand |= r < nrows && x < tcur[r];
+        }
+    if (!__syncthreads_or(cand)) {
+      if (tid == 0) iters[blockIdx.x * nblk + j] = block_skip ? 0 : 1;
+      continue;
+    }
+    // The tile goes to the stage this block last read (no copy is bound
+    // for it until the next block's first unit).
+    float* dist = reinterpret_cast<float*>(stg + ((u - 1) % U8_STAGES) * U8_STAGE);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int r = mi * 16 + g, c = cw + ni * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(dist + r * DT + c) =
+            make_float2(v[mi][ni][0], v[mi][ni][1]);
+        *reinterpret_cast<float2*>(dist + (r + 8) * DT + c) =
+            make_float2(v[mi][ni][2], v[mi][ni][3]);
+      }
+    __syncthreads();
+
+    // The FMA kernel's extraction, unchanged but for the tile's stride.
+    int any = 0;
+    u64* K = ck + warp * TN;
+    for (int r = warp; r < nrows; r += NW) {
+      const float t = tcur[r];
+      float vv[VPL];
+      unsigned m[VPL];
+      int n = 0;
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        vv[k] = dist[r * DT + lane + 32 * k] + 0.0f;
+        m[k] = __ballot_sync(FULL, vv[k] < t);
+        n += __popc(m[k]);
+      }
+      if (n == 0) continue;
+      any = 1;
+      const unsigned below = (1u << lane) - 1u;
+      int base = 0;
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        if ((m[k] >> lane) & 1u)
+          K[base + __popc(m[k] & below)] =
+              ((u64)__float_as_uint(vv[k]) << 32) | (unsigned)(lane + 32 * k);
+        base += __popc(m[k]);
+      }
+      __syncwarp();
+      float* L = ld + r * kc;
+      int npad = 1;
+      while (npad < n) npad <<= 1;
+      if (n <= 32) {
+        const u64 key = warp_sort(lane < n ? K[lane] : ~0ull, npad, lane);
+        merge_row_small(L, li + r * kc, key, n, kc, lane, id_base + c0);
+      } else {
+        for (int e = n + lane; e < npad; e += 32) K[e] = ~0ull;
+        warp_sort_shared(K, npad, lane);
+        merge_row(L, li + r * kc, K, n, kc, lane, id_base + c0);
+      }
+      if (lane == 0) tcur[r] = L[kc - 1];
+    }
+    const int proc = __syncthreads_or(any);
+    if (tid == 0) iters[blockIdx.x * nblk + j] = block_skip ? proc : 1;
+  }
+  cp_async_wait<0>();
+
+  for (int idx = tid; idx < nrows * kc; idx += NT) {
+    od[(size_t)row0 * kc + idx] = ld[idx];
+    oi[(size_t)row0 * kc + idx] = li[idx];
+  }
+}
+
 // The order-keeping float of a float_key.
 __device__ __forceinline__ float key_float(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
@@ -913,6 +1300,13 @@ int launch(const float* q, const float* d, const float* qn, const float* dn,
   return (int)cudaGetLastError();
 }
 
+size_t smem_bytes_u8(int kc, int na) {
+  const int nch = (na + KB - 1) / KB;
+  return sizeof(u64) * (size_t)NW * TN + (size_t)U8_STAGES * U8_STAGE +
+         (size_t)TQ * (nch * KB + 16) + sizeof(int) * ((size_t)TN + 3 * TQ) +
+         (sizeof(float) + sizeof(int)) * (size_t)TQ * kc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -954,6 +1348,38 @@ int dmlp_extract_topk(const float* q, const float* d, const float* qn,
     default: DMLP_LAUNCH(true, true, true);
   }
 #undef DMLP_LAUNCH
+}
+
+long long dmlp_extract_smem_bytes_u8(int kc, int na) {
+  return (long long)smem_bytes_u8(kc, na);
+}
+
+// The integer variant's launch, on `stream`; returns the cudaError_t of
+// the launch. q (qb, na) and d (b, na) uint8, both 16-byte aligned;
+// na % 16 == 0 and na <= U8_NA_MAX; the rest as dmlp_extract_topk (the
+// same outputs, partial lists and merge). Rows of d at or past n_real are
+// never read.
+int dmlp_extract_topk_u8(const uint8_t* q, const uint8_t* d,
+                         const float* floor_, const float* cd, const int* ci,
+                         float* od, int* oi, int* iters, int qb, int b,
+                         int na, int kc, int n_real, int id_base, int splits,
+                         int mxu_gate, int block_skip, float eps_rel,
+                         float eps_coef, void* stream) {
+  if (qb <= 0 || b <= 0 || b % TN != 0 || na <= 0 || na % 16 != 0 ||
+      na > U8_NA_MAX || kc <= 0 || kc > KC_MAX || splits < 1 ||
+      splits > b / TN || splits > 65535 ||
+      (((uintptr_t)q | (uintptr_t)d) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes_u8(kc, na);
+  cudaError_t e = cudaFuncSetAttribute(
+      extract_topk_kernel_u8, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((qb + TQ - 1) / TQ, splits);
+  extract_topk_kernel_u8<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, d, floor_, cd, ci, od, oi, iters, qb, b, na, kc, n_real, id_base,
+      mxu_gate != 0, block_skip != 0, eps_rel, eps_coef);
+  return (int)cudaGetLastError();
 }
 
 // Merge the (splits, qb, kc) partial lists pd/pi with the optional carry

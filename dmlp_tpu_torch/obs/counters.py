@@ -32,12 +32,13 @@ __all__ = ["CostProbe", "PEAKS", "device_peaks", "roofline", "install",
            "profile_block"]
 
 #: Published peaks (NVIDIA H100 SXM data sheet, dense, at the full 700 W):
-#: float32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
+#: float32 on the CUDA cores, bf16 and int8 on the tensor cores, HBM
+#: bandwidth.
 #: A card set below 700 W runs slower under load; the chip runs record
 #: ``nvidia-smi``'s power limit beside every number.
 PEAKS: Dict[str, Dict[str, float]] = {
     "NVIDIA H100 80GB HBM3": {"f32": 67e12, "bf16": 989e12,
-                              "hbm_bytes_per_s": 3.35e12},
+                              "int8": 1979e12, "hbm_bytes_per_s": 3.35e12},
 }
 
 
@@ -181,7 +182,7 @@ class CostProbe:
             agg["extract_iters_total"] = \
                 agg.get("extract_iters_total", 0) + iters
             iters_all += iters
-            if kernel == "fused_topk":
+            if kernel in ("fused_topk", "fused_topk_u8"):
                 # The gate lets through only the measured cells: the
                 # products this data needs are theirs, not every cell's.
                 full = sum(c["bound_ops"] * n

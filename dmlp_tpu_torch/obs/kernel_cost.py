@@ -37,8 +37,11 @@ the "sort"/"topk" folds, ``distance_product``):
   gate on and ``iters`` read back, only the (tile, block) cells the gate
   let through; the merge does no product.
 
-``precision`` ("f32" | "bf16") is reported with each cost; the peak of its
-type comes from :mod:`dmlp_tpu_torch.obs.counters`' table.
+``precision`` ("f32" | "bf16", "int8" for the integer K1/K2,
+``fused_topk_u8`` and ``extract_topk_u8``, whose uint8 operands count one
+byte an element and whose norms are computed in the kernel, none read) is
+reported with each cost; the peak of its type comes from
+:mod:`dmlp_tpu_torch.obs.counters`' table.
 """
 
 from __future__ import annotations
@@ -85,20 +88,22 @@ def extract_loop_cost(qb: int, b: int, a: int, kc: int,
 
 
 def _streaming_cost(qb: int, b: int, a: int, kc: int, *, carried: bool,
-                    splits: int, floor: bool) -> Dict[str, float]:
+                    splits: int, floor: bool,
+                    itemsize: int = 4) -> Dict[str, float]:
     """The shared model of one K1/K2 launch (the (qb, b) distance tile
-    lives only in shared memory)."""
+    lives only in shared memory). ``itemsize`` 1: the integer kernel's
+    uint8 operands, whose norms it computes itself (none are read)."""
     tq, tn, _, _ = _tiles()
     ntile, nblk = -(-qb // tq), b // tn
     s = max(int(splits), 1)
-    bytes_min = 4.0 * (qb * a + b * a) \
+    norms = 4.0 if itemsize == 4 else 0.0
+    bytes_min = float(itemsize) * (qb * a + b * a) \
         + 8.0 * qb * kc * (2 if carried else 1) + 4.0 * ntile * nblk
-    streamed = 4.0 * (s * qb * a         # each split reads its query tile
-                      + ntile * b * a    # each query tile reads the data
-                      + ntile * b        # ... and its norms
-                      + s * qb           # the query norms, per split
-                      + (s * qb if floor else 0)
-                      + ntile * nblk) \
+    streamed = float(itemsize) * (s * qb * a    # each split reads its tile
+                                  + ntile * b * a)  # each tile the data
+    streamed += norms * (ntile * b       # ... and its norms
+                         + s * qb)       # the query norms, per split
+    streamed += 4.0 * ((s * qb if floor else 0) + ntile * nblk) \
         + 8.0 * qb * kc * (s * (1 if carried else 0) + s)
     return {"flops": _deterministic_flops(qb, b, a),
             "bytes_min": bytes_min, "bytes_accessed": streamed,
@@ -108,15 +113,15 @@ def _streaming_cost(qb: int, b: int, a: int, kc: int, *, carried: bool,
 def extract_topk_cost(qb: int, b: int, a: int, kc: int,
                       iters_total: Optional[int] = None,
                       precision: str = "f32", *, carried: bool = False,
-                      splits: int = 1, floor: bool = False
-                      ) -> Dict[str, float]:
+                      splits: int = 1, floor: bool = False,
+                      itemsize: int = 4) -> Dict[str, float]:
     """Cost of one K2 launch (``ops.extract.extract_topk``, gate off) at
     (queries (qb, a), data (b, a), list width kc). Without
     ``iters_total`` the data-dependent loop is left out (the deterministic
     lower bound); with it the measured term is added and the dict says
     so. The products every cell needs: ``2*qb*b*a``."""
     base = _streaming_cost(qb, b, a, kc, carried=carried, splits=splits,
-                           floor=floor)
+                           floor=floor, itemsize=itemsize)
     out = {"flops": base["flops"], "bytes_min": base["bytes_min"],
            "bytes_accessed": base["bytes_accessed"],
            "bound_ops": 2.0 * qb * b * a,
@@ -140,15 +145,16 @@ def gate_flops(qb: int, b: int) -> float:
 def fused_topk_cost(qb: int, b: int, a: int, kc: int,
                     iters_total: Optional[int] = None,
                     precision: str = "f32", *, carried: bool = False,
-                    splits: int = 1, floor: bool = False
-                    ) -> Dict[str, float]:
+                    splits: int = 1, floor: bool = False,
+                    itemsize: int = 4) -> Dict[str, float]:
     """Cost of one K1 launch (``ops.fused.fused_topk``: K2 with the norm
     gate on): K2's model plus :func:`gate_flops`. With ``iters_total``
     the products the data needs are only the cells the gate let through
     (``2*a*32*256`` each); without it, every cell's."""
     tq, tn, _, _ = _tiles()
     out = extract_topk_cost(qb, b, a, kc, iters_total, precision,
-                            carried=carried, splits=splits, floor=floor)
+                            carried=carried, splits=splits, floor=floor,
+                            itemsize=itemsize)
     out["gate_flops"] = gate_flops(qb, b)
     out["flops"] += out["gate_flops"]
     if iters_total is not None:
@@ -244,6 +250,14 @@ _MODELS = {
                                                           "f32"),
         carried=s.get("carried", False), splits=s.get("splits", 1),
         floor=s.get("floor", False)),
+    "fused_topk_u8": lambda s: fused_topk_cost(
+        s["qb"], s["b"], s["a"], s["kc"], precision="int8",
+        carried=s.get("carried", False), splits=s.get("splits", 1),
+        floor=s.get("floor", False), itemsize=1),
+    "extract_topk_u8": lambda s: extract_topk_cost(
+        s["qb"], s["b"], s["a"], s["kc"], precision="int8",
+        carried=s.get("carried", False), splits=s.get("splits", 1),
+        floor=s.get("floor", False), itemsize=1),
     "extract_merge": lambda s: extract_merge_cost(
         s["qb"], s["kc"], s["splits"], carried=s.get("carried", False)),
     "fused_dist_segmin": lambda s: fused_dist_segmin_cost(

@@ -241,18 +241,20 @@ def mesh_engine_model(n: int, nq: int, na: int, kmax: int, mesh_shape,
 
 
 def held_shard_model(shard_rows: int, na: int, nq: int, kmax: int,
-                     mesh_shape, config=None, merge: str = "allgather"
-                     ) -> Dict[str, Any]:
+                     mesh_shape, config=None, merge: str = "allgather",
+                     integer: bool = False) -> Dict[str, Any]:
     """Peak resident device bytes of one rank of a mesh engine that holds
     its row shard: the uint8 shard with its int32 labels, the one float32
-    piece each chunk is cast into, the broadcast query block (every query
-    shard), the double-buffered (qloc, kc) lists, the ``iters`` of the
-    chunks in flight and the merge buffer. Nothing is staged from the
-    host."""
+    piece each chunk is cast into (with ``integer`` queries, where the
+    integer kernel takes the launch, the one uint8 piece the short last
+    chunk is copied into, and uint8 queries), the broadcast query block
+    (every query shard), the double-buffered (qloc, kc) lists, the
+    ``iters`` of the chunks in flight and the merge buffer. Nothing is
+    staged from the host."""
     from dmlp_tpu_torch.config import EngineConfig
     from dmlp_tpu_torch.engine.single import (_CHUNK_WINDOW, plan_chunks,
                                               resolve_kcap, round_up)
-    from dmlp_tpu_torch.ops.extract import QUERY_TILE
+    from dmlp_tpu_torch.ops.extract import QUERY_TILE, supports_u8
 
     cfg = config or EngineConfig(mode="sharded")
     r, c = mesh_shape
@@ -264,10 +266,12 @@ def held_shard_model(shard_rows: int, na: int, nq: int, kmax: int,
     terms = _extract_terms(qloc, chunk_rows, min(nchunks, _CHUNK_WINDOW + 1),
                            na, kc, 4, 1)
     del terms["staged_corpus"]
+    item = 1 if integer and supports_u8(qloc, chunk_rows, na, kc) else 4
     terms.update({"held_shard": shard_rows * na,
                   "held_labels": shard_rows * 4,
-                  "cast_buffer": chunk_rows * na * 4,
-                  "query_blocks": c * qloc * na * 4,
+                  "pad_buffer" if item == 1 else "cast_buffer":
+                  chunk_rows * na * item,
+                  "query_blocks": c * qloc * na * item,
                   "merge_buffer": (2 if merge == "ring" else r) * qloc * kc
                   * _TOPK_ITEMSIZE})
     return _finish(terms, mode="held", mesh=[r, c], kcap=kc,
@@ -396,10 +400,12 @@ def model_for_engine(engine, inp) -> Dict[str, Any]:
     from dmlp_tpu_torch.ops.extract import QUERY_TILE
     held = getattr(engine, "held", None)
     if held is not None:
+        from dmlp_tpu_torch.engine.sharded import integer_queries
         return held_shard_model(
             held.shard_rows, int(held.attrs.shape[1]), inp.num_queries,
             int(inp.ks.max()), tuple(engine.mesh.shape),
-            config=engine.config, merge=engine._merge_strategy)
+            config=engine.config, merge=engine._merge_strategy,
+            integer=integer_queries(inp.query_attrs))
     p = inp.params
     kmax = int(inp.ks.max()) if p.num_queries else 1
     if hasattr(engine, "mem_model"):

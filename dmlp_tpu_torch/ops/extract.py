@@ -8,6 +8,16 @@ launches the hand-written kernel ``dmlp_tpu_torch/kernels/extract_topk.cu``
 (built at first use; any failure raises), on a CPU tensor it runs
 :func:`extract_topk_plain`. Nothing else picks between them.
 
+Two kernels serve one contract, picked by the operands' dtype alone
+(:func:`integer_route`): uint8 queries and uint8 data of a shape it takes
+go to the integer kernel (``extract_topk_kernel_u8``: the products on the
+tensor cores in int32, the norms in the kernel, the bytes read as they lie
+on the card; counted as ``fused_topk_u8`` / ``extract_topk_u8``); any
+other pair goes to the FMA kernel on float32 copies, with the norms
+computed here. On uint8 values both compute the same f32 distance for
+every pair while ``na * 255^2 < 2^24``, so the lists, ids and ``iters``
+are the same; the plain version follows the same split.
+
 Outputs: (dists (Qb, kc) f32 unsorted, ids (Qb, kc) i32 — ``id_base + j``
 for data row j, -1 padding — and iters (ceil(Qb/tile_q), B/tile_n) i32,
 1 where query tile i processed data block j and 0 where the norm gate or
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -67,6 +78,12 @@ QUERY_TILE = 32     # kernel TQ: query rows per CTA
 BLOCK_ROWS = 256    # kernel TN: data columns per block
 _AK = 16            # kernel AK: attributes per staged chunk (2 buffers)
 KC_MAX = 512
+# The integer kernel's staging: KB attribute bytes of a block's rows a
+# chunk (row stride KB + 16), U8_STAGES chunks in flight or in use; na a
+# multiple of 16 (16-byte copies) and at most U8_NA_MAX (exact int32 sums).
+_KB = 128
+_U8_STAGES = 2
+U8_NA_MAX = 16512
 MERGE_MAX = 8192    # kernel MERGE_MAX: entries one merge row holds, (1+S)*kc
 # Opt-in dynamic shared memory per block on sm_90 (232,448 bytes), less
 # 1 KB of headroom for the kernel's static shared memory.
@@ -96,10 +113,25 @@ def smem_bytes(kc: int, tile_q: int = QUERY_TILE,
                + 3 * tile_q) + 8 * tile_q * kc
 
 
-def ctas_per_sm(kc: int) -> int:
+def smem_bytes_u8(kc: int, na: int) -> int:
+    """Dynamic shared memory of one CTA of the integer kernel: each warp's
+    candidate keys, the ring of staged uint8 chunks (the distance tile is
+    written into one of them), the query tile's bytes, the block's and the
+    tile's int32 norms, the thresholds and floors, and the (tile_q, kc)
+    lists."""
+    nch = -(-na // _KB)
+    return 8 * (BLOCK_ROWS // 32) * BLOCK_ROWS \
+        + _U8_STAGES * BLOCK_ROWS * (_KB + 16) \
+        + QUERY_TILE * (nch * _KB + 16) \
+        + 4 * (BLOCK_ROWS + 3 * QUERY_TILE) + 8 * QUERY_TILE * kc
+
+
+def ctas_per_sm(kc: int, u8_na: Optional[int] = None) -> int:
     """Resident CTAs per SM as shared memory allows (2 at kc 48, 1 at
-    kc 512)."""
-    return max(1, SM_SMEM // (smem_bytes(kc) + CTA_SMEM_RESERVED))
+    kc 512); with ``u8_na``, the integer kernel's at that many attributes
+    (2 at kc 32 and 128 attributes)."""
+    smem = smem_bytes(kc) if u8_na is None else smem_bytes_u8(kc, u8_na)
+    return max(1, SM_SMEM // (smem + CTA_SMEM_RESERVED))
 
 
 def max_splits(b: int, kc: int, tile_n: int = BLOCK_ROWS) -> int:
@@ -108,23 +140,34 @@ def max_splits(b: int, kc: int, tile_n: int = BLOCK_ROWS) -> int:
     return max(1, min(b // tile_n, MERGE_MAX // kc - 1))
 
 
-def choose_splits(qb: int, b: int, kc: int, sm_count: int) -> int:
+def choose_splits(qb: int, b: int, kc: int, sm_count: int,
+                  u8_na: Optional[int] = None) -> int:
     """S for one launch on a card with ``sm_count`` SMs; a pure function.
+    ``u8_na``: the integer kernel's launch at that many attributes (its
+    own shared memory, so its own CTAs per SM); None for the FMA kernel.
 
     CTAs = ceil(qb/32) * S run in waves of sm_count * ctas_per_sm(kc)
     slots. Each sweeps nblk/S blocks, after filling its lists from empty
     (SPLIT_FILL * kc blocks' time: every split of a fresh launch pays it,
     a carried launch's splits mostly do not), so cost(S) = waves(S) *
     (SPLIT_FILL * kc + nblk / S). Returns the smallest S whose cost is
-    within SPLIT_TOL of the least: 1 where the split does not pay."""
+    within SPLIT_TOL of the least: 1 where the split does not pay.
+    Memoized by its arguments and the two constants: a chunk loop launches
+    one shape thousands of times, and the model costs up to nblk terms."""
+    return _choose_splits(qb, b, kc, sm_count, u8_na, SPLIT_FILL, SPLIT_TOL)
+
+
+@functools.lru_cache(maxsize=1024)
+def _choose_splits(qb: int, b: int, kc: int, sm_count: int,
+                   u8_na: Optional[int], fill: float, tol: float) -> int:
     tiles = -(-qb // QUERY_TILE)
-    slots = sm_count * ctas_per_sm(kc)
+    slots = sm_count * ctas_per_sm(kc, u8_na)
     nblk = b // BLOCK_ROWS
-    costs = [-(-tiles * n // slots) * (SPLIT_FILL * kc + nblk / n)
+    costs = [-(-tiles * n // slots) * (fill * kc + nblk / n)
              for n in range(1, max_splits(b, kc) + 1)]
     least = min(costs)
     return next(n for n, c in enumerate(costs, 1)
-                if c <= (1 + SPLIT_TOL) * least)
+                if c <= (1 + tol) * least)
 
 
 def resolve_variant(kc: int, b: int, qb: int | None = None,
@@ -135,23 +178,26 @@ def resolve_variant(kc: int, b: int, qb: int | None = None,
     return {"tile_q": QUERY_TILE, "tile_n": BLOCK_ROWS}
 
 
-def heuristic_splits(qb: int, b: int, kc: int, device) -> int:
+def heuristic_splits(qb: int, b: int, kc: int, device,
+                     u8_na: Optional[int] = None) -> int:
     """S without the tune cache: :func:`choose_splits` for the card's SM
     count on a CUDA device, 1 on the CPU."""
     device = torch.device(device)
     if device.type != "cuda":
         return 1
     return choose_splits(qb, b, kc, torch.cuda.get_device_properties(
-        device).multi_processor_count)
+        device).multi_processor_count, u8_na)
 
 
 def resolve_splits(qb: int, b: int, a: int, kc: int, *, device,
                    gate: bool, precision: str = "f32",
                    dtype: str = "float32") -> int:
     """S for one launch: the tune cache's measured winner (namespace
-    ``fused_topk`` with the gate on, ``extract_topk`` with it off) where
-    one exists and :func:`check_splits` takes it for this launch, else
-    :func:`heuristic_splits`. A misfit never disables the kernel."""
+    ``fused_topk`` with the gate on, ``extract_topk`` with it off, keyed by
+    the data's ``dtype``) where one exists and :func:`check_splits` takes
+    it for this launch, else :func:`heuristic_splits` (with the integer
+    kernel's shared memory for ``dtype`` "uint8"). A misfit never disables
+    the kernel."""
     v = tune_cache.lookup_variant(
         "fused_topk" if gate else "extract_topk", qb=qb, b=b, a=a, kc=kc,
         device=device, dtype=dtype, precision=precision)
@@ -160,7 +206,8 @@ def resolve_splits(qb: int, b: int, a: int, kc: int, *, device,
             return check_splits(v["splits"], b, kc)
         except ValueError:
             pass
-    return heuristic_splits(qb, b, kc, device)
+    return heuristic_splits(qb, b, kc, device,
+                            a if dtype == "uint8" else None)
 
 
 def variant_supports(qb: int, b: int, a: int, kc: int, v: dict) -> bool:
@@ -175,6 +222,25 @@ def variant_supports(qb: int, b: int, a: int, kc: int, v: dict) -> bool:
 
 def supports(qb: int, b: int, a: int, kc: int) -> bool:
     return variant_supports(qb, b, a, kc, resolve_variant(kc, b, qb, a))
+
+
+def supports_u8(qb: int, b: int, a: int, kc: int) -> bool:
+    """The integer kernel's launch: the FMA kernel's rules, ``a`` a
+    multiple of 16 (16-byte copies of whole rows) and at most U8_NA_MAX,
+    and its shared memory, which grows with ``a``, within the budget."""
+    return (supports(qb, b, a, kc) and a % 16 == 0 and a <= U8_NA_MAX
+            and smem_bytes_u8(kc, a) <= SMEM_BUDGET)
+
+
+def integer_route(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
+                  kc: int) -> bool:
+    """Whether a launch takes the integer kernel (on the CPU its plain
+    version): both operands uint8 and a shape it takes
+    (:func:`supports_u8`). Read from the tensors alone; any other pair
+    takes the FMA kernel on float32 copies."""
+    return (q_attrs.dtype == torch.uint8 and d_attrs.dtype == torch.uint8
+            and supports_u8(q_attrs.shape[0], d_attrs.shape[0],
+                            q_attrs.shape[1], kc))
 
 
 def _gate_coef(na: int, precision: str) -> float:
@@ -220,7 +286,8 @@ def split_partials_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
     the (S, Qb, kc) lists of the S splits and ``iters``.
 
     Per data block of ``tile_n`` columns: the masked distances with
-    ``torch.matmul`` (IEEE f32; bf16 rounds the operands first), merged
+    ``torch.matmul`` (IEEE f32; bf16 rounds the operands first; with both
+    operands uint8, the integer kernel's exact integer arithmetic), merged
     into the running lists as the exact top-kc by (dist asc, position asc)
     with the lists' entries winning ties (a stable sort of lists ++
     block). ``iters`` comes from the same per-tile predicates as the
@@ -236,12 +303,22 @@ def split_partials_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
         raise ValueError(f"data rows {b} not a multiple of tile_n {tile_n}")
     splits = check_splits(splits, b, kc, tile_n)
     dev = q_attrs.device
-    q32, d32 = q_attrs.float(), d_attrs.float()
-    require_ieee_f32(q32)
-    qn = (q32 * q32).sum(-1)
-    dn = (d32 * d32).sum(-1)
-    qx, dx = (_round_bf16(q32), _round_bf16(d32)) if precision == "bf16" \
-        else (q32, d32)
+    integer = q_attrs.dtype == torch.uint8 and d_attrs.dtype == torch.uint8
+    if integer:
+        # The integer kernel's arithmetic: norms and products are exact
+        # integers (float64 holds them), each distance formed exactly and
+        # rounded once to f32. bf16 holds 0..255 exactly, so the precision
+        # enters only through the gate's deflation.
+        q64, d64 = q_attrs.double(), d_attrs.double()
+        qn64, dn64 = (q64 * q64).sum(-1), (d64 * d64).sum(-1)
+        qn, dn = qn64.float(), dn64.float()
+    else:
+        q32, d32 = q_attrs.float(), d_attrs.float()
+        require_ieee_f32(q32)
+        qn = (q32 * q32).sum(-1)
+        dn = (d32 * d32).sum(-1)
+        qx, dx = (_round_bf16(q32), _round_bf16(d32)) \
+            if precision == "bf16" else (q32, d32)
     seed_d = torch.full((qb, 1), torch.inf, device=dev)
     if carry_d is not None:
         seed_d = carry_d.float().max(1, keepdim=True).values
@@ -281,8 +358,13 @@ def split_partials_plain(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                 # The plain version skips a gated-out block on the host.
                 if not readback(go.any(), "extract.plain_gate"):  # check: allow-host-sync
                     continue
-            dist = torch.clamp_min(qn[:, None] + dn[None, lo:hi]
-                                   - 2.0 * (qx @ dx[lo:hi].T), 0.0)
+            if integer:
+                dist = torch.clamp_min((qn64[:, None] + dn64[None, lo:hi]
+                                        - 2.0 * (q64 @ d64[lo:hi].T))
+                                       .float(), 0.0)
+            else:
+                dist = torch.clamp_min(qn[:, None] + dn[None, lo:hi]
+                                       - 2.0 * (qx @ dx[lo:hi].T), 0.0)
             if fl is not None:
                 dist = torch.where(dist < fl[:, None], torch.inf, dist)
             dist = torch.where(real[None, :], dist, torch.inf)
@@ -363,16 +445,24 @@ def _kernel_lib() -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         lib.dmlp_extract_smem_bytes.restype = ctypes.c_longlong
         lib.dmlp_extract_smem_bytes.argtypes = [ctypes.c_int]
+        lib.dmlp_extract_smem_bytes_u8.restype = ctypes.c_longlong
+        lib.dmlp_extract_smem_bytes_u8.argtypes = [ctypes.c_int] * 2
         got = (lib.dmlp_extract_tile_q(), lib.dmlp_extract_tile_n(),
                lib.dmlp_extract_merge_max(),
-               lib.dmlp_extract_smem_bytes(KC_MAX))
-        want = (QUERY_TILE, BLOCK_ROWS, MERGE_MAX, smem_bytes(KC_MAX))
+               lib.dmlp_extract_smem_bytes(KC_MAX),
+               lib.dmlp_extract_smem_bytes_u8(KC_MAX, 128),
+               lib.dmlp_extract_smem_bytes_u8(32, 784))
+        want = (QUERY_TILE, BLOCK_ROWS, MERGE_MAX, smem_bytes(KC_MAX),
+                smem_bytes_u8(KC_MAX, 128), smem_bytes_u8(32, 784))
         if got != want:
             raise KernelBuildError(
                 f"extract_topk.cu tiles {got} != wrapper's {want}")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dmlp_extract_topk.restype = i
         lib.dmlp_extract_topk.argtypes = [p] * 10 + [i] * 10 + [
+            ctypes.c_float, ctypes.c_float, p]
+        lib.dmlp_extract_topk_u8.restype = i
+        lib.dmlp_extract_topk_u8.argtypes = [p] * 8 + [i] * 9 + [
             ctypes.c_float, ctypes.c_float, p]
         lib.dmlp_extract_merge.restype = i
         lib.dmlp_extract_merge.argtypes = [p] * 6 + [i] * 3 + [p]
@@ -478,18 +568,28 @@ def _launch_shape(qb: int, b: int, na: int, kc: int, carried: bool,
 
 def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
                        id_base, kc, floor, precision, mxu_gate, block_skip,
-                       splits):
+                       splits, integer=False):
+    """One K1/K2 launch (and its merge at S > 1) on the current stream:
+    the integer kernel on the uint8 operands as they are where
+    ``integer`` (:func:`integer_route`), else the FMA kernel on float32
+    copies with the norms computed here."""
     qb, na = q_attrs.shape
     b = d_attrs.shape[0]
-    if not supports(qb, b, na, kc):
+    if not (supports_u8 if integer else supports)(qb, b, na, kc):
         raise ValueError(f"untileable (qb={qb}, b={b}, a={na}, kc={kc}): "
                          f"needs b % {BLOCK_ROWS} == 0 and kc <= {KC_MAX}")
     dev = q_attrs.device
     splits = check_splits(splits, b, kc)
-    q = q_attrs.float().contiguous()
-    d = d_attrs.float().contiguous()
-    qn = (q * q).sum(-1)
-    dn = (d * d).sum(-1)
+    if integer:
+        q, d = q_attrs.contiguous(), d_attrs.contiguous()
+        if (q.data_ptr() | d.data_ptr()) % 16:
+            raise ValueError("the integer kernel reads 16-byte aligned "
+                             "uint8 rows")
+    else:
+        q = q_attrs.float().contiguous()
+        d = d_attrs.float().contiguous()
+        qn = (q * q).sum(-1)
+        dn = (d * d).sum(-1)
     cd, ci = _carry_on(carry_d, carry_i, qb, kc)
     fl = None if floor is None else floor.float().reshape(qb).contiguous()
     for t in (d, cd, ci, fl):
@@ -502,7 +602,10 @@ def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
     iters = torch.empty((-(-qb // QUERY_TILE), b // BLOCK_ROWS),
                         dtype=torch.int32, device=dev)
     lib = _kernel_lib()
-    kname = "fused_topk" if mxu_gate else "extract_topk"
+    if integer:
+        kname = "fused_topk_u8" if mxu_gate else "extract_topk_u8"
+    else:
+        kname = "fused_topk" if mxu_gate else "extract_topk"
     # The launches are asynchronous on the current stream. Temporaries
     # freed when this function returns (q, d, qn, dn, the partial lists)
     # go back to PyTorch's caching allocator for that stream, so only work
@@ -510,16 +613,23 @@ def _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i, *, n_real,
     with _on_device(dev):
         rec = obs_counters.record_dispatch(kname, _launch_shape(
             qb, b, na, kc, cd is not None, splits, precision, fl), dev)
-        rc = lib.dmlp_extract_topk(
-            _ptr(q), _ptr(d), _ptr(qn), _ptr(dn), _ptr(fl), _ptr(cd),
-            _ptr(ci), _ptr(od), _ptr(oi), _ptr(iters), qb, b, na, kc,
-            int(n_real), int(id_base), splits, int(mxu_gate),
-            int(block_skip), int(precision == "bf16"), EPS_REL_F32,
-            _gate_coef(na, precision), _stream(dev))
+        if integer:
+            rc = lib.dmlp_extract_topk_u8(
+                _ptr(q), _ptr(d), _ptr(fl), _ptr(cd), _ptr(ci), _ptr(od),
+                _ptr(oi), _ptr(iters), qb, b, na, kc, int(n_real),
+                int(id_base), splits, int(mxu_gate), int(block_skip),
+                EPS_REL_F32, _gate_coef(na, precision), _stream(dev))
+        else:
+            rc = lib.dmlp_extract_topk(
+                _ptr(q), _ptr(d), _ptr(qn), _ptr(dn), _ptr(fl), _ptr(cd),
+                _ptr(ci), _ptr(od), _ptr(oi), _ptr(iters), qb, b, na, kc,
+                int(n_real), int(id_base), splits, int(mxu_gate),
+                int(block_skip), int(precision == "bf16"), EPS_REL_F32,
+                _gate_coef(na, precision), _stream(dev))
         if rec is not None:
             rec.done()
     if rc != 0:
-        raise KernelLaunchError(f"extract_topk kernel launch failed "
+        raise KernelLaunchError(f"{kname} kernel launch failed "
                                 f"(cudaError {rc})")
     note_launch(kname, splits)
     if splits == 1:
@@ -552,25 +662,30 @@ def extract_topk(q_attrs: torch.Tensor, d_attrs: torch.Tensor,
                          f"{q_attrs.device}")
     kw = dict(n_real=n_real, id_base=id_base, kc=kc, floor=floor,
               precision=precision, mxu_gate=mxu_gate, block_skip=block_skip)
+    integer = integer_route(q_attrs, d_attrs, kc)
     if splits is None:
         tiles_fixed = (tile_q or QUERY_TILE) == QUERY_TILE \
             and (tile_n or BLOCK_ROWS) == BLOCK_ROWS
         splits = 1 if not tiles_fixed else resolve_splits(
             q_attrs.shape[0], d_attrs.shape[0], q_attrs.shape[1], kc,
             device=q_attrs.device, gate=mxu_gate, precision=precision,
-            dtype=tune_cache.dtype_key(d_attrs))
+            dtype="uint8" if integer else tune_cache.dtype_key(d_attrs))
     if q_attrs.is_cuda:
         if (tile_q or QUERY_TILE) != QUERY_TILE \
                 or (tile_n or BLOCK_ROWS) != BLOCK_ROWS:
             raise ValueError(f"the CUDA kernel's tiles are fixed at "
                              f"({QUERY_TILE}, {BLOCK_ROWS})")
         return _extract_topk_cuda(q_attrs, d_attrs, carry_d, carry_i,
-                                  splits=splits, **kw)
+                                  splits=splits, integer=integer, **kw)
     qb, na = q_attrs.shape
-    obs_counters.record_dispatch(
-        "fused_topk" if mxu_gate else "extract_topk", _launch_shape(
-            qb, d_attrs.shape[0], na, kc, carry_d is not None, splits,
-            precision, floor))
+    if integer:
+        kname = "fused_topk_u8" if mxu_gate else "extract_topk_u8"
+    else:
+        kname = "fused_topk" if mxu_gate else "extract_topk"
+        q_attrs, d_attrs = q_attrs.float(), d_attrs.float()
+    obs_counters.record_dispatch(kname, _launch_shape(
+        qb, d_attrs.shape[0], na, kc, carry_d is not None, splits,
+        precision, floor))
     if splits > 1:
         obs_counters.record_dispatch("extract_merge", _merge_shape(
             qb, kc, splits, carry_d is not None))

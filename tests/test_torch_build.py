@@ -2,6 +2,7 @@
 reads and writes, and that a missing compiler raises instead of falling
 back to the plain version."""
 
+import re
 from pathlib import Path
 
 import pytest
@@ -15,11 +16,12 @@ PKG = Path(kernels.__file__).resolve().parents[1]
 
 
 def test_every_kernel_source_is_built():
-    """K1/K2 (with the merge of their split lists) and K3, one source
-    each; build_all starts one nvcc per source. The merge has a launch
-    count of its own."""
+    """K1/K2 (with their integer variants and the merge of their split
+    lists) and K3, one source each; build_all starts one nvcc per source.
+    The integer variants and the merge have launch counts of their own."""
     assert kernels.SOURCES == ("extract_topk", "dist_segmin")
     assert set(kernels.LAUNCHES) == {"fused_topk", "extract_topk",
+                                     "fused_topk_u8", "extract_topk_u8",
                                      "extract_merge", "fused_dist_segmin"}
 
 
@@ -77,15 +79,19 @@ TILES = {"extract_topk": (f"TQ = {ex.QUERY_TILE};", f"TN = {ex.BLOCK_ROWS};"),
 @pytest.mark.parametrize("name", kernels.SOURCES)
 def test_kernel_source_is_hand_written_cuda(name):
     """No library kernel for the product: only the CUDA runtime and math
-    headers, no cuBLAS / cuDNN, no tensor-core instruction (so no TF32);
-    the tiles match the wrapper's."""
+    headers, no cuBLAS / cuDNN, no float product on the tensor cores (so
+    no TF32): the one tensor-core instruction is the integer kernel's
+    exact u8 x u8 -> s32 mma; the tiles match the wrapper's."""
     src = (PKG / "kernels" / f"{name}.cu").read_text()
     includes = [ln.split()[1] for ln in src.splitlines()
                 if ln.startswith("#include")]
     assert includes[0] == "<cuda_runtime.h>" and set(includes) <= {
         "<cuda_runtime.h>", "<cuda_bf16.h>", "<math.h>", "<stdint.h>"}
-    for banned in ("cublas", "cudnn", "wmma", "mma_sync", "mma.sync"):
+    for banned in ("cublas", "cudnn", "wmma", "mma_sync", "wgmma"):
         assert banned not in src.lower(), banned
+    mmas = re.findall(r"mma\.sync\.aligned\.[\w.]+", src)
+    assert src.lower().count("mma.sync") == len(mmas)
+    assert set(mmas) <= {"mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32"}
     assert all(t in src for t in TILES[name])
     assert 'extern "C"' in src and "cudaGetLastError" in src
 

@@ -26,7 +26,8 @@ cs = _load()
 
 # The runs each kernel was launched by in a full run on the card (the
 # kernels line's launches_by_path), by count.
-HELD_SIZES = {"fused_topk": 23, "extract_topk": 6, "extract_merge": 29,
+HELD_SIZES = {"fused_topk": 22, "extract_topk": 6, "fused_topk_u8": 1,
+              "extract_topk_u8": 1, "extract_merge": 30,
               "fused_dist_segmin": 13}
 
 
@@ -56,8 +57,9 @@ def test_held_paths_cover_every_kernel(kernel):
 
 def test_every_merge_path_launches_k1_or_k2():
     """The merge follows every K1/K2 launch that splits: each of its paths
-    is a path of K1 or K2."""
-    k12 = cs.HELD_PATHS["fused_topk"] | cs.HELD_PATHS["extract_topk"]
+    is a path of K1 or K2, the FMA kernel's or the integer one's."""
+    k12 = cs.HELD_PATHS["fused_topk"] | cs.HELD_PATHS["extract_topk"] \
+        | cs.HELD_PATHS["fused_topk_u8"] | cs.HELD_PATHS["extract_topk_u8"]
     assert cs.HELD_PATHS["extract_merge"] <= k12
 
 

@@ -561,3 +561,109 @@ def test_rank_merge_model_is_the_stable_sort(name, splits):
     if name == "neg_zero":
         assert (model[0][0] == 0).any()
         assert not torch.signbit(model[0][0]).any()
+
+
+# The integer route: uint8 queries and data take the integer kernel (on the
+# CPU its plain version), whose arithmetic is exact integers rounded once to
+# f32. On 0..255 values with na * 255^2 < 2^24 the float route's f32 sums
+# are exact too, so the two give the same lists, ids and iters, bit for
+# bit. name, qb, chunk rows, a, kc, per-chunk n_real, first id_base, data
+# ("uniform" 0..255, "ties" 0..2, "extreme" all 255 against rows of 0 and
+# 255), floor
+U8_CASES = [
+    ("fresh_then_carried", 40, [2048, 2048], 128, 16, [2048, 1500], 77,
+     "uniform", None),
+    ("floor", 40, [2048, 2048], 128, 16, [2048, 2048], 0, "uniform",
+     1.35e6),
+    ("extreme_255", 33, [2048], 128, 24, [2000], 5, "extreme", None),
+    ("tie_grid", 64, [2048, 2048], 32, 48, [2048, 1800], 0, "ties", None),
+]
+
+
+def _u8_inputs(case):
+    name, qb, rows, a, kc, n_reals, base, kind, floor = case
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    hi = {"uniform": 256, "ties": 3, "extreme": 256}[kind]
+    q = rng.integers(0, hi, (qb, a)).astype(np.uint8)
+    chunks = [rng.integers(0, hi, (r, a)).astype(np.uint8) for r in rows]
+    if kind == "extreme":
+        q[:] = 255
+        for c in chunks:
+            c[:] = 255
+            c[::3] = 0
+    fl = None if floor is None else torch.full((qb, 1), floor)
+    return q, chunks, n_reals, base, kc, fl
+
+
+@pytest.mark.parametrize("gate", [False, True], ids=["extract", "fused"])
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("case", U8_CASES, ids=[c[0] for c in U8_CASES])
+def test_integer_route_equals_the_float_route_bit_for_bit(case, splits,
+                                                          gate):
+    q, chunks, n_reals, base, kc, fl = _u8_inputs(case)
+    q8 = torch.from_numpy(q)
+    assert ex.integer_route(q8, torch.from_numpy(chunks[0]), kc)
+    runs = []
+    for cast in (False, True):
+        od = oi = None
+        outs, b = [], base
+        for d, nr in zip(chunks, n_reals):
+            qx, dx = q8, torch.from_numpy(d)
+            if cast:
+                qx, dx = qx.float(), dx.float()
+            od, oi, it = ex.extract_topk(qx, dx, od, oi, n_real=nr,
+                                         id_base=b, kc=kc, floor=fl,
+                                         mxu_gate=gate, splits=splits)
+            outs.append((od, oi, it))
+            b += nr
+        runs.append(outs)
+    for (d8, i8, it8), (df, i_f, itf) in zip(*runs):
+        assert d8.dtype == torch.float32 and i8.dtype == torch.int32
+        assert torch.equal(d8, df) and torch.equal(i8, i_f)
+        assert torch.equal(it8, itf)
+
+
+def test_dtypes_and_shapes_alone_pick_the_integer_route():
+    from dmlp_tpu_torch.obs import counters as obs_counters
+    rng = np.random.default_rng(26)
+    q8 = torch.from_numpy(rng.integers(0, 256, (16, 32)).astype(np.uint8))
+    d8 = torch.from_numpy(rng.integers(0, 256, (512, 32)).astype(np.uint8))
+    q24 = q8[:, :24].contiguous()
+    d24 = d8[:, :24].contiguous()
+    calls = [((q8, d8), True, "fused_topk_u8"),
+             ((q8, d8), False, "extract_topk_u8"),
+             ((q8.float(), d8), True, "fused_topk"),
+             ((q8, d8.float()), False, "extract_topk"),
+             ((q8.double(), d8.double()), True, "fused_topk"),
+             # 24 attributes: not whole 16-byte rows, the float route
+             ((q24, d24), True, "fused_topk")]
+    for (q, d), gate, name in calls:
+        assert ex.integer_route(q, d, 8) == name.endswith("_u8")
+        probe = obs_counters.install(obs_counters.CostProbe())
+        try:
+            got = ex.extract_topk(q, d, n_real=500, kc=8, mxu_gate=gate)
+        finally:
+            obs_counters.uninstall()
+        assert list(probe.collect()["per_kernel"]) == [name]
+        want = ex.extract_topk(q.float(), d.float(), n_real=500, kc=8,
+                               mxu_gate=gate)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not ex.supports_u8(16, 512, 24, 8)
+    assert not ex.supports_u8(16, 512, ex.U8_NA_MAX + 16, 8)
+    assert ex.supports_u8(1024, 51200, 128, 512)
+
+
+def test_smem_layout_and_splits_of_the_integer_kernel():
+    """The integer kernel's CTA: 8 warps' candidate keys (16 KB), two
+    stages of 256 rows x 144 bytes (the distance tile is written into
+    one), the query tile's bytes in 128-byte chunks plus 16, the block's
+    and the tile's norms, three per-row vectors and the lists. At
+    BIGANN's 128 attributes and kc 32 two CTAs share an SM, and S 8 puts
+    1,024 queries over 51,200 rows (32 tiles x 8) in one wave of 132 SMs."""
+    fixed = 8 * 8 * 256 + 2 * 256 * 144 + 4 * (256 + 3 * 32)
+    for kc, na in ((32, 128), (512, 128), (10, 784)):
+        assert ex.smem_bytes_u8(kc, na) == \
+            fixed + 32 * (-(-na // 128) * 128 + 16) + 8 * 32 * kc
+    assert ex.smem_bytes_u8(512, 128) <= ex.SMEM_BUDGET
+    assert ex.ctas_per_sm(32, 128) == 2 and ex.ctas_per_sm(512, 128) == 1
+    assert ex.choose_splits(1024, 51200, 32, 132, 128) == 8

@@ -3,6 +3,13 @@
 each holding its own 10,000 x 128 uint8 shard of a 40,000-row corpus drawn
 block by block from seeds (``benchmark/shardgen.py``), 64 queries.
 
+uint8 queries (and float queries whose values are integers in 0..255) take
+the integer route: the queries travel as uint8 and K1 (its plain version
+here) takes each held chunk as it lies, counted as ``fused_topk_u8``, with
+no byte cast; a query with any other value takes the cast route, each
+chunk cast into float32 for the FMA kernel. Both routes give the same
+answers.
+
 Every value is an integer, so every float32 distance is exact: the held
 solve's ids, distances and votes equal the blocked, sharded float64
 reference (``benchmark/reference/sharded.py``, which draws the blocks again
@@ -24,6 +31,7 @@ import pytest
 import torch
 
 from dmlp_tpu_torch.config import EngineConfig
+from dmlp_tpu_torch.engine import sharded as sharded_mod
 from dmlp_tpu_torch.obs import comms, memwatch
 from dmlp_tpu_torch.obs import trace as obs_trace
 from dmlp_tpu_torch.parallel.distributed import free_port
@@ -49,6 +57,8 @@ from benchmark.reference import sharded as ref_sharded
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine.sharded import ShardedEngine
 from dmlp_tpu_torch.io.grammar import KNNInput, Params, QueryBatch
+from dmlp_tpu_torch.engine import sharded as sharded_mod
+from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.obs import trace as obs_trace
 from dmlp_tpu_torch.parallel.collectives import gather_objects
 from dmlp_tpu_torch.parallel.distributed import initialize, shutdown
@@ -77,13 +87,45 @@ eng.hold_shard(attrs, labels, n)
 qall = shardgen.queries(cfg, seed)
 ks = (1 + np.arange(nq) % kmax).astype(np.int32)
 qb = QueryBatch(ks=ks, query_attrs=qall) if root else None
-tracer = obs_trace.install(obs_trace.Tracer())
-try:
-    held = eng.run_device_full(qb)
-finally:
-    obs_trace.uninstall()
+
+def routed(batch):
+    # One traced and probed solve: its results, K1's dispatches by kernel
+    # name, and the root span's byte counts.
+    tr = obs_trace.install(obs_trace.Tracer())
+    probe = obs_counters.install(obs_counters.CostProbe())
+    try:
+        res = eng.run_device_full(batch)
+    finally:
+        obs_counters.uninstall()
+        obs_trace.uninstall()
+    per = probe.collect().get("per_kernel", {})
+    root_args = next(e for e in tr.events() if e["ph"] == "X" and
+                     e["name"] == "sharded.held_device_full")["args"]
+    return res, tr, {"dispatches": {k: v["dispatches"]
+                                    for k, v in per.items()},
+                     "bytes": {k: root_args.get(k, 0) for k in
+                               ("h2d_bytes", "cast_bytes", "pad_bytes")}}
+
+
+held, tracer, out["integer"] = routed(qb)
 out["phases"] = sorted(eng.last_phase_ms)
 out["comms"] = [t.to_dict() for t in eng.last_comms]
+# The same queries forced onto the cast route (the route is the plan's,
+# made on rank 0), float32 queries of integer values, and float32 queries
+# with a fractional value.
+real_integer_queries = sharded_mod.integer_queries
+sharded_mod.integer_queries = lambda q: False
+try:
+    cast, _, out["cast"] = routed(qb)
+finally:
+    sharded_mod.integer_queries = real_integer_queries
+qf = qall.astype(np.float32)
+qfrac = qf.copy()
+qfrac[3, 7] += 0.5
+f32int, _, out["f32_integers"] = routed(
+    QueryBatch(ks=ks, query_attrs=qf) if root else None)
+_, _, out["f32_fraction"] = routed(
+    QueryBatch(ks=ks, query_attrs=qfrac) if root else None)
 out["shard_rows"] = eng.held.shard_rows
 try:
     eng.run(None)
@@ -128,7 +170,8 @@ if root:
                 [r.predicted_label for r in res], [r.k for r in res],
                 [r.query_id for r in res])
     json.dump({"ranks": facts, "held": arrays(held),
-               "scatter": arrays(scatter),
+               "scatter": arrays(scatter), "cast": arrays(cast),
+               "f32_integers": arrays(f32int),
                "ref": ([ri[i, :ks[i]].tolist() for i in range(nq)],
                        [rd[i, :ks[i]].tolist() for i in range(nq)], votes),
                "ks": ks.tolist(),
@@ -193,18 +236,22 @@ def test_a_held_solve_is_one_linked_tree_counting_queries_and_casts(run):
             if e["args"]["parent"] == root["args"]["id"]}
     assert kids == CHILDREN_ROOT
     qpad = -(-NQ // 32) * 32
-    # The queries and ks cross to the device; the corpus never does.
-    assert root["args"]["h2d_bytes"] == qpad * NA * 4 + qpad * 4
+    # The uint8 queries and the ks cross to the device; the corpus never
+    # does. No byte is cast: only the short last chunk is copied into a
+    # uint8 buffer of whole blocks.
+    assert root["args"]["h2d_bytes"] == qpad * NA + qpad * 4
     shard = run["ranks"][0]["shard_rows"]
-    assert root["args"]["cast_bytes"] == shard * NA * 4
+    tail = shard % BLOCK
+    assert "cast_bytes" not in root["args"]
+    assert root["args"]["pad_bytes"] == tail * NA
     fold = next(e for e in spans if e["name"] == "sharded.enqueue_chunked")
-    assert fold["args"]["cast_bytes"] == shard * NA * 4
+    assert fold["args"]["pad_bytes"] == tail * NA
     assert fold["args"]["chunks"] == -(-N // WORLD // BLOCK)
 
 
 def test_every_rank_times_its_phases_and_records_no_row_scatter(run):
     qpad = -(-NQ // 32) * 32
-    want = [comms.broadcast_traffic(WORLD, qpad * NA * 4,
+    want = [comms.broadcast_traffic(WORLD, qpad * NA,
                                     "query block").to_dict()]
     kc = run["ranks"][0]["comms"][1]["note"]
     assert "q_local=64" in kc
@@ -215,6 +262,56 @@ def test_every_rank_times_its_phases_and_records_no_row_scatter(run):
         assert facts["phases"] == sorted(
             {"stage_queries", "fold", "merge", "gather"}
             | ({"epilogue", "fetch", "finalize"} if rank == 0 else set()))
+
+
+def test_both_routes_give_the_same_answers_and_count_their_own_work(run):
+    """The integer route and the cast route on the same queries: the same
+    answers; K1 named apart, once a chunk on every rank; the cast route
+    stages float32 queries and casts every held row, the integer route
+    casts none and copies only the short last chunk."""
+    assert run["cast"] == run["held"]
+    chunks = -(-N // WORLD // BLOCK)
+    qpad = -(-NQ // 32) * 32
+    shard = run["ranks"][0]["shard_rows"]
+    for rank, facts in enumerate(run["ranks"]):
+        got, cast = facts["integer"], facts["cast"]
+        assert got["dispatches"] == {"fused_topk_u8": chunks}
+        assert cast["dispatches"] == {"fused_topk": chunks}
+        assert got["bytes"]["cast_bytes"] == 0
+        assert got["bytes"]["pad_bytes"] == (shard % BLOCK) * NA
+        assert cast["bytes"]["cast_bytes"] == shard * NA * 4
+        assert cast["bytes"]["pad_bytes"] == 0
+        if rank == 0:
+            assert got["bytes"]["h2d_bytes"] == qpad * NA + qpad * 4
+            assert cast["bytes"]["h2d_bytes"] == qpad * NA * 4 + qpad * 4
+
+
+def test_float_queries_take_the_route_their_values_allow(run):
+    """float32 queries of integer values in 0..255 take the integer route
+    and answer as the uint8 queries do; one fractional value sends the
+    whole solve down the cast route."""
+    assert run["f32_integers"] == run["held"]
+    chunks = -(-N // WORLD // BLOCK)
+    for facts in run["ranks"]:
+        assert facts["f32_integers"]["dispatches"] == {
+            "fused_topk_u8": chunks}
+        assert facts["f32_fraction"]["dispatches"] == {
+            "fused_topk": chunks}
+        assert facts["f32_fraction"]["bytes"]["cast_bytes"] > 0
+
+
+@pytest.mark.parametrize("values,integer", [
+    (np.array([[0, 255], [7, 8]], np.uint8), True),
+    (np.array([[0.0, 255.0], [7.0, 8.0]], np.float32), True),
+    (np.array([[0, 255], [7, 8]], np.int64), True),
+    (np.array([[0.0, 255.5]], np.float32), False),
+    (np.array([[0.0, 256.0]], np.float64), False),
+    (np.array([[-1.0, 3.0]], np.float32), False),
+    (np.array([[np.nan, 3.0]], np.float32), False),
+    (np.zeros((0, 4), np.float32), False),
+])
+def test_integer_queries_reads_the_values(values, integer):
+    assert sharded_mod.integer_queries(values) is integer
 
 
 def test_bad_layouts_the_exact_path_and_wrong_inputs_raise_everywhere(run):
@@ -238,3 +335,18 @@ def test_the_memory_model_prices_the_held_shard_and_no_staged_chunks():
     assert t["merge_buffer"] == 4 * 1024 * m["kcap"] * 12
     assert m["path"] == "held" and m["total_bytes"] == sum(t.values())
     assert 32e9 < m["total_bytes"] < 34e9
+
+
+def test_the_memory_model_of_the_integer_route_prices_uint8_pieces():
+    """With integer queries no float32 piece is made: the short last
+    chunk's uint8 piece and uint8 query blocks instead."""
+    cfg = EngineConfig(mode="sharded", mesh_shape=(4, 1), device="cpu",
+                       use_pallas=True)
+    m = memwatch.held_shard_model(250_000_000, 128, 1000, 10, (4, 1),
+                                  config=cfg, integer=True)
+    t = m["terms"]
+    assert "cast_buffer" not in t
+    assert t["pad_buffer"] == 51200 * 128
+    assert t["query_blocks"] == 1024 * 128
+    assert t["held_shard"] == 250_000_000 * 128
+    assert m["total_bytes"] == sum(t.values())
