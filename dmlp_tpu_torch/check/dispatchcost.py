@@ -11,11 +11,14 @@ wrappers (``ops/extract.py``, ``ops/dist_segmin.py``), beside the
 Both halves drift silently, so:
 
 - **R105**: an ``engine/`` call of a top-k kernel — a name bound from
-  ``resolve_topk_kernel`` (``kern, impl = resolve_topk_kernel(...)``),
-  or ``fused_topk``/``extract_topk`` imported from ``ops`` — whose
-  enclosing function neither constructs a ``MeasuredIters`` probe nor
-  routes through ``_queue_iters``: the call would report a modeled
-  (lower-bound) extraction term.
+  ``resolve_topk_kernel`` (``kern, impl = resolve_topk_kernel(...)``)
+  or from the mesh engine's pick by implementation (``_kernel``), or
+  ``fused_topk``/``extract_topk`` imported from ``ops`` — where neither
+  the enclosing function nor, for a call in a closure (the chunk loop's
+  ``fold``), any function out to the one that binds the kernel
+  constructs a ``MeasuredIters`` probe or routes through
+  ``_queue_iters``: the call would report a modeled (lower-bound)
+  extraction term. A kernel handed in as a parameter is not followed.
 - **R106**: a ``record_dispatch`` or ``note_launch`` whose kernel name
   (a string, a conditional of strings, or a local bound to one) is not
   a key of ``obs/kernel_cost.py::_MODELS`` — its counters would
@@ -37,7 +40,7 @@ from dmlp_tpu_torch.check.common import ModuleInfo, call_name
 from dmlp_tpu_torch.check.findings import Finding
 
 #: functions whose return value IS a top-k kernel callable
-KERNEL_RESOLVERS = {"resolve_topk_kernel"}
+KERNEL_RESOLVERS = {"resolve_topk_kernel", "_kernel"}
 #: the top-k kernel wrappers an engine may call directly
 TOPK_KERNELS = {"fused_topk", "extract_topk"}
 #: the probe protocol: an enclosing function satisfies R105 when it
@@ -124,29 +127,46 @@ class DispatchCostRule:
         return any(isinstance(n, ast.Call) and _leaf(n) in PROBE_CALLS
                    for n in ast.walk(fn))
 
+    @staticmethod
+    def _params(fn: ast.AST) -> Set[str]:
+        a = fn.args
+        return {p.arg for p in a.posonlyargs + a.args + a.kwonlyargs
+                + [p for p in (a.vararg, a.kwarg) if p is not None]}
+
     def _check_probes(self, mod: ModuleInfo, add) -> None:
         ops_kernels = self._ops_kernels(mod)
         memo = {}
+
+        def facts(fn):
+            if fn not in memo:
+                memo[fn] = (self._kernel_vars(fn), self._has_probe(fn),
+                            self._params(fn))
+            return memo[fn]
+
+        def scope(arg, encl):
+            """The functions from the call out to the kernel's binder, or
+            None where ``arg`` names no kernel."""
+            for i, fn in enumerate(encl):
+                kvars, _, params = facts(fn)
+                if arg in kvars:
+                    return encl[:i + 1]
+                if arg in params:
+                    return None
+            return encl if arg in ops_kernels else None
+
         for node in ast.walk(mod.tree):
             if not isinstance(node, ast.Call) \
                     or not isinstance(node.func, ast.Name):
                 continue
-            encl = mod.enclosing_funcs(node)
-            fn = encl[0] if encl else None
-            if fn is None:
-                continue
-            if fn not in memo:
-                memo[fn] = (self._kernel_vars(fn), self._has_probe(fn))
-            kvars, probed = memo[fn]
             arg = node.func.id
-            if arg not in ops_kernels and arg not in kvars:
-                continue
-            if probed or mod.allowed(node, ALLOW):
+            fns = scope(arg, mod.enclosing_funcs(node))
+            if not fns or any(facts(fn)[1] for fn in fns) \
+                    or mod.allowed(node, ALLOW):
                 continue
             add(Finding(
                 "R105", mod.relpath, node.lineno, node.col_offset,
                 mod.scope_of(node), f"probe:{arg}",
-                f"kernel call {arg}(...) but {fn.name} threads no "
+                f"kernel call {arg}(...) but {fns[-1].name} threads no "
                 f"MeasuredIters/_queue_iters probe — the extraction term "
                 f"degrades to modeled"))
 

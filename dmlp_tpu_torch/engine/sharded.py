@@ -79,11 +79,14 @@ from dmlp_tpu_torch.engine.finalize import (boundary_overflow, finalize_host,
                                             lowp_eps,
                                             repair_boundary_overflow,
                                             staging_eps)
-from dmlp_tpu_torch.engine.single import (ChunkThrottle, MeasuredIters,
-                                          _device_epilogue, fit_blocks,
-                                          flush_measured_iters, hetk_split,
-                                          plan_chunks, put, resilient_get,
-                                          resolve_kcap, round_up)
+from dmlp_tpu_torch.engine.chunks import (MeasuredIters, OutlierFold,
+                                          add_phase, device_full_results,
+                                          fold_chunks,
+                                          flush_measured_iters, put,
+                                          resilient_get)
+from dmlp_tpu_torch.engine.single import (fit_blocks, hetk_split,
+                                          plan_chunks, resolve_kcap,
+                                          round_up)
 from dmlp_tpu_torch.io.grammar import KNNInput, QueryBatch, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
 from dmlp_tpu_torch.obs import comms as obs_comms
@@ -92,9 +95,8 @@ from dmlp_tpu_torch.obs import trace as obs_trace
 from dmlp_tpu_torch.obs.trace import span as obs_span
 from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
                                           prune_enabled, prune_mask)
-from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
-                                     select_topk, streaming_fallback,
-                                     streaming_topk)
+from dmlp_tpu_torch.ops.topk import (TopK, init_topk, select_topk,
+                                     streaming_fallback, streaming_topk)
 from dmlp_tpu_torch.parallel.collectives import (allgather_merge_topk, move,
                                                  broadcast_from_root,
                                                  broadcast_object,
@@ -506,10 +508,7 @@ class ShardedEngine:
         return out
 
     def _phase(self, name: str, t0: float) -> float:
-        now = time.perf_counter()
-        self.last_phase_ms[name] = self.last_phase_ms.get(name, 0.0) \
-            + (now - t0) * 1e3
-        return now
+        return add_phase(self.last_phase_ms, name, t0)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -586,7 +585,8 @@ class ShardedEngine:
         running (qloc, k) lists of its query shard with the extraction
         kernel (global ids affine per piece: id = r * shard_rows + toff +
         j, the kernel's id contract), and the router's outliers through
-        the streaming fold on the same pieces. ``chunk(toff, n_real)``
+        the streaming fold on the same pieces, on the chunk loop of
+        ``engine.chunks.fold_chunks``. ``chunk(toff, n_real)``
         hands over the piece at row ``toff`` of the shard on the device,
         ``chunk_rows`` rows of which the first ``n_real`` are real: where
         the pieces come from is the caller's. A piece that the prune mask
@@ -601,34 +601,33 @@ class ShardedEngine:
         rr = self.coords[0]
         dev = self.device
         kern = _kernel(plan["impl"])
-        od = oi = carry_o = None
-        if outl is not None:
-            ostep = make_block_step(outl["select"], outl["k"],
-                                    self.config.use_pallas)
-            carry_o = init_topk(outl["qloc"], outl["k"], dev)
-        throttle = ChunkThrottle(dev)
+        od = oi = None
+        side = None if outl is None else OutlierFold(
+            qo_dev, labels_dev, outl["k"], outl["select"],
+            self.config.use_pallas)
         mi = MeasuredIters(self, plan["impl"], (qloc, ck, na, k),
                            integer=plan.get("integer", False))
-        with obs_span("sharded.enqueue_chunked", chunks=nchunks, kc=k,
-                      impl=plan["impl"]):
+
+        def pieces():
             for t in range(nchunks):
                 if keep is not None and not keep[rr][t]:
                     continue
                 toff = t * ck
                 id_base, n_real = _chunk_span(n, rr, shard_rows, toff, ck)
-                if n_real == 0:
-                    continue
-                da = chunk(toff, n_real)
-                od, oi, iters = kern(q_dev, da, od, oi, n_real=n_real,
-                                     id_base=id_base, kc=k, precision=prec)
-                mi.add(iters)
-                if outl is not None:
-                    iota = torch.arange(ck, dtype=torch.int32, device=dev)
-                    bids = torch.where(iota < n_real, id_base + iota, -1)
-                    carry_o = ostep(carry_o, qo_dev, da,
-                                    labels_dev[toff:toff + ck], bids)
-                throttle.tick()
-                telemetry.sample_memory_now()
+                if n_real:
+                    yield chunk(toff, n_real), toff, id_base, n_real
+
+        def fold(da, toff, id_base, n_real):
+            nonlocal od, oi
+            od, oi, iters = kern(q_dev, da, od, oi, n_real=n_real,
+                                 id_base=id_base, kc=k, precision=prec)
+            mi.add(iters)
+            if side is not None:
+                side(da, toff, id_base, n_real)
+
+        with obs_span("sharded.enqueue_chunked", chunks=nchunks, kc=k,
+                      impl=plan["impl"]):
+            fold_chunks(pieces(), fold, dev)
             mi.done()
             if od is None:     # every piece of this shard pruned or empty
                 empty = init_topk(qloc, k, dev)
@@ -636,7 +635,7 @@ class ShardedEngine:
             base = rr * shard_rows
             top = TopK(od, _labels_for_ids(oi, labels_dev, base), oi)
             self._sync()
-        return top, carry_o
+        return top, None if side is None else side.carry
 
     def _merge_gather(self, top: TopK, k: int, t0: float,
                       carry_o: Optional[TopK] = None,
@@ -909,7 +908,7 @@ class ShardedEngine:
         """Every rank: the all-device pipeline (the reference's benchmark
         mode) over the mesh — the same dense segments (no prune plan, no
         repair), then on rank 0 the vote and the report order on its card
-        in f32 over the gathered lists (``engine.single._device_epilogue``);
+        in f32 over the gathered lists (``engine.chunks.device_epilogue``);
         only the (Q, K) predictions, report ids and f32 distances are
         fetched, and they are the result.
 
@@ -927,50 +926,21 @@ class ShardedEngine:
                 flush_measured_iters(self)
                 return None
             n = inp.params.num_data
-            num_labels = int(inp.labels.max()) + 1 if n else 1
-            merged: List[QueryResult] = [None] * inp.params.num_queries
-            for top, qpad, idx, _select in segments:
-                sub = inp if idx is None else subset_queries(inp, idx)
-                gids = np.arange(sub.params.num_queries) if idx is None \
-                    else idx
-                for res in self._epilogue_results(top, sub.ks, qpad,
-                                                  num_labels, gids):
-                    merged[res.query_id] = res
+            merged = self._epilogue_results(
+                segments, inp.ks, int(inp.labels.max()) + 1 if n else 1)
         flush_measured_iters(self)
         return merged
 
-    def _epilogue_results(self, top: TopK, ks: np.ndarray, qpad: int,
-                          num_labels: int, ids) -> List[QueryResult]:
-        """Rank 0, after a device-full solve's gather: the vote and the
-        report order on its card in f32 over the gathered (qpad, K) lists
-        (``engine.single._device_epilogue``), the readback of the (Q, K)
-        predictions, report ids and f32 distances, and one
-        ``QueryResult`` for each of the ``len(ks)`` real queries, the i-th
-        under the id ``ids[i]``. Spans and phases ``epilogue``, ``fetch``
-        and ``finalize`` (``sharded.*``), added up over a solve's
-        segments."""
-        nq = len(ks)
-        ks_pad = np.zeros(qpad, np.int32)
-        ks_pad[:nq] = ks
-        t0 = time.perf_counter()
-        with obs_span("sharded.epilogue"):
-            top = TopK(*(move(t, self.device, "sharded.epilogue_stage")
-                         for t in top))
-            out = _device_epilogue(top, put(ks_pad, self.device,
-                                            "sharded.epilogue_stage"),
-                                   num_labels=num_labels)
-        t0 = self._phase("epilogue", t0)
-        with obs_span("sharded.fetch"):
-            pred, rids, rd = resilient_get(list(out), site=self._fetch_site)
-        t0 = self._phase("fetch", t0)
-        with obs_span("sharded.finalize"):
-            rd = rd.astype(np.float64)
-            results = [QueryResult(int(ids[qi]), int(ks[qi]), int(pred[qi]),
-                                   rids[qi, :ks[qi]].astype(np.int64),
-                                   rd[qi, :ks[qi]])
-                       for qi in range(nq)]
-        self._phase("finalize", t0)
-        return results
+    def _epilogue_results(self, segments, ks: np.ndarray,
+                          num_labels: int) -> List[QueryResult]:
+        """Rank 0, after a device-full solve's gather: the epilogue over
+        the gathered lists (``engine.chunks.device_full_results``), with
+        spans and phases ``epilogue``, ``fetch`` and ``finalize``
+        (``sharded.*``), added up over the segments."""
+        return device_full_results(
+            segments, ks, num_labels, self.device, self.last_phase_ms,
+            "sharded", own_epilogue=True, put_site="sharded.epilogue_stage",
+            fetch_site=self._fetch_site)
 
     # -- the held shard (every rank) -----------------------------------------
     def hold_shard(self, attrs: torch.Tensor, labels: torch.Tensor,
@@ -1143,8 +1113,8 @@ class ShardedEngine:
                 flush_measured_iters(self)
                 return None
             results = self._epilogue_results(
-                top, qb.ks, c * plan["qloc"], held.num_labels,
-                np.arange(plan["nq"]))
+                [(top, c * plan["qloc"], None, "extract")], qb.ks,
+                held.num_labels)
         flush_measured_iters(self)
         return results
 

@@ -35,7 +35,8 @@ The kernels' launch knobs (S of K1/K2, G of K3) and the prune scoring's
 block chunk resolve through the tune cache (``tune.cache``) where it
 holds a measured winner, else through their heuristics. On the CPU every
 kernel runs its plain PyTorch version. The mesh engines are
-``engine.sharded``.
+``engine.sharded``. Every chunked path folds its staged chunks through
+the chunk loop the mesh engine shares, ``engine.chunks.fold_chunks``.
 
 Observability (``dmlp_tpu_torch.obs``), each hook one module-global read
 when it is off: the reference's spans (``single.prune_score``,
@@ -53,8 +54,8 @@ writes, counted as ``host_cast_bytes``, on the innermost open span and
 rolled up into the root; the memory model and sampler ticks at peak
 residency, ``last_comms`` (empty: one device runs no collective), and
 with a cost probe installed the K1/K2 ``iters`` summed on the device per
-launch shape (:class:`MeasuredIters`) and read back once, after the
-solve's fetch.
+launch shape (``engine.chunks.MeasuredIters``) and read back once,
+after the solve's fetch.
 
 ``last_phase_ms`` splits each solve on the host's clock, tracer or not:
 ``enqueue`` (planning, staging and launches, from which ``copy`` and
@@ -65,15 +66,20 @@ counts the casts inside the loop), ``fetch`` and ``finalize``.
 
 from __future__ import annotations
 
-import os
 import time
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from dmlp_tpu_torch.check.sanitize import fenced, readback
 from dmlp_tpu_torch.config import EngineConfig
+from dmlp_tpu_torch.engine.chunks import (ChunkThrottle, MeasuredIters,
+                                          OutlierFold,
+                                          device_full_results, fold_chunks,
+                                          flush_measured_iters, host_block,
+                                          host_staging, put,
+                                          resilient_get, stage,
+                                          staging_dtype)
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
                                             EPS_REL_F32, LOWP_COEF,
                                             boundary_hazard, finalize_host,
@@ -82,7 +88,6 @@ from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
                                             staging_eps)
 from dmlp_tpu_torch.io.grammar import KNNInput, subset_queries
 from dmlp_tpu_torch.io.report import QueryResult
-from dmlp_tpu_torch.obs import counters as obs_counters
 from dmlp_tpu_torch.obs import memwatch, telemetry
 from dmlp_tpu_torch.obs import trace as obs_trace
 from dmlp_tpu_torch.obs.trace import span as obs_span
@@ -92,17 +97,12 @@ from dmlp_tpu_torch.ops.summaries import (build_summaries, note_scan,
 from dmlp_tpu_torch.ops.topk import (TopK, init_topk, make_block_step,
                                      select_topk, streaming_fallback,
                                      streaming_topk)
-from dmlp_tpu_torch.ops.vote import majority_vote, report_order
 from dmlp_tpu_torch.resilience import degrade as rs_degrade
 from dmlp_tpu_torch.resilience import inject as rs_inject
-from dmlp_tpu_torch.resilience import retry as rs_retry
 
 # Per-chunk distance-tile budget of the "topk" driver (bytes): the live
 # (query rows x chunk rows) f32 tile stays below it.
 _TILE_BUDGET = 1 << 30
-
-# Max staged-but-unfolded chunks in flight (the reference's window).
-_CHUNK_WINDOW = 8
 
 # Widest k a bfloat16-staged resident engine serves (the reference's
 # constant): the bf16 kcap margin (96 + k/2, resolve_kcap) was calibrated
@@ -111,174 +111,8 @@ _CHUNK_WINDOW = 8
 _BF16_AUTO_K_CAP = 512
 
 
-class ChunkThrottle:
-    """Sliding-window backpressure for chunked staging: ``tick()`` after
-    each chunk's fold records a CUDA event on the current stream and waits
-    on the one from ``window`` chunks back, so at most that many staged
-    chunks are in flight on the card. Each host wait is the span
-    ``single.chunk_wait``; ``take_wait_s()`` hands over their sum since
-    the last call. On the CPU every step is already synchronous and
-    ``tick`` does nothing."""
-
-    def __init__(self, device: torch.device, window: int = _CHUNK_WINDOW):
-        self._cuda = device.type == "cuda"
-        self._window = window
-        self._pending: list = []
-        self._wait_s = 0.0
-
-    def tick(self) -> None:
-        if not self._cuda:
-            return
-        ev = torch.cuda.Event()
-        ev.record()
-        self._pending.append(ev)
-        if len(self._pending) > self._window:
-            t0 = time.perf_counter()
-            # The backpressure fence is a deliberate host wait.
-            with obs_span("single.chunk_wait"), \
-                    fenced("single.chunk_throttle"):
-                self._pending.pop(0).synchronize()
-            self._wait_s += time.perf_counter() - t0
-
-    def take_wait_s(self) -> float:
-        """Seconds the host waited since the last call."""
-        s, self._wait_s = self._wait_s, 0.0
-        return s
-
-
-class MeasuredIters:
-    """Per launch shape, the sum of K1/K2's ``iters`` outputs on the
-    device while a cost probe is installed (one tiny reduction per launch,
-    none without a probe); ``done()`` queues it on the engine for
-    :func:`flush_measured_iters` after the solve's fetch."""
-
-    def __init__(self, engine, impl: str, shape: Tuple[int, int, int, int],
-                 integer: bool = False):
-        self._on = obs_counters.active() is not None
-        self._engine = engine
-        if integer:     # the integer kernel's launches (uint8 operands)
-            self._kernel = "fused_topk_u8" if impl == "fused" \
-                else "extract_topk_u8"
-        else:
-            self._kernel = "fused_topk" if impl == "fused" \
-                else "extract_topk"
-        self._shape = tuple(int(v) for v in shape)
-        self._sum = None
-
-    def add(self, iters: torch.Tensor) -> None:
-        if self._on:
-            s = iters.sum()
-            self._sum = s if self._sum is None else self._sum + s
-
-    def done(self) -> None:
-        if self._sum is not None:
-            self._engine._pending_iters.append(
-                (self._kernel, self._sum, self._shape))
-
-
-def flush_measured_iters(engine) -> None:
-    """Read back the engine's queued ``iters`` sums (the solve's results
-    are fetched already, so this waits on nothing) and hand them to the
-    installed probe: the measured extraction term of obs.kernel_cost."""
-    pend = getattr(engine, "_pending_iters", [])
-    engine._pending_iters = []
-    for kernel, total, shape in pend:
-        total = int(readback(  # check: allow-host-sync
-            total, "single.measured_iters"))
-        obs_counters.record_measured_iters(kernel, total, shape)
-
-
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def staging_dtype(staging: str) -> torch.dtype:
-    return torch.bfloat16 if staging == "bfloat16" else torch.float32
-
-
-def pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``t`` pinned when the copy goes to the card (so the host-to-device
-    copy can run asynchronously), traced as ``single.pin``; ``t`` itself
-    for the CPU."""
-    if device.type != "cuda":
-        return t
-    with obs_span("single.pin", bytes=t.nbytes):
-        return t.pin_memory()
-
-
-def host_block(shape: Tuple[int, int], dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
-    """A fresh, uninitialised host tensor, pinned when the copy goes to
-    the card, traced as ``single.pin``. Pinned blocks come from PyTorch's
-    caching host allocator, which keeps them from one solve to the next
-    and hands a block out again only once the event of every asynchronous
-    copy from it has completed. On the CPU every call is a new tensor:
-    ``stage`` hands the host tensor itself on there, so a staged chunk
-    never shares memory with a later one."""
-    if device.type != "cuda":
-        return torch.empty(shape, dtype=dtype)
-    with obs_span("single.pin",
-                  bytes=shape[0] * shape[1] * dtype.itemsize):
-        return torch.empty(shape, dtype=dtype, pin_memory=True)
-
-
-def host_staging(arr: np.ndarray, device: torch.device,
-                 staging: str = "float32") -> torch.Tensor:
-    """A host tensor in the staging dtype, pinned when the copy goes to
-    the card."""
-    return pinned(torch.from_numpy(np.ascontiguousarray(arr)).to(
-        staging_dtype(staging)), device)
-
-
-def put(arr: np.ndarray, device: torch.device,
-        site: str = "single.put") -> torch.Tensor:
-    """A small host array on ``device`` by a blocking copy: explicit
-    staging, the port's ``jax.device_put``, fenced as ``site`` for the
-    sanitizer (a pageable host-to-device copy synchronizes)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    with fenced(site):
-        out = t.to(device)
-    obs_trace.count("h2d_bytes", t.nbytes)
-    return out
-
-
-def stage(host: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Host-to-device copy, asynchronous from pinned memory: the staging
-    chokepoint of every solve path, so it is the ``single.stage_put``
-    injection site, and a transient failure retries the copy (copying the
-    same host tensor again is idempotent). The bytes handed over count
-    once, as ``h2d_bytes``, however many attempts it took."""
-    def _op():
-        rs_inject.fire("single.stage_put")
-        return host.to(device, non_blocking=True)
-
-    out = rs_retry.call_with_retry(_op, "single.stage_put")
-    obs_trace.count("h2d_bytes", host.nbytes)
-    return out
-
-
-def resilient_get(values: List[torch.Tensor], site: str = "single.fetch"
-                  ) -> List[np.ndarray]:
-    """Readback of device tensors to numpy (the fetch is the solve's
-    fence), at the ``single.fetch`` injection site with the transient
-    retry: reading values already computed again is idempotent.
-    ``$DMLP_TPU_OP_TIMEOUT_S`` (off by default) bounds each attempt with a
-    worker-thread deadline whose ``OperationTimeout`` retries; with
-    ``DMLP_TPU_RESILIENCE=0`` the read is a direct call."""
-    deadline = float(os.environ.get("DMLP_TPU_OP_TIMEOUT_S", "0") or 0)
-
-    def _get():
-        rs_inject.fire(site)
-        # The solve's fence, inside the timeout's worker thread when
-        # there is one (the sanitizer's CUDA layer is process-wide).
-        return readback(list(values), site)  # check: allow-host-sync
-
-    def _op():
-        if deadline > 0 and rs_retry.resilience_enabled():
-            return rs_retry.call_with_timeout(_get, deadline, site=site)
-        return _get()
-
-    return rs_retry.call_with_retry(_op, site)
 
 
 def plan_chunks(n: int, granule: int, target: int | None) -> Tuple[int, int, int]:
@@ -407,21 +241,6 @@ def active_precision(engine) -> str:
     return engine.config.resolve_precision()
 
 
-def _outlier_fold(carry: TopK, q: torch.Tensor, battrs: torch.Tensor,
-                  labels_all: torch.Tensor, lo: int, n_real: int, *,
-                  k: int, select: str, use_pallas: bool) -> TopK:
-    """Fold one already-staged data chunk into the wide-k outlier queries'
-    running top-k. The chunk's labels are a slice of the once-staged
-    padded label vector and its ids come from its row range, masked at
-    ``n_real``: the outliers add no host-to-device attribute traffic."""
-    rows = battrs.shape[0]
-    blabels = labels_all[lo:lo + rows]
-    ri = torch.arange(lo, lo + rows, dtype=torch.int32, device=q.device)
-    bids = torch.where(ri < n_real, ri, -1)
-    step = make_block_step(select, k, use_pallas)
-    return step(carry, q, battrs, blabels, bids)
-
-
 def _mp_floor(od: torch.Tensor, qn: torch.Tensor, dn_max: torch.Tensor, *,
               staging: str, na: int, precision: str = "f32"):
     """Next-pass floor of the multi-pass driver, on the device (passes
@@ -478,15 +297,6 @@ def extract_finalize(od: torch.Tensor, oi: torch.Tensor,
                          glabels[torch.clamp(oi.long(), 0, max(n - 1, 0))],
                          -1).to(torch.int32)
     return select_topk(od, labels, oi, k)
-
-
-def _device_epilogue(top: TopK, ks: torch.Tensor, *, num_labels: int):
-    """Vote and report order on the device over (Q, K) selection-ordered
-    lists, the reference's result post-processing (engine.cpp:314-347):
-    (predicted (Q,), report ids (Q, K), report f32 distances (Q, K))."""
-    rd, rids, in_k = report_order(top, ks)
-    valid = in_k & (top.ids >= 0)
-    return majority_vote(top.labels, valid, num_labels), rids, rd
 
 
 class SingleChipEngine:
@@ -591,15 +401,10 @@ class SingleChipEngine:
         ms["copy"] = ms.get("copy", 0.0) + (time.perf_counter() - t1) * 1e3
         return dst
 
-    def _host_queries(self, query_attrs: np.ndarray,
-                      qpad: int) -> torch.Tensor:
-        """The queries padded with zero rows to ``qpad``, as one host
-        tensor in the staging dtype."""
-        return self._host_padded(query_attrs, qpad)
-
     def _stage_queries(self, query_attrs: np.ndarray,
                        qpad: int) -> torch.Tensor:
-        return stage(self._host_queries(query_attrs, qpad), self.device)
+        """The queries padded with zero rows to ``qpad``, on the device."""
+        return stage(self._host_padded(query_attrs, qpad), self.device)
 
     def _host_chunk(self, inp: KNNInput, lo: int, rows: int) -> torch.Tensor:
         """The chunk of ``rows`` dataset rows from ``lo``, zero rows past
@@ -609,26 +414,20 @@ class SingleChipEngine:
         return self._host_padded(inp.data_attrs[lo:lo + rows], rows,
                                  chunk=lo // rows)
 
-    def _loop_clock(self) -> Tuple[float, float]:
-        """The start of a chunk loop for ``_note_chunk_loop``: the clock
-        and the ``copy`` and ``pin`` milliseconds so far."""
-        ms = self.last_phase_ms
-        return (time.perf_counter(),
-                ms.get("copy", 0.0) + ms.get("pin", 0.0))
-
-    def _note_chunk_loop(self, t_loop: Tuple[float, float],
-                         throttle: ChunkThrottle) -> None:
-        """Add a chunk loop's host time since ``t_loop`` (``_loop_clock``)
-        to ``last_phase_ms``: the chunk window's waits as ``chunk_wait``,
-        the rest (the stage calls and launches) less the casts and pins
-        the loop added to ``copy`` and ``pin`` as ``launch``."""
-        t0, host0 = t_loop
-        wait = throttle.take_wait_s() * 1e3
-        ms = self.last_phase_ms
-        host = ms.get("copy", 0.0) + ms.get("pin", 0.0) - host0
-        ms["chunk_wait"] = ms.get("chunk_wait", 0.0) + wait
-        ms["launch"] = ms.get("launch", 0.0) \
-            + (time.perf_counter() - t0) * 1e3 - wait - host
+    def _fold_staged(self, inp: KNNInput, schedule, rows: int, fold,
+                     **kw) -> int:
+        """``fold_chunks`` over the chunks of ``schedule`` (indices of
+        ``rows``-row chunks, the first row of each its first id), each cast
+        (``_host_chunk``) and staged as the loop asks for it, the loop's
+        time into ``last_phase_ms``; returns the bytes scanned."""
+        n = inp.params.num_data
+        staged = ((stage(self._host_chunk(inp, lo, rows), self.device), lo,
+                   lo, max(min(rows, n - lo), 0))
+                  for lo in (c * rows for c in schedule))
+        return fold_chunks(staged, fold, self.device,
+                           row_bytes=inp.params.num_attrs
+                           * self._staging_itemsize(),
+                           phase_ms=self.last_phase_ms, **kw)
 
     def _padded_ids_labels(self, inp: KNNInput, rows: int):
         """(labels, ids) padded to ``rows`` with -1, on the device."""
@@ -693,32 +492,24 @@ class SingleChipEngine:
 
         dev = self.device
         # One staged tensor per query block, as the reference stages them.
-        q_host = self._host_queries(inp.query_attrs, qpad)
+        q_host = self._host_padded(inp.query_attrs, qpad)
         q_dev = [stage(q_host[b * qsb:(b + 1) * qsb], dev)
                  for b in range(nqb)]
         schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
         d_labels, d_ids = self._padded_ids_labels(inp, nchunks * chunk_rows)
         step = make_block_step(select, k, cfg.use_pallas)
         carries = [init_topk(qsb, k, dev) for _ in range(nqb)]
-        throttle = ChunkThrottle(dev)
-        scanned = 0
-        t_loop = self._loop_clock()
+
+        def fold(da, lo, _id_base, _n_real):
+            for b in range(nqb):
+                carries[b] = step(carries[b], q_dev[b], da,
+                                  d_labels[lo:lo + chunk_rows],
+                                  d_ids[lo:lo + chunk_rows])
+
         with obs_span("single.enqueue_pipelined", select=select,
                       chunks=nchunks, scheduled=len(schedule), qblocks=nqb,
                       k=k):
-            for c in schedule:
-                lo, hi = c * chunk_rows, (c + 1) * chunk_rows
-                da = stage(self._host_chunk(inp, lo, chunk_rows), dev)
-                scanned += max(min(hi, n) - lo, 0) * na \
-                    * self._staging_itemsize()
-                for b in range(nqb):
-                    carries[b] = step(carries[b], q_dev[b], da,
-                                      d_labels[lo:hi], d_ids[lo:hi])
-                throttle.tick()
-                # A watermark tick while the chunk is referenced (no-op
-                # without a telemetry session).
-                telemetry.sample_memory_now()
-        self._note_chunk_loop(t_loop, throttle)
+            scanned = self._fold_staged(inp, schedule, chunk_rows, fold)
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
                   blocks_total=nchunks,
@@ -726,11 +517,15 @@ class SingleChipEngine:
         self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
         return TopK(*(torch.cat(parts) for parts in zip(*carries))), qpad
 
-    def _solve_extract(self, inp: KNNInput) -> Tuple[TopK, int] | None:
-        """Chunked staging + the extraction kernel ("extract"). Chunks
-        are contiguous row ranges, so the kernel's ids are affine (id_base
-        = chunk start). None for an empty problem or when the kernel
-        cannot take the shape (the caller then streams)."""
+    def _solve_extract(self, inp: KNNInput, split=None):
+        """Chunked staging + the extraction kernel ("extract"), as a
+        segment list for run(). Chunks are contiguous row ranges, so the
+        kernel's ids are affine (id_base = chunk start). With the router's
+        ``split`` (bulk, outlier query indices: ``hetk_split``) the kernel
+        takes the bulk and the wide-k outliers fold through the streaming
+        select on the same staged chunks: each chunk is staged once, and
+        the solve is two segments. None for an empty problem or when the
+        kernel cannot take the shape (the caller then streams)."""
         from dmlp_tpu_torch.ops import fused
         from dmlp_tpu_torch.ops.extract import QUERY_TILE
 
@@ -740,14 +535,16 @@ class SingleChipEngine:
         nq = inp.params.num_queries
         if n == 0 or nq == 0:
             return None
-        rs_inject.fire("single.extract_solve", rung=self._degrade_rung,
-                       path="single")
+        if split is None:
+            rs_inject.fire("single.extract_solve", rung=self._degrade_rung,
+                           path="single")
+        bulk = None if split is None else split[0]
+        ks = inp.ks if bulk is None else inp.ks[bulk]
         granule = cfg.resolve_granule("extract")
         t0 = time.perf_counter()
         _, nchunks, chunk_rows = plan_chunks(n, granule, cfg.data_block)
-        qpad = round_up(nq, QUERY_TILE)
-        kmax = int(inp.ks.max())
-        k = resolve_kcap(cfg, kmax, "extract", nchunks * chunk_rows,
+        qpad = round_up(len(ks), QUERY_TILE)
+        k = resolve_kcap(cfg, int(ks.max()), "extract", nchunks * chunk_rows,
                          staging=self._staging)
         kern, impl = fused.resolve_topk_kernel(qpad, chunk_rows, na, k,
                                                rung=self._degrade_rung)
@@ -756,30 +553,43 @@ class SingleChipEngine:
         prec = active_precision(self)
         self._last_select = "extract"
         self.last_extract_impl = impl
+        if split is not None:
+            self.last_hetk = (int(split[0].size), int(split[1].size))
+            rs_inject.fire("single.extract_solve", rung=self._degrade_rung,
+                           path="routed")
 
+        # One schedule for both query sets (they ride the same per-query
+        # ks): the shared sweep skips only a chunk no query can need.
         schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
         # An all-padding final chunk is never staged.
         live = [c for c in schedule if c * chunk_rows < n]
         dev = self.device
-        q_dev = self._stage_queries(inp.query_attrs, qpad)
-        od = oi = None   # the first survivor starts the lists fresh
-        scanned = 0
-        throttle = ChunkThrottle(dev)
+        q_dev = self._stage_queries(
+            inp.query_attrs if bulk is None else inp.query_attrs[bulk], qpad)
+        od = oi = outl = None   # the first survivor starts the lists
+        if split is not None:
+            select_out = streaming_fallback(cfg.use_pallas)
+            qo_pad = round_up(len(split[1]), 8)
+            outl = OutlierFold(
+                self._stage_queries(inp.query_attrs[split[1]], qo_pad),
+                self._padded_ids_labels(inp, nchunks * chunk_rows)[0],
+                resolve_kcap(cfg, int(inp.ks[split[1]].max()), select_out,
+                             nchunks * chunk_rows, staging=self._staging),
+                select_out, cfg.use_pallas)
         mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, k))
-        t_loop = self._loop_clock()
+
+        def fold(da, lo, id_base, n_real):
+            nonlocal od, oi
+            od, oi, iters = kern(q_dev, da, od, oi, n_real=n_real,
+                                 id_base=id_base, kc=k, precision=prec)
+            mi.add(iters)
+            if outl is not None:
+                outl(da, lo, id_base, n_real)
+
+        routed = {} if split is None else {"outliers": len(split[1])}
         with obs_span("single.enqueue_extract", chunks=nchunks, kc=k,
-                      impl=impl, scheduled=len(live)):
-            for c in live:
-                lo = c * chunk_rows
-                hi = min(lo + chunk_rows, n)
-                da = stage(self._host_chunk(inp, lo, chunk_rows), dev)
-                scanned += (hi - lo) * na * self._staging_itemsize()
-                od, oi, iters = kern(q_dev, da, od, oi, n_real=hi - lo,
-                                     id_base=lo, kc=k, precision=prec)
-                mi.add(iters)
-                throttle.tick()
-                telemetry.sample_memory_now()   # staging window live
-        self._note_chunk_loop(t_loop, throttle)
+                      impl=impl, scheduled=len(live), **routed):
+            scanned = self._fold_staged(inp, live, chunk_rows, fold)
         mi.done()
         note_scan(self, scanned_bytes=scanned,
                   dense_bytes=n * na * self._staging_itemsize(),
@@ -790,7 +600,11 @@ class SingleChipEngine:
         # launches still queued.
         with obs_span("single.extract_epilogue"):
             glabels = put(inp.labels.astype(np.int32), dev)
-            return extract_finalize(od, oi, glabels, k), qpad
+            top = extract_finalize(od, oi, glabels, k)
+        if split is None:
+            return [(top, qpad, None, "extract")]
+        return [(top, qpad, bulk, "extract"),
+                (outl.carry, qo_pad, split[1], outl.select)]
 
     def _solve_extract_multipass(self, inp: KNNInput):
         """All-wide-k solve on the extraction kernel in P floor-raised
@@ -870,17 +684,16 @@ class SingleChipEngine:
         od = oi = None
         throttle = ChunkThrottle(dev)
         mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, kc))
-        t_loop = self._loop_clock()
-        for c in range(n_staged):
-            lo = c * chunk_rows
-            hi = min(lo + chunk_rows, n)
-            chunks.append(stage(self._host_chunk(inp, lo, chunk_rows),
-                                dev))
-            od, oi, iters = kern(q_dev, chunks[-1], od, oi, n_real=hi - lo,
-                                 id_base=lo, kc=kc, precision=prec)
+
+        def fold(da, lo, id_base, n_real):
+            nonlocal od, oi
+            chunks.append(da)
+            od, oi, iters = kern(q_dev, da, od, oi, n_real=n_real,
+                                 id_base=id_base, kc=kc, precision=prec)
             mi.add(iters)
-            throttle.tick()
-        self._note_chunk_loop(t_loop, throttle)
+
+        self._fold_staged(inp, range(n_staged), chunk_rows, fold,
+                          throttle=throttle)
         mi.done()
         ods, ois = [od], [oi]
 
@@ -899,19 +712,20 @@ class SingleChipEngine:
         del chunks
         fds = []
         mir = MeasuredIters(self, impl, (qpad, full_rows, na, kc))
-        t_loop = self._loop_clock()
-        for _ in range(1, npasses):
+
+        def sweep(d, _lo, _id_base, _n_real):
             floor, fd = _mp_floor(ods[-1], qn_dev, dn_dev,
                                   staging=self._staging, na=na,
                                   precision=prec)
             fds.append(fd)
-            od, oi, iters = kern_full(q_dev, d_full, n_real=n, id_base=0,
-                                      kc=kc, floor=floor, precision=prec)
+            od, oi, iters = kern_full(q_dev, d, n_real=n, id_base=0, kc=kc,
+                                      floor=floor, precision=prec)
             mir.add(iters)
-            throttle.tick()
             ods.append(od)
             ois.append(oi)
-        self._note_chunk_loop(t_loop, throttle)
+
+        fold_chunks(((d_full, 0, 0, n) for _ in range(1, npasses)), sweep,
+                    dev, phase_ms=self.last_phase_ms, throttle=throttle)
         mir.done()
         # The last pass's fd too: a plateau pinning the last boundary
         # flags as well.
@@ -949,88 +763,12 @@ class SingleChipEngine:
         # The "streaming" rung launches no extraction kernel: the
         # chunk fold below keeps no running-list kernel state.
         if select == "extract" and self._degrade_rung != "streaming":
-            out = self._solve_extract(inp)
-            if out is not None:
-                return out
+            segs = self._solve_extract(inp)
+            if segs is not None:
+                return segs[0][:2]
             # Empty problem, or a shape the extraction kernel cannot take:
             # the chunk fold on the streaming select.
         return self._solve_pipelined(inp)
-
-    def _solve_extract_routed(self, inp: KNNInput, plan):
-        """Split solve: the extraction kernel for the bulk queries and the
-        streaming fold for the wide-k outliers, sharing one staging pass.
-        Each chunk is staged once; the bulk's kernel launch and the
-        outliers' fold run on the same device tensor. Returns a segment
-        list for run(), or None when the bulk shape cannot tile."""
-        from dmlp_tpu_torch.ops import fused
-        from dmlp_tpu_torch.ops.extract import QUERY_TILE
-
-        bulk, outl = plan
-        cfg = self.config
-        n = inp.params.num_data
-        na = inp.params.num_attrs
-        granule = cfg.resolve_granule("extract")
-        t0 = time.perf_counter()
-        _, nchunks, chunk_rows = plan_chunks(n, granule, cfg.data_block)
-        qpad_b = round_up(len(bulk), QUERY_TILE)
-        kb = resolve_kcap(cfg, int(inp.ks[bulk].max()), "extract",
-                          nchunks * chunk_rows, staging=self._staging)
-        kern, impl = fused.resolve_topk_kernel(qpad_b, chunk_rows, na, kb,
-                                               rung=self._degrade_rung)
-        if kern is None:
-            return None
-        select_out = streaming_fallback(cfg.use_pallas)
-        ko = resolve_kcap(cfg, int(inp.ks[outl].max()), select_out,
-                          nchunks * chunk_rows, staging=self._staging)
-        prec = active_precision(self)
-        self._last_select = "extract"
-        self.last_extract_impl = impl
-        self.last_hetk = (int(bulk.size), int(outl.size))
-        rs_inject.fire("single.extract_solve", rung=self._degrade_rung,
-                       path="routed")
-
-        dev = self.device
-        qb_dev = self._stage_queries(inp.query_attrs[bulk], qpad_b)
-        qo_pad = round_up(len(outl), 8)
-        qo_dev = self._stage_queries(inp.query_attrs[outl], qo_pad)
-        labels_dev, _ = self._padded_ids_labels(inp, nchunks * chunk_rows)
-        # One schedule for both query sets (they ride the same per-query
-        # ks): the shared sweep skips only a chunk no query of either
-        # segment can need.
-        schedule, pruned = self._plan_prune(inp, nchunks, chunk_rows)
-        live = [c for c in schedule if c * chunk_rows < n]
-        carry_o = init_topk(qo_pad, ko, dev)
-        od = oi = None
-        scanned = 0
-        throttle = ChunkThrottle(dev)
-        mi = MeasuredIters(self, impl, (qpad_b, chunk_rows, na, kb))
-        t_loop = self._loop_clock()
-        with obs_span("single.enqueue_extract", chunks=nchunks, kc=kb,
-                      impl=impl, scheduled=len(live), outliers=len(outl)):
-            for c in live:
-                lo = c * chunk_rows
-                hi = min(lo + chunk_rows, n)
-                da = stage(self._host_chunk(inp, lo, chunk_rows), dev)
-                scanned += (hi - lo) * na * self._staging_itemsize()
-                od, oi, iters = kern(qb_dev, da, od, oi, n_real=hi - lo,
-                                     id_base=lo, kc=kb, precision=prec)
-                mi.add(iters)
-                carry_o = _outlier_fold(carry_o, qo_dev, da, labels_dev, lo,
-                                        n, k=ko, select=select_out,
-                                        use_pallas=cfg.use_pallas)
-                throttle.tick()
-                telemetry.sample_memory_now()
-        self._note_chunk_loop(t_loop, throttle)
-        mi.done()
-        note_scan(self, scanned_bytes=scanned,
-                  dense_bytes=n * na * self._staging_itemsize(),
-                  blocks_total=min(nchunks, -(-n // chunk_rows)),
-                  blocks_pruned=pruned)
-        self.last_phase_ms["enqueue"] = (time.perf_counter() - t0) * 1e3
-        glabels = put(inp.labels.astype(np.int32), dev)
-        top_b = extract_finalize(od, oi, glabels, kb)
-        return [(top_b, qpad_b, bulk, "extract"),
-                (carry_o, qo_pad, outl, select_out)]
 
     def _solve_segments(self, inp: KNNInput, allow_multipass: bool = True):
         """Solve as a list of (TopK, qpad, query_idx | None, select)
@@ -1056,7 +794,7 @@ class SingleChipEngine:
             round_up(max(inp.params.num_data, 1), 8))
         if plan is not None:
             self.last_phase_ms = {}
-            segs = self._solve_extract_routed(inp, plan)
+            segs = self._solve_extract(inp, plan)
             if segs is not None:
                 return segs
         if allow_multipass and not streaming:
@@ -1204,36 +942,13 @@ class SingleChipEngine:
     def _device_full(self, inp: KNNInput) -> List[QueryResult]:
         n = inp.params.num_data
         num_labels = int(inp.labels.max()) + 1 if n else 1
-        merged: List[QueryResult] = [None] * inp.params.num_queries
         memwatch.note_engine_model(self, inp)
         self._pending_iters = []
         segments = self._solve_segments(inp, allow_multipass=False)
         telemetry.sample_memory_now()
-        fetch_ms = final_ms = 0.0
-        for top, qpad, idx, select in segments:
-            sub = inp if idx is None else subset_queries(inp, idx)
-            nq = sub.params.num_queries
-            t0 = time.perf_counter()
-            ks_pad = np.zeros(qpad, np.int32)
-            ks_pad[:nq] = sub.ks
-            with obs_span("single.fetch", select=select,
-                          kcap=top.dists.shape[1]):
-                pred, rids, rd = resilient_get(list(_device_epilogue(
-                    top, put(ks_pad, self.device),
-                    num_labels=num_labels)))
-            fetch_ms += (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            with obs_span("single.finalize"):
-                rd = rd.astype(np.float64)
-                gids = np.arange(nq) if idx is None else idx
-                for qi in range(nq):
-                    k = int(sub.ks[qi])
-                    merged[int(gids[qi])] = QueryResult(
-                        int(gids[qi]), k, int(pred[qi]),
-                        rids[qi, :k].astype(np.int64), rd[qi, :k])
-            final_ms += (time.perf_counter() - t0) * 1e3
-        self.last_phase_ms["fetch"] = fetch_ms
-        self.last_phase_ms["finalize"] = final_ms
+        merged = device_full_results(segments, inp.ks, num_labels,
+                                     self.device, self.last_phase_ms,
+                                     "single")
         self.last_repairs = 0
         self.last_prune = None
         self.last_degrade_rung = self._degrade_rung

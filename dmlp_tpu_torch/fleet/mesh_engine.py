@@ -73,12 +73,13 @@ from dmlp_tpu_torch.engine.finalize import (boundary_overflow, finalize_host,
                                             lowp_eps,
                                             repair_boundary_overflow,
                                             staging_eps)
-from dmlp_tpu_torch.engine.sharded import ShardedEngine, _labels_for_ids
-from dmlp_tpu_torch.engine.single import (_BF16_AUTO_K_CAP, ChunkThrottle,
-                                          MeasuredIters, fit_blocks,
+from dmlp_tpu_torch.engine.chunks import (ChunkThrottle, MeasuredIters,
                                           flush_measured_iters, host_staging,
-                                          plan_chunks, put, resilient_get,
-                                          resolve_kcap, round_up, stage)
+                                          put, resilient_get, stage)
+from dmlp_tpu_torch.engine.sharded import ShardedEngine, _labels_for_ids
+from dmlp_tpu_torch.engine.single import (_BF16_AUTO_K_CAP, fit_blocks,
+                                          plan_chunks, resolve_kcap,
+                                          round_up)
 from dmlp_tpu_torch.io.grammar import KNNInput, Params
 from dmlp_tpu_torch.io.report import QueryResult
 from dmlp_tpu_torch.obs import comms as obs_comms

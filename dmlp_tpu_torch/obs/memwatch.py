@@ -103,9 +103,10 @@ def single_engine_model(n: int, nq: int, na: int, kmax: int, config=None,
 
     Every term is reported; ``total_bytes`` is their sum."""
     from dmlp_tpu_torch.config import EngineConfig
-    from dmlp_tpu_torch.engine.single import (_CHUNK_WINDOW, fit_blocks,
-                                              fold_plan, plan_chunks,
-                                              resolve_kcap, round_up)
+    from dmlp_tpu_torch.engine.chunks import _CHUNK_WINDOW
+    from dmlp_tpu_torch.engine.single import (fit_blocks, fold_plan,
+                                              plan_chunks, resolve_kcap,
+                                              round_up)
     from dmlp_tpu_torch.ops.extract import KC_MAX, QUERY_TILE
 
     cfg = config or EngineConfig()
@@ -189,9 +190,9 @@ def mesh_engine_model(n: int, nq: int, na: int, kmax: int, mesh_shape,
     prices the all-gather's buffer, the worst case of a schedule DTensor
     chooses."""
     from dmlp_tpu_torch.config import EngineConfig
-    from dmlp_tpu_torch.engine.single import (_CHUNK_WINDOW, fit_blocks,
-                                              plan_chunks, resolve_kcap,
-                                              round_up)
+    from dmlp_tpu_torch.engine.chunks import _CHUNK_WINDOW
+    from dmlp_tpu_torch.engine.single import (fit_blocks, plan_chunks,
+                                              resolve_kcap, round_up)
     from dmlp_tpu_torch.ops.extract import KC_MAX, QUERY_TILE
 
     cfg = config or EngineConfig(mode=mode)
@@ -252,8 +253,9 @@ def held_shard_model(shard_rows: int, na: int, nq: int, kmax: int,
     ``iters`` of the chunks in flight and the merge buffer. Nothing is
     staged from the host."""
     from dmlp_tpu_torch.config import EngineConfig
-    from dmlp_tpu_torch.engine.single import (_CHUNK_WINDOW, plan_chunks,
-                                              resolve_kcap, round_up)
+    from dmlp_tpu_torch.engine.chunks import _CHUNK_WINDOW
+    from dmlp_tpu_torch.engine.single import (plan_chunks, resolve_kcap,
+                                              round_up)
     from dmlp_tpu_torch.ops.extract import QUERY_TILE, supports_u8
 
     cfg = config or EngineConfig(mode="sharded")

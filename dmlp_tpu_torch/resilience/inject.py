@@ -49,10 +49,10 @@ SITES: Dict[str, str] = {
                 "bytes, the parser raises ParseError, the pristine "
                 "payload is re-parsed)",
     "single.stage_put": "host->device staging of one data/query block "
-                        "(engine.single.stage — every chunked path "
+                        "(engine.chunks.stage — every chunked path "
                         "stages through it)",
     "single.fetch": "fenced device readback of candidate lists "
-                    "(engine.single.resilient_get)",
+                    "(engine.chunks.resilient_get)",
     "single.extract_solve": "extract-kernel solve dispatch "
                             "(engine.single._solve_extract*; oom faults "
                             "here drive the degradation ladder)",

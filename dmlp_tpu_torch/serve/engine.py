@@ -71,12 +71,13 @@ from dmlp_tpu_torch.check.sanitize import fenced, readback
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine.finalize import (EPS_CANCEL_COEF, EPS_REL_BF16,
                                             EPS_REL_F32, LOWP_COEF)
-from dmlp_tpu_torch.engine.single import (_BF16_AUTO_K_CAP, ChunkThrottle,
+from dmlp_tpu_torch.engine.chunks import (ChunkThrottle, host_staging, put,
+                                          resilient_get)
+from dmlp_tpu_torch.engine.single import (_BF16_AUTO_K_CAP,
                                           SingleChipEngine, _mp_floor,
                                           _mp_merge, active_precision,
                                           extract_finalize, fit_blocks,
-                                          host_staging, plan_chunks, put,
-                                          resilient_get, resolve_kcap,
+                                          plan_chunks, resolve_kcap,
                                           round_up)
 from dmlp_tpu_torch.fleet import consistency as ccs
 from dmlp_tpu_torch.io.grammar import KNNInput, Params

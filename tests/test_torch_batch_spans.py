@@ -21,7 +21,7 @@ import pytest
 
 from dmlp_tpu_torch import cli
 from dmlp_tpu_torch.config import EngineConfig
-from dmlp_tpu_torch.engine import single
+from dmlp_tpu_torch.engine import chunks, single
 from dmlp_tpu_torch.engine.single import SingleChipEngine, plan_chunks
 from dmlp_tpu_torch.io.datagen import generate_input_text
 from dmlp_tpu_torch.io.grammar import parse_input_text
@@ -140,6 +140,7 @@ def test_no_tracer_leaves_every_hook_the_shared_no_op(inp, monkeypatch):
         raise AssertionError("a tracer was reached with tracing off")
 
     monkeypatch.setattr(single, "obs_span", spy)
+    monkeypatch.setattr(chunks, "obs_span", spy)
     monkeypatch.setattr(obs_trace.Tracer, "count", refuse)
     monkeypatch.setattr(obs_trace.Tracer, "span", refuse)
     assert obs_trace.active() is None and not obs_trace.sinks_active()

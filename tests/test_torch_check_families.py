@@ -163,7 +163,7 @@ PORT_FIXTURES = {
     ("test_check.py",
      "TestDispatchCost.test_r105_probe_in_function_clean"): (
         ["R1"], [("dmlp_tpu_torch/engine/x.py", """
-            from dmlp_tpu_torch.engine.single import MeasuredIters
+            from dmlp_tpu_torch.engine.chunks import MeasuredIters
             from dmlp_tpu_torch.ops.fused import fused_topk
 
             def drive(eng, q, d):
@@ -187,7 +187,7 @@ PORT_FIXTURES = {
         """)]),
     ("test_check.py", "TestDispatchCost.test_r106_unmodeled_ops_kernel"): (
         ["R1"], [("dmlp_tpu_torch/engine/x.py", """
-            from dmlp_tpu_torch.engine.single import MeasuredIters
+            from dmlp_tpu_torch.engine.chunks import MeasuredIters
             from dmlp_tpu_torch.obs import counters as obs_counters
             from dmlp_tpu_torch.ops.fused import fused_topk
 
@@ -424,6 +424,54 @@ def test_port_rule_ids_equal_the_reference_fixtures(ref, tmp_path):
                 assert any(word in g.message for g in got), (word, got)
         if f.path.endswith("engine/x.py"):
             assert any(g.path.endswith("engine/x.py") for g in got)
+
+
+# R105 past the reference's fixtures: the chunk loop's ``fold`` closures
+# launch K1 with a kernel their enclosing solve resolved and probed.
+R105_CLOSURES = {
+    "closure_without_a_probe": ({"R105"}, """
+        from dmlp_tpu_torch.ops import fused
+
+        def solve(q, chunks, loop):
+            kern, impl = fused.resolve_topk_kernel(8, 8, 8, 8)
+
+            def fold(da):
+                kern(q, da, n_real=4, kc=8)
+
+            loop(chunks, fold)
+    """),
+    "closure_probed_by_its_solve": (set(), """
+        from dmlp_tpu_torch.engine.chunks import MeasuredIters
+        from dmlp_tpu_torch.ops import fused
+
+        def solve(eng, q, chunks, loop):
+            kern, impl = fused.resolve_topk_kernel(8, 8, 8, 8)
+            mi = MeasuredIters(eng, impl, (1, 2, 3, 4))
+
+            def fold(da):
+                od, oi, it = kern(q, da, n_real=4, kc=8)
+                mi.add(it)
+
+            loop(chunks, fold)
+            mi.done()
+    """),
+    "mesh_pick_without_a_probe": ({"R105"}, """
+        def _kernel(impl):
+            return None
+
+        def fold(plan, q, pieces):
+            kern = _kernel(plan["impl"])
+            for da in pieces:
+                kern(q, da, n_real=4, kc=8)
+    """),
+}
+
+
+@pytest.mark.parametrize("case", sorted(R105_CLOSURES))
+def test_r105_follows_the_kernel_into_closures(case, tmp_path):
+    want, src = R105_CLOSURES[case]
+    write(tmp_path, "dmlp_tpu_torch/engine/x.py", src)
+    assert set(rules_of(run_check(tmp_path, ["R1"]))) == want
 
 
 @pytest.fixture(scope="module")
@@ -697,6 +745,15 @@ WHOLE_TREE = {
         ["R8"], "kernels/extract_topk.cu",
         "// check: lowp-eps=lowp_eps", "",
         {("R802", "dmlp_tpu_torch/kernels/extract_topk.cu")}),
+    "extract_fold_unprobed": (
+        ["R1"], "engine/single.py",
+        "mi = MeasuredIters(self, impl, (qpad, chunk_rows, na, k))",
+        "mi = None", {("R105", "dmlp_tpu_torch/engine/single.py")}),
+    "held_fold_unprobed": (
+        ["R1"], "engine/sharded.py",
+        'mi = MeasuredIters(self, plan["impl"], (qloc, ck, na, k),',
+        'mi = dict(self, plan["impl"], (qloc, ck, na, k),',
+        {("R105", "dmlp_tpu_torch/engine/sharded.py")}),
     "auto_engine_placements_dropped": (
         ["R9"], "engine/auto.py",
         "DTensor.from_local(t, self.mesh, placements, run_check=False)",

@@ -1,9 +1,10 @@
 """The batch engine's host staging (``engine/single.py``): each chunk is
 cast into its own host tensor inside the chunk loop. On the CPU, for
 float32 and bfloat16 staging and an input whose last chunk is part
-padding, the chunks that each of the four chunk loops (extract, routed,
-multi-pass, pipelined) hands to ``stage()`` are, byte for byte, the rows
-of the whole padded copy the engine used to make before the loop; the
+padding, the chunks that each of the four entries to the one chunk loop
+(extract, routed, multi-pass, pipelined) hands to ``stage()`` are, byte
+for byte, the rows of the whole padded copy the engine used to make before
+the loop; each entry keeps its loop span and ``last_phase_ms`` keys; the
 queries are staged as that copy's padded queries; and the multi-pass
 path's resident chunks are distinct tensors, not views of one reused
 buffer."""
@@ -16,9 +17,11 @@ import torch
 
 from dmlp_tpu_torch.config import EngineConfig
 from dmlp_tpu_torch.engine import single
-from dmlp_tpu_torch.engine.single import SingleChipEngine, staging_dtype
+from dmlp_tpu_torch.engine.chunks import staging_dtype
+from dmlp_tpu_torch.engine.single import SingleChipEngine
 from dmlp_tpu_torch.io.datagen import generate_input_text
 from dmlp_tpu_torch.io.grammar import parse_input_text
+from dmlp_tpu_torch.obs import trace as obs_trace
 
 # 8,999 rows: 9 extraction chunks of 1,024 rows (the last holds 807 rows
 # and 217 pad rows) and 9 streaming chunks of 1,000 (the last one pad row).
@@ -119,6 +122,58 @@ def test_each_staged_chunk_is_the_rows_of_the_whole_padded_copy(
         assert host.dtype == staging_dtype(staging)
         assert host.shape == (rows, NA)
         assert torch.equal(_bits(host), _bits(whole[lo:lo + rows])), lo
+
+
+# Each entry's chunk loop span (none around the multi-pass first pass)
+# and its arguments for this input, and the keys of ``last_phase_ms``:
+# what each entry showed before the four loops became one.
+LOOP_SPANS = {
+    "extract": ("single.enqueue_extract",
+                {"chunks": 9, "kc": 32, "impl": "fused", "scheduled": 9}),
+    "routed": ("single.enqueue_extract",
+               {"chunks": 9, "kc": 32, "impl": "fused", "scheduled": 9,
+                "outliers": 3}),
+    "multipass": (None, None),
+    "pipelined": ("single.enqueue_pipelined",
+                  {"select": "topk", "chunks": 9, "scheduled": 9,
+                   "qblocks": 1, "k": 32}),
+}
+PHASES = {"prune", "copy", "pin", "launch", "chunk_wait", "enqueue",
+          "fetch", "finalize"}
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_one_chunk_loop_keeps_each_entrys_chunks_span_and_phases(path, inp):
+    """The four single-engine entries on ``engine.chunks.fold_chunks``:
+    each stages every chunk of its data once, in order, byte for byte the
+    rows of the whole padded copy; its loop span keeps its name and
+    arguments, with every chunk's cast under it; ``last_phase_ms`` keeps
+    its keys."""
+    tracer = obs_trace.install(obs_trace.Tracer())
+    try:
+        engine, chunks, _ = _solve(path, "float32", inp)
+    finally:
+        obs_trace.uninstall()
+    rows = chunks[0][1]
+    assert [c[0] for c in chunks] == list(range(0, N, rows))
+    whole = _old_padded(inp.data_attrs, N - N % rows + rows, "float32")
+    for lo, _, host, _ in chunks:
+        assert torch.equal(_bits(host), _bits(whole[lo:lo + rows])), lo
+    spans = [e for e in tracer.events() if e["ph"] == "X"]
+    loops = [e for e in spans if e["name"].startswith("single.enqueue")]
+    name, args = LOOP_SPANS[path]
+    if name is None:
+        assert loops == []
+    else:
+        assert [e["name"] for e in loops] == [name]
+        got = loops[0]["args"]
+        assert {k: got[k] for k in args} == args
+        assert set(got) - set(args) == {"id", "parent", "h2d_bytes",
+                                        "host_cast_bytes"}
+        casts = [e for e in spans if e["name"] == "single.host_copy"
+                 and e["args"]["parent"] == got["id"]]
+        assert len(casts) == len(chunks)
+    assert set(engine.last_phase_ms) == PHASES
 
 
 @pytest.mark.parametrize("staging", DTYPES)

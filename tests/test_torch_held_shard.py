@@ -249,6 +249,25 @@ def test_a_held_solve_is_one_linked_tree_counting_queries_and_casts(run):
     assert fold["args"]["chunks"] == -(-N // WORLD // BLOCK)
 
 
+def test_the_held_chunk_loop_is_one_span_under_the_root_timed_as_fold(run):
+    """The held solve's chunk loop (``engine.chunks.fold_chunks`` under
+    ``ShardedEngine._fold``): one ``sharded.enqueue_chunked`` span, a
+    child of the root, with the plan's chunks, list width and kernel,
+    that opens nothing of its own on the CPU (no chunk window waits
+    there); every rank times it as ``fold``."""
+    spans = run["events"]
+    root = next(e for e in spans if e["name"] == "sharded.held_device_full")
+    loops = [e for e in spans if e["name"] == "sharded.enqueue_chunked"]
+    assert len(loops) == 1
+    loop = loops[0]["args"]
+    assert loop["parent"] == root["args"]["id"]
+    assert loop["chunks"] == -(-N // WORLD // BLOCK)
+    assert loop["impl"] == "fused" and loop["kc"] >= KMAX
+    assert not [e for e in spans if e["args"]["parent"] == loop["id"]]
+    for facts in run["ranks"]:
+        assert "fold" in facts["phases"]
+
+
 def test_every_rank_times_its_phases_and_records_no_row_scatter(run):
     qpad = -(-NQ // 32) * 32
     want = [comms.broadcast_traffic(WORLD, qpad * NA,

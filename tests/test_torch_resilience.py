@@ -43,7 +43,7 @@ from dmlp_tpu.resilience import inject as ref_inject  # noqa: E402
 from dmlp_tpu.resilience import retry as ref_retry  # noqa: E402
 from dmlp_tpu.resilience import stats as ref_stats  # noqa: E402
 from dmlp_tpu_torch import cli  # noqa: E402
-from dmlp_tpu_torch.engine import single  # noqa: E402
+from dmlp_tpu_torch.engine import chunks, single  # noqa: E402
 from dmlp_tpu_torch.io.convert import (config_from_reference,  # noqa: E402
                                        from_reference)
 from dmlp_tpu_torch.io.grammar import parse_input  # noqa: E402
@@ -435,14 +435,14 @@ def test_resilient_get_deadline_retries_a_slow_fetch(monkeypatch):
     monkeypatch.setenv("DMLP_TPU_OP_TIMEOUT_S", "0.05")
     inject.install(FaultSchedule.from_dict(_doc([
         {"site": "single.fetch", "kind": "delay", "ms": 400}])))
-    got, = single.resilient_get([torch.arange(4)])
+    got, = chunks.resilient_get([torch.arange(4)])
     assert got.tolist() == [0, 1, 2, 3]
     snap = stats.snapshot()
     assert snap["timeouts"] == 1 and snap["retry_sites"] == \
         {"single.fetch": 1}
     # With the kill switch the read is a direct call: no deadline.
     monkeypatch.setenv("DMLP_TPU_RESILIENCE", "0")
-    single.resilient_get([torch.arange(4)])
+    chunks.resilient_get([torch.arange(4)])
     assert stats.snapshot()["timeouts"] == 1
 
 
